@@ -1,0 +1,88 @@
+"""Target-hardware model: NVIDIA H100 SXM constants and roofline terms.
+
+The port's counterpart of the reference's ``core/tpu.py``.  Every
+constant is the published figure for one **H100 SXM** card (NVIDIA's
+data sheet and the Hopper architecture white paper, dense rates without
+sparsity, at the full 700 W power limit):
+
+    streaming multiprocessors : 132
+    shared memory per block   : 227 KB (232,448 bytes)
+    L2 cache                  : 50 MB
+    device memory             : 80 GB at 3.35 TB/s
+    bf16 tensor-core peak     : 989 TFLOP/s
+    fp32 peak (CUDA cores)    : 67 TFLOP/s
+
+The fp32 CUDA-core peak is the one that bounds the port's fp32 GEMMs:
+TF32 stays off so that fp32 results match the reference, and the
+templates' kernels multiply on the CUDA cores.  A card run below 700 W
+reaches less; results therefore carry the card's ``power.limit``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class HopperSpec:
+    name: str = "H100 SXM"
+    sms: int = 132
+    smem_per_block_bytes: int = 232_448
+    l2_bytes: float = 50e6
+    hbm_bytes: float = 80e9
+    hbm_bw: float = 3.35e12                 # bytes/s
+    peak_flops_bf16: float = 989e12         # FLOP/s, tensor cores
+    peak_flops_fp32: float = 67e12          # FLOP/s, CUDA cores
+
+    def peak_flops(self, dtype: str) -> float:
+        """Peak rate for operations on inputs of ``dtype`` (a dtype name:
+        ``float32`` runs on the CUDA cores since TF32 is off)."""
+        return {"float32": self.peak_flops_fp32,
+                "bfloat16": self.peak_flops_bf16}[dtype]
+
+
+H100 = HopperSpec()
+
+
+@dataclasses.dataclass
+class RooflineTerms:
+    """The roofline of one kernel call: the least time the card could
+    take is the larger of its operations over the peak rate for their
+    type and its bytes over the memory rate."""
+
+    cell: str
+    flops: float
+    bytes: float
+    dtype: str = "float32"
+    spec: HopperSpec = dataclasses.field(default_factory=lambda: H100)
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / self.spec.peak_flops(self.dtype)
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes / self.spec.hbm_bw
+
+    @property
+    def bound_by(self) -> str:
+        """``operations`` or ``bytes``: which term sets the bound."""
+        return "operations" if self.compute_s >= self.memory_s else "bytes"
+
+    @property
+    def bound_s(self) -> float:
+        """Least time (perfect overlap of the two terms)."""
+        return max(self.compute_s, self.memory_s)
+
+
+def gemm_roofline(cell: str, nb: int, m: int, n: int, k: int, *,
+                  dtype: str = "float32", elem_bytes: int = 4,
+                  a_batched: bool = True, b_batched: bool = True
+                  ) -> RooflineTerms:
+    """Roofline of ``C[b] = A[b|.] @ B[b|.]``: 2·nb·m·n·k operations;
+    each input read once (an operand broadcast over the batch counts
+    once) and the output written once."""
+    a = (nb if a_batched else 1) * m * k
+    b = (nb if b_batched else 1) * k * n
+    c = nb * m * n
+    return RooflineTerms(cell, 2.0 * nb * m * n * k,
+                         float((a + b + c) * elem_bytes), dtype=dtype)

@@ -1,0 +1,145 @@
+"""Public wrapper for the GEMM templates.
+
+The port of the reference's ``kernels/ops.py`` GEMM path: padding to
+block multiples, the accumulation policy, template dispatch from an STT
+``KernelPlan`` and the strip-budget fallback — the same decisions in the
+same order.  There is no ``jit`` and no ``backend="xla"`` route: the
+device decides.  On the CPU the templates run their plain versions; on
+the card they launch their CUDA kernels.  ``bsr_matmul``, ``attention``
+and ``ssd`` arrive with their slices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.plan import KernelPlan
+from . import epilogue as _ep
+from . import stt_gemm as _gemm
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else the
+    card.  With no device given and no card present this raises — it
+    never drops to the CPU silently."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run the templates' plain versions")
+    return torch.device("cuda")
+
+
+def _pad_to(x: torch.Tensor, mults: tuple) -> torch.Tensor:
+    pads = [(-d) % m for d, m in zip(x.shape, mults)]
+    if any(pads):
+        # F.pad lists (left, right) pairs from the last dim backwards
+        flat = []
+        for p in reversed(pads):
+            flat += [0, p]
+        x = F.pad(x, flat)
+    return x
+
+
+def resolve_accum(accum: str, out_dtype) -> str:
+    """The accumulation-strategy policy: ``"auto"`` picks the numerically
+    safe default — fp32 scratch accumulation — for *every* dtype; callers
+    can force ``"inplace"`` (running sum rounded to the output dtype
+    every k-step)."""
+    if accum == "auto":
+        return "scratch"
+    if accum not in _gemm.ACCUM_MODES:
+        raise ValueError(f"accum must be 'auto' or one of "
+                         f"{_gemm.ACCUM_MODES}, got {accum!r}")
+    return accum
+
+
+def _rt_order(grid_order: str) -> str:
+    """Project a 3-axis grid order onto the reduction-tree's (m, n) grid
+    (its whole reduction runs in one pass, so 'k' drops out)."""
+    if grid_order == "default":
+        return "mn"
+    order = "".join(c for c in grid_order if c in "mn")
+    return order if order in _gemm.RT_GRID_ORDERS else "mn"
+
+
+def stt_matmul(a: torch.Tensor, b: torch.Tensor, *,
+               template: str = "output_stationary",
+               stationary: str = "B", bm: int = 128, bn: int = 128,
+               bk: int = 128,
+               strip_budget: Optional[int] = _gemm.DEFAULT_STRIP_BUDGET,
+               grid_order: str = "default", accum: str = "auto",
+               epilogue: tuple = (), bias=None,
+               device=None) -> torch.Tensor:
+    """C = A @ B with the template selected by an STT dataflow.
+
+    Operands may carry a leading batch dim (``(B, m, k) @ (B, k, n)``; a
+    rank-2 operand broadcasts across the batch).  Per-slice m/n/k are
+    padded to block multiples; the batch dim never needs padding.
+    Operands are moved to ``device`` (default: the card, see
+    :func:`resolve_device`).
+
+    ``strip_budget`` caps the operand-stationary strip accumulator per
+    batch slice: when the per-slice (m, bn) fp32 strip would not fit, the
+    call falls back to the output-stationary template (same math) instead
+    of erroring.
+
+    ``epilogue`` is a tuple of post-processing ops (``kernels/epilogue``)
+    fused into the template's flush; ``bias`` is the rank-1 operand a
+    ``"bias"`` op reads.  A ``"softmax"`` op needs one block spanning the
+    whole unpadded row (``bn >= n``), so the call raises otherwise.
+    """
+    dev = resolve_device(device)
+    a, b = a.to(dev), b.to(dev)
+    epilogue = _ep.validate_spec(epilogue)
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    bm, bn, bk = min(bm, m), min(bn, n), min(bk, k)
+    if _ep.has_softmax(epilogue) and (bn != n or n % bn):
+        raise ValueError(
+            f"softmax epilogue needs one unpadded output block covering "
+            f"the full row: bn >= n and n % bn == 0 (got bn={bn}, n={n})")
+    ap = _pad_to(a, (1,) * (a.dim() - 2) + (bm, bk))
+    bp = _pad_to(b, (1,) * (b.dim() - 2) + (bk, bn))
+    if bias is not None:
+        # padded n columns get bias 0 and are sliced off below
+        bias = _pad_to(torch.as_tensor(bias, device=dev), (bn,))
+    if epilogue and template == "operand_stationary" and stationary == "A":
+        # the input-stationary realization transposes m/n, so a last-axis
+        # epilogue cannot ride it; same math, other template
+        template = "output_stationary"
+    if template == "operand_stationary" and strip_budget is not None:
+        # the strip extent follows the *streamed-output* dimension of one
+        # batch slice: M for stationary B, N for stationary A
+        strip_len = ap.shape[-2] if stationary == "B" else bp.shape[-1]
+        strip_bn = bn if stationary == "B" else bm
+        if (_gemm.operand_stationary_strip_bytes(strip_len, strip_bn)
+                > strip_budget):
+            template = "output_stationary"
+    kw = dict(bm=bm, bn=bn, bk=bk, epilogue=epilogue, bias=bias)
+    if template == "output_stationary":
+        out = _gemm.matmul_output_stationary(
+            ap, bp, grid_order=grid_order,
+            accum=resolve_accum(accum, a.dtype), **kw)
+    elif template == "operand_stationary":
+        out = _gemm.matmul_operand_stationary(
+            ap, bp, stationary=stationary, strip_budget=strip_budget, **kw)
+    elif template in ("reduction_tree", "streaming"):
+        kw.pop("bk")
+        out = _gemm.matmul_reduction_tree(
+            ap, bp, grid_order=_rt_order(grid_order), **kw)
+    else:
+        raise ValueError(f"unknown template {template!r}")
+    return out[..., :m, :n]
+
+
+def matmul_from_plan(plan: KernelPlan, a: torch.Tensor, b: torch.Tensor,
+                     **kw) -> torch.Tensor:
+    """Dispatch a GEMM according to a generated KernelPlan — the paper's
+    'select modules from the dataflow' step, at call granularity."""
+    stationary = "B" if plan.resident_tensor in (None, "B", "C") else "A"
+    return stt_matmul(a, b, template=plan.template, stationary=stationary,
+                      **kw)

@@ -1,0 +1,202 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every case is marked ``gpu`` and skips without a CUDA card.  The file
+imports neither JAX nor the reference package, so on a machine with the
+card and without JAX it runs on its own:
+
+    PYTHONPATH=src python -m pytest --noconftest -q -m gpu \
+        tests/test_torch_gpu.py
+
+Tolerances: integer-valued fp32 operands without an epilogue compare
+exactly (every sum stays below 2^24); fp32 epilogues to rtol 1e-5 and
+1e-5 of the largest output (the card's ``expf``/``tanhf`` against
+PyTorch's); bf16 to 2e-2 of the largest output, compared in fp32.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch.kernels import stt_gemm  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+#: name -> (lhs shape, rhs shape, plan blocks (bm, bn, bk)); CTA tiles
+#: do not divide these shapes, so every kernel masks a ragged edge
+SHAPES = {
+    "square": ((3, 160, 192), (192, 96), (32, 96, 64)),
+    "skinny_m": ((8, 1, 256), (8, 256, 136), (1, 8, 32)),
+    "narrow_n": ((2, 200, 128), (2, 128, 1), (8, 1, 16)),
+    "rank2": ((136, 264), (264, 72), (8, 72, 24)),
+}
+
+
+def _operands(shape, dtype, seed, integer=True):
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in SHAPES[shape][:2]:
+        if integer and dtype == torch.float32:
+            x = rng.integers(-4, 5, size=s).astype(np.float32)
+        else:
+            x = rng.standard_normal(s).astype(np.float32)
+        out.append(torch.as_tensor(x).to(dtype))
+    return out
+
+
+def _compare(got, want, dtype, exact):
+    got, want = got.cpu().float(), want.float()
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.float32 and exact:
+        assert torch.equal(got, want), (got - want).abs().max()
+    elif dtype == torch.float32:
+        atol = 1e-5 * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=atol)
+    else:
+        assert (got - want).abs().max().item() <= \
+            2e-2 * max(1.0, want.abs().max().item())
+
+
+def _run(fn, a, b, cuda, **kw):
+    bias = kw.pop("bias", None)
+    stt_gemm.reset_launches()
+    got = fn(a.to(cuda), b.to(cuda), bias=None if bias is None
+             else bias.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert sum(stt_gemm.launches.values()) == 1
+    want = fn(a, b, bias=bias, **kw)
+    assert sum(stt_gemm.launches.values()) == 1   # the CPU never launches
+    return got, want
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+OS_KNOBS = [("scratch", "mnk"), ("scratch", "nmk"), ("inplace", "kmn"),
+            ("inplace", "knm")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("accum,order", OS_KNOBS)
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_output_stationary_kernel(cuda, shape, accum, order, dtype):
+    a, b = _operands(shape, dtype, seed=1)
+    bm, bn, bk = SHAPES[shape][2]
+    got, want = _run(stt_gemm.matmul_output_stationary, a, b, cuda, bm=bm,
+                     bn=bn, bk=bk, accum=accum, grid_order=order)
+    _compare(got, want, dtype, exact=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("stationary", ["A", "B"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_operand_stationary_kernel(cuda, shape, stationary, dtype):
+    a, b = _operands(shape, dtype, seed=2)
+    bm, bn, bk = SHAPES[shape][2]
+    got, want = _run(stt_gemm.matmul_operand_stationary, a, b, cuda, bm=bm,
+                     bn=bn, bk=bk, stationary=stationary)
+    _compare(got, want, dtype, exact=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("order", ["mn", "nm"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_reduction_tree_kernel(cuda, shape, order, dtype):
+    a, b = _operands(shape, dtype, seed=3)
+    bm, bn, _ = SHAPES[shape][2]
+    got, want = _run(stt_gemm.matmul_reduction_tree, a, b, cuda, bm=bm,
+                     bn=bn, grid_order=order)
+    _compare(got, want, dtype, exact=True)
+
+
+EPILOGUES = [("bias", "gelu"), ("scale:0.05", "softmax"), ("relu",),
+             ("silu", "tanh"), ("scale:0.01", "exp"),
+             ("bias", "softmax", "scale:2.0")]
+TEMPLATES = {"os": stt_gemm.matmul_output_stationary,
+             "ws": stt_gemm.matmul_operand_stationary,
+             "rt": stt_gemm.matmul_reduction_tree}
+
+
+@pytest.mark.parametrize("spec", EPILOGUES, ids="+".join)
+@pytest.mark.parametrize("template", list(TEMPLATES))
+@pytest.mark.parametrize("shape", ["square", "skinny_m", "rank2"])
+def test_epilogue_flush(cuda, shape, template, spec):
+    a, b = _operands(shape, torch.float32, seed=4)
+    bm, bn, bk = SHAPES[shape][2]
+    n = b.shape[-1]
+    kw = dict(bm=bm, bn=n, epilogue=spec)   # softmax needs bn == n
+    if template != "rt":
+        kw["bk"] = bk
+    if "bias" in spec:
+        kw["bias"] = torch.linspace(-3, 3, n)
+    got, want = _run(TEMPLATES[template], a, b, cuda, **kw)
+    _compare(got, want, torch.float32, exact=False)
+
+
+def test_inplace_rounding_step_on_card(cuda):
+    a, b = _operands("square", torch.bfloat16, seed=5, integer=False)
+    outs = {}
+    for bk in (16, 192):
+        got, want = _run(stt_gemm.matmul_output_stationary, a, b, cuda,
+                         bm=32, bn=96, bk=bk, accum="inplace")
+        _compare(got, want, torch.bfloat16, exact=False)
+        outs[bk] = got
+    assert not torch.equal(outs[16], outs[192])
+
+
+def test_transposed_view_operand(cuda):
+    # gemm feeds B.T: a strided view, read through its strides
+    a, bt = _operands("rank2", torch.float32, seed=6)
+    b = bt.t().contiguous()                      # (n, k) storage
+    view = b.to(cuda).t()
+    assert not view.is_contiguous()
+    stt_gemm.reset_launches()
+    got = stt_gemm.matmul_output_stationary(a.to(cuda), view, bm=8, bn=72,
+                                            bk=24)
+    want = stt_gemm.matmul_output_stationary(a, bt, bm=8, bn=72, bk=24)
+    _compare(got, want, torch.float32, exact=True)
+
+
+def test_launch_checks_raise(cuda):
+    a = torch.ones(16, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        stt_gemm.matmul_output_stationary(a, a, bm=16, bn=16, bk=16)
+    f = torch.ones(16, 16, device=cuda)
+    with pytest.raises(ValueError, match="input dtype"):
+        stt_gemm.matmul_reduction_tree(f, f, bm=16, bn=16,
+                                       out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="different devices"):
+        stt_gemm.matmul_reduction_tree(f, f.cpu(), bm=16, bn=16)
+
+
+SMALL = {
+    "gemm": dict(m=40, n=24, k=72),
+    "batched_gemv": dict(m=6, n=40, k=20),
+    "conv2d": dict(k=12, c=5, y=9, x=7, p=3, q=2),
+    "depthwise_conv": dict(k=10, y=7, x=9, p=2, q=3),
+    "mttkrp": dict(i=28, j=20, k=6, l=10),
+    "ttmc": dict(i=12, j=10, k=6, l=8, m=5),
+}
+
+
+@pytest.mark.parametrize("kind", ["identity", "output_stationary",
+                                  "weight_stationary", "input_stationary"])
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_generate_on_card_matches_cpu(cuda, name, kind):
+    acc = repro_torch.generate(name, kind, bounds=SMALL[name])
+    assert acc.device.type == "cuda"
+    ops = acc.algebra.random_operands(seed=7)
+    cpu = repro_torch.generate(name, kind, bounds=SMALL[name], device="cpu",
+                               validate=False)
+    got = acc(ops)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), cpu(ops))
+    assert acc.validate() == 0.0

@@ -1,0 +1,126 @@
+"""Guards: the port imports neither JAX nor the reference package, and
+never falls back to the CPU on its own."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
+           "repro_torch.serve.engine", "repro_torch.convert",
+           "repro_torch.compile.pipeline", "repro_torch.core.dse")
+
+_IMPORT = re.compile(
+    r"^\s*(import\s+(jax|repro)\b(?!_torch)"
+    r"|from\s+(jax|repro)(\.\S+)?\s+import\b)", re.M)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in env.get("PYTHONPATH", "")
+                               .split(os.pathsep) if p])
+    return env
+
+
+def test_port_modules_load_no_jax_and_no_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import repro_torch\n"
+        "repro_torch.generate\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert out.stdout.strip() == "[]"
+
+
+def test_sources_have_no_jax_or_reference_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for p in files for m in _IMPORT.finditer(p.read_text())]
+    assert offenders == []
+
+
+def test_import_scan_catches_offenders():
+    for line in ("import jax", "import jax.numpy as jnp",
+                 "from repro.core import stt", "from repro import api",
+                 "import repro", "  from jax import lax"):
+        assert _IMPORT.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import stt",
+                 "from . import stt"):
+        assert not _IMPORT.search(line), line
+
+
+def _require_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+
+
+def test_entry_points_raise_without_cuda_and_device():
+    _require_no_cuda()
+    import repro_torch
+    from repro_torch.compile import lower
+    from repro_torch.core.algebra import get_algebra
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AcceleratorEngine
+    a = torch.ones(4, 4)
+    for call in (lambda: repro_torch.generate("gemm"),
+                 lambda: lower(get_algebra("gemm")),
+                 lambda: ops.stt_matmul(a, a),
+                 lambda: AcceleratorEngine()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    _require_no_cuda()
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    # a directory holding chip_smoke.py and nothing else of the repo
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_cuda_tensor_without_kernel_library_raises_not_falls_back(
+        monkeypatch):
+    # a CUDA tensor goes to the kernel or raises: simulate a card whose
+    # kernel library cannot be built and check nothing computes on the CPU
+    from repro_torch.kernels import _build, stt_gemm
+
+    def no_library(stem):
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(stt_gemm, "_on_cpu", lambda *xs: False)
+    calls = []
+    monkeypatch.setattr(stt_gemm, "output_stationary_plain",
+                        lambda *a, **k: calls.append(1))
+    a = torch.ones(16, 16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        stt_gemm.matmul_output_stationary(a, a, bm=16, bn=16, bk=16)
+    assert calls == []
