@@ -9,28 +9,36 @@ reference.  The one front door:
     c = acc({"A": a, "B": b})
 
 ``repro_torch.generate`` runs classification -> plan -> compile and
-returns a :class:`repro_torch.api.Accelerator`; ``repro_torch.search``
-ranks the design space so ``generate(search=...)`` can consume it.  The
+returns a :class:`repro_torch.api.Accelerator` (or, for an
+:class:`AlgebraGraph`, a ``GraphAccelerator`` whose merged groups run as
+fused megakernels); ``repro_torch.search`` ranks the design space so
+``generate(search=...)`` can consume it, and ``search_graph`` plans a
+whole graph.  The
 attribute hook below keeps ``import repro_torch`` light: torch is loaded
 only when the front door is used.
 """
 from typing import TYPE_CHECKING
 
-__all__ = ["Accelerator", "Sparsity", "generate", "search"]
+__all__ = ["Accelerator", "AlgebraGraph", "GraphNode", "Sparsity",
+           "generate", "search", "search_graph"]
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from .api import Accelerator, generate
     from .core.algebra import Sparsity
-    from .core.dse import search
+    from .core.dse import search, search_graph
+    from .graph.ir import AlgebraGraph, GraphNode
 
 
 def __getattr__(name):
     if name in ("generate", "Accelerator"):
         from . import api
         return getattr(api, name)
-    if name == "search":
+    if name in ("search", "search_graph"):
         from .core import dse
-        return dse.search
+        return getattr(dse, name)
+    if name in ("AlgebraGraph", "GraphNode"):
+        from .graph import ir
+        return getattr(ir, name)
     if name == "Sparsity":
         from .core.algebra import Sparsity
         return Sparsity

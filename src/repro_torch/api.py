@@ -12,12 +12,13 @@ CUDA kernel:
     c = acc({"A": a, "B": b})
 
     acc = repro_torch.generate(alg, search=5)                 # DSE pick
+    acc = repro_torch.generate("gemm", sparsity={"A": sp})    # BSR kernel
+    gacc = repro_torch.generate(graph)                        # megakernels
 
 Entry points run on the card unless the caller passes ``device="cpu"``
-(the templates' plain versions); with no card and no device given they
+(the kernels' plain versions); with no card and no device given they
 raise.  Not here yet, each raising ``NotImplementedError`` that names its
-slice: ``mesh=`` / ``Accelerator.sharded`` (mesh), ``tune=`` (tuning) and
-graph inputs (graph).
+slice: ``mesh=`` / ``Accelerator.sharded`` (mesh) and ``tune=`` (tuning).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from .core.costmodel import CostReport
 from .core.plan import ExecutionPlan
 from .core.stt import Dataflow
 from .core.tiling import ArrayConfig
+from .graph.ir import AlgebraGraph
 from .kernels.ops import resolve_device
 
 DataflowLike = Union[Dataflow, str, None]
@@ -144,7 +146,7 @@ class Accelerator:
         return self.kernel.validate(seed=seed, atol=atol)
 
 
-def generate(alg: Union[TensorAlgebra, str],
+def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
              dataflow: DataflowLike = None, *,
              search: Union[int, Sequence[Tuple[CostReport, Dataflow]],
                            None] = None,
@@ -155,7 +157,7 @@ def generate(alg: Union[TensorAlgebra, str],
              cfg: ArrayConfig = ArrayConfig(),
              dtype: torch.dtype = torch.float32,
              device=None,
-             validate: Optional[bool] = None) -> Accelerator:
+             validate: Optional[bool] = None):
     """Generate a complete accelerator from a tensor algebra.
 
     Args:
@@ -170,18 +172,43 @@ def generate(alg: Union[TensorAlgebra, str],
         wins.
       bounds: loop-bound overrides forwarded to the algebra.
       sparsity: per-tensor block-sparse patterns (tensor name ->
-        :class:`~repro_torch.core.algebra.Sparsity`).  Patterns without a
-        structured 2-D image run masked-dense; a structured operand needs
-        the BSR kernel and raises until the sparse slice.
+        :class:`~repro_torch.core.algebra.Sparsity`), applied via
+        ``TensorAlgebra.with_sparsity``.  A pattern with a structured 2-D
+        image under the lowering (gemm A or B, conv2d B and mttkrp A with
+        whole-window blocks) runs on the BSR kernel, which reads only the
+        nonzero blocks; the others run masked-dense.
       dtype: ``torch.float32`` (default) or ``torch.bfloat16``.
       device: where the accelerator runs: the card by default (raises
         without one), ``"cpu"`` for the plain versions.
       tune, mesh: not in this slice; raise ``NotImplementedError``.
+
+    Returns an :class:`Accelerator` — or, when ``alg`` is an
+    :class:`~repro_torch.graph.ir.AlgebraGraph`, a
+    :class:`~repro_torch.graph.executor.GraphAccelerator`: the whole DAG
+    is planned (``graph.planner``: epilogue folding, per-node dataflow
+    selection, tile agreement, merged-group derivation — the reference's
+    decisions), every node lowers through this same pipeline, and each
+    merged-eligible group runs as one fused-chain or fused-DAG kernel
+    launch.  For graphs, ``search`` is the per-node DSE width (int) and
+    ``dataflow`` / ``bounds`` / ``sparsity`` do not apply.
     """
+    if isinstance(alg, AlgebraGraph):
+        if dataflow is not None or bounds or sparsity:
+            raise ValueError(
+                "graph generation plans per-node dataflows itself: "
+                "dataflow=/bounds=/sparsity= do not apply; use search= "
+                "for the per-node DSE width")
+        if search is not None and not isinstance(search, int):
+            raise ValueError("for a graph, search= must be an int "
+                             "(per-node DSE width)")
+        from .graph import executor as _graph_exec
+        return _graph_exec.build(alg, search=search, cfg=cfg, dtype=dtype,
+                                 validate=validate, device=device,
+                                 tune=tune or None, mesh=mesh)
     if not isinstance(alg, (str, TensorAlgebra)):
-        raise NotImplementedError(
-            f"generate() takes a TensorAlgebra or a registry name; graph "
-            f"inputs ({type(alg).__name__}) arrive with the graph slice")
+        raise TypeError(f"generate() takes a TensorAlgebra, a registry "
+                        f"name or an AlgebraGraph, got "
+                        f"{type(alg).__name__}")
     if tune:
         raise NotImplementedError(
             "generate(tune=...) (measured autotuning) arrives with the "

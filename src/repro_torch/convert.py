@@ -1,13 +1,17 @@
 """Carry a reference accelerator's state across to the port.
 
-``from_reference`` takes an ``Accelerator`` or ``CompiledKernel`` of the
-JAX reference package by its attributes alone — the port never imports
-the reference — and returns the port's equivalent with the same plan:
-algebra (name, bounds, sparsity coordinates), dataflow (loop selection
-and T), blocks, stationary operand, grid order, accumulation, epilogue
-and dtype.  ``operands_to`` moves numpy operands onto a device.  The
-parity tests use both so that the two packages run the same plan on the
-same data.
+``from_reference`` takes an ``Accelerator``, ``CompiledKernel``,
+``AlgebraGraph`` or ``GraphAccelerator`` of the JAX reference package by
+its attributes alone — the port never imports the reference — and
+returns the port's equivalent: for a kernel the same plan (algebra with
+its bounds and sparsity coordinates, dataflow selection and T, blocks,
+stationary operand, grid order, accumulation, epilogue, dtype); for a
+graph the same nodes and edges; for a graph accelerator the port's
+build of that graph under the same array config, dtype and merge
+setting, which plans to the same decisions.  ``operands_to`` moves numpy
+operands (an algebra's tensor dict or a graph's edge dict) onto a
+device.  The parity tests use these so that the two packages run the
+same plan on the same data.
 """
 from __future__ import annotations
 
@@ -18,14 +22,13 @@ import torch
 
 from .api import Accelerator
 from .compile import lower
-from .compile.pipeline import CompiledKernel
-from .core.algebra import Sparsity, get_algebra
+from .compile.pipeline import CompiledKernel, torch_dtype
+from .core.algebra import Sparsity, TensorAlgebra, get_algebra
 from .core.stt import apply_stt
 from .core.tiling import ArrayConfig
+from .graph import executor as graph_executor
+from .graph.ir import AlgebraGraph, GraphNode
 from .kernels.ops import resolve_device
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
 
 def _config(ref_cfg) -> ArrayConfig:
     return ArrayConfig(
@@ -34,20 +37,28 @@ def _config(ref_cfg) -> ArrayConfig:
         strip_budget_bytes=ref_cfg.vmem_budget_bytes)
 
 
-def kernel_from_reference(ref, *, device=None,
-                          validate: bool = False) -> CompiledKernel:
-    """The port's CompiledKernel for a reference CompiledKernel."""
-    ref_alg, ref_df = ref.algebra, ref.dataflow
+def algebra_from_reference(ref_alg) -> TensorAlgebra:
+    """The port's registry algebra with a reference algebra's bounds and
+    block-sparse patterns."""
     alg = get_algebra(ref_alg.name, **dict(zip(ref_alg.loops,
                                                ref_alg.bounds)))
     if ref_alg.sparsity:
         alg = alg.with_sparsity(**{
             name: Sparsity(tuple(sp.block), tuple(map(tuple, sp.coords)))
             for name, sp in ref_alg.sparsity})
+    return alg
+
+
+def kernel_from_reference(ref, *, device=None,
+                          validate: bool = False) -> CompiledKernel:
+    """The port's CompiledKernel for a reference CompiledKernel."""
+    ref_df = ref.dataflow
+    alg = algebra_from_reference(ref.algebra)
     df = apply_stt(alg, tuple(ref_df.selected),
                    tuple(tuple(int(v) for v in row) for row in ref_df.T))
     dtype_name = getattr(ref.dtype, "name", str(ref.dtype))
-    kernel = lower(alg, df, cfg=_config(ref.cfg), dtype=_DTYPES[dtype_name],
+    kernel = lower(alg, df, cfg=_config(ref.cfg),
+                   dtype=torch_dtype(dtype_name),
                    device=resolve_device(device), validate=validate,
                    blocks=tuple(ref.blocks), grid_order=ref.grid_order,
                    accum=ref.accum, epilogue=tuple(ref.epilogue),
@@ -58,9 +69,41 @@ def kernel_from_reference(ref, *, device=None,
     return kernel
 
 
+def graph_from_reference(ref_graph) -> AlgebraGraph:
+    """The port's AlgebraGraph with a reference graph's nodes, edges,
+    per-node dtypes, inputs and output."""
+    nodes = tuple(
+        GraphNode(name=n.name, inputs=tuple(n.inputs), output=n.output,
+                  algebra=(None if n.algebra is None
+                           else algebra_from_reference(n.algebra)),
+                  op=n.op, dtype=n.dtype)
+        for n in ref_graph.nodes)
+    return AlgebraGraph(nodes=nodes, inputs=tuple(ref_graph.inputs),
+                        output=ref_graph.output)
+
+
+def graph_accelerator_from_reference(ref, *, device=None,
+                                     validate: bool = False):
+    """The port's GraphAccelerator for a reference GraphAccelerator: the
+    same graph built under the same array config, dtype and merge
+    setting (the port's planner makes the reference's decisions)."""
+    dtype = getattr(ref.plan.dtype, "name", str(ref.plan.dtype))
+    return graph_executor.build(
+        graph_from_reference(ref.graph), cfg=_config(ref.plan.cfg),
+        dtype=torch_dtype(dtype), merge=ref.merge_enabled,
+        device=resolve_device(device), validate=validate)
+
+
 def from_reference(ref, *, device=None, validate: bool = False):
-    """A reference ``Accelerator`` becomes a port ``Accelerator``; a
-    reference ``CompiledKernel`` becomes a port ``CompiledKernel``."""
+    """A reference ``Accelerator`` becomes a port ``Accelerator``, a
+    ``CompiledKernel`` a port ``CompiledKernel``, a ``GraphAccelerator``
+    a port ``GraphAccelerator`` and an ``AlgebraGraph`` a port
+    ``AlgebraGraph``."""
+    if hasattr(ref, "group_kernels"):
+        return graph_accelerator_from_reference(ref, device=device,
+                                                validate=validate)
+    if hasattr(ref, "topo_nodes"):
+        return graph_from_reference(ref)
     if hasattr(ref, "kernel"):
         return Accelerator(kernel_from_reference(
             ref.kernel, device=device, validate=validate))
@@ -69,7 +112,8 @@ def from_reference(ref, *, device=None, validate: bool = False):
 
 def operands_to(operands: Mapping[str, object], device=None
                 ) -> Dict[str, torch.Tensor]:
-    """numpy (or array-like) operands -> tensors on ``device``."""
+    """numpy (or array-like) operands — an algebra's tensor dict or a
+    graph's edge dict — -> tensors on ``device``."""
     dev = resolve_device(device)
     return {name: torch.as_tensor(np.asarray(v), device=dev)
             for name, v in operands.items()}

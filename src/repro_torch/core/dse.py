@@ -34,8 +34,7 @@ redundant:
 regression tests and A/B timing.
 
 PyTorch port: a copy of the reference's ``core/dse.py`` with the same
-decisions.  ``search_graph`` (graph-level search over the fused-graph
-planner) is not here yet: it arrives with the graph slice.
+decisions.
 """
 from __future__ import annotations
 
@@ -414,3 +413,24 @@ def pareto_front_reference(reports: Sequence[CostReport]
             front.append(r)
     return front
 
+
+def search_graph(graph, search: int = 5,
+                 cfg: ArrayConfig = ArrayConfig(),
+                 mesh=None, dtype: str = "float32"):
+    """Graph-level design-space search: per-node dataflow selection with
+    inter-node agreement (``repro_torch.graph.planner.plan_graph``).
+
+    Extends :func:`search` from one algebra to an
+    :class:`~repro_torch.graph.ir.AlgebraGraph`: each node's candidates are
+    ranked by their own compute cycles *plus* the HBM traffic the node's
+    input edges would pay under that candidate — an edge that fuses with
+    its already-planned producer (tile/partition agreement) costs
+    nothing, so fused and unfused schedules compete honestly.  Returns
+    the :class:`~repro_torch.graph.planner.GraphPlan`; its ``cost_report()``
+    carries the graph-level cycle/byte totals (``hbm_bytes`` vs
+    ``hbm_bytes_unfused``) and ``mesh=`` adds the partition-agreement
+    constraint with reshard pricing for disagreeing edges.
+    """
+    from ..graph.planner import plan_graph
+    return plan_graph(graph, search=search, cfg=cfg, mesh=mesh,
+                      dtype=dtype)

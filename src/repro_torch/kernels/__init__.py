@@ -3,11 +3,14 @@
 Modules:
     stt_gemm  — GEMM templates (output/operand-stationary, reduction),
                 CUDA kernels in ``csrc/stt_gemm.cu`` plus plain versions
+    bsr_gemm  — block-sparse GEMM, ``csrc/bsr_gemm.cu``
+    fused_chain — merged-group megakernels (chain and DAG),
+                ``csrc/fused_chain.cu``
     epilogue  — the flush's op grammar, torch and numpy
-    ops       — public wrapper (padding, accumulation policy, dispatch)
+    ops       — public wrappers (padding, accumulation policy, dispatch)
     ref       — plain PyTorch oracles
     _build    — nvcc build and ctypes loading, at first use
 """
-from . import epilogue, ops, ref, stt_gemm
+from . import bsr_gemm, epilogue, fused_chain, ops, ref, stt_gemm
 
-__all__ = ["epilogue", "ops", "ref", "stt_gemm"]
+__all__ = ["bsr_gemm", "epilogue", "fused_chain", "ops", "ref", "stt_gemm"]

@@ -6,7 +6,8 @@ package's build directory (listed in ``.gitignore``), once: the library
 name carries a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  The libraries are
 loaded with ``ctypes``; no PyTorch headers are compiled, so a build takes
-seconds.  All sources are compiled in parallel, one ``nvcc`` each.
+seconds.  All sources are compiled in parallel, one ``nvcc`` each.  The
+shared device helpers in ``csrc/*.cuh`` enter every library's hash.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no ``nvcc``.
@@ -51,6 +52,20 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "stt_ws_launch": (_I, *_VIEW, *_VIEW, _P, _P, _I, _I, _I, _I, _I,
                           _I, _INTS, _FLOATS, _P, _P),
     },
+    "bsr_gemm": {
+        # dtype, S (ptr, row and column strides), D (same), out, row_ptr,
+        # col_idx, m, n, bm, bk, stream
+        "bsr_launch": (_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I, _I,
+                       _I, _I, _P),
+    },
+    "fused_chain": {
+        # dtype, stage table (device int64 words), n_stage, fp32 softmax
+        # row workspace, m_fast, stream
+        "fused_chain_launch": (_I, _P, _I, _P, _I, _P),
+        # dtype, stage table, n_stage, softmax row workspace, stream
+        "fused_dag_launch": (_I, _P, _I, _P, _P),
+        "fused_stage_words": (),
+    },
 }
 
 _LOCK = threading.Lock()
@@ -67,6 +82,8 @@ def nvcc() -> str:
 
 def _target(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 

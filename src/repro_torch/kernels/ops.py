@@ -1,12 +1,12 @@
-"""Public wrapper for the GEMM templates.
+"""Public wrappers for the GEMM templates and the block-sparse GEMM.
 
 The port of the reference's ``kernels/ops.py`` GEMM path: padding to
 block multiples, the accumulation policy, template dispatch from an STT
-``KernelPlan`` and the strip-budget fallback — the same decisions in the
-same order.  There is no ``jit`` and no ``backend="xla"`` route: the
-device decides.  On the CPU the templates run their plain versions; on
-the card they launch their CUDA kernels.  ``bsr_matmul``, ``attention``
-and ``ssd`` arrive with their slices.
+``KernelPlan``, the strip-budget fallback and ``bsr_matmul`` with its
+rhs-by-transposition — the same decisions in the same order.  There is
+no ``jit`` and no ``backend="xla"`` route: the device decides.  On the
+CPU the kernels run their plain versions; on the card they launch their
+CUDA kernels.  ``attention`` and ``ssd`` arrive with their slices.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.plan import KernelPlan
+from . import bsr_gemm as _bsr
 from . import epilogue as _ep
 from . import stt_gemm as _gemm
 
@@ -134,6 +135,44 @@ def stt_matmul(a: torch.Tensor, b: torch.Tensor, *,
     else:
         raise ValueError(f"unknown template {template!r}")
     return out[..., :m, :n]
+
+
+def bsr_csr(coords: _bsr.Coords, block: tuple, shape: tuple, side: str,
+            device) -> tuple:
+    """The CSR device arrays :func:`bsr_matmul` hands the kernel for this
+    pattern: of ``coords`` as given for ``side='lhs'``, of the transposed
+    pattern for ``side='rhs'``.  ``shape`` is the sparse operand's."""
+    if side == "rhs":
+        coords = _bsr.transpose_coords(coords)
+        block, shape = (block[1], block[0]), (shape[1], shape[0])
+    return _bsr.csr_arrays(_bsr.sort_coords(coords), shape[0] // block[0],
+                           device)
+
+
+def bsr_matmul(sparse: torch.Tensor, dense: torch.Tensor, *,
+               coords: _bsr.Coords, block: tuple, bstream: int = 128,
+               side: str = "lhs", csr: Optional[tuple] = None
+               ) -> torch.Tensor:
+    """Block-sparse GEMM with one block-COO operand (zeros outside the
+    static ``coords`` pattern are never read by the kernel).
+
+    ``side='lhs'``: C = sparse @ dense, ``sparse`` (m, k) with ``block`` =
+    (bm, bk) blocks; ``bstream`` is the plan's block of the streamed n.
+    ``side='rhs'``: C = dense @ sparse, realized by transposition symmetry
+    (C^T = sparse^T @ dense^T, as strided views) so one kernel serves
+    both operand sides; the result is the transposed view.  ``csr`` is
+    the pattern's cached device arrays (:func:`bsr_csr`).
+    """
+    if side not in ("lhs", "rhs"):
+        raise ValueError(f"side must be 'lhs' or 'rhs', got {side!r}")
+    if side == "rhs":
+        return bsr_matmul(sparse.T, dense.T,
+                          coords=_bsr.transpose_coords(coords),
+                          block=(block[1], block[0]), bstream=bstream,
+                          side="lhs", csr=csr).T
+    bm, bk = block
+    return _bsr.bsr_matmul(sparse, dense, coords=coords, bm=bm, bk=bk,
+                           bn=bstream, csr=csr)
 
 
 def matmul_from_plan(plan: KernelPlan, a: torch.Tensor, b: torch.Tensor,

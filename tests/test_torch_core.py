@@ -105,8 +105,25 @@ def test_dse_search_order_matches_reference(name):
 
 
 def test_search_graph_waits_for_graph_slice():
-    assert hasattr(ref_dse, "search_graph")
-    assert not hasattr(dse, "search_graph")
+    # the graph slice has arrived: the port's search_graph plans a graph
+    # to the reference's decisions
+    from repro.graph import AlgebraGraph as RGraph, GraphNode as RNode
+    from repro_torch.graph import AlgebraGraph, GraphNode
+
+    def chain(G, N, alg):
+        return G(nodes=(
+            N(name="g1", inputs=("x", "W1"), output="h_raw",
+              algebra=alg("gemm", m=16, n=24, k=8)),
+            N(name="act", inputs=("h_raw",), output="h", op="relu"),
+            N(name="g2", inputs=("h", "W2"), output="y",
+              algebra=alg("gemm", m=16, n=8, k=24))),
+            inputs=("x", "W1", "W2"), output="y")
+
+    rplan = ref_dse.search_graph(chain(RGraph, RNode,
+                                       ref_algebra.get_algebra), search=2)
+    pplan = dse.search_graph(chain(AlgebraGraph, GraphNode,
+                                   algebra.get_algebra), search=2)
+    assert pplan.describe() == rplan.describe()
 
 
 @pytest.mark.parametrize("name", ALGEBRAS)

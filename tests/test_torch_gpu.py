@@ -200,3 +200,174 @@ def test_generate_on_card_matches_cpu(cuda, name, kind):
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), cpu(ops))
     assert acc.validate() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the block-sparse kernel (csrc/bsr_gemm.cu)
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.algebra import Sparsity  # noqa: E402
+from repro_torch.kernels import bsr_gemm, fused_chain, ops  # noqa: E402
+
+#: (m, k, n, (bm, bk), density): CTA tiles (128x128, 8x128) do not divide
+#: these, block-rows of 4 take the skinny tile, 0.3 leaves rows empty
+BSR_CASES = [(64, 48, 40, (16, 8), 0.5), (256, 256, 200, (128, 128), 1.0),
+             (32, 64, 24, (4, 16), 0.3), (384, 256, 130, (128, 64), 0.25),
+             (96, 90, 70, (32, 18), 0.6)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", range(len(BSR_CASES)))
+def test_bsr_kernel(cuda, case, dtype):
+    m, k, n, (bm, bk), density = BSR_CASES[case]
+    sp = Sparsity.random((m, k), (bm, bk), density, seed=case)
+    rng = np.random.default_rng(case)
+    a = torch.as_tensor(rng.integers(-4, 5, size=(m, k)).astype(
+        np.float32)).to(dtype)
+    b = torch.as_tensor(rng.integers(-4, 5, size=(k, n)).astype(
+        np.float32)).to(dtype)
+    bsr_gemm.reset_launches()
+    got = bsr_gemm.bsr_matmul(a.to(cuda), b.to(cuda), coords=sp.coords,
+                              bm=bm, bk=bk, bn=128)
+    torch.cuda.synchronize()
+    assert bsr_gemm.launches["bsr"] == 1
+    want = bsr_gemm.bsr_matmul(a, b, coords=sp.coords, bm=bm, bk=bk, bn=128)
+    assert bsr_gemm.launches["bsr"] == 1
+    _compare(got, want, dtype, exact=True)
+
+
+def test_bsr_rhs_side_and_non_finite_outside_pattern(cuda):
+    sp = Sparsity.random((96, 64), (32, 16), 0.5, seed=3)
+    rng = np.random.default_rng(3)
+    sparse = torch.as_tensor(rng.integers(-4, 5, size=(96, 64)).astype(
+        np.float32))
+    sparse[~torch.as_tensor(sp.element_mask((96, 64)))] = float("nan")
+    dense = torch.as_tensor(rng.integers(-4, 5, size=(40, 96)).astype(
+        np.float32))
+    got = ops.bsr_matmul(sparse.to(cuda), dense.to(cuda), coords=sp.coords,
+                         block=(32, 16), side="rhs")
+    want = ops.bsr_matmul(sparse, dense, coords=sp.coords, block=(32, 16),
+                          side="rhs")
+    _compare(got, want, torch.float32, exact=True)
+
+
+def test_bsr_density_one_bit_identical_to_output_stationary(cuda):
+    rng = np.random.default_rng(4)
+    a = torch.as_tensor(rng.standard_normal((256, 384)).astype(np.float32),
+                        device=cuda)
+    b = torch.as_tensor(rng.standard_normal((384, 200)).astype(np.float32),
+                        device=cuda)
+    sp = Sparsity.random((256, 384), (128, 128), 1.0)
+    got = bsr_gemm.bsr_matmul(a, b, coords=sp.coords, bm=128, bk=128,
+                              bn=128)
+    want = stt_gemm.matmul_output_stationary(a, b, bm=128, bn=200, bk=128)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["gemm_A", "gemm_B", "conv2d_B",
+                                  "mttkrp_A"])
+def test_sparse_generate_on_card_matches_cpu(cuda, kind):
+    name, bounds, tensor, shape, block = {
+        "gemm_A": ("gemm", dict(m=64, n=40, k=48), "A", (64, 48), (16, 8)),
+        "gemm_B": ("gemm", dict(m=40, n=64, k=48), "B", (64, 48), (16, 8)),
+        "conv2d_B": ("conv2d", dict(k=16, c=8, y=6, x=5, p=3, q=3), "B",
+                     (16, 8, 3, 3), (8, 2, 3, 3)),
+        "mttkrp_A": ("mttkrp", dict(i=32, j=20, k=6, l=5), "A",
+                     (32, 6, 5), (8, 2, 5)),
+    }[kind]
+    sp = Sparsity.random(shape, block, 0.5, seed=2)
+    acc = repro_torch.generate(name, bounds=bounds, sparsity={tensor: sp})
+    cpu = repro_torch.generate(name, bounds=bounds, sparsity={tensor: sp},
+                               device="cpu", validate=False)
+    assert acc.kernel.sparse_mode == "bsr"
+    ops_ = acc.algebra.random_sparse_inputs(seed=3)
+    bsr_gemm.reset_launches()
+    got = acc(ops_)
+    assert bsr_gemm.launches["bsr"] == 1
+    assert torch.equal(got.cpu(), cpu(ops_))
+    assert acc.validate() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the fused megakernels (csrc/fused_chain.cu)
+# ---------------------------------------------------------------------------
+
+CHAIN = (fused_chain.ChainStage(96, 160, ("bias", "gelu"), True),
+         fused_chain.ChainStage(160, 72, ("scale:0.1", "softmax")),
+         fused_chain.ChainStage(72, 130, ("relu",)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("interleave", ["chain", "stage"])
+def test_fused_chain_kernel(cuda, interleave, dtype):
+    rng = np.random.default_rng(5)
+    lhs = torch.as_tensor(rng.integers(-2, 3, size=(200, 96)).astype(
+        np.float32)).to(dtype)
+    # (n, k) storage fed as its transposed view, as the graph path does
+    rhss = [torch.as_tensor(rng.integers(-2, 3, size=(st.n, st.k)).astype(
+        np.float32)).to(dtype).T for st in CHAIN]
+    bias = [torch.linspace(-2, 2, 160)]
+    fused_chain.reset_launches()
+    got = fused_chain.fused_chain_matmul(
+        lhs.to(cuda), [r.to(cuda) for r in rhss], [b.to(cuda) for b in bias],
+        stages=CHAIN, bm=64, interleave=interleave)
+    torch.cuda.synchronize()
+    assert fused_chain.launches["fused_chain"] == 1
+    want = fused_chain.fused_chain_matmul(lhs, rhss, bias, stages=CHAIN,
+                                          bm=64, interleave=interleave)
+    _compare(got, want, dtype, exact=False)
+
+
+def _graph(name):
+    from repro_torch.core.algebra import get_algebra
+    from repro_torch.graph import AlgebraGraph, GraphNode, from_model
+    if name == "layer":
+        return from_model.transformer_layer_graph(l=96, d=64, dv=48, f=160)
+    g = lambda m, n, k: get_algebra("gemm", m=m, n=n, k=k)  # noqa: E731
+    if name == "batched":
+        return AlgebraGraph(nodes=(
+            GraphNode(name="bv", inputs=("A3", "v"), output="t",
+                      algebra=get_algebra("batched_gemv", m=40, k=24,
+                                          n=36)),
+            GraphNode(name="c1", inputs=("t", "w"), output="y",
+                      algebra=g(40, 20, 36))),
+            inputs=("A3", "v", "w"), output="y")
+    return AlgebraGraph(nodes=(         # rhs landing + residual + tap
+        GraphNode(name="p", inputs=("x", "w0"), output="t",
+                  algebra=g(40, 40, 24)),
+        GraphNode(name="c1", inputs=("t", "w1"), output="y1",
+                  algebra=g(40, 40, 40)),
+        GraphNode(name="c2", inputs=("y1", "t"), output="y2",
+                  algebra=g(40, 40, 40)),
+        GraphNode(name="fin", inputs=("y2", "t"), output="out", op="add")),
+        inputs=("x", "w0", "w1"), output="out")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("name", ["layer", "batched", "tapped"])
+def test_fused_dag_kernel_through_the_graph(cuda, name, dtype):
+    from repro_torch.graph import executor
+    g = _graph(name)
+    acc = executor.build(g, dtype=dtype, validate=False)
+    assert acc.group_kernels
+    assert all(gk.kind == "dag" for gk in acc.group_kernels.values())
+    cpu = executor.build(g, dtype=dtype, validate=False, device="cpu")
+    ops_ = {k: v.astype(np.float32) / 4
+            for k, v in g.random_operands(1).items()}
+    fused_chain.reset_launches()
+    got = acc(ops_)
+    torch.cuda.synchronize()
+    assert fused_chain.launches["fused_dag"] == len(acc.group_kernels)
+    _compare(got, cpu(ops_), dtype, exact=False)
+    seq = executor.build(g, dtype=dtype, validate=False, merge=False)
+    _compare(got, seq(ops_).cpu(), dtype, exact=False)
+
+
+def test_graph_validate_on_card(cuda):
+    # small: validate() runs the pure-python loop-nest oracle
+    from repro_torch.graph import executor, from_model
+    g = from_model.transformer_layer_graph(l=24, d=16, dv=16, f=32)
+    acc = executor.build(g)
+    assert acc.group_kernels
+    assert acc.validate() <= 1e-3 + 1e-5 * np.abs(
+        g.reference(g.random_operands(0))).max()

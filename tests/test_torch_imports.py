@@ -14,7 +14,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.serve.engine", "repro_torch.convert",
-           "repro_torch.compile.pipeline", "repro_torch.core.dse")
+           "repro_torch.compile.pipeline", "repro_torch.core.dse",
+           "repro_torch.kernels.bsr_gemm", "repro_torch.kernels.fused_chain",
+           "repro_torch.graph", "repro_torch.graph.ir",
+           "repro_torch.graph.planner", "repro_torch.graph.executor",
+           "repro_torch.graph.from_model", "repro_torch.models.chains",
+           "repro_torch.models.transformer", "repro_torch.configs",
+           "repro_torch.configs.registry")
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"
@@ -123,4 +129,53 @@ def test_cuda_tensor_without_kernel_library_raises_not_falls_back(
     a = torch.ones(16, 16)
     with pytest.raises(RuntimeError, match="nvcc"):
         stt_gemm.matmul_output_stationary(a, a, bm=16, bn=16, bk=16)
+    assert calls == []
+
+
+def _no_plain(monkeypatch, module, plain_names):
+    """Make ``module`` see CUDA tensors whose kernel library cannot be
+    built, and record any call of its plain versions."""
+    from repro_torch.kernels import _build
+
+    def no_library(stem):
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(_build, "library", no_library)
+    monkeypatch.setattr(module, "_on_cpu", lambda *xs: False)
+    calls = []
+    for name in plain_names:
+        monkeypatch.setattr(module, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    return calls
+
+
+def test_bsr_cuda_tensor_raises_not_falls_back(monkeypatch):
+    from repro_torch.kernels import bsr_gemm
+    calls = _no_plain(monkeypatch, bsr_gemm,
+                      ["bsr_matmul_plain", "_fp32_product"])
+    a = torch.ones(8, 8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        bsr_gemm.bsr_matmul(a, a, coords=((0, 0), (1, 1)), bm=4, bk=4,
+                            bn=8, csr=(torch.tensor([0, 1, 2],
+                                                    dtype=torch.int32),
+                                       torch.tensor([0, 1],
+                                                    dtype=torch.int32)))
+    assert calls == []
+
+
+@pytest.mark.parametrize("entry", ["chain", "dag"])
+def test_fused_cuda_tensor_raises_not_falls_back(monkeypatch, entry):
+    from repro_torch.kernels import fused_chain
+    calls = _no_plain(monkeypatch, fused_chain,
+                      ["chain_reference", "dag_reference",
+                       "_fp32_product"])
+    x = torch.ones(4, 8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        if entry == "chain":
+            fused_chain.fused_chain_matmul(
+                x, [torch.ones(8, 6)],
+                stages=[fused_chain.ChainStage(8, 6)])
+        else:
+            fused_chain.fused_dag(
+                [x, torch.ones(8, 6)],
+                stages=[fused_chain.DagStage(4, 8, 6, rhs=("ext", 1))])
     assert calls == []

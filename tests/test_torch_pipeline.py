@@ -203,15 +203,55 @@ def test_masked_sparse_runs_dense_like_reference():
 
 
 def test_structured_sparse_waits_for_sparse_slice():
+    # the sparse slice has arrived: a structured operand lowers to the
+    # BSR kernel and matches the reference's BSR path exactly
     sp = Sparsity((4, 4), ((0, 0), (1, 1)))
-    with pytest.raises(NotImplementedError, match="sparse slice"):
-        repro_torch.generate("gemm", bounds=dict(m=8, n=8, k=8),
-                             sparsity={"A": sp}, device="cpu")
+    acc = repro_torch.generate("gemm", bounds=dict(m=8, n=8, k=8),
+                               sparsity={"A": sp}, device="cpu")
+    assert acc.kernel.sparse_mode == "bsr" and acc.kernel.validated
+    racc = repro.generate("gemm", bounds=dict(m=8, n=8, k=8),
+                          sparsity={"A": repro.Sparsity(sp.block,
+                                                        sp.coords)},
+                          interpret=True)
+    ops = racc.algebra.random_sparse_inputs(seed=1)
+    np.testing.assert_array_equal(acc(ops).numpy(), _ref_out(racc, ops))
+
+
+def _chain_graph():
+    from repro_torch.graph import AlgebraGraph, GraphNode
+    g = lambda: get_algebra("gemm", m=8, n=8, k=8)  # noqa: E731
+    return AlgebraGraph(
+        nodes=(GraphNode(name="g1", inputs=("x", "W1"), output="h_raw",
+                         algebra=g()),
+               GraphNode(name="act", inputs=("h_raw",), output="h",
+                         op="gelu"),
+               GraphNode(name="g2", inputs=("h", "W2"), output="y",
+                         algebra=g())),
+        inputs=("x", "W1", "W2"), output="y")
 
 
 @pytest.mark.parametrize("call", ["tune", "mesh", "tuned", "graph",
                                   "sharded", "lower_group"])
 def test_later_slices_raise_not_implemented(call):
+    # the graph slice has arrived: graph inputs and lower_group now run;
+    # tuning and mesh still raise, naming their slices
+    if call == "graph":
+        from repro_torch.graph import GraphAccelerator
+        g = _chain_graph()
+        acc = repro_torch.generate(g, device="cpu")
+        assert isinstance(acc, GraphAccelerator)
+        assert list(acc.group_kernels) == ["mg:g1+g2"]
+        assert acc.validate() <= 1e-3 + 1e-5 * np.abs(
+            g.reference(g.random_operands(0))).max()
+        with pytest.raises(TypeError, match="AlgebraGraph"):
+            repro_torch.generate(object(), device="cpu")
+        return
+    if call == "lower_group":
+        from repro_torch.graph import plan_graph
+        plan = plan_graph(_chain_graph())
+        gk = pipeline.lower_group(plan, plan.groups[0], device="cpu")
+        assert gk.kind == "chain" and gk.validated
+        return
     with pytest.raises(NotImplementedError):
         if call == "tune":
             repro_torch.generate("gemm", tune=True, device="cpu")
@@ -219,14 +259,10 @@ def test_later_slices_raise_not_implemented(call):
             repro_torch.generate("gemm", mesh=(2, 2), device="cpu")
         elif call == "tuned":
             pipeline.lower(get_algebra("gemm"), device="cpu", tuned=True)
-        elif call == "graph":
-            repro_torch.generate(object(), device="cpu")
-        elif call == "sharded":
+        else:
             acc = repro_torch.generate("gemm", bounds=dict(m=8, n=8, k=8),
                                        device="cpu")
             acc.sharded((2, 2))
-        else:
-            pipeline.lower_group(None, None)
 
 
 def test_describe_and_partition():
