@@ -49,7 +49,29 @@ each of which fails the run (non-zero exit) when it fails:
    its roofline bound from ``core/hopper.py``; then every main-path,
    sparse and graph case timed end to end (host clock, 3 calls); the
    sparse and graph cases and one STT per dense algebra are traced
-   once.
+   once;
+10. LM serving at the full width and depth of h2o-danube-1.8b (24
+   layers, bf16 compute, fp32 master weights drawn on the card from a
+   seed): a ``ContinuousServer`` over a ``SlotEngine(capacity=8,
+   max_context=2048, page_size=16, total_pages=512)`` answers 16 greedy
+   requests (prompts uniform in 128..1536 tokens, 16..64 new tokens,
+   numpy seed 0) submitted from 4 threads.  Each decode step gathers the
+   paged KV cache through the paged-gather kernel, each prefill runs its
+   self-attention on the flash-attention kernel; both launch counts are
+   zeroed just before the server run and read just after.  Checks: (a)
+   every request's tokens equal those of the same engine serving it
+   alone; (b) its prefill logits and first token equal
+   ``DecodeEngine.generate(prompt, cache_len=2048)``'s; (c)
+   ``decode_compiles == 1``; (d) the gather kernel equals its plain
+   version bit for bit at the serve shape; (e) the flash kernel equals
+   ``attention_ref`` at the traffic's prefill shapes and at a windowed
+   shape that hides whole kv blocks (bf16 within 2e-2 x max|out|, fp32
+   within 1e-4 x max|out|: other sum order and ``expf``).  Full token
+   agreement with ``DecodeEngine`` (batch 1) is printed, not gated:
+   cuBLAS picks kernels by shape, so batch-1 and batch-8 products may
+   round apart.  Per-step and per-prefill times, both kernels' times
+   beside their bounds, plain versions and library calls, and one traced
+   decode step and prefill are reported.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line,
 and, last, ``{"ok": true, "device": {...}}``.  Per-case times go to
@@ -64,6 +86,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -117,7 +140,13 @@ GRAPH_MODEL = "h2o-danube-1.8b"
 GRAPH_BUDGET = 512 << 20
 #: the port's kernels, by the names the profiler reports
 OUR_KERNELS = ("os_kernel<", "ws_kernel<", "rt_kernel<", "bsr_kernel<",
-               "stages_kernel<")
+               "stages_kernel<", "gather_kernel<", "flash_kernel<")
+#: the serve phase: model, slot engine, traffic
+SERVE_MODEL = "h2o-danube-1.8b"
+SERVE_ENGINE = dict(capacity=8, max_context=2048, page_size=16,
+                    total_pages=512)
+SERVE_REQUESTS, SERVE_THREADS = 16, 4
+PROMPT_LENS, NEW_TOKENS = (128, 1536), (16, 64)
 
 
 def check(cond: bool, what: str) -> None:
@@ -125,12 +154,10 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def profile_call(fn, call_ms: float):
-    """One call under ``torch.profiler``: the device time of the template
-    kernels and of everything else on the device, and their share of the
-    unprofiled call time ``call_ms``.  The profiler's tracing of this
-    card can come back without device events; those fields are then
-    None (not measured)."""
+def kernel_times(fn):
+    """One call of ``fn`` under ``torch.profiler``: ``[(kernel name,
+    device ms, launches)]`` of the device kernels it ran, largest first
+    (empty when the trace holds no device events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,19 +166,304 @@ def profile_call(fn, call_ms: float):
                  acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
-    ours = other = 0.0
+    rows = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
-        if any(k in ev.key for k in OUR_KERNELS):
-            ours += us / 1e3
-        else:
-            other += us / 1e3
+        # kernels only: an operator's own device time repeats theirs
+        if us > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            rows.append((ev.key, us / 1e3, ev.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def profile_call(fn, call_ms: float):
+    """One call under ``torch.profiler``: the device time of the port's
+    kernels and of everything else on the device, and their share of the
+    unprofiled call time ``call_ms``.  The profiler's tracing of this
+    card can come back without device events; those fields are then
+    None (not measured)."""
+    rows = kernel_times(fn)
+    ours = sum(ms for k, ms, _ in rows if any(o in k for o in OUR_KERNELS))
     if ours == 0.0:
         return {"kernel_ms": None, "other_device_ms": None,
                 "busy_share": None}
+    other = sum(ms for _, ms, _ in rows) - ours
     return {"kernel_ms": ours, "other_device_ms": other,
             "busy_share": (ours + other) / call_ms}
+
+
+def event_ms(fn, reps):
+    """Mean CUDA-event time of ``reps`` calls of ``fn`` after one warm-up
+    call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_breakdown(fn, top: int = 8):
+    """One untraced call of ``fn`` on the host clock, then one traced:
+    device time by kernel (the ``top`` largest) and in all, and the busy
+    share; ``device_ms`` is None when the trace holds no device events."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t) * 1e3
+    rows = kernel_times(fn)
+    total = sum(ms for _, ms, _ in rows)
+    if total == 0.0:
+        return {"call_ms": call_ms, "device_ms": None, "busy_share": None,
+                "kernels": []}
+    return {"call_ms": call_ms, "device_ms": total,
+            "busy_share": total / call_ms,
+            "kernels": [{"name": k[:90], "ms": ms, "count": n}
+                        for k, ms, n in rows[:top]]}
+
+
+def serve_phase(check):
+    """Phase 10: LM serving at full width and depth on the paged-gather
+    and flash-attention kernels.  Returns (kernel rows, summary)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import hopper
+    from repro_torch.kernels import flash_attention, ops, paged, ref
+    from repro_torch.models import decode as lm_decode
+    from repro_torch.models import init_params
+    from repro_torch.serve import ContinuousServer, DecodeEngine, SlotEngine
+
+    dev = torch.device("cuda")
+    lm = get_config(SERVE_MODEL)
+    check(lm.n_layers == 24 and lm.dtype == "bfloat16",
+          f"{SERVE_MODEL}: not full depth in bf16")
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), lm)
+    eng = SlotEngine(params, lm, **SERVE_ENGINE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    n = SERVE_REQUESTS
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, n)
+    news = rng.integers(NEW_TOKENS[0], NEW_TOKENS[1] + 1, n)
+    prompts = [rng.integers(0, lm.vocab, (int(s),)).astype(np.int32)
+               for s in lens]
+
+    # the main path: 16 requests from 4 threads through the server
+    futures = [None] * n
+    flash_attention.reset_launches()
+    paged.reset_launches()
+    t0 = time.perf_counter()
+    with ContinuousServer(eng) as server:
+        def client(ids):
+            for i in ids:
+                futures[i] = server.submit(prompts[i],
+                                           max_new_tokens=int(news[i]))
+        threads = [threading.Thread(target=client,
+                                    args=(range(t, n, SERVE_THREADS),))
+                   for t in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        server.drain(timeout=300)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {**paged.launches, **flash_attention.launches}
+    served = [f.result(timeout=1) for f in futures]
+    for name, count in launches.items():
+        check(count > 0, f"the serve path never launched {name}")
+    stats = dict(server.stats)
+    n_tokens = sum(len(s) for s in served)
+    check(n_tokens == int(news.sum()), f"served {n_tokens} tokens, "
+          f"expected {int(news.sum())}")
+    print(f"serve: {n} requests ({n_tokens} tokens) in {serve_s:.2f} s, "
+          f"{n_tokens / serve_s:.1f} tok/s; steps {stats['steps']}, mean "
+          f"occupancy {server.mean_occupancy():.2f}, admission stalls "
+          f"{stats['admission_stalls']}; launches {launches}")
+
+    # (a) continuous == one at a time on the same engine, timed
+    step_ms, prefill_ms = [], []
+    for i in range(n):
+        t = time.perf_counter()
+        res = eng.insert(prompts[i], max_new_tokens=int(news[i]))
+        prefill_ms.append((int(lens[i]), (time.perf_counter() - t) * 1e3))
+        check(res is not None, f"request {i} not admitted alone")
+        slot, tok = res
+        toks = [tok]
+        while len(toks) < news[i]:
+            t = time.perf_counter()
+            r = eng.step()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            toks.append(r.token_at(slot))
+        eng.evict(slot)
+        check(np.array_equal(np.asarray(toks, np.int32), served[i]),
+              f"(a) request {i}: continuous tokens differ from the same "
+              f"engine serving it alone")
+    # (c)
+    check(eng.decode_compiles == 1,
+          f"(c) decode_compiles {eng.decode_compiles}")
+
+    # (b) prefill == DecodeEngine's; full agreement printed
+    de = DecodeEngine(params, lm)
+    diverge = []
+    for i in range(n):
+        toks = torch.as_tensor(prompts[i], device=dev).long()[None]
+        with torch.no_grad():
+            la = lm_decode.prefill(eng.params, toks, lm, max_len=2048)[0]
+            lb = lm_decode.prefill(de.params, toks, lm, max_len=2048)[0]
+        check(torch.equal(la, lb), f"(b) request {i}: prefill logits of "
+              f"the slot engine and DecodeEngine differ")
+        want = de.generate(prompts[i][None], max_new_tokens=int(news[i]),
+                           cache_len=SERVE_ENGINE["max_context"])[0][0]
+        check(want[0] == served[i][0], f"(b) request {i}: first token "
+              f"{served[i][0]} != DecodeEngine's {want[0]}")
+        d = np.flatnonzero(want != served[i])
+        diverge.append(int(d[0]) if d.size else None)
+    agree = sum(d is None for d in diverge)
+    print(f"serve checks: (a) continuous == alone for {n} requests, (b) "
+          f"prefill logits and first token == DecodeEngine, (c) "
+          f"decode_compiles 1; DecodeEngine (batch 1) agrees on all tokens "
+          f"for {agree}/{n}, first divergent step {diverge}")
+    del de
+
+    # (d) the gather kernel at the serve shape, bit for bit, on the table
+    # the engine holds with the first 8 requests resident: each slot's
+    # pages drawn from a permutation of the pool, the rest on the scratch
+    path = ("self", "k")
+    pool = eng.cache.pools[path]
+    lay = eng.cache.layout
+    free = rng.permutation(lay.total_pages).tolist()
+    table_np = np.full((lay.capacity, lay.pages_per_slot), lay.scratch_page,
+                       np.int32)
+    for c in range(lay.capacity):
+        need = min(eng.cache.pages_needed(int(lens[c] + news[c])), len(free))
+        table_np[c, :need] = [free.pop() for _ in range(need)]
+    table = torch.as_tensor(table_np, device=dev)
+    got = paged.paged_gather(pool, table)
+    want = paged.paged_gather_plain(pool, table)
+    check(torch.equal(got, want), "(d) paged gather differs from plain")
+    # the bytes this table needs: each distinct page read once, the view
+    # written once
+    page_bytes = pool[0].numel() * pool.element_size()
+    nbytes = (len(np.unique(table_np)) * page_bytes
+              + got.numel() * got.element_size() + table_np.nbytes)
+    roof = hopper.RooflineTerms("paged gather", 0.0, float(nbytes),
+                                dtype="bfloat16")
+    rows = [{
+        "name": "paged.paged_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged.cu",
+        "replaces": "src/repro/kernels/paged.py:46",
+        "launches": launches["paged_gather"], "max_abs_err": 0.0,
+        "ms": event_ms(lambda: paged.paged_gather(pool, table), 20),
+        "plain_ms": event_ms(lambda: paged.paged_gather_plain(pool, table),
+                             20),
+        "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
+        "library_ms": event_ms(
+            lambda: pool.index_select(0, table.flatten().long()), 20),
+        "shape": f"pool {tuple(pool.shape)} bf16, table "
+                 f"{tuple(table.shape)}, {len(np.unique(table_np))} distinct "
+                 f"pages"}]
+    del got, want
+
+    # (e) flash attention against attention_ref
+    g = torch.Generator(device=dev).manual_seed(3)
+    hq, hkv, d = lm.n_heads, lm.n_kv_heads, lm.head_dim
+
+    def qkv(length, dtype):
+        return [torch.randn((1, h, length, d), generator=g, device=dev
+                            ).to(dtype) for h in (hq, hkv, hkv)]
+
+    worst = {}
+    for length, window in ((int(lens.min()), None), (int(lens.max()), None),
+                           (1024, 100)):
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            q, k, v = qkv(length, dtype)
+            out = ops.attention(q, k, v, causal=True, window=window).float()
+            want = ref.attention_ref(q, k, v, causal=True,
+                                     window=window).float()
+            err = (out - want).abs().max().item()
+            scale = want.abs().max().item()
+            check(bool(torch.isfinite(out).all()) and err <= tol * scale,
+                  f"(e) flash L={length} window={window} {dtype}: max err "
+                  f"{err} beyond {tol} x {scale}")
+            worst[f"L={length} w={window} {str(dtype)[6:]}"] = err
+    print(f"serve checks: (d) gather == plain bit for bit at "
+          f"{tuple(pool.shape)}; (e) flash vs attention_ref max err "
+          f"{worst}")
+    length = int(lens.max())
+    q, k, v = qkv(length, torch.bfloat16)
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=True)
+    pairs = length * (length + 1) // 2
+    roof = hopper.RooflineTerms(
+        "flash attention", 4.0 * d * hq * pairs,
+        2.0 * (2 * q.numel() + k.numel() + v.numel()), dtype="bfloat16")
+    rows.append({
+        "name": "flash_attention.flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:72",
+        "launches": launches["flash_attention"],
+        "max_abs_err": (got.float() - want.float()).abs().max().item(),
+        "ms": event_ms(lambda: flash_attention.flash_attention(
+            q, k, v, causal=True), 10),
+        "plain_ms": event_ms(lambda: flash_attention.flash_attention_plain(
+            q, k, v, causal=True), 3),
+        "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
+        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10),
+        "shape": f"q (1, {hq}, {length}, {d}), k/v (1, {hkv}, {length}, "
+                 f"{d}) bf16, causal"})
+
+    # one decode step at full occupancy and one prefill, traced
+    for i in range(SERVE_ENGINE["capacity"]):
+        check(eng.insert(prompts[i][:128], max_new_tokens=64) is not None,
+              "could not fill the batch for the traced step")
+    eng.step()
+    step_prof = device_breakdown(eng.step)
+    pre = torch.as_tensor(prompts[int(np.argmax(lens))], device=dev
+                          ).long()[None]
+    with torch.no_grad():
+        pre_prof = device_breakdown(lambda: lm_decode.prefill(
+            eng.params, pre, lm, max_len=2048))
+    steps = np.asarray(step_ms)
+    summary = {
+        "setup_s": setup_s, "serve_s": serve_s, "tokens": n_tokens,
+        "tok_per_s": n_tokens / serve_s, "server_stats": stats,
+        "mean_occupancy": server.mean_occupancy(),
+        "decode_step_ms": {"mean": float(steps.mean()),
+                           "p50": float(np.median(steps)),
+                           "p90": float(np.percentile(steps, 90)),
+                           "n": int(steps.size)},
+        "prefill_ms": prefill_ms, "diverge": diverge,
+        "flash_errs": worst, "traced_step": step_prof,
+        "traced_prefill": {"len": int(lens.max()), **pre_prof}}
+    print(f"serve: decode step call_ms mean {steps.mean():.3f} p50 "
+          f"{np.median(steps):.3f} p90 {np.percentile(steps, 90):.3f} "
+          f"(n={steps.size}); prefill call_ms "
+          + ", ".join(f"L={s}: {ms:.2f}" for s, ms in sorted(prefill_ms)))
+    for label, prof in (("decode step", step_prof),
+                        (f"prefill L={int(lens.max())}", pre_prof)):
+        if prof["device_ms"] is None:
+            print(f"  traced {label}: no device events")
+            continue
+        print(f"  traced {label}: call {prof['call_ms']:.3f} ms, device "
+              f"{prof['device_ms']:.3f} ms, busy {prof['busy_share']:.2f}")
+        for kr in prof["kernels"]:
+            print(f"    {kr['ms']:8.3f} ms x{kr['count']:<4d} {kr['name']}")
+    return rows, summary
 
 
 def main() -> int:
@@ -497,18 +809,6 @@ def main() -> int:
     phase("epilogues + serve")
 
     # -- 9. timing --------------------------------------------------------
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     kernels = []
     for template, (replaces, (name, s)) in KERNELS.items():
         bounds = SIZES[name]
@@ -700,9 +1000,14 @@ def main() -> int:
             c.update(kernel_ms=None, other_device_ms=None, busy_share=None)
         del ops
     phase("timing")
+
+    # -- 10. LM serving ---------------------------------------------------
+    serve_rows, serve_summary = serve_phase(check)
+    kernels.extend(serve_rows)
+    phase("serve")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
-         "phase_s": phase_s}, indent=1))
+         "serve": serve_summary, "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

@@ -11,11 +11,14 @@ build of that graph under the same array config, dtype and merge
 setting, which plans to the same decisions.  ``operands_to`` moves numpy
 operands (an algebra's tensor dict or a graph's edge dict) onto a
 device.  The parity tests use these so that the two packages run the
-same plan on the same data.
+same plan on the same data.  ``params_from_reference`` carries a
+reference model's parameters (the nested dict of stacked numpy arrays
+that ``jax.tree.map(np.asarray, split(init_params(key, cfg))[0])``
+gives) across to the port's models, leaf for leaf.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -117,3 +120,14 @@ def operands_to(operands: Mapping[str, object], device=None
     dev = resolve_device(device)
     return {name: torch.as_tensor(np.asarray(v), device=dev)
             for name, v in operands.items()}
+
+
+def params_from_reference(tree: Mapping[str, Any], device=None
+                          ) -> Dict[str, Any]:
+    """A reference model's parameter tree (nested dicts of numpy arrays,
+    same keys and layouts as the port's) -> the port's parameters on
+    ``device``, copied."""
+    dev = resolve_device(device)
+    return {k: (params_from_reference(v, dev) if isinstance(v, Mapping)
+                else torch.as_tensor(np.array(v), device=dev))
+            for k, v in tree.items()}

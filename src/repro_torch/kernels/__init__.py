@@ -6,11 +6,17 @@ Modules:
     bsr_gemm  — block-sparse GEMM, ``csrc/bsr_gemm.cu``
     fused_chain — merged-group megakernels (chain and DAG),
                 ``csrc/fused_chain.cu``
+    paged     — paged-cache gather, ``csrc/paged.cu``
+    flash_attention — blockwise online-softmax attention,
+                ``csrc/flash_attention.cu``
     epilogue  — the flush's op grammar, torch and numpy
-    ops       — public wrappers (padding, accumulation policy, dispatch)
+    ops       — public wrappers (padding, accumulation policy, dispatch,
+                attention)
     ref       — plain PyTorch oracles
     _build    — nvcc build and ctypes loading, at first use
 """
-from . import bsr_gemm, epilogue, fused_chain, ops, ref, stt_gemm
+from . import (bsr_gemm, epilogue, flash_attention, fused_chain, ops, paged,
+               ref, stt_gemm)
 
-__all__ = ["bsr_gemm", "epilogue", "fused_chain", "ops", "ref", "stt_gemm"]
+__all__ = ["bsr_gemm", "epilogue", "flash_attention", "fused_chain", "ops",
+           "paged", "ref", "stt_gemm"]

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _INTS, _FLOATS = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
+_LLS = ctypes.POINTER(ctypes.c_longlong)
 _VIEW = (_P, _LL, _LL, _LL)
 
 #: argument types of every C entry point, by source stem
@@ -65,6 +66,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # dtype, stage table, n_stage, softmax row workspace, stream
         "fused_dag_launch": (_I, _P, _I, _P, _P),
         "fused_stage_words": (),
+    },
+    "paged": {
+        # pool, table, out, n_pages_pool, C, n, page elements, element
+        # bytes, stream
+        "paged_gather_launch": (_P, _P, _P, _I, _I, _I, _LL, _I, _P),
+    },
+    "flash_attention": {
+        # dtype, q, q strides, k, k strides, v, v strides, out, out
+        # strides, B, Hq, Lq, Lkv, D, group, scale, causal, window, stream
+        "flash_attention_launch": (_I, _P, _LLS, _P, _LLS, _P, _LLS, _P,
+                                   _LLS, _I, _I, _I, _I, _I, _I,
+                                   ctypes.c_float, _I, _I, _P),
     },
 }
 

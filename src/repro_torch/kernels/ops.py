@@ -1,12 +1,15 @@
-"""Public wrappers for the GEMM templates and the block-sparse GEMM.
+"""Public wrappers for the GEMM templates, the block-sparse GEMM and
+attention.
 
-The port of the reference's ``kernels/ops.py`` GEMM path: padding to
-block multiples, the accumulation policy, template dispatch from an STT
-``KernelPlan``, the strip-budget fallback and ``bsr_matmul`` with its
-rhs-by-transposition — the same decisions in the same order.  There is
-no ``jit`` and no ``backend="xla"`` route: the device decides.  On the
-CPU the kernels run their plain versions; on the card they launch their
-CUDA kernels.  ``attention`` and ``ssd`` arrive with their slices.
+The port of the reference's ``kernels/ops.py``: padding to block
+multiples, the accumulation policy, template dispatch from an STT
+``KernelPlan``, the strip-budget fallback, ``bsr_matmul`` with its
+rhs-by-transposition and ``attention`` with its padding — the same
+decisions in the same order.  There is no ``jit``; the device decides:
+on the CPU the kernels run their plain versions, on the card they
+launch their CUDA kernels.  ``attention(backend="xla")`` keeps the
+reference's name for its plain oracle route.  ``ssd`` arrives with the
+SSM slice.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import torch.nn.functional as F
 from ..core.plan import KernelPlan
 from . import bsr_gemm as _bsr
 from . import epilogue as _ep
+from . import flash_attention as _fa
+from . import ref as _ref
 from . import stt_gemm as _gemm
 
 
@@ -182,3 +187,36 @@ def matmul_from_plan(plan: KernelPlan, a: torch.Tensor, b: torch.Tensor,
     stationary = "B" if plan.resident_tensor in (None, "B", "C") else "A"
     return stt_matmul(a, b, template=plan.template, stationary=stationary,
                       **kw)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              bq: int = 128, bkv: int = 128, backend: str = "kernel"
+              ) -> torch.Tensor:
+    """GQA attention (B, Hq, Lq, D) x (B, Hkv, Lkv, D) -> (B, Hq, Lq, D).
+
+    ``backend="kernel"`` pads Lq and Lkv to block multiples as the
+    reference does and runs :func:`flash_attention.flash_attention` (the
+    CUDA kernel on the card, its plain version on the CPU);
+    ``backend="xla"`` is the reference's name for the plain oracle
+    :func:`ref.attention_ref`.  Padded kv columns are masked only by the
+    causal mask, so cross-attention needs ``Lkv % bkv == 0``.
+    """
+    if backend == "xla":
+        return _ref.attention_ref(q, k, v, causal=causal, window=window)
+    if backend != "kernel":
+        raise ValueError(f"backend must be 'kernel' or 'xla', got "
+                         f"{backend!r}")
+    lq, lkv = q.shape[2], k.shape[2]
+    bq, bkv = min(bq, lq), min(bkv, lkv)
+    qp = _pad_to(q, (1, 1, bq, 1))
+    kp = _pad_to(k, (1, 1, bkv, 1))
+    vp = _pad_to(v, (1, 1, bkv, 1))
+    if not causal and kp.shape[2] != lkv:
+        raise ValueError("cross-attention requires Lkv % bkv == 0")
+    out = _fa.flash_attention(qp, kp, vp, causal=causal, window=window)
+    return out[:, :, :lq]

@@ -1,7 +1,7 @@
-"""Plain PyTorch oracles for the GEMM path.
+"""Plain PyTorch oracles for the GEMM path and attention.
 
-Torch twins of the reference's ``kernels/ref.py`` GEMM oracles.  The
-attention and SSD oracles arrive with their slices.
+Torch twins of the reference's ``kernels/ref.py`` GEMM and attention
+oracles.  The SSD oracles arrive with the SSM slice.
 """
 from __future__ import annotations
 
@@ -64,3 +64,49 @@ def depthwise_blockdiag_ref(a: torch.Tensor, b: torch.Tensor, *, y: int,
     out = matmul_ref(block_diag_rows(b.reshape(k, p * q)),
                      _im2col_oracle(a, y, x, p, q))
     return out.reshape(k, y, x)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA + causal + sliding window + cross)
+# ---------------------------------------------------------------------------
+
+def attention_mask(q_len: int, kv_len: int, *, causal: bool,
+                   window: Optional[int], q_offset: int = 0,
+                   device=None) -> torch.Tensor:
+    """Boolean (q_len, kv_len) mask; True = attend.
+
+    ``q_offset`` places the query block inside a longer sequence (used for
+    decode, where q_len == 1 at absolute position q_offset).
+    """
+    qpos = torch.arange(q_len, device=device)[:, None] + q_offset
+    kpos = torch.arange(kv_len, device=device)[None, :]
+    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Reference multi-head attention.
+
+    q: (B, Hq, Lq, D);  k, v: (B, Hkv, Lkv, D) with Hq % Hkv == 0 (GQA).
+    Softmax in fp32; fully masked rows give 0 (the softmax's NaN is
+    replaced).  ``causal=False, window=None`` gives cross-attention.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, hq, lq, d = q.shape
+    group = hq // k.shape[1]
+    kg = k.repeat_interleave(group, dim=1).to(torch.float32)
+    vg = v.repeat_interleave(group, dim=1).to(torch.float32)
+    scores = torch.matmul(q.to(torch.float32), kg.transpose(-1, -2)) / \
+        torch.sqrt(torch.tensor(float(d)))
+    mask = attention_mask(lq, k.shape[2], causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)           # fully-masked rows
+    return torch.matmul(p, vg).to(q.dtype)

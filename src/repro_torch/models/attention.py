@@ -1,0 +1,239 @@
+"""Attention layers: GQA + RoPE + SWA + KV caches.
+
+The port of the reference's ``models/attention.py`` (self-attention).
+Three execution paths:
+
+* prefill on a CUDA tensor: ``kernels.ops.attention``, i.e. the
+  hand-written flash-attention kernel (``csrc/flash_attention.cu``),
+  which the reference names its TPU hot-spot implementation;
+* prefill on a CPU tensor: the plain full-scores path (``ref.
+  attention_ref``) up to ``FULL_SCORES_MAX_LEN`` and the chunked
+  online-softmax path above it, as the reference's models run them;
+* decode: a single query over a (possibly rolling) KV cache, plain
+  PyTorch on every device (the reference's is plain XLA too).
+
+Decode writes the new K/V row into the given cache tensors **in place**
+(the reference returns updated copies); the returned cache holds the
+same tensors.  Cross-attention (``kv_x``, the encdec/vlm families) and
+the explicit-collective branches (the mesh) raise ``NotImplementedError``
+naming their slices.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..compile.pipeline import torch_dtype
+from ..configs.base import ModelConfig
+from ..kernels import ops, ref
+from ..kernels.flash_attention import flash_attention_plain
+from . import common
+from .common import stacked_dense_init
+
+#: a K/V cache or collected K/V: {"k": ..., "v": ...}
+KV = Dict[str, torch.Tensor]
+
+NEG_INF = float(-1e30)
+FULL_SCORES_MAX_LEN = 8_192   # above this, the CPU uses the chunked path
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int
+                   ) -> Dict[str, torch.Tensor]:
+    """Stacked attention params for ``n_layers`` layers."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    p = {
+        "wq": stacked_dense_init(gen, n_layers, d, qd),
+        "wk": stacked_dense_init(gen, n_layers, d, kvd),
+        "wv": stacked_dense_init(gen, n_layers, d, kvd),
+        "wo": stacked_dense_init(gen, n_layers, qd, d),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = common.zeros_init(gen, (n_layers, qd))
+        p["bk"] = common.zeros_init(gen, (n_layers, kvd))
+        p["bv"] = common.zeros_init(gen, (n_layers, kvd))
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Score paths
+# ---------------------------------------------------------------------------
+
+def _full_scores_attn(q, k, v, *, causal, window, q_offset=0):
+    """(B, H, Lq, dh) x (B, Hkv, Lkv, dh); materializes (Lq, Lkv) scores."""
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=q_offset)
+
+
+def _chunked_attn(q, k, v, *, causal, window, bkv: int = 1024):
+    """Online softmax over kv chunks of ``bkv`` — O(Lq * bkv) memory: the
+    flash kernel's plain version, which is this computation."""
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 bkv=bkv)
+
+
+def _decode_attn(q, k_cache, v_cache, *, pos, window, cache_len):
+    """q: (B, Hq, 1, dh); caches (B, Hkv, S, dh); attend to entries < pos+1.
+
+    With a rolling (SWA) cache the entries are position-tagged modulo the
+    cache length, so validity is derived from absolute positions.  ``pos``
+    may be an int (one shared position, the classic batched decode) or a
+    ``(B,)`` tensor (per-slot positions, continuous batching): the masks
+    vectorize over the batch and each row computes exactly what it would
+    with that row's scalar position.  The q heads of one kv head are
+    multiplied as a group against that head (the reference repeats the
+    kv heads first; the products are the same).
+    """
+    b, hq, _, dh = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = 1.0 / (dh ** 0.5)
+    kf = k_cache.to(torch.float32)
+    vf = v_cache.to(torch.float32)
+    qg = (q.to(torch.float32) * scale).reshape(b, hkv, group, dh)
+    scores = torch.matmul(qg, kf.transpose(-1, -2))     # (B, Hkv, group, S)
+    slots = torch.arange(s, device=q.device)
+    pos_t = torch.as_tensor(pos, device=q.device)
+    if pos_t.dim():
+        pos_b, slots = pos_t[:, None], slots[None, :]    # (B, 1) x (1, S)
+    else:
+        pos_b = pos_t
+    if window is None:
+        valid = slots <= pos_b                           # linear cache
+    elif cache_len > window:
+        valid = (slots <= pos_b) & (slots > pos_b - window)  # linear + SWA
+    else:
+        # rolling cache: slot holds absolute position p iff p = pos - ((pos -
+        # slot) mod S); valid iff within window and <= pos (always true once
+        # warm).  Entries beyond pos when cold (pos < S) are invalid.
+        abs_pos = pos_b - ((pos_b - slots) % s)
+        valid = (abs_pos >= 0) & (abs_pos > pos_b - window)
+    valid = (valid[:, None, None, :] if pos_t.dim()
+             else valid[None, None, None, :])
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.matmul(p, vf).reshape(b, hq, 1, dh)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Block apply
+# ---------------------------------------------------------------------------
+
+def make_kv_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                  dtype=torch.bfloat16, device=None
+                  ) -> Dict[str, torch.Tensor]:
+    """Rolling cache for SWA archs (window slots), linear otherwise."""
+    s = seq_len if cfg.swa_window is None else min(seq_len, cfg.swa_window)
+    shape = (batch, s, cfg.kv_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _positions(pos, b: int, lq: int, device) -> torch.Tensor:
+    if pos is None:
+        return torch.arange(lq, device=device)
+    pos_t = torch.as_tensor(pos, device=device).to(torch.int32)
+    if pos_t.dim():
+        # per-slot positions (continuous batching): (B, lq) rope
+        return pos_t[:, None].expand(b, lq)
+    return pos_t.reshape(1).expand(lq)
+
+
+def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    cfg: ModelConfig, *,
+                    kv_x: Optional[torch.Tensor] = None,
+                    causal: bool = True,
+                    positions: Optional[torch.Tensor] = None,
+                    cache: Optional[KV] = None,
+                    pos=None,
+                    collect_kv: bool = False,
+                    ) -> Tuple[torch.Tensor, Optional[KV]]:
+    """One self-attention block on per-layer (already unstacked) params.
+
+    x: (B, Lq, D).  With ``cache`` (decode): Lq == 1, the new K/V row is
+    written into the cache in place at ``pos`` (an int, or a ``(B,)``
+    tensor of per-slot positions) and attention runs over the cache.
+    With ``collect_kv`` (prefill) the rotated K / V come back as
+    ``(B, Lq, kv_dim)``.  Returns (out, cache_or_None).
+    """
+    if kv_x is not None:
+        raise NotImplementedError("cross-attention (kv_x) arrives with the "
+                                  "encdec/vlm slice")
+    if cfg.explicit_collectives:
+        raise NotImplementedError(
+            "explicit_collectives (explicit_tp) arrives with the mesh slice")
+    b, lq, _ = x.shape
+    compute = torch_dtype(cfg.dtype)
+
+    def heads(t, n):
+        return t.reshape(b, -1, n, cfg.head_dim).transpose(1, 2)
+
+    xq = x.to(compute)
+    q = xq @ p["wq"].to(compute)
+    k = xq @ p["wk"].to(compute)
+    v = xq @ p["wv"].to(compute)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(compute)
+        k = k + p["bk"].to(compute)
+        v = v + p["bv"].to(compute)
+    qh = heads(q, cfg.n_heads)                    # (B, Hq, Lq, dh)
+    kh = heads(k, cfg.n_kv_heads)
+    vh = heads(v, cfg.n_kv_heads)
+    if positions is None:
+        positions = _positions(pos, b, lq, x.device)
+    qh = common.rope(qh, positions, cfg.rope_theta)
+    kh = common.rope(kh, positions, cfg.rope_theta)
+
+    def from_cache(c):
+        return c.reshape(b, c.shape[1], cfg.n_kv_heads, cfg.head_dim
+                         ).transpose(1, 2).to(compute)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        s_cache = ck.shape[1]
+        k_flat = kh.transpose(1, 2).reshape(b, lq, cfg.kv_dim)
+        v_flat = vh.transpose(1, 2).reshape(b, lq, cfg.kv_dim)
+        pos_t = torch.as_tensor(pos)
+        if pos_t.dim():
+            # per-slot write positions: one row per batch lane
+            slot = pos_t.to(device=x.device, dtype=torch.long) % s_cache
+            rows = torch.arange(b, device=x.device)
+            ck[rows, slot] = k_flat[:, 0].to(ck.dtype)
+            cv[rows, slot] = v_flat[:, 0].to(cv.dtype)
+        else:
+            # the reference's dynamic_update_slice clamps the start so the
+            # update fits
+            slot = min(int(pos) % s_cache, s_cache - lq)
+            ck[:, slot:slot + lq] = k_flat.to(ck.dtype)
+            cv[:, slot:slot + lq] = v_flat.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv}
+        # rope for cached keys is applied at write time (above); a rolling
+        # cache stores *rotated* keys, which is fine because rope is
+        # absolute-position — each key was rotated at its own position.
+        out = _decode_attn(qh, from_cache(ck), from_cache(cv), pos=pos,
+                           window=cfg.swa_window, cache_len=s_cache)
+    else:
+        lkv = kh.shape[2]
+        window = cfg.swa_window
+        if qh.is_cuda:
+            out = ops.attention(qh, kh, vh, causal=causal, window=window)
+        elif lkv <= FULL_SCORES_MAX_LEN:
+            out = _full_scores_attn(qh, kh, vh, causal=causal,
+                                    window=window)
+        else:
+            out = _chunked_attn(qh, kh, vh, causal=causal, window=window)
+        if collect_kv:
+            # prefill: hand rotated K / V back for the decode cache
+            new_cache = {
+                "k": kh.transpose(1, 2).reshape(b, lkv, cfg.kv_dim),
+                "v": vh.transpose(1, 2).reshape(b, lkv, cfg.kv_dim),
+            }
+
+    out = out.transpose(1, 2).reshape(b, lq, cfg.q_dim)
+    return (out @ p["wo"].to(compute)).to(x.dtype), new_cache

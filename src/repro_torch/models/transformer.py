@@ -1,19 +1,182 @@
-"""The graph-expressible dense layer, in PyTorch.
+"""Model assembly and the public forward pass, dense family.
 
-The torch twin of the reference's
-``models/transformer.dense_layer_forward`` (the rest of that module — the
-full model forward — arrives with the models slice).
+The port of the reference's ``models/transformer.py`` for the dense
+family (decoder-only, uniform layers) and its graph-expressible layer
+oracle ``dense_layer_forward``.  Parameters are nested dicts of tensors
+with the reference's keys; per-layer leaves are stacked ``(L, ...)`` and
+the reference's ``scan`` over layers is a Python loop.  The other
+families raise ``NotImplementedError`` naming their slice: moe (the MoE
+slice), ssm and hybrid (the SSM/hybrid slice), encdec and vlm (the
+encdec/vlm slice).
+
+``compute_params`` casts the fp32 master weights to the compute dtype
+once (the reference casts them on every call; the values are the same),
+which the serving engines do when they are built.
 """
 from __future__ import annotations
 
 import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from ..compile.pipeline import torch_dtype
+from ..configs.base import ModelConfig
 from ..kernels import epilogue as epilogue_mod
 from ..kernels.ops import resolve_device
 from ..kernels.stt_gemm import _fp32_product
+from . import attention as attn
+from . import mlp as mlp_mod
+from .common import normal, ones_init, rmsnorm
+
+#: the family each later slice brings
+LATER_FAMILIES = {"moe": "MoE", "ssm": "SSM/hybrid", "hybrid": "SSM/hybrid",
+                  "encdec": "encdec/vlm", "vlm": "encdec/vlm"}
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    """Raise for a family this slice does not run."""
+    if cfg.family != "dense":
+        if cfg.family in LATER_FAMILIES:
+            raise NotImplementedError(
+                f"the {cfg.family} family arrives with the "
+                f"{LATER_FAMILIES[cfg.family]} slice")
+        raise ValueError(cfg.family)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
+    """fp32 master parameters on the generator's device, with the
+    reference's keys, shapes and initializer scales."""
+    require_dense(cfg)
+    d, L = cfg.d_model, cfg.n_layers
+    p: Dict[str, Any] = {
+        "embed": 0.02 * normal(gen, (cfg.vocab, d)),
+        "final_norm": ones_init(gen, (d,)),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = (1.0 / d ** 0.5) * normal(gen, (d, cfg.vocab))
+    p["layers"] = {
+        "ln1": ones_init(gen, (L, d)),
+        "ln2": ones_init(gen, (L, d)),
+        "attn": attn.init_attention(gen, cfg, L),
+        "ffn": mlp_mod.init_mlp(gen, cfg, L),
+    }
+    return p
+
+
+#: leaves that stay fp32 under ``compute_params``: the norm gains, which
+#: the reference multiplies in fp32, and the prepared output projection
+_FP32_LEAVES = ("ln1", "ln2", "final_norm", "w_out")
+
+
+def compute_params(params: Dict[str, Any], cfg: ModelConfig
+                   ) -> Dict[str, Any]:
+    """The parameters a serving engine runs: every weight cast to the
+    compute dtype once, the norm gains kept fp32, and ``w_out`` — the
+    output projection ``(d, vocab)`` rounded to the compute dtype and
+    held in fp32, the operand of the logits product.  The masters are
+    not changed."""
+    compute = torch_dtype(cfg.dtype)
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict) else
+                    v if k in _FP32_LEAVES else v.to(compute))
+                for k, v in tree.items()}
+
+    out = cast(params)
+    out["w_out"] = _w_out(params, cfg)
+    return out
+
+
+def _w_out(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+    w = params.get("w_out")
+    if w is None:
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        w = w.to(torch_dtype(cfg.dtype)).to(torch.float32)
+    return w
+
+
+def logits_from_hidden(params: Dict[str, Any], x: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """The output projection: x and the weights in the compute dtype,
+    products and sums in fp32, fp32 logits (the reference's
+    ``preferred_element_type=float32``)."""
+    xc = x.to(torch_dtype(cfg.dtype)).to(torch.float32)
+    return torch.matmul(xc, _w_out(params, cfg))
+
+
+def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
+            for k, v in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# blocks (params already unstacked)
+# ---------------------------------------------------------------------------
+
+def _dense_block(pl_, x, cfg, *, causal=True, collect_kv=False):
+    h, kv = attn.apply_attention(
+        pl_["attn"], rmsnorm(x, pl_["ln1"], cfg.norm_eps), cfg,
+        causal=causal, collect_kv=collect_kv)
+    x = x + h
+    h = mlp_mod.apply_mlp(pl_["ffn"], rmsnorm(x, pl_["ln2"], cfg.norm_eps),
+                          cfg)
+    return x + h, torch.zeros((), dtype=torch.float32, device=x.device), kv
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
+                   cfg: ModelConfig, *, collect_cache: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                              Optional[Dict[str, Any]]]:
+    """:func:`forward` up to the final norm: (hidden (B, S, D), aux_loss,
+    caches|None)."""
+    require_dense(cfg)
+    compute = torch_dtype(cfg.dtype)
+    x = params["embed"][tokens].to(compute)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for i in range(params["layers"]["ln1"].shape[0]):
+        x, aux_l, kv = _dense_block(layer_params(params["layers"], i), x,
+                                    cfg, collect_kv=collect_cache)
+        aux = aux + aux_l
+        if collect_cache:
+            ks.append(kv["k"])
+            vs.append(kv["v"])
+    caches = None
+    if collect_cache:
+        caches = {"self": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux, caches
+
+
+def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+            *, frontend: Optional[torch.Tensor] = None,
+            collect_cache: bool = False,
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
+    """tokens: (B, S) int -> (logits (B, S, V) fp32, aux_loss, caches|None).
+
+    With ``collect_cache`` the caches are ``{"self": {"k", "v"}}`` of
+    rotated K / V, ``(L, B, S, kv_dim)`` each.  ``frontend`` (the encdec/
+    vlm stub input) is not taken by the dense family."""
+    if frontend is not None:
+        raise NotImplementedError("frontend inputs arrive with the "
+                                  "encdec/vlm slice")
+    x, aux, caches = forward_hidden(params, tokens, cfg,
+                                    collect_cache=collect_cache)
+    return logits_from_hidden(params, x, cfg), aux, caches
+
+
+# ---------------------------------------------------------------------------
+# Graph-expressible layer oracle (dense family)
+# ---------------------------------------------------------------------------
 
 
 def dense_layer_forward(x, wq, wk, wv_t, wo, w1, b1, w2,

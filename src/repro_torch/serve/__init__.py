@@ -1,11 +1,31 @@
-"""Serving: accelerator serving on the port's front door.
+"""Serving: batched LM decode, continuous batching, accelerator serving.
 
-* ``engine`` — ``AcceleratorEngine`` (STT front door as a service).
+Layered like a real inference stack (the port of the reference's
+``serve`` package):
 
-The LM serving stack (decode, slots, pages, server) arrives with the
-models and serving slices.
+* ``engine``  — per-call engines: ``DecodeEngine`` (static batch, the
+  sequential parity oracle) and ``AcceleratorEngine`` (STT front door as
+  a service);
+* ``pages``   — paged decode cache (fixed-size pages, slot→page-table
+  indirection, shared pool) gathered by the paged-gather kernel; mesh
+  placement arrives with the mesh slice;
+* ``slots``   — fixed-capacity continuous-batching slot engine over the
+  paged cache (insert/evict without draining or rebuilding);
+* ``server``  — thread-safe async dispatch loop with per-request futures;
+* ``report``  — BENCH_serve.json schema + validator.
 """
-from . import engine
-from .engine import AcceleratorEngine
+from . import engine, pages, report, server, slots
+from .engine import AcceleratorEngine, DecodeEngine, ServeConfig
+from .pages import PagedKVCache, PageLayout, place_pools, solve_page_placement
+from .report import SERVE_SCHEMA_VERSION, serve_entry, validate_serve
+from .server import ContinuousServer, Request, RequestFuture
+from .slots import ResultTokens, SlotEngine
 
-__all__ = ["engine", "AcceleratorEngine"]
+__all__ = [
+    "engine", "pages", "report", "server", "slots",
+    "AcceleratorEngine", "DecodeEngine", "ServeConfig",
+    "PagedKVCache", "PageLayout", "place_pools", "solve_page_placement",
+    "SERVE_SCHEMA_VERSION", "serve_entry", "validate_serve",
+    "ContinuousServer", "Request", "RequestFuture",
+    "ResultTokens", "SlotEngine",
+]

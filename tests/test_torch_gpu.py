@@ -10,7 +10,10 @@ card and without JAX it runs on its own:
 Tolerances: integer-valued fp32 operands without an epilogue compare
 exactly (every sum stays below 2^24); fp32 epilogues to rtol 1e-5 and
 1e-5 of the largest output (the card's ``expf``/``tanhf`` against
-PyTorch's); bf16 to 2e-2 of the largest output, compared in fp32.
+PyTorch's); bf16 to 2e-2 of the largest output, compared in fp32.  The
+flash-attention kernel is held to its plain version within 1e-4 x
+max|out| in fp32 (other sum order, the card's ``expf``) and 2e-2 x
+max|out| in bf16; the paged gather, a copy, exactly.
 """
 import numpy as np
 import pytest
@@ -371,3 +374,140 @@ def test_graph_validate_on_card(cuda):
     assert acc.group_kernels
     assert acc.validate() <= 1e-3 + 1e-5 * np.abs(
         g.reference(g.random_operands(0))).max()
+
+
+# ---------------------------------------------------------------------------
+# the serving path's kernels (csrc/flash_attention.cu, csrc/paged.cu)
+# ---------------------------------------------------------------------------
+
+MASKS = {"causal": (True, None), "swa16": (True, 16), "cross": (False, None)}
+
+
+def _attn_inputs(b, hq, hkv, lq, lkv, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32)
+                            ).to(dtype)
+            for s in ((b, hq, lq, d), (b, hkv, lkv, d), (b, hkv, lkv, d))]
+
+
+def _attn_compare(got, want, dtype):
+    got, want = got.cpu().float(), want.float()
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("mask", list(MASKS))
+def test_flash_attention_kernel(cuda, mask, hq, hkv, d, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = MASKS[mask]
+    q, k, v = _attn_inputs(2, hq, hkv, 96, 96, d, dtype, seed=d + hq)
+    fa.reset_launches()
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1
+    want = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.launches["flash_attention"] == 1    # the CPU never launches
+    _attn_compare(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_attention_ragged_q_and_masked_rows_on_card(cuda, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    q, k, v = _attn_inputs(1, 2, 2, 50, 64, 16, dtype, seed=0)
+    got = ops.attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=True,
+                        bq=16, bkv=16)
+    assert got.shape == (1, 2, 50, 16)
+    _attn_compare(got, ref.attention_ref(q, k, v, causal=True), dtype)
+    # a window of 4 hides whole 64-column kv blocks from later q blocks
+    q, k, v = _attn_inputs(1, 1, 1, 200, 200, 80, dtype, seed=1)
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=True, window=4)
+    _attn_compare(got, ref.attention_ref(q, k, v, causal=True, window=4),
+                  dtype)
+
+
+def test_flash_attention_reads_strided_heads(cuda):
+    # the models hand over (B, L, H, D) storage viewed as (B, H, L, D)
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.standard_normal((2, 70, 12, 80)).astype(
+        np.float32))
+    q, k, v = (x[:, :, 0:8].transpose(1, 2), x[:, :, 8:10].transpose(1, 2),
+               x[:, :, 10:12].transpose(1, 2))
+    got = fa.flash_attention(*(t.to(cuda) for t in (q, k, v)))
+    _attn_compare(got, fa.flash_attention(q, k, v), torch.float32)
+
+
+@pytest.mark.parametrize("f", [15360, 48, 7])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_paged_gather_kernel_exact(cuda, dtype, f):
+    from repro_torch.kernels import paged
+    rng = np.random.default_rng(f)
+    pool = torch.as_tensor(rng.standard_normal((9, 4, f)).astype(
+        np.float32)).to(dtype)
+    table = torch.as_tensor(rng.integers(0, 8, (3, 5)).astype(np.int32))
+    table[1, 3:] = 8                       # unmapped: the scratch page
+    paged.reset_launches()
+    got = paged.paged_gather(pool.to(cuda), table.to(cuda))
+    torch.cuda.synchronize()
+    assert paged.launches["paged_gather"] == 1
+    want = paged.paged_gather(pool, table)
+    assert paged.launches["paged_gather"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_slot_engine_on_card_continuous_equals_one_at_a_time(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged
+    from repro_torch.models import init_params
+    from repro_torch.serve import SlotEngine
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    reqs = [(8, 6), (12, 4), (5, 8), (9, 3), (11, 6), (20, 10)]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (s,)).astype(np.int32)
+               for s, _ in reqs]
+    eng = SlotEngine(params, cfg, capacity=3, max_context=32, page_size=8,
+                     total_pages=8)
+    fa.reset_launches()
+    paged.reset_launches()
+    got = _drive(eng, prompts, reqs)
+    assert fa.launches["flash_attention"] > 0
+    assert paged.launches["paged_gather"] > 0
+    for i, (p, (_, t)) in enumerate(zip(prompts, reqs)):
+        alone = _drive(eng, [p], [(len(p), t)])[0]
+        np.testing.assert_array_equal(got[i], alone)
+    assert eng.decode_compiles == 1
+
+
+def _drive(eng, prompts, reqs):
+    """Queue -> insert/step/evict until every request finished."""
+    got, queue, resident, left = {}, list(range(len(reqs))), {}, {}
+    while queue or resident:
+        while queue and eng.free_slots():
+            i = queue[0]
+            res = eng.insert(prompts[i], max_new_tokens=reqs[i][1])
+            if res is None:
+                break
+            queue.pop(0)
+            slot, tok = res
+            got[i] = [tok]
+            resident[slot], left[slot] = i, reqs[i][1] - 1
+        r = eng.step()
+        for slot, i in list(resident.items()):
+            if r.valid_at(slot):
+                got[i].append(r.token_at(slot))
+                left[slot] -= 1
+            if left[slot] == 0:
+                eng.evict(slot)
+                del resident[slot], left[slot]
+    return [np.asarray(got[i], np.int32) for i in range(len(reqs))]

@@ -20,7 +20,13 @@ MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.graph.planner", "repro_torch.graph.executor",
            "repro_torch.graph.from_model", "repro_torch.models.chains",
            "repro_torch.models.transformer", "repro_torch.configs",
-           "repro_torch.configs.registry")
+           "repro_torch.configs.registry", "repro_torch.kernels.paged",
+           "repro_torch.kernels.flash_attention", "repro_torch.models",
+           "repro_torch.models.common", "repro_torch.models.mlp",
+           "repro_torch.models.attention", "repro_torch.models.decode",
+           "repro_torch.serve", "repro_torch.serve.pages",
+           "repro_torch.serve.slots", "repro_torch.serve.server",
+           "repro_torch.serve.report")
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"
@@ -178,4 +184,38 @@ def test_fused_cuda_tensor_raises_not_falls_back(monkeypatch, entry):
             fused_chain.fused_dag(
                 [x, torch.ones(8, 6)],
                 stages=[fused_chain.DagStage(4, 8, 6, rhs=("ext", 1))])
+    assert calls == []
+
+
+def test_serving_entry_points_raise_without_cuda_and_device():
+    _require_no_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import DecodeEngine, PagedKVCache, SlotEngine
+    cfg = get_config("granite-8b").reduced()
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    template = {"self": {"k": torch.empty((1, 2, 8, 4), device="meta")}}
+    for call in (lambda: DecodeEngine(params, cfg),
+                 lambda: SlotEngine(params, cfg),
+                 lambda: PagedKVCache(template, capacity=2, page_size=4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_paged_gather_cuda_tensor_raises_not_falls_back(monkeypatch):
+    from repro_torch.kernels import paged
+    calls = _no_plain(monkeypatch, paged, ["paged_gather_plain"])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        paged.paged_gather(torch.ones(3, 2, 4),
+                           torch.zeros(2, 2, dtype=torch.int32))
+    assert calls == []
+
+
+def test_flash_attention_cuda_tensor_raises_not_falls_back(monkeypatch):
+    from repro_torch.kernels import flash_attention, ops
+    calls = _no_plain(monkeypatch, flash_attention,
+                      ["flash_attention_plain"])
+    q = torch.ones(1, 2, 8, 16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.attention(q, q, q, causal=True)
     assert calls == []
