@@ -71,9 +71,30 @@ each of which fails the run (non-zero exit) when it fails:
    cuBLAS picks kernels by shape, so batch-1 and batch-8 products may
    round apart.  Per-step and per-prefill times, both kernels' times
    beside their bounds, plain versions and library calls, and one traced
-   decode step and prefill are reported.
+   decode step and prefill are reported;
+11. serving the SSM families at full width and depth (``SSM_SERVE``):
+   zamba2-1.2b (38 Mamba-2 layers, the shared attention+MLP block after
+   every 6, bf16) over ``SlotEngine(capacity=8, max_context=2048,
+   page_size=16, total_pages=512)`` answering 16 greedy requests of the
+   same traffic (numpy seed 0), and mamba2-370m (48 layers, state 128,
+   no paged leaf: one page a slot) answering 8 (seed 1), each from 4
+   threads through ``ContinuousServer``.  Every prefill runs the SSD-scan
+   kernel in each SSM layer; zamba2's shared block runs flash attention
+   in prefill and gathers its paged K/V every decode step.  The three
+   launch counts are zeroed before each server run and read after it
+   (zamba2: all three above 0; mamba2: the SSD scan).  Checks (a)–(c) as
+   in phase 10 ((b) on the prefill logits and the first token); for
+   zamba2 (d) the gather bit-exact at the shared pool and (e) flash at
+   the shared block's heads (D = 64, 32 heads, no GQA) within phase 10's
+   tolerances; (f) the SSD kernel against its plain version at each
+   model's longest prefill and at a ragged chunk (Q = 37), y and the
+   final state within 1e-4 x max|.| (other sum order and scan
+   association, ``expf``).  Step, prefill and SSD times, tokens per
+   second, and one traced decode step and prefill per model are
+   reported.
 
-Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line,
+Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
+(nine rows, one per kernel),
 and, last, ``{"ok": true, "device": {...}}``.  Per-case times go to
 ``results/chip_smoke/chip_smoke_cases.json`` (gitignored), each with one
 more call traced by ``torch.profiler``: the device time of the port's
@@ -140,13 +161,21 @@ GRAPH_MODEL = "h2o-danube-1.8b"
 GRAPH_BUDGET = 512 << 20
 #: the port's kernels, by the names the profiler reports
 OUR_KERNELS = ("os_kernel<", "ws_kernel<", "rt_kernel<", "bsr_kernel<",
-               "stages_kernel<", "gather_kernel<", "flash_kernel<")
+               "stages_kernel<", "gather_kernel<", "flash_kernel<",
+               "ssd_kernel")
 #: the serve phase: model, slot engine, traffic
 SERVE_MODEL = "h2o-danube-1.8b"
 SERVE_ENGINE = dict(capacity=8, max_context=2048, page_size=16,
                     total_pages=512)
 SERVE_REQUESTS, SERVE_THREADS = 16, 4
 PROMPT_LENS, NEW_TOKENS = (128, 1536), (16, 64)
+#: the SSM serve phase: (model, its depth, requests, numpy seed, engine)
+SSM_SERVE = (
+    ("zamba2-1.2b", 38, 16, 0, dict(capacity=8, max_context=2048,
+                                    page_size=16, total_pages=512)),
+    ("mamba2-370m", 48, 8, 1, dict(capacity=8, max_context=2048,
+                                   page_size=16)),
+)
 
 
 def check(cond: bool, what: str) -> None:
@@ -230,40 +259,29 @@ def device_breakdown(fn, top: int = 8):
                         for k, ms, n in rows[:top]]}
 
 
-def serve_phase(check):
-    """Phase 10: LM serving at full width and depth on the paged-gather
-    and flash-attention kernels.  Returns (kernel rows, summary)."""
+def serve_traffic(n, seed, vocab):
+    """``n`` requests: prompts uniform in ``PROMPT_LENS`` tokens, new
+    tokens uniform in ``NEW_TOKENS``, from numpy seed ``seed``.  Returns
+    (the generator, for later draws; lens; news; prompts)."""
     import numpy as np
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.configs.registry import get_config
-    from repro_torch.core import hopper
-    from repro_torch.kernels import flash_attention, ops, paged, ref
-    from repro_torch.models import decode as lm_decode
-    from repro_torch.models import init_params
-    from repro_torch.serve import ContinuousServer, DecodeEngine, SlotEngine
-
-    dev = torch.device("cuda")
-    lm = get_config(SERVE_MODEL)
-    check(lm.n_layers == 24 and lm.dtype == "bfloat16",
-          f"{SERVE_MODEL}: not full depth in bf16")
-    t0 = time.perf_counter()
-    params = init_params(torch.Generator(device=dev).manual_seed(0), lm)
-    eng = SlotEngine(params, lm, **SERVE_ENGINE)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    n = SERVE_REQUESTS
+    rng = np.random.default_rng(seed)
     lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, n)
     news = rng.integers(NEW_TOKENS[0], NEW_TOKENS[1] + 1, n)
-    prompts = [rng.integers(0, lm.vocab, (int(s),)).astype(np.int32)
+    prompts = [rng.integers(0, vocab, (int(s),)).astype(np.int32)
                for s in lens]
+    return rng, lens, news, prompts
 
-    # the main path: 16 requests from 4 threads through the server
+
+def run_server(eng, prompts, news, check):
+    """Every request through a ``ContinuousServer`` over ``eng``, submitted
+    from ``SERVE_THREADS`` client threads.  Returns (tokens per request,
+    seconds, server stats, mean occupancy)."""
+    import torch
+
+    from repro_torch.serve import ContinuousServer
+
+    n = len(prompts)
     futures = [None] * n
-    flash_attention.reset_launches()
-    paged.reset_launches()
     t0 = time.perf_counter()
     with ContinuousServer(eng) as server:
         def client(ids):
@@ -278,28 +296,26 @@ def serve_phase(check):
         for t in threads:
             t.join(timeout=60)
         check(not any(t.is_alive() for t in threads), "a client hung")
-        server.drain(timeout=300)
+        server.drain(timeout=600)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {**paged.launches, **flash_attention.launches}
     served = [f.result(timeout=1) for f in futures]
-    for name, count in launches.items():
-        check(count > 0, f"the serve path never launched {name}")
-    stats = dict(server.stats)
     n_tokens = sum(len(s) for s in served)
     check(n_tokens == int(news.sum()), f"served {n_tokens} tokens, "
           f"expected {int(news.sum())}")
-    print(f"serve: {n} requests ({n_tokens} tokens) in {serve_s:.2f} s, "
-          f"{n_tokens / serve_s:.1f} tok/s; steps {stats['steps']}, mean "
-          f"occupancy {server.mean_occupancy():.2f}, admission stalls "
-          f"{stats['admission_stalls']}; launches {launches}")
+    return served, serve_s, dict(server.stats), server.mean_occupancy()
 
-    # (a) continuous == one at a time on the same engine, timed
+
+def serve_alone(eng, prompts, news, served, check):
+    """Checks (a) and (c): each request served alone on the same engine
+    gives its continuous tokens; the decode step was built once.  Returns
+    (step ms, [(prompt length, prefill ms)]), host clock."""
+    import numpy as np
     step_ms, prefill_ms = [], []
-    for i in range(n):
+    for i, prompt in enumerate(prompts):
         t = time.perf_counter()
-        res = eng.insert(prompts[i], max_new_tokens=int(news[i]))
-        prefill_ms.append((int(lens[i]), (time.perf_counter() - t) * 1e3))
+        res = eng.insert(prompt, max_new_tokens=int(news[i]))
+        prefill_ms.append((len(prompt), (time.perf_counter() - t) * 1e3))
         check(res is not None, f"request {i} not admitted alone")
         slot, tok = res
         toks = [tok]
@@ -312,26 +328,133 @@ def serve_phase(check):
         check(np.array_equal(np.asarray(toks, np.int32), served[i]),
               f"(a) request {i}: continuous tokens differ from the same "
               f"engine serving it alone")
-    # (c)
     check(eng.decode_compiles == 1,
           f"(c) decode_compiles {eng.decode_compiles}")
+    return step_ms, prefill_ms
+
+
+def check_prefill(eng, de, lm, prompts, news, served, check, *, full):
+    """Check (b): the slot engine's prefill logits equal
+    ``DecodeEngine``'s and so does its first token.  With ``full`` the
+    whole ``DecodeEngine`` generation runs (batch 1, cache at the slot
+    engine's context) and the first step where it leaves the continuous
+    tokens is returned per request (None: all agree); printed, not
+    gated."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode as lm_decode
+
+    dev = torch.device("cuda")
+    max_context = eng.max_context
+    diverge = []
+    for i, prompt in enumerate(prompts):
+        toks = torch.as_tensor(prompt, device=dev).long()[None]
+        with torch.no_grad():
+            la = lm_decode.prefill(eng.params, toks, lm,
+                                   max_len=max_context)[0]
+            lb = lm_decode.prefill(de.params, toks, lm,
+                                   max_len=max_context)[0]
+        check(torch.equal(la, lb), f"(b) request {i}: prefill logits of "
+              f"the slot engine and DecodeEngine differ")
+        want = de.generate(prompt[None],
+                           max_new_tokens=int(news[i]) if full else 1,
+                           cache_len=max_context)[0][0]
+        check(want[0] == served[i][0], f"(b) request {i}: first token "
+              f"{served[i][0]} != DecodeEngine's {want[0]}")
+        if full:
+            d = np.flatnonzero(want != served[i])
+            diverge.append(int(d[0]) if d.size else None)
+    return diverge
+
+
+def trace_step_and_prefill(eng, lm, prompts, lens, check):
+    """Fill every slot, then one decode step and the longest prompt's
+    prefill, each on the host clock and once more traced."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import decode as lm_decode
+
+    for i in range(eng.capacity):
+        check(eng.insert(prompts[i][:128], max_new_tokens=64) is not None,
+              "could not fill the batch for the traced step")
+    eng.step()
+    step_prof = device_breakdown(eng.step)
+    pre = torch.as_tensor(prompts[int(np.argmax(lens))],
+                          device=torch.device("cuda")).long()[None]
+    with torch.no_grad():
+        pre_prof = device_breakdown(lambda: lm_decode.prefill(
+            eng.params, pre, lm, max_len=eng.max_context))
+    for slot in eng.live_slots():
+        eng.evict(slot)
+    return step_prof, pre_prof
+
+
+def report_times(tag, step_ms, prefill_ms, step_prof, pre_prof, max_len):
+    import numpy as np
+    steps = np.asarray(step_ms)
+    print(f"{tag}: decode step call_ms mean {steps.mean():.3f} p50 "
+          f"{np.median(steps):.3f} p90 {np.percentile(steps, 90):.3f} "
+          f"(n={steps.size}); prefill call_ms "
+          + ", ".join(f"L={s}: {ms:.2f}" for s, ms in sorted(prefill_ms)))
+    for label, prof in (("decode step", step_prof),
+                        (f"prefill L={max_len}", pre_prof)):
+        if prof["device_ms"] is None:
+            print(f"  traced {label}: no device events")
+            continue
+        print(f"  traced {label}: call {prof['call_ms']:.3f} ms, device "
+              f"{prof['device_ms']:.3f} ms, busy {prof['busy_share']:.2f}")
+        for kr in prof["kernels"]:
+            print(f"    {kr['ms']:8.3f} ms x{kr['count']:<4d} {kr['name']}")
+    return {"mean": float(steps.mean()), "p50": float(np.median(steps)),
+            "p90": float(np.percentile(steps, 90)), "n": int(steps.size)}
+
+
+def serve_phase(check):
+    """Phase 10: LM serving at full width and depth on the paged-gather
+    and flash-attention kernels.  Returns (kernel rows, summary)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import hopper
+    from repro_torch.kernels import flash_attention, paged
+    from repro_torch.models import init_params
+    from repro_torch.serve import DecodeEngine, SlotEngine
+
+    dev = torch.device("cuda")
+    lm = get_config(SERVE_MODEL)
+    check(lm.n_layers == 24 and lm.dtype == "bfloat16",
+          f"{SERVE_MODEL}: not full depth in bf16")
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), lm)
+    eng = SlotEngine(params, lm, **SERVE_ENGINE)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = SERVE_REQUESTS
+    rng, lens, news, prompts = serve_traffic(n, 0, lm.vocab)
+
+    # the main path: 16 requests from 4 threads through the server
+    flash_attention.reset_launches()
+    paged.reset_launches()
+    served, serve_s, stats, occupancy = run_server(eng, prompts, news, check)
+    launches = {**paged.launches, **flash_attention.launches}
+    for name, count in launches.items():
+        check(count > 0, f"the serve path never launched {name}")
+    n_tokens = int(news.sum())
+    print(f"serve: {n} requests ({n_tokens} tokens) in {serve_s:.2f} s, "
+          f"{n_tokens / serve_s:.1f} tok/s; steps {stats['steps']}, mean "
+          f"occupancy {occupancy:.2f}, admission stalls "
+          f"{stats['admission_stalls']}; launches {launches}")
+
+    # (a), (c): continuous == one at a time on the same engine, timed
+    step_ms, prefill_ms = serve_alone(eng, prompts, news, served, check)
 
     # (b) prefill == DecodeEngine's; full agreement printed
     de = DecodeEngine(params, lm)
-    diverge = []
-    for i in range(n):
-        toks = torch.as_tensor(prompts[i], device=dev).long()[None]
-        with torch.no_grad():
-            la = lm_decode.prefill(eng.params, toks, lm, max_len=2048)[0]
-            lb = lm_decode.prefill(de.params, toks, lm, max_len=2048)[0]
-        check(torch.equal(la, lb), f"(b) request {i}: prefill logits of "
-              f"the slot engine and DecodeEngine differ")
-        want = de.generate(prompts[i][None], max_new_tokens=int(news[i]),
-                           cache_len=SERVE_ENGINE["max_context"])[0][0]
-        check(want[0] == served[i][0], f"(b) request {i}: first token "
-              f"{served[i][0]} != DecodeEngine's {want[0]}")
-        d = np.flatnonzero(want != served[i])
-        diverge.append(int(d[0]) if d.size else None)
+    diverge = check_prefill(eng, de, lm, prompts, news, served, check,
+                            full=True)
     agree = sum(d is None for d in diverge)
     print(f"serve checks: (a) continuous == alone for {n} requests, (b) "
           f"prefill logits and first token == DecodeEngine, (c) "
@@ -339,70 +462,24 @@ def serve_phase(check):
           f"for {agree}/{n}, first divergent step {diverge}")
     del de
 
-    # (d) the gather kernel at the serve shape, bit for bit, on the table
-    # the engine holds with the first 8 requests resident: each slot's
-    # pages drawn from a permutation of the pool, the rest on the scratch
-    path = ("self", "k")
-    pool = eng.cache.pools[path]
-    lay = eng.cache.layout
-    free = rng.permutation(lay.total_pages).tolist()
-    table_np = np.full((lay.capacity, lay.pages_per_slot), lay.scratch_page,
-                       np.int32)
-    for c in range(lay.capacity):
-        need = min(eng.cache.pages_needed(int(lens[c] + news[c])), len(free))
-        table_np[c, :need] = [free.pop() for _ in range(need)]
-    table = torch.as_tensor(table_np, device=dev)
-    got = paged.paged_gather(pool, table)
-    want = paged.paged_gather_plain(pool, table)
-    check(torch.equal(got, want), "(d) paged gather differs from plain")
-    # the bytes this table needs: each distinct page read once, the view
-    # written once
-    page_bytes = pool[0].numel() * pool.element_size()
-    nbytes = (len(np.unique(table_np)) * page_bytes
-              + got.numel() * got.element_size() + table_np.nbytes)
-    roof = hopper.RooflineTerms("paged gather", 0.0, float(nbytes),
-                                dtype="bfloat16")
-    rows = [{
-        "name": "paged.paged_gather", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged.cu",
-        "replaces": "src/repro/kernels/paged.py:46",
-        "launches": launches["paged_gather"], "max_abs_err": 0.0,
-        "ms": event_ms(lambda: paged.paged_gather(pool, table), 20),
-        "plain_ms": event_ms(lambda: paged.paged_gather_plain(pool, table),
-                             20),
-        "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
-        "library_ms": event_ms(
-            lambda: pool.index_select(0, table.flatten().long()), 20),
-        "shape": f"pool {tuple(pool.shape)} bf16, table "
-                 f"{tuple(table.shape)}, {len(np.unique(table_np))} distinct "
-                 f"pages"}]
-    del got, want
+    # (d) the gather kernel at the serve shape, bit for bit
+    gather_row = gather_check(eng, ("self", "k"), lens, news, rng, check)
+    gather_row["launches"] = launches["paged_gather"]
+    rows = [gather_row]
+    print(f"serve checks: (d) gather == plain bit for bit at "
+          f"{tuple(eng.cache.pools[('self', 'k')].shape)}")
 
     # (e) flash attention against attention_ref
     g = torch.Generator(device=dev).manual_seed(3)
     hq, hkv, d = lm.n_heads, lm.n_kv_heads, lm.head_dim
+    worst = flash_check(lm, ((int(lens.min()), None),
+                             (int(lens.max()), None), (1024, 100)),
+                        g, check)
 
     def qkv(length, dtype):
         return [torch.randn((1, h, length, d), generator=g, device=dev
                             ).to(dtype) for h in (hq, hkv, hkv)]
 
-    worst = {}
-    for length, window in ((int(lens.min()), None), (int(lens.max()), None),
-                           (1024, 100)):
-        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
-            q, k, v = qkv(length, dtype)
-            out = ops.attention(q, k, v, causal=True, window=window).float()
-            want = ref.attention_ref(q, k, v, causal=True,
-                                     window=window).float()
-            err = (out - want).abs().max().item()
-            scale = want.abs().max().item()
-            check(bool(torch.isfinite(out).all()) and err <= tol * scale,
-                  f"(e) flash L={length} window={window} {dtype}: max err "
-                  f"{err} beyond {tol} x {scale}")
-            worst[f"L={length} w={window} {str(dtype)[6:]}"] = err
-    print(f"serve checks: (d) gather == plain bit for bit at "
-          f"{tuple(pool.shape)}; (e) flash vs attention_ref max err "
-          f"{worst}")
     length = int(lens.max())
     q, k, v = qkv(length, torch.bfloat16)
     got = flash_attention.flash_attention(q, k, v, causal=True)
@@ -428,42 +505,287 @@ def serve_phase(check):
                  f"{d}) bf16, causal"})
 
     # one decode step at full occupancy and one prefill, traced
-    for i in range(SERVE_ENGINE["capacity"]):
-        check(eng.insert(prompts[i][:128], max_new_tokens=64) is not None,
-              "could not fill the batch for the traced step")
-    eng.step()
-    step_prof = device_breakdown(eng.step)
-    pre = torch.as_tensor(prompts[int(np.argmax(lens))], device=dev
-                          ).long()[None]
-    with torch.no_grad():
-        pre_prof = device_breakdown(lambda: lm_decode.prefill(
-            eng.params, pre, lm, max_len=2048))
-    steps = np.asarray(step_ms)
+    step_prof, pre_prof = trace_step_and_prefill(eng, lm, prompts, lens,
+                                                 check)
+    steps = report_times("serve", step_ms, prefill_ms, step_prof, pre_prof,
+                         int(lens.max()))
     summary = {
         "setup_s": setup_s, "serve_s": serve_s, "tokens": n_tokens,
         "tok_per_s": n_tokens / serve_s, "server_stats": stats,
-        "mean_occupancy": server.mean_occupancy(),
-        "decode_step_ms": {"mean": float(steps.mean()),
-                           "p50": float(np.median(steps)),
-                           "p90": float(np.percentile(steps, 90)),
-                           "n": int(steps.size)},
+        "mean_occupancy": occupancy, "decode_step_ms": steps,
         "prefill_ms": prefill_ms, "diverge": diverge,
         "flash_errs": worst, "traced_step": step_prof,
         "traced_prefill": {"len": int(lens.max()), **pre_prof}}
-    print(f"serve: decode step call_ms mean {steps.mean():.3f} p50 "
-          f"{np.median(steps):.3f} p90 {np.percentile(steps, 90):.3f} "
-          f"(n={steps.size}); prefill call_ms "
-          + ", ".join(f"L={s}: {ms:.2f}" for s, ms in sorted(prefill_ms)))
-    for label, prof in (("decode step", step_prof),
-                        (f"prefill L={int(lens.max())}", pre_prof)):
-        if prof["device_ms"] is None:
-            print(f"  traced {label}: no device events")
-            continue
-        print(f"  traced {label}: call {prof['call_ms']:.3f} ms, device "
-              f"{prof['device_ms']:.3f} ms, busy {prof['busy_share']:.2f}")
-        for kr in prof["kernels"]:
-            print(f"    {kr['ms']:8.3f} ms x{kr['count']:<4d} {kr['name']}")
     return rows, summary
+
+
+def gather_check(eng, path, lens, news, rng, check):
+    """Check (d): the gather kernel equals its plain version bit for bit
+    on the pool of ``path``, with a table like the engine's with the
+    first ``capacity`` requests resident (each slot's pages drawn from a
+    permutation of the pool, the rest on the scratch page).  Returns the
+    gather's kernel row without ``launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import hopper
+    from repro_torch.kernels import paged
+
+    pool = eng.cache.pools[path]
+    lay = eng.cache.layout
+    free = rng.permutation(lay.total_pages).tolist()
+    table_np = np.full((lay.capacity, lay.pages_per_slot), lay.scratch_page,
+                       np.int32)
+    for c in range(lay.capacity):
+        need = min(eng.cache.pages_needed(int(lens[c] + news[c])), len(free))
+        table_np[c, :need] = [free.pop() for _ in range(need)]
+    table = torch.as_tensor(table_np, device=pool.device)
+    got = paged.paged_gather(pool, table)
+    want = paged.paged_gather_plain(pool, table)
+    check(torch.equal(got, want),
+          f"(d) paged gather differs from plain on {path}")
+    # the bytes this table needs: each distinct page read once, the view
+    # written once
+    page_bytes = pool[0].numel() * pool.element_size()
+    nbytes = (len(np.unique(table_np)) * page_bytes
+              + got.numel() * got.element_size() + table_np.nbytes)
+    roof = hopper.RooflineTerms("paged gather", 0.0, float(nbytes),
+                                dtype="bfloat16")
+    return {
+        "name": "paged.paged_gather", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged.cu",
+        "replaces": "src/repro/kernels/paged.py:46",
+        "max_abs_err": 0.0,
+        "ms": event_ms(lambda: paged.paged_gather(pool, table), 20),
+        "plain_ms": event_ms(lambda: paged.paged_gather_plain(pool, table),
+                             20),
+        "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
+        "library_ms": event_ms(
+            lambda: pool.index_select(0, table.flatten().long()), 20),
+        "shape": f"pool {tuple(pool.shape)} bf16, table "
+                 f"{tuple(table.shape)}, {len(np.unique(table_np))} distinct "
+                 f"pages"}
+
+
+def flash_check(lm, cases, g, check):
+    """Check (e): the flash kernel (through ``ops.attention``) against
+    ``attention_ref`` at ``lm``'s heads for each (length, window): bf16
+    within 2e-2 x max|out|, fp32 within 1e-4 x max|out| (other sum order
+    and ``expf``).  Returns the max error per case."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    hq, hkv, d = lm.n_heads, lm.n_kv_heads, lm.head_dim
+    worst = {}
+    for length, window in cases:
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+            q, k, v = [torch.randn((1, h, length, d), generator=g,
+                                   device=dev).to(dtype)
+                       for h in (hq, hkv, hkv)]
+            out = ops.attention(q, k, v, causal=True, window=window).float()
+            want = ref.attention_ref(q, k, v, causal=True,
+                                     window=window).float()
+            err = (out - want).abs().max().item()
+            scale = want.abs().max().item()
+            check(bool(torch.isfinite(out).all()) and err <= tol * scale,
+                  f"(e) flash L={length} window={window} {dtype}: max err "
+                  f"{err} beyond {tol} x {scale}")
+            worst[f"L={length} w={window} {str(dtype)[6:]}"] = err
+    print(f"serve checks: (e) {lm.name} flash vs attention_ref max err "
+          f"{worst}")
+    return worst
+
+
+def ssd_operands(bsz, length, lm, g):
+    """Random SSD operands at ``lm``'s heads and state, on the card:
+    x, B and C (per group) standard normal, dt in [0.1, 1) and a in
+    (-1.5, -0.5], the model's ranges."""
+    import torch
+    dev = torch.device("cuda")
+    h, p = lm.ssm_heads, lm.ssm_head_dim
+    gr, n = lm.ssm_groups, lm.ssm_state
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    return (randn(bsz, length, h, p), 0.1 + 0.9 * rand(bsz, length, h),
+            -0.5 - rand(h), randn(bsz, length, gr, n),
+            randn(bsz, length, gr, n))
+
+
+def ssd_check(lm, cases, g, check):
+    """Check (f): the SSD kernel against its plain version
+    ``ref.ssd_chunked_ref`` at each (length, chunk) of ``cases``: y and
+    the final state within 1e-4 x max|.| in fp32 (other sum order and
+    scan association, the card's ``expf``).  Returns the max error
+    relative to max|.| per case."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+
+    worst = {}
+    for length, chunk in cases:
+        args = ssd_operands(1, length, lm, g)
+        got = ssd_scan.ssd_scan(*args, chunk=chunk)
+        want = ref.ssd_chunked_ref(*args, chunk=chunk)
+        rel = []
+        for name, gv, wv in zip(("y", "state"), got, want):
+            err = (gv - wv).abs().max().item()
+            scale = wv.abs().max().item()
+            check(bool(torch.isfinite(gv).all()) and err <= 1e-4 * scale,
+                  f"(f) ssd_scan {lm.name} L={length} chunk={chunk} "
+                  f"{name}: max err {err} beyond 1e-4 x {scale}")
+            rel.append(err / scale)
+        worst[f"L={length} Q={chunk} N={lm.ssm_state}"] = max(rel)
+    print(f"ssm serve checks: (f) {lm.name} ssd_scan vs plain, max err / "
+          f"max|.| {worst}")
+    return worst
+
+
+def ssd_roofline(bsz, length, chunk, lm):
+    """The SSD's least time on the card (fp32 on the CUDA cores).  Per
+    chunk, C B^T's lower triangle is needed once per group, Q(Q+1)/2 N
+    multiply-adds; per head, its masked product with x Q(Q+1)/2 P, and
+    the inter-chunk term and the state update Q N P each; the prep folds
+    dt into x and forms dt * a, one multiply an element.  Bytes are x,
+    dt, a, y, B and C per group, and the final state, each once."""
+    from repro_torch.core import hopper
+    h, p = lm.ssm_heads, lm.ssm_head_dim
+    gr, n = lm.ssm_groups, lm.ssm_state
+    q, nc = chunk, length // chunk
+    tri = q * (q + 1) // 2
+    macs = bsz * nc * (gr * tri * n + h * (tri * p + 2 * q * n * p))
+    prep = bsz * length * h * (p + 1)
+    nbytes = 4.0 * (bsz * (2 * length * h * p + length * h
+                           + 2 * length * gr * n + h * n * p) + h)
+    return hopper.RooflineTerms("ssd scan", 2.0 * macs + prep, nbytes,
+                                dtype="float32")
+
+
+def ssm_serve_phase(check):
+    """Phase 11: serving the hybrid (zamba2-1.2b) and the pure SSM
+    (mamba2-370m) at full width and depth, on the SSD-scan, flash and
+    paged-gather kernels.  Returns (the ssd_scan kernel row, summary)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention, paged, ref, ssd_scan
+    from repro_torch.models import init_params
+    from repro_torch.serve import DecodeEngine, SlotEngine
+
+    dev = torch.device("cuda")
+    summary, ssd_launches, timed = {}, 0, None
+    for model, depth, n, seed, engine_kw in SSM_SERVE:
+        lm = get_config(model)
+        check(lm.n_layers == depth and lm.dtype == "bfloat16",
+              f"{model}: not full depth in bf16")
+        t0 = time.perf_counter()
+        params = init_params(torch.Generator(device=dev).manual_seed(0), lm)
+        eng = SlotEngine(params, lm, **engine_kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        rng, lens, news, prompts = serve_traffic(n, seed, lm.vocab)
+        hybrid = lm.family == "hybrid"
+
+        # the main path: the requests from 4 threads through the server
+        ssd_scan.reset_launches()
+        flash_attention.reset_launches()
+        paged.reset_launches()
+        served, serve_s, stats, occupancy = run_server(eng, prompts, news,
+                                                       check)
+        launches = {**ssd_scan.launches, **flash_attention.launches,
+                    **paged.launches}
+        must = (launches if hybrid else ssd_scan.launches)
+        for name, count in must.items():
+            check(count > 0, f"the {model} serve path never launched {name}")
+        ssd_launches += launches["ssd_scan"]
+        n_tokens = int(news.sum())
+        print(f"ssm serve {model}: {n} requests ({n_tokens} tokens) in "
+              f"{serve_s:.2f} s, {n_tokens / serve_s:.1f} tok/s; steps "
+              f"{stats['steps']}, mean occupancy {occupancy:.2f}, admission "
+              f"stalls {stats['admission_stalls']}; launches {launches}; "
+              f"paged leaves {[p for p, _ in eng.cache.layout.paged]}, "
+              f"pages per slot {eng.cache.layout.pages_per_slot}")
+
+        # (a), (c); (b) on the prefill logits and the first token
+        step_ms, prefill_ms = serve_alone(eng, prompts, news, served, check)
+        de = DecodeEngine(params, lm)
+        check_prefill(eng, de, lm, prompts, news, served, check, full=False)
+        del de
+        print(f"ssm serve checks {model}: (a) continuous == alone for {n} "
+              f"requests, (b) prefill logits and first token == "
+              f"DecodeEngine, (c) decode_compiles 1")
+
+        part = {"setup_s": setup_s, "serve_s": serve_s, "tokens": n_tokens,
+                "tok_per_s": n_tokens / serve_s, "server_stats": stats,
+                "mean_occupancy": occupancy, "launches": launches,
+                "prefill_ms": prefill_ms}
+        g = torch.Generator(device=dev).manual_seed(3)
+        if hybrid:
+            # (d) the gather at the shared pool; (e) flash at the shared
+            # block's heads
+            row = gather_check(eng, ("shared", "k"), lens, news, rng, check)
+            part["gather_ms"] = row["ms"]
+            print(f"ssm serve checks {model}: (d) gather == plain bit for "
+                  f"bit at {tuple(eng.cache.pools[('shared', 'k')].shape)}")
+            part["flash_errs"] = flash_check(
+                lm, ((int(lens.min()), None), (int(lens.max()), None)), g,
+                check)
+        # (f) the SSD kernel at the longest prefill and a ragged chunk
+        longest = -(-int(lens.max()) // lm.ssm_chunk) * lm.ssm_chunk
+        part["ssd_errs"] = ssd_check(lm, ((longest, lm.ssm_chunk),
+                                          (3 * 37, 37)), g, check)
+        args = ssd_operands(1, longest, lm, g)
+        roof = ssd_roofline(1, longest, lm.ssm_chunk, lm)
+        got = ssd_scan.ssd_scan(*args, chunk=lm.ssm_chunk)
+        want = ref.ssd_chunked_ref(*args, chunk=lm.ssm_chunk)
+        part["ssd"] = {
+            "shape": f"x (1, {longest}, {lm.ssm_heads}, "
+                     f"{lm.ssm_head_dim}), b/c (1, {longest}, "
+                     f"{lm.ssm_groups}, {lm.ssm_state}) fp32, chunk "
+                     f"{lm.ssm_chunk}",
+            "max_abs_err": max((gv - wv).abs().max().item()
+                               for gv, wv in zip(got, want)),
+            "ms": event_ms(lambda: ssd_scan.ssd_scan(
+                *args, chunk=lm.ssm_chunk), 20),
+            "plain_ms": event_ms(lambda: ref.ssd_chunked_ref(
+                *args, chunk=lm.ssm_chunk), 3),
+            "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
+            "gflop": roof.flops / 1e9, "mbytes": roof.bytes / 1e6}
+        print(f"ssm serve {model}: ssd_scan at {part['ssd']['shape']}: "
+              f"{part['ssd']['ms']:.4f} ms, plain "
+              f"{part['ssd']['plain_ms']:.3f} ms, bound "
+              f"{part['ssd']['bound_ms']:.4f} ms ({roof.bound_by}, "
+              f"{part['ssd']['gflop']:.3f} GFLOP, "
+              f"{part['ssd']['mbytes']:.1f} MB)")
+        if timed is None:
+            timed = part["ssd"]
+        del args, got, want
+
+        # one decode step at full occupancy and one prefill, traced
+        step_prof, pre_prof = trace_step_and_prefill(eng, lm, prompts, lens,
+                                                     check)
+        part["decode_step_ms"] = report_times(
+            f"ssm serve {model}", step_ms, prefill_ms, step_prof, pre_prof,
+            int(lens.max()))
+        part["traced_step"] = step_prof
+        part["traced_prefill"] = {"len": int(lens.max()), **pre_prof}
+        summary[model] = part
+        del eng, params
+        torch.cuda.empty_cache()
+
+    row = {"name": "ssd_scan.ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:61",
+           "launches": ssd_launches,
+           **{k: timed[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+           "library_ms": None, "shape": timed["shape"]}
+    return [row], summary
 
 
 def main() -> int:
@@ -1005,9 +1327,15 @@ def main() -> int:
     serve_rows, serve_summary = serve_phase(check)
     kernels.extend(serve_rows)
     phase("serve")
+
+    # -- 11. SSM and hybrid serving ----------------------------------------
+    ssm_rows, ssm_summary = ssm_serve_phase(check)
+    kernels.extend(ssm_rows)
+    phase("ssm serve")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
-         "serve": serve_summary, "phase_s": phase_s}, indent=1))
+         "serve": serve_summary, "ssm_serve": ssm_summary,
+         "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

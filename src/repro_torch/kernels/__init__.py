@@ -9,14 +9,15 @@ Modules:
     paged     — paged-cache gather, ``csrc/paged.cu``
     flash_attention — blockwise online-softmax attention,
                 ``csrc/flash_attention.cu``
+    ssd_scan  — Mamba-2 chunked SSD scan, ``csrc/ssd_scan.cu``
     epilogue  — the flush's op grammar, torch and numpy
     ops       — public wrappers (padding, accumulation policy, dispatch,
-                attention)
+                attention, SSD)
     ref       — plain PyTorch oracles
     _build    — nvcc build and ctypes loading, at first use
 """
 from . import (bsr_gemm, epilogue, flash_attention, fused_chain, ops, paged,
-               ref, stt_gemm)
+               ref, ssd_scan, stt_gemm)
 
 __all__ = ["bsr_gemm", "epilogue", "flash_attention", "fused_chain", "ops",
-           "paged", "ref", "stt_gemm"]
+           "paged", "ref", "ssd_scan", "stt_gemm"]

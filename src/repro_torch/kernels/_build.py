@@ -79,6 +79,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                    _LLS, _I, _I, _I, _I, _I, _I,
                                    ctypes.c_float, _I, _I, _P),
     },
+    "ssd_scan": {
+        # xdt, da, b, c, y, state, batch, L, H, G, N, P, chunk, stream
+        "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _P),
+    },
 }
 
 _LOCK = threading.Lock()

@@ -1,5 +1,5 @@
-"""Public wrappers for the GEMM templates, the block-sparse GEMM and
-attention.
+"""Public wrappers for the GEMM templates, the block-sparse GEMM,
+attention and the Mamba-2 SSD.
 
 The port of the reference's ``kernels/ops.py``: padding to block
 multiples, the accumulation policy, template dispatch from an STT
@@ -7,9 +7,9 @@ multiples, the accumulation policy, template dispatch from an STT
 rhs-by-transposition and ``attention`` with its padding — the same
 decisions in the same order.  There is no ``jit``; the device decides:
 on the CPU the kernels run their plain versions, on the card they
-launch their CUDA kernels.  ``attention(backend="xla")`` keeps the
-reference's name for its plain oracle route.  ``ssd`` arrives with the
-SSM slice.
+launch their CUDA kernels.  ``attention(backend="xla")`` and
+``ssd(backend="xla")`` keep the reference's name for their plain oracle
+routes.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from . import bsr_gemm as _bsr
 from . import epilogue as _ep
 from . import flash_attention as _fa
 from . import ref as _ref
+from . import ssd_scan as _ssd
 from . import stt_gemm as _gemm
 
 
@@ -220,3 +221,28 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("cross-attention requires Lkv % bkv == 0")
     out = _fa.flash_attention(qp, kp, vp, causal=causal, window=window)
     return out[:, :, :lq]
+
+
+# ---------------------------------------------------------------------------
+# SSD
+# ---------------------------------------------------------------------------
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        b: torch.Tensor, c: torch.Tensor, *, chunk: int = 64,
+        backend: str = "kernel") -> torch.Tensor:
+    """Mamba-2 SSD:  x (B, L, H, P), dt (B, L, H), a (H,),
+    b/c (B, L, G, N) -> y (B, L, H, P) in x's dtype.
+
+    ``backend="kernel"`` runs :func:`ssd_scan.ssd_scan` (on the card the
+    CUDA kernel, fed dt folded into x and the log decays ``dt * a`` as the
+    reference's wrapper does, but with B and C per group rather than
+    repeated to heads; on the CPU the plain version);
+    ``backend="xla"`` is the reference's name for the plain oracle
+    :func:`ref.ssd_chunked_ref`.
+    """
+    if backend == "xla":
+        return _ref.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk)[0]
+    if backend != "kernel":
+        raise ValueError(f"backend must be 'kernel' or 'xla', got "
+                         f"{backend!r}")
+    return _ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)[0]

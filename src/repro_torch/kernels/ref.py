@@ -1,11 +1,11 @@
-"""Plain PyTorch oracles for the GEMM path and attention.
+"""Plain PyTorch oracles for the GEMM path, attention and the SSD.
 
-Torch twins of the reference's ``kernels/ref.py`` GEMM and attention
-oracles.  The SSD oracles arrive with the SSM slice.
+Torch twins of the reference's ``kernels/ref.py`` GEMM, attention and
+Mamba-2 SSD oracles.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -110,3 +110,100 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)           # fully-masked rows
     return torch.matmul(p, vg).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD (state-space duality) — chunked linear recurrence
+# ---------------------------------------------------------------------------
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor,
+            h0: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential-scan oracle for the SSD recurrence.
+
+      h_t = exp(dt_t * a) * h_{t-1} + dt_t * B_t x_t^T
+      y_t = C_t . h_t
+
+    Shapes: x (B, L, H, P), dt (B, L, H), a (H,) [negative],
+            b, c (B, L, G, N) with H % G == 0; h0 (B, H, N, P) or None.
+    Returns (y (B, L, H, P), h_final (B, H, N, P)).  fp32 internally.
+    """
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    xf = x.to(torch.float32)
+    dtf = dt.to(torch.float32)
+    bf = b.to(torch.float32).repeat_interleave(rep, dim=2)   # (B, L, H, N)
+    cf = c.to(torch.float32).repeat_interleave(rep, dim=2)
+    decay = torch.exp(dtf * a.to(torch.float32))            # (B, L, H)
+    hcur = (torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                        device=x.device)
+            if h0 is None else h0.to(torch.float32))
+    ys = []
+    for step in range(l):
+        hcur = (decay[:, step, :, None, None] * hcur
+                + (dtf[:, step, :, None] * bf[:, step])[..., None]
+                * xf[:, step, :, None, :])
+        ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, step], hcur))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bsz, 0, h, p))
+    return y.to(x.dtype), hcur
+
+
+def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, chunk: int = 64,
+                    h0: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked (quadratic-within-chunk) SSD — the algorithm the SSD
+    kernel implements, vectorized over chunks, with the inter-chunk
+    state carried by a loop.  Mathematically identical to ``ssd_ref``;
+    the models' prefill path on the CPU.  Returns (y, h_final)."""
+    bsz, l, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    if l % chunk:
+        raise ValueError(f"L={l} not divisible by chunk={chunk}")
+    nc = l // chunk
+
+    xf = x.to(torch.float32) * dt.to(torch.float32)[..., None]  # dt folded
+    bf = b.to(torch.float32).repeat_interleave(rep, dim=2)
+    cf = c.to(torch.float32).repeat_interleave(rep, dim=2)
+    da = dt.to(torch.float32) * a.to(torch.float32)              # (B, L, H)
+
+    # reshape to chunks: (B, nc, Q, ...)
+    xc = xf.reshape(bsz, nc, chunk, h, p)
+    bc = bf.reshape(bsz, nc, chunk, h, n)
+    cc = cf.reshape(bsz, nc, chunk, h, n)
+    lc = torch.cumsum(da.reshape(bsz, nc, chunk, h), dim=2)      # (B,nc,Q,H)
+
+    # intra-chunk: y[i] = sum_{j<=i} exp(Lc[i]-Lc[j]) (C_i.B_j) xdt[j]
+    s = torch.einsum("bcihn,bcjhn->bchij", cc, bc)
+    li = lc.permute(0, 1, 3, 2)                    # (B, nc, H, Q)
+    dmat = li[..., :, None] - li[..., None, :]     # Lc[i] - Lc[j]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    # mask BEFORE exp: above the diagonal dmat is positive and overflows
+    m = torch.exp(torch.where(tri, dmat, torch.full_like(dmat, -1e9)))
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", s * m, xc)
+
+    # chunk-level states: contribution of chunk tokens to its end state
+    wend = torch.exp(lc[:, :, -1:, :] - lc)                      # (B,nc,Q,H)
+    chunk_state = torch.einsum("bcjhn,bcjhp->bchnp", bc * wend[..., None],
+                               xc)
+    chunk_decay = torch.exp(lc[:, :, -1, :])                     # (B,nc,H)
+
+    # carry the state over chunks: the state entering each chunk
+    hcur = (torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                        device=x.device)
+            if h0 is None else h0.to(torch.float32))
+    h_in = []
+    for ci in range(nc):
+        h_in.append(hcur)
+        hcur = chunk_decay[:, ci, :, None, None] * hcur + chunk_state[:, ci]
+    h_in = torch.stack(h_in, dim=1)                  # (B,nc,H,N,P) pre-chunk
+
+    # inter-chunk: y[i] += C_i . (exp(Lc[i]) * h_in)
+    y_inter = torch.einsum("bcihn,bchnp->bcihp",
+                           cc * torch.exp(lc)[..., None], h_in)
+    y = (y_intra + y_inter).reshape(bsz, l, h, p).to(x.dtype)
+    return y, hcur

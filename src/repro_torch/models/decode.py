@@ -1,20 +1,24 @@
-"""Prefill and single-token decode, dense family.
+"""Prefill and single-token decode: the dense, SSM and hybrid families.
 
-The port of the reference's ``models/decode.py`` for the dense family.
+The port of the reference's ``models/decode.py`` for those families.
 The decode cache layout:
 
-    {"pos":  int, or a (B,) int tensor — absolute position of the NEXT
-             token (a (B,) tensor gives every sequence its own position,
-             which is what lets the serving slot engine mix sequences of
-             different lengths in one decode batch),
-     "self": {"k", "v"} (L, B, S_c, kv_dim) in the compute dtype}
+    {"pos":    int, or a (B,) int tensor — absolute position of the NEXT
+               token (a (B,) tensor gives every sequence its own position,
+               which is what lets the serving slot engine mix sequences
+               of different lengths in one decode batch),
+     "self":   {"k", "v"} (L, B, S_c, kv_dim) in the compute dtype  dense
+     "ssm":    {"conv" (L, B, k-1, conv_dim), "state" (L, B, H, N, P)},
+               fp32 whatever the compute dtype             ssm / hybrid
+     "shared": {"k", "v"} (n_groups, B, S_c, kv_dim)       hybrid}
 
 SWA archs use rolling caches of ``window`` slots; prefill fills them with
-the last ``window`` positions.  ``decode_step`` writes each layer's new
-K/V row into the cache tensors in place and returns a cache dict that
-holds the same tensors with ``pos`` advanced (the reference returns new
-arrays).  The other families raise ``NotImplementedError`` naming their
-slice.
+the last ``window`` positions.  ``decode_step`` writes each attention
+layer's new K/V row into the cache tensors in place and returns a cache
+dict that holds the same K/V tensors with ``pos`` advanced (the
+reference returns new arrays); the SSM conv windows and states come back
+as new tensors, the given ones untouched.  The other families raise
+``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
@@ -27,9 +31,11 @@ from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import mlp as mlp_mod
+from . import ssm as ssm_mod
 from .common import rmsnorm
-from .transformer import (forward_hidden, layer_params, logits_from_hidden,
-                          require_dense)
+from .transformer import (_shared_block, _ssm_block, _stack, forward_hidden,
+                          hybrid_groups, layer_params, logits_from_hidden,
+                          require_family, shared_after)
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +88,14 @@ def prefill(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     max_len = max_len or s
     x, _, caches = forward_hidden(params, tokens, cfg, collect_cache=True)
     logits = logits_from_hidden(params, x[:, -1], cfg)
-    cache: Dict[str, Any] = {
-        "pos": s,
-        "self": _fit_cache(caches["self"], cfg.swa_window, max_len, s)}
+    cache: Dict[str, Any] = {"pos": s}
+    if "self" in caches:
+        cache["self"] = _fit_cache(caches["self"], cfg.swa_window, max_len, s)
+    if "ssm" in caches:
+        cache["ssm"] = caches["ssm"]
+    if "shared" in caches:
+        cache["shared"] = _fit_cache(caches["shared"], cfg.swa_window,
+                                     max_len, s)
     return logits, cache
 
 
@@ -92,17 +103,32 @@ def init_cache(params: Dict[str, Any], cfg: ModelConfig, batch: int,
                seq_len: int, *, frontend: Optional[torch.Tensor] = None,
                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Empty decode cache for a maximum context of ``seq_len``, on
-    ``device`` (default: the parameters' device).  A ``"meta"`` device
-    gives the leaf shapes and dtypes without memory."""
-    require_dense(cfg)
+    ``device`` (default: the parameters' device).  K/V leaves take
+    ``dtype``; the SSM leaves are fp32 whatever ``dtype`` says, as in the
+    reference.  A ``"meta"`` device gives the leaf shapes and dtypes
+    without memory."""
+    require_family(cfg)
     if frontend is not None:
         raise NotImplementedError("frontend inputs arrive with the "
                                   "encdec/vlm slice")
     device = params["embed"].device if device is None else device
-    shape = (cfg.n_layers, batch, cache_len(cfg, seq_len), cfg.kv_dim)
-    return {"pos": 0,
-            "self": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    s_c = cache_len(cfg, seq_len)
+
+    def kv(n):
+        shape = (n, batch, s_c, cfg.kv_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    cache: Dict[str, Any] = {"pos": 0}
+    if cfg.family == "dense":
+        cache["self"] = kv(cfg.n_layers)
+        return cache
+    one = ssm_mod.make_ssm_cache(cfg, batch, device=device)
+    cache["ssm"] = {k: v[None].expand(cfg.n_layers, *v.shape).contiguous()
+                    for k, v in one.items()}
+    if cfg.family == "hybrid":
+        cache["shared"] = kv(hybrid_groups(cfg)[0])
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -121,21 +147,41 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     that row's scalar position.
 
     Returns (logits (B, vocab) fp32, cache with pos + 1; its K/V tensors
-    are the given ones, updated in place)."""
-    require_dense(cfg)
+    are the given ones, updated in place; its SSM leaves are new
+    tensors)."""
+    require_family(cfg)
     compute = torch_dtype(cfg.dtype)
     pos = cache["pos"]
-    ck, cv = cache["self"]["k"], cache["self"]["v"]
     x = params["embed"][tokens].to(compute)
-    for i in range(ck.shape[0]):
-        pl_ = layer_params(params["layers"], i)
-        h, _ = attn.apply_attention(
-            pl_["attn"], rmsnorm(x, pl_["ln1"], cfg.norm_eps), cfg,
-            cache={"k": ck[i], "v": cv[i]}, pos=pos)
-        x = x + h
-        h = mlp_mod.apply_mlp(pl_["ffn"], rmsnorm(x, pl_["ln2"],
-                                                  cfg.norm_eps), cfg)
-        x = x + h
+    new_cache: Dict[str, Any] = {"pos": pos + 1}
+    if cfg.family == "dense":
+        ck, cv = cache["self"]["k"], cache["self"]["v"]
+        for i in range(ck.shape[0]):
+            pl_ = layer_params(params["layers"], i)
+            h, _ = attn.apply_attention(
+                pl_["attn"], rmsnorm(x, pl_["ln1"], cfg.norm_eps), cfg,
+                cache={"k": ck[i], "v": cv[i]}, pos=pos)
+            x = x + h
+            h = mlp_mod.apply_mlp(pl_["ffn"], rmsnorm(x, pl_["ln2"],
+                                                      cfg.norm_eps), cfg)
+            x = x + h
+        new_cache["self"] = {"k": ck, "v": cv}
+    else:
+        conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
+        lanes = []
+        for i in range(conv.shape[0]):
+            x, c = _ssm_block(layer_params(params["layers"], i), x, cfg,
+                              cache={"conv": conv[i], "state": state[i]})
+            lanes.append(c)
+            gi = shared_after(cfg, i)
+            if gi is not None:
+                x, _ = _shared_block(
+                    params["shared"], x, cfg, pos=pos,
+                    cache={"k": cache["shared"]["k"][gi],
+                           "v": cache["shared"]["v"][gi]})
+        new_cache["ssm"] = _stack(lanes)
+        if cfg.family == "hybrid":
+            new_cache["shared"] = cache["shared"]
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_from_hidden(params, x, cfg)
-    return logits[:, 0], {"pos": pos + 1, "self": {"k": ck, "v": cv}}
+    return logits[:, 0], new_cache

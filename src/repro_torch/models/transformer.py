@@ -1,13 +1,20 @@
-"""Model assembly and the public forward pass, dense family.
+"""Model assembly and the public forward pass: the dense, SSM and
+hybrid families.
 
-The port of the reference's ``models/transformer.py`` for the dense
-family (decoder-only, uniform layers) and its graph-expressible layer
-oracle ``dense_layer_forward``.  Parameters are nested dicts of tensors
-with the reference's keys; per-layer leaves are stacked ``(L, ...)`` and
-the reference's ``scan`` over layers is a Python loop.  The other
-families raise ``NotImplementedError`` naming their slice: moe (the MoE
-slice), ssm and hybrid (the SSM/hybrid slice), encdec and vlm (the
-encdec/vlm slice).
+The port of the reference's ``models/transformer.py`` for
+
+    dense  — decoder-only, uniform layers
+    ssm    — Mamba-2 stack (attention-free)
+    hybrid — Mamba-2 backbone + ONE shared attn+MLP block applied after
+             every ``attn_every`` layers (Zamba2-style parameter sharing),
+             each application with its own KV cache entry
+
+and its graph-expressible layer oracle ``dense_layer_forward``.
+Parameters are nested dicts of tensors with the reference's keys;
+per-layer leaves are stacked ``(L, ...)`` and the reference's ``scan``
+over layers is a Python loop.  The other families raise
+``NotImplementedError`` naming their slice: moe (the MoE slice), encdec
+and vlm (the encdec/vlm slice).
 
 ``compute_params`` casts the fp32 master weights to the compute dtype
 once (the reference casts them on every call; the values are the same),
@@ -27,21 +34,32 @@ from ..kernels.ops import resolve_device
 from ..kernels.stt_gemm import _fp32_product
 from . import attention as attn
 from . import mlp as mlp_mod
+from . import ssm as ssm_mod
 from .common import normal, ones_init, rmsnorm
 
+#: the families the port runs
+FAMILIES = ("dense", "ssm", "hybrid")
 #: the family each later slice brings
-LATER_FAMILIES = {"moe": "MoE", "ssm": "SSM/hybrid", "hybrid": "SSM/hybrid",
-                  "encdec": "encdec/vlm", "vlm": "encdec/vlm"}
+LATER_FAMILIES = {"moe": "MoE", "encdec": "encdec/vlm", "vlm": "encdec/vlm"}
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise for a family this slice does not run."""
-    if cfg.family != "dense":
+def require_family(cfg: ModelConfig) -> None:
+    """Raise for a family the port does not run yet, naming its slice."""
+    if cfg.family not in FAMILIES:
         if cfg.family in LATER_FAMILIES:
             raise NotImplementedError(
                 f"the {cfg.family} family arrives with the "
                 f"{LATER_FAMILIES[cfg.family]} slice")
         raise ValueError(cfg.family)
+
+
+def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, group_size, tail) of the zamba2 grouping: the shared
+    block follows each of the first ``n_groups`` groups of
+    ``group_size`` SSM layers; ``tail`` SSM layers follow the last."""
+    g = cfg.attn_every
+    n_apps = cfg.n_layers // g
+    return n_apps, g, cfg.n_layers - n_apps * g
 
 
 # ---------------------------------------------------------------------------
@@ -50,8 +68,9 @@ def require_dense(cfg: ModelConfig) -> None:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """fp32 master parameters on the generator's device, with the
-    reference's keys, shapes and initializer scales."""
-    require_dense(cfg)
+    reference's keys, shapes and initializer scales.  The hybrid's shared
+    block is unstacked (no leading layer axis), as in the reference."""
+    require_family(cfg)
     d, L = cfg.d_model, cfg.n_layers
     p: Dict[str, Any] = {
         "embed": 0.02 * normal(gen, (cfg.vocab, d)),
@@ -59,18 +78,34 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = (1.0 / d ** 0.5) * normal(gen, (d, cfg.vocab))
+    if cfg.family == "dense":
+        p["layers"] = {
+            "ln1": ones_init(gen, (L, d)),
+            "ln2": ones_init(gen, (L, d)),
+            "attn": attn.init_attention(gen, cfg, L),
+            "ffn": mlp_mod.init_mlp(gen, cfg, L),
+        }
+        return p
     p["layers"] = {
         "ln1": ones_init(gen, (L, d)),
-        "ln2": ones_init(gen, (L, d)),
-        "attn": attn.init_attention(gen, cfg, L),
-        "ffn": mlp_mod.init_mlp(gen, cfg, L),
+        "ssm": ssm_mod.init_ssm(gen, cfg, L),
     }
+    if cfg.family == "hybrid":
+        p["shared"] = {
+            "ln1": ones_init(gen, (d,)),
+            "ln2": ones_init(gen, (d,)),
+            "attn": layer_params(attn.init_attention(gen, cfg, 1), 0),
+            "mlp": layer_params(mlp_mod.init_mlp(gen, cfg, 1), 0),
+        }
     return p
 
 
-#: leaves that stay fp32 under ``compute_params``: the norm gains, which
-#: the reference multiplies in fp32, and the prepared output projection
-_FP32_LEAVES = ("ln1", "ln2", "final_norm", "w_out")
+#: leaves that stay fp32 under ``compute_params``: the norm gains and the
+#: SSM block's conv, decay, skip, dt-bias and gate-norm parameters, which
+#: the reference applies in fp32 (only ``in_proj``/``out_proj`` of an SSM
+#: block go to the compute dtype), and the prepared output projection
+_FP32_LEAVES = ("ln1", "ln2", "final_norm", "w_out", "conv_w", "conv_b",
+                "a_log", "d_skip", "dt_bias", "norm_g")
 
 
 def compute_params(params: Dict[str, Any], cfg: ModelConfig
@@ -129,6 +164,36 @@ def _dense_block(pl_, x, cfg, *, causal=True, collect_kv=False):
     return x + h, torch.zeros((), dtype=torch.float32, device=x.device), kv
 
 
+def _ssm_block(pl_, x, cfg, *, cache=None, collect_cache=False):
+    h, c = ssm_mod.apply_ssm(pl_["ssm"], rmsnorm(x, pl_["ln1"], cfg.norm_eps),
+                             cfg, cache=cache, collect_cache=collect_cache)
+    return x + h, c
+
+
+def _shared_block(ps, x, cfg, *, cache=None, pos=None, collect_kv=False):
+    h, kv = attn.apply_attention(ps["attn"],
+                                 rmsnorm(x, ps["ln1"], cfg.norm_eps), cfg,
+                                 cache=cache, pos=pos, collect_kv=collect_kv)
+    x = x + h
+    h = mlp_mod.apply_mlp(ps["mlp"], rmsnorm(x, ps["ln2"], cfg.norm_eps), cfg)
+    return x + h, kv
+
+
+def shared_after(cfg: ModelConfig, i: int) -> Optional[int]:
+    """The shared application ``gi`` that follows SSM layer ``i`` of a
+    hybrid (None for the ssm family and for layers inside a group or in
+    the tail)."""
+    if cfg.family != "hybrid":
+        return None
+    gi, r = divmod(i + 1, cfg.attn_every)
+    return gi - 1 if r == 0 else None
+
+
+def _stack(trees):
+    """A list of equally keyed dicts of tensors -> one dict of stacks."""
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -139,21 +204,35 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                               Optional[Dict[str, Any]]]:
     """:func:`forward` up to the final norm: (hidden (B, S, D), aux_loss,
     caches|None)."""
-    require_dense(cfg)
+    require_family(cfg)
     compute = torch_dtype(cfg.dtype)
     x = params["embed"][tokens].to(compute)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ks, vs = [], []
-    for i in range(params["layers"]["ln1"].shape[0]):
-        x, aux_l, kv = _dense_block(layer_params(params["layers"], i), x,
-                                    cfg, collect_kv=collect_cache)
-        aux = aux + aux_l
-        if collect_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+    n_layers = params["layers"]["ln1"].shape[0]
+    if cfg.family == "dense":
+        kvs = []
+        for i in range(n_layers):
+            x, aux_l, kv = _dense_block(layer_params(params["layers"], i),
+                                        x, cfg, collect_kv=collect_cache)
+            aux = aux + aux_l
+            kvs.append(kv)
+        caches = {"self": _stack(kvs)} if collect_cache else None
+        return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux, caches
+
+    ssm_caches, shared_kv = [], []
+    for i in range(n_layers):
+        x, c = _ssm_block(layer_params(params["layers"], i), x, cfg,
+                          collect_cache=collect_cache)
+        ssm_caches.append(c)
+        if shared_after(cfg, i) is not None:
+            x, kv = _shared_block(params["shared"], x, cfg,
+                                  collect_kv=collect_cache)
+            shared_kv.append(kv)
     caches = None
     if collect_cache:
-        caches = {"self": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        caches = {"ssm": _stack(ssm_caches)}
+        if shared_kv:
+            caches["shared"] = _stack(shared_kv)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux, caches
 
 
@@ -163,9 +242,12 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
     """tokens: (B, S) int -> (logits (B, S, V) fp32, aux_loss, caches|None).
 
-    With ``collect_cache`` the caches are ``{"self": {"k", "v"}}`` of
-    rotated K / V, ``(L, B, S, kv_dim)`` each.  ``frontend`` (the encdec/
-    vlm stub input) is not taken by the dense family."""
+    With ``collect_cache`` the caches are, for the dense family,
+    ``{"self": {"k", "v"}}`` of rotated K / V, ``(L, B, S, kv_dim)`` each;
+    for ssm/hybrid ``{"ssm": {"conv" (L, B, k-1, conv_dim), "state" (L,
+    B, H, N, P)}}`` in fp32, and for the hybrid also ``{"shared": {"k",
+    "v"}}`` ``(n_groups, B, S, kv_dim)``.  ``frontend`` (the encdec/vlm
+    stub input) is not taken by these families."""
     if frontend is not None:
         raise NotImplementedError("frontend inputs arrive with the "
                                   "encdec/vlm slice")

@@ -18,11 +18,16 @@ restructures the sequence-axis caches into **pages**:
   CUDA kernel on the card, its plain version on the CPU), the one-token
   write-back through plain indexing.
 
-Pools and lanes are updated **in place** (``index_copy_`` and indexed
+Pools are updated **in place** (``index_copy_`` and indexed
 assignment), where the reference rebuilds them functionally.  Cache
 leaves without a sequence axis are **lane pools**: the slot index is
-their batch axis directly (the dense family has none; the SSM and
-encdec/vlm families' leaves arrive with their slices).
+their batch axis directly (the dense family has none; the SSM conv
+windows and states of the ssm and hybrid families are lanes).  Insert
+writes a slot's lane rows in place; each decode step replaces the lanes
+with ``freeze_inactive``'s selection between the step's new lanes and
+the old ones, so the decode step must hand back new lane tensors.  A
+cache with no paged leaf at all (the ssm family) keeps a 1-page
+geometry, so the table and the step stay uniform.
 
 Bit-exactness contract: gathering a slot's pages yields exactly the
 dense cache the per-call path would hold (unmapped positions read the
@@ -142,8 +147,10 @@ class PageLayout:
                         new_lanes: Dict[Tuple[str, ...], torch.Tensor],
                         active: torch.Tensor
                         ) -> Dict[Tuple[str, ...], torch.Tensor]:
-        """Keep inactive slots' lane state frozen: decode ran on garbage
-        lanes for those slots and its updates must not stick."""
+        """Keep inactive slots' lane state (SSM conv/state) frozen:
+        decode ran on garbage lanes for those slots and its updates must
+        not stick.  Returns new tensors; ``new_lanes`` must not alias
+        ``lanes``."""
         out = {}
         for path, old in lanes.items():
             new = new_lanes.get(path, old)

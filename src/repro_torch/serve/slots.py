@@ -19,9 +19,11 @@ kernel and writes the one new K/V row per slot back into the pools in
 place.
 
 Every step returns a :class:`ResultTokens`: tokens + validity + lengths
-packed into **one** array — one device→host copy per step.  Only the
-dense family runs here yet; the others raise ``NotImplementedError``
-naming their slice.
+packed into **one** array — one device→host copy per step.  The dense,
+ssm and hybrid families run here: the SSM conv windows and states are
+lane pools (one row per slot, fp32), frozen for idle slots after each
+step; the hybrid's shared-attention K/V are paged like the dense K/V.
+The other families raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
 from ..models import decode as dec
-from ..models.transformer import compute_params, require_dense
+from ..models.transformer import compute_params, require_family
 from .engine import ServeConfig, sample, to_device
 from .pages import PagedKVCache, _flatten_cache, _nest
 
@@ -76,7 +78,7 @@ class SlotEngine:
                  max_context: int = 256, page_size: int = 16,
                  total_pages: Optional[int] = None,
                  serve_cfg: Optional[ServeConfig] = None, device=None):
-        require_dense(cfg)
+        require_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = compute_params(to_device(params, self.device), cfg)
@@ -183,6 +185,13 @@ class SlotEngine:
             raise ValueError(
                 f"prompt ({s0}) + max_new_tokens ({max_new_tokens}) exceeds "
                 f"max_context ({self.max_context})")
+        if (self.cfg.family in ("ssm", "hybrid")
+                and s0 < self.cfg.conv_kernel - 1):
+            # model-level floor (the sequential path shares it): the SSM
+            # decode recurrence needs a full conv window from prefill
+            raise ValueError(
+                f"prompt ({s0}) shorter than the SSM conv window "
+                f"({self.cfg.conv_kernel - 1})")
         free = self.free_slots()
         if not free:
             return None

@@ -13,7 +13,9 @@ exactly (every sum stays below 2^24); fp32 epilogues to rtol 1e-5 and
 PyTorch's); bf16 to 2e-2 of the largest output, compared in fp32.  The
 flash-attention kernel is held to its plain version within 1e-4 x
 max|out| in fp32 (other sum order, the card's ``expf``) and 2e-2 x
-max|out| in bf16; the paged gather, a copy, exactly.
+max|out| in bf16; the paged gather, a copy, exactly; the SSD scan's y
+and final state within 1e-4 x max|.| of its plain version in fp32 (other
+sum order and scan association, the card's ``expf``).
 """
 import numpy as np
 import pytest
@@ -464,13 +466,80 @@ def test_paged_gather_kernel_exact(cuda, dtype, f):
     assert torch.equal(got.cpu(), want)
 
 
+def _ssd_operands(b, L, h, p, g, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, L, h, p)).astype(np.float32)
+    dt = (0.1 + 0.9 * rng.random((b, L, h))).astype(np.float32)
+    a = (-0.5 - rng.random(h)).astype(np.float32)
+    bm = rng.standard_normal((b, L, g, n)).astype(np.float32)
+    cm = rng.standard_normal((b, L, g, n)).astype(np.float32)
+    return [torch.as_tensor(v) for v in (x, dt, a, bm, cm)]
+
+
+def _ssd_compare(got, want):
+    for g_, w_ in zip(got, want):
+        g_, w_ = g_.cpu(), w_.cpu()
+        assert bool(torch.isfinite(g_).all())
+        scale = w_.abs().max().item()
+        assert (g_ - w_).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("p", [16, 24, 64])
+@pytest.mark.parametrize("n", [16, 64, 128])
+@pytest.mark.parametrize("q", [8, 37, 64])
+def test_ssd_scan_kernel(cuda, q, n, p, g):
+    from repro_torch.kernels import ssd_scan
+    ops_ = _ssd_operands(2, 3 * q, 4, p, g, n, seed=q + n + p + g)
+    ssd_scan.reset_launches()
+    got = ssd_scan.ssd_scan(*(t.to(cuda) for t in ops_), chunk=q)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches["ssd_scan"] == 1
+    want = ssd_scan.ssd_scan(*ops_, chunk=q)
+    assert ssd_scan.launches["ssd_scan"] == 1     # the CPU never launches
+    assert got[1].shape == (2, 4, n, p)
+    _ssd_compare(got, want)
+
+
+def test_ssd_on_card_matches_the_oracle_and_rejects_shapes(cuda):
+    from repro_torch.kernels import ops, ref, ssd_scan
+    x, dt, a, b, c = _ssd_operands(1, 96, 8, 16, 2, 32, seed=5)
+    got = ssd_scan.ssd_scan(*(t.to(cuda) for t in (x, dt, a, b, c)),
+                            chunk=32)
+    _ssd_compare(got, ref.ssd_chunked_ref(x, dt, a, b, c, chunk=32))
+    y = ops.ssd(*(t.to(cuda) for t in (x, dt, a, b, c)), chunk=32)
+    _ssd_compare([y], [got[0]])
+    yb, hb = ssd_scan.ssd_scan(x.bfloat16().to(cuda),
+                               *(t.to(cuda) for t in (dt, a, b, c)),
+                               chunk=32)
+    assert yb.dtype == torch.bfloat16 and hb.dtype == torch.float32
+    x, dt, a, bm, cm = (t.to(cuda) for t in _ssd_operands(1, 128, 2, 16, 1,
+                                                           16, seed=0))
+    with pytest.raises(ValueError, match="chunks up to 64"):
+        ssd_scan.ssd_scan(x, dt, a, bm, cm, chunk=128)
+    wide = torch.zeros((1, 128, 1, 256), device=cuda)
+    with pytest.raises(ValueError, match="state widths"):
+        ssd_scan.ssd_scan(x, dt, a, wide, wide, chunk=64)
+
+
 def test_slot_engine_on_card_continuous_equals_one_at_a_time(cuda):
+    _slot_engine_on_card("h2o-danube-1.8b", cuda)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_slot_engine_on_card_ssm_families(cuda, arch):
+    _slot_engine_on_card(arch, cuda)
+
+
+def _slot_engine_on_card(arch, cuda):
+    """Continuous tokens equal each request served alone, and the path
+    launched the kernels the family runs."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged
+    from repro_torch.kernels import paged, ssd_scan
     from repro_torch.models import init_params
     from repro_torch.serve import SlotEngine
-    cfg = get_config("h2o-danube-1.8b").reduced()
+    cfg = get_config(arch).reduced()
     params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
     reqs = [(8, 6), (12, 4), (5, 8), (9, 3), (11, 6), (20, 10)]
     rng = np.random.default_rng(0)
@@ -480,9 +549,12 @@ def test_slot_engine_on_card_continuous_equals_one_at_a_time(cuda):
                      total_pages=8)
     fa.reset_launches()
     paged.reset_launches()
+    ssd_scan.reset_launches()
     got = _drive(eng, prompts, reqs)
-    assert fa.launches["flash_attention"] > 0
-    assert paged.launches["paged_gather"] > 0
+    attention = cfg.family != "ssm"
+    assert (fa.launches["flash_attention"] > 0) == attention
+    assert (paged.launches["paged_gather"] > 0) == attention
+    assert (ssd_scan.launches["ssd_scan"] > 0) == (cfg.family != "dense")
     for i, (p, (_, t)) in enumerate(zip(prompts, reqs)):
         alone = _drive(eng, [p], [(len(p), t)])[0]
         np.testing.assert_array_equal(got[i], alone)

@@ -26,7 +26,8 @@ MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.models.attention", "repro_torch.models.decode",
            "repro_torch.serve", "repro_torch.serve.pages",
            "repro_torch.serve.slots", "repro_torch.serve.server",
-           "repro_torch.serve.report")
+           "repro_torch.serve.report", "repro_torch.models.ssm",
+           "repro_torch.kernels.ssd_scan")
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"
@@ -218,4 +219,18 @@ def test_flash_attention_cuda_tensor_raises_not_falls_back(monkeypatch):
     q = torch.ones(1, 2, 8, 16)
     with pytest.raises(RuntimeError, match="nvcc"):
         ops.attention(q, q, q, causal=True)
+    assert calls == []
+
+
+def test_ssd_cuda_tensor_raises_not_falls_back(monkeypatch):
+    from repro_torch.kernels import ops, ref, ssd_scan
+    calls = _no_plain(monkeypatch, ssd_scan, [])
+    monkeypatch.setattr(ref, "ssd_chunked_ref",
+                        lambda *a, **k: calls.append("ssd_chunked_ref"))
+    x = torch.ones(1, 16, 2, 8)
+    dt, a, b = torch.ones(1, 16, 2), -torch.ones(2), torch.ones(1, 16, 1, 4)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ops.ssd(x, dt, a, b, b, chunk=8)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ssd_scan.ssd_scan(x, dt, a, b, b, chunk=8)
     assert calls == []

@@ -1,5 +1,5 @@
-"""The port's dense model path and its kernels' plain versions against
-the reference, on the CPU.
+"""The port's model path (dense, ssm and hybrid families) and its
+kernels' plain versions against the reference, on the CPU.
 
 Inputs are made with numpy from a seed and go through the reference
 function and its port counterpart; model parameters come from the
@@ -10,7 +10,10 @@ within 1e-4 (absolute for attention, x max|logit| for logits: XLA and
 PyTorch sum in other orders and round ``exp``/``pow`` apart by an ulp);
 bf16 attention within 6e-2 (the reference's own bf16 tolerance); the
 paged gather and scatter, pure copies, exactly.  Reduced configs
-(``.reduced()``: 2 layers, d=64, head_dim 16, SWA 16).
+(``.reduced()``: 2 layers (the hybrid 4, shared block every 2), d=64,
+head_dim 16, SWA 16, SSM state 16, chunk 8); ``zamba2-1.2b:5`` is the
+reduced hybrid at 5 layers, whose last SSM layer is a tail after the
+last shared application.
 """
 import numpy as np
 import pytest
@@ -38,7 +41,10 @@ from repro_torch.kernels import ops, paged, ref  # noqa: E402
 from repro_torch.models import attention, common, decode, mlp  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
-ARCHS = ["granite-8b", "h2o-danube-1.8b"]
+#: the attention/MLP block tests run the dense archs; the model tests
+#: (forward, prefill, decode) run every family the port runs
+DENSE_ARCHS = ["granite-8b", "h2o-danube-1.8b"]
+ARCHS = DENSE_ARCHS + ["mamba2-370m", "zamba2-1.2b", "zamba2-1.2b:5"]
 
 
 def randn(*shape, seed=0):
@@ -61,13 +67,19 @@ _SETUP = {}
 
 
 def setup_arch(arch):
-    """(reference cfg, port cfg, reference params, port params)."""
+    """(reference cfg, port cfg, reference params, port params);
+    ``name:n`` is the reduced config at ``n`` layers."""
     if arch not in _SETUP:
-        cfg = ref_config(arch).reduced()
+        import dataclasses
+        name, _, layers = arch.partition(":")
+        cfg, tcfg = ref_config(name).reduced(), get_config(name).reduced()
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=int(layers))
+            tcfg = dataclasses.replace(tcfg, n_layers=int(layers))
         jp = jax.tree.map(np.asarray, split(
             ref_init_params(jax.random.PRNGKey(0), cfg))[0])
-        _SETUP[arch] = (cfg, get_config(arch).reduced(), jp,
-                        params_from_reference(jp, device="cpu"))
+        _SETUP[arch] = (cfg, tcfg, jp, params_from_reference(jp,
+                                                             device="cpu"))
     return _SETUP[arch]
 
 
@@ -263,7 +275,7 @@ def test_rope(positions):
           ref_common.rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_apply_mlp(arch):
     cfg, tcfg, jp, tp = setup_arch(arch)
     x = randn(2, 5, cfg.d_model, seed=5)
@@ -279,7 +291,7 @@ def _layer_attn(arch, i=0):
             {k: v[i] for k, v in tp["layers"]["attn"].items()})
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_apply_attention_prefill_collects_kv(arch):
     cfg, tcfg, pj, pt = _layer_attn(arch)
     x = randn(2, 24, cfg.d_model, seed=6)
@@ -293,7 +305,7 @@ def test_apply_attention_prefill_collects_kv(arch):
 
 
 @pytest.mark.parametrize("pos_kind", ["scalar", "per_slot"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_apply_attention_decode(arch, pos_kind):
     """One decode token against a cache: granite's linear 40-slot cache,
     danube's rolling 16-slot (SWA) cache past its wrap-around."""
@@ -399,14 +411,18 @@ def test_forward_logits_and_caches(arch):
     assert gl.dtype == torch.float32 and gl.shape == (2, 24, cfg.vocab)
     _logit_close(gl, wl)
     assert float(gaux) == float(waux) == 0.0
-    close(gc["self"]["k"], wc["self"]["k"])
-    close(gc["self"]["v"], wc["self"]["v"])
+    assert set(gc) == set(wc)
+    for part in gc:
+        assert set(gc[part]) == set(wc[part])
+        for leaf in gc[part]:
+            close(gc[part][leaf], wc[part][leaf])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_steps(arch):
     """granite's linear cache and danube's rolling one, decoded past the
-    16-slot window."""
+    16-slot window; the SSM recurrence from a prompt padded to the chunk
+    (12 -> 16), and the hybrid's shared K/V."""
     cfg, tcfg, jp, tp = setup_arch(arch)
     toks = np.random.default_rng(2).integers(0, cfg.vocab, (2, 12))
     ref_step = jax.jit(ref_decode.decode_step, static_argnums=3)
@@ -415,7 +431,10 @@ def test_prefill_then_decode_steps(arch):
         jp, jnp.asarray(toks, jnp.int32), cfg, max_len=32)
     gl, gc = decode.prefill(tp, torch.as_tensor(toks), tcfg, max_len=32)
     _logit_close(gl, wl)
-    assert gc["pos"] == 12 and gc["self"]["k"].shape == wc["self"]["k"].shape
+    assert gc["pos"] == 12 and set(gc) == set(wc)
+    for part in set(gc) - {"pos"}:
+        for leaf in gc[part]:
+            assert gc[part][leaf].shape == wc[part][leaf].shape
     for step in range(6):
         nxt = np.asarray(jnp.argmax(wl, -1))[:, None].astype(np.int32)
         wl, wc = ref_step(jp, jnp.asarray(nxt), wc, cfg)
@@ -423,6 +442,9 @@ def test_prefill_then_decode_steps(arch):
                                     tcfg)
         _logit_close(gl, wl)
     assert gc["pos"] == 18
+    for part in set(gc) - {"pos"}:
+        for leaf in gc[part]:
+            close(gc[part][leaf], wc[part][leaf])
 
 
 def test_init_cache_matches_reference_layout():
@@ -475,8 +497,7 @@ def test_compute_params_casts_once_and_keeps_norms():
     assert torch.equal(la, lb)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "mamba2-370m",
-                                  "zamba2-1.2b", "whisper-small",
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-small",
                                   "llama-3.2-vision-11b"])
 def test_other_families_raise_naming_their_slice(arch):
     tcfg = get_config(arch).reduced()

@@ -6,7 +6,8 @@ The port's own copies of the reference's ``tests/test_serve.py`` cases
 ``device="cpu"``, where the paged gather runs its plain version; plus
 greedy ``DecodeEngine.generate`` held token for token to the reference
 engine on the same parameters (``convert.params_from_reference``).
-Reduced configs (``.reduced()``: 2 layers, d=64, head_dim 16, SWA 16).
+Reduced configs (``.reduced()``: 2 layers (the hybrid 4), d=64,
+head_dim 16, SWA 16, SSM state 16).
 """
 import threading
 
@@ -225,7 +226,8 @@ def test_temperature_sampling_is_seeded():
 # slot engine: bit-exact continuous decode
 # ---------------------------------------------------------------------------
 
-PARITY_ARCHS = ["granite-8b", "h2o-danube-1.8b"]
+PARITY_ARCHS = ["granite-8b", "h2o-danube-1.8b", "mamba2-370m",
+                "zamba2-1.2b"]
 REQS = [(8, 6), (12, 4), (5, 8), (9, 3), (11, 6)]
 
 
@@ -327,8 +329,8 @@ def test_slot_engine_pool_exhaustion_returns_none():
 
 
 def test_slot_engine_other_families_raise():
-    cfg = get_config("mamba2-370m").reduced()
-    with pytest.raises(NotImplementedError, match="SSM/hybrid"):
+    cfg = get_config("mixtral-8x22b").reduced()
+    with pytest.raises(NotImplementedError, match="MoE"):
         SlotEngine({}, cfg, device=CPU)
 
 
@@ -413,6 +415,36 @@ def test_server_rejects_oversized_request_via_future():
         fut = server.submit(np.zeros((12,), np.int32), max_new_tokens=12)
         with pytest.raises(ValueError, match="max_context"):
             fut.result(timeout=300)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_server_serves_the_ssm_families(arch):
+    """Two client threads through the server; every request's tokens
+    equal ``DecodeEngine``'s at the engine's context budget."""
+    cfg, params = setup_arch(arch)
+    reqs = [(8, 6), (12, 4), (5, 8), (9, 3), (11, 6)]
+    prompts = make_prompts(cfg, reqs, seed=2)
+    base = DecodeEngine(params, cfg, device=CPU)
+    want = [base.generate(p[None], max_new_tokens=t, cache_len=32)[0][0]
+            for p, (_, t) in zip(prompts, reqs)]
+    eng = SlotEngine(params, cfg, capacity=2, max_context=32, page_size=8,
+                     device=CPU)
+    futures = [None] * len(reqs)
+    with ContinuousServer(eng) as server:
+        def client(ids):
+            for i in ids:
+                futures[i] = server.submit(prompts[i],
+                                           max_new_tokens=reqs[i][1])
+        threads = [threading.Thread(target=client, args=(range(k, 5, 2),))
+                   for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        server.drain(timeout=300)
+    for fut, w in zip(futures, want):
+        np.testing.assert_array_equal(fut.result(timeout=5), w)
+    assert eng.decode_compiles == 1
 
 
 def test_server_waits_on_the_free_list():
