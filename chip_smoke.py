@@ -37,7 +37,8 @@ each of which fails the run (non-zero exit) when it fails:
    other implementations; bf16 within 2e-2 x max|out|;
 6. ``Accelerator.validate()`` (the loop-nest oracle) at small bounds for
    every algebra under the output- and weight-stationary STTs, which
-   between them reach all three templates (``VALIDATE_STTS``);
+   between them reach all three templates (``VALIDATE_STTS``): exact on
+   integer operands;
 7. fused epilogues (bias+gelu, softmax) on every template, against the
    numpy mirror (rtol 1e-5, atol 1e-5: fp32 vs fp64 transcendental
    rounding on exact integer sums);
@@ -65,13 +66,18 @@ each of which fails the run (non-zero exit) when it fails:
    ``decode_compiles == 1``; (d) the gather kernel equals its plain
    version bit for bit at the serve shape; (e) the flash kernel equals
    ``attention_ref`` at the traffic's prefill shapes and at a windowed
-   shape that hides whole kv blocks (bf16 within 2e-2 x max|out|, fp32
-   within 1e-4 x max|out|: other sum order and ``expf``).  Full token
+   shape that hides whole kv blocks (bf16 within 2e-2 x max|out|, and
+   within ``BF16_ROW_TOL`` of each row's norm of the plain version that
+   rounds P to bf16 as the kernel does; fp32 within 1e-4 x max|out|:
+   other sum order and ``expf``).  Full token
    agreement with ``DecodeEngine`` (batch 1) is printed, not gated:
    cuBLAS picks kernels by shape, so batch-1 and batch-8 products may
    round apart.  Per-step and per-prefill times, both kernels' times
-   beside their bounds, plain versions and library calls, and one traced
-   decode step and prefill are reported;
+   beside their bounds, plain versions and library calls (flash in bf16
+   at danube's heads and at zamba2-1.2b's shared block, D = 64, each held
+   to its plain versions as in (e), and the row error of a planted fault,
+   a kv block hidden from the last q block, which must exceed the
+   limit), and one traced decode step and prefill are reported;
 11. serving the SSM families at full width and depth (``SSM_SERVE``):
    zamba2-1.2b (38 Mamba-2 layers, the shared attention+MLP block after
    every 6, bf16) over ``SlotEngine(capacity=8, max_context=2048,
@@ -144,9 +150,6 @@ KERNELS = {
     "reduction_tree": ("src/repro/kernels/stt_gemm.py:388",
                        ("batched_gemv", "weight_stationary")),
 }
-#: B-chunk depth of the square operand-stationary tile (StripL::KC in
-#: csrc/stt_gemm.cu): the strip is read-modify-written once per chunk
-WS_CHUNK_K = 128
 #: sparse cases: (label, algebra, sparse tensor, its shape, block, density)
 SPARSE = (
     ("gemm A d=0.25", "gemm", "A", (4096, 4096), (128, 128), 0.25),
@@ -160,9 +163,9 @@ SPARSE = (
 GRAPH_MODEL = "h2o-danube-1.8b"
 GRAPH_BUDGET = 512 << 20
 #: the port's kernels, by the names the profiler reports
-OUR_KERNELS = ("os_kernel<", "ws_kernel<", "rt_kernel<", "bsr_kernel<",
-               "stages_kernel<", "gather_kernel<", "flash_kernel<",
-               "ssd_kernel")
+OUR_KERNELS = ("os_kernel<", "ws_kernel<", "ws_tile_kernel<", "rt_kernel<",
+               "bsr_kernel<", "stages_kernel<", "gather_kernel<",
+               "flash_kernel<", "flash_mma_kernel<", "ssd_kernel")
 #: the serve phase: model, slot engine, traffic
 SERVE_MODEL = "h2o-danube-1.8b"
 SERVE_ENGINE = dict(capacity=8, max_context=2048, page_size=16,
@@ -415,10 +418,8 @@ def serve_phase(check):
     """Phase 10: LM serving at full width and depth on the paged-gather
     and flash-attention kernels.  Returns (kernel rows, summary)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.core import hopper
     from repro_torch.kernels import flash_attention, paged
     from repro_torch.models import init_params
     from repro_torch.serve import DecodeEngine, SlotEngine
@@ -476,33 +477,24 @@ def serve_phase(check):
                              (int(lens.max()), None), (1024, 100)),
                         g, check)
 
-    def qkv(length, dtype):
-        return [torch.randn((1, h, length, d), generator=g, device=dev
-                            ).to(dtype) for h in (hq, hkv, hkv)]
-
     length = int(lens.max())
-    q, k, v = qkv(length, torch.bfloat16)
-    got = flash_attention.flash_attention(q, k, v, causal=True)
-    want = flash_attention.flash_attention_plain(q, k, v, causal=True)
-    pairs = length * (length + 1) // 2
-    roof = hopper.RooflineTerms(
-        "flash attention", 4.0 * d * hq * pairs,
-        2.0 * (2 * q.numel() + k.numel() + v.numel()), dtype="bfloat16")
+    timed = flash_times(hq, hkv, d, length, g, check)
+    # the same length at zamba2-1.2b's shared block (D = 64, no GQA)
+    zl = get_config("zamba2-1.2b")
+    zamba = flash_times(zl.n_heads, zl.n_kv_heads, zl.head_dim, length, g,
+                        check)
+    for t in (timed, zamba):
+        print(f"serve: flash {t['shape']}: {t['ms']:.4f} ms (bound "
+              f"{t['bound_ms']:.4f}, SDPA {t['library_ms']:.4f}); row "
+              f"error {t['row_err']:.3e} (limit "
+              f"{flash_attention.BF16_ROW_TOL}), a dropped kv block "
+              f"{t['fault_row_err']:.3e}")
     rows.append({
         "name": "flash_attention.flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:72",
-        "launches": launches["flash_attention"],
-        "max_abs_err": (got.float() - want.float()).abs().max().item(),
-        "ms": event_ms(lambda: flash_attention.flash_attention(
-            q, k, v, causal=True), 10),
-        "plain_ms": event_ms(lambda: flash_attention.flash_attention_plain(
-            q, k, v, causal=True), 3),
-        "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
-        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10),
-        "shape": f"q (1, {hq}, {length}, {d}), k/v (1, {hkv}, {length}, "
-                 f"{d}) bf16, causal"})
+        "launches": launches["flash_attention"], **timed,
+        "zamba2": zamba})
 
     # one decode step at full occupancy and one prefill, traced
     step_prof, pre_prof = trace_step_and_prefill(eng, lm, prompts, lens,
@@ -567,34 +559,127 @@ def gather_check(eng, path, lens, news, rng, check):
                  f"pages"}
 
 
+def flash_times(hq, hkv, d, length, g, check):
+    """The flash kernel on random bf16 q (1, hq, length, d) and k, v (1,
+    hkv, length, d), causal: its errors against the plain version that
+    rounds P to bf16 as the kernel does (max abs, and ``row_error``, held
+    to ``BF16_ROW_TOL``) and against the reference's arithmetic (held to
+    2e-2 x max|out|); the errors of a planted fault, a kv block hidden
+    from the last q block, against the same plain version (its row error
+    must exceed the limit); the kernel's time, the plain version's,
+    SDPA's and the bound (4 d flops an unmasked pair and q head, bf16
+    tensor cores)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import hopper
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = [torch.randn((1, h, length, d), generator=g,
+                           device=torch.device("cuda")).to(torch.bfloat16)
+               for h in (hq, hkv, hkv)]
+    shape = (f"q (1, {hq}, {length}, {d}), k/v (1, {hkv}, {length}, {d}) "
+             f"bf16, causal")
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = fa.flash_attention_plain(q, k, v, causal=True, round_p=True)
+    errs = bf16_flash_errors(got, want, fa.flash_attention_plain(
+        q, k, v, causal=True), check, shape)
+    fault = dropped_block(q, k, v, length - 64, length // 2 // 64 * 64)
+    fault_row = fa.row_error(fault, want)
+    check(fault_row > fa.BF16_ROW_TOL,
+          f"flash {shape}: a dropped kv block reads {fault_row}, inside "
+          f"BF16_ROW_TOL {fa.BF16_ROW_TOL}")
+    pairs = length * (length + 1) // 2
+    roof = hopper.RooflineTerms(
+        "flash attention", 4.0 * d * hq * pairs,
+        2.0 * (2 * q.numel() + k.numel() + v.numel()), dtype="bfloat16")
+    return {
+        **errs, "fault_row_err": fault_row,
+        "fault_max_abs_err": (fault.float() - want.float()).abs().max().item(),
+        "ms": event_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10),
+        "plain_ms": event_ms(lambda: fa.flash_attention_plain(
+            q, k, v, causal=True, round_p=True), 3),
+        "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
+        "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=hq != hkv), 10),
+        "shape": shape}
+
+
+def bf16_flash_errors(got, want, want_ref, check, what):
+    """The bf16 flash kernel's output ``got`` against ``want``, the plain
+    version that rounds P to bf16 (``row_error`` within
+    ``BF16_ROW_TOL``), and ``want_ref``, one with the reference's fp32
+    P V (max abs within 2e-2 x max|out|)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    row = fa.row_error(got, want)
+    ref_err = (got.float() - want_ref.float()).abs().max().item()
+    scale = want_ref.float().abs().max().item()
+    check(bool(torch.isfinite(got.float()).all()) and
+          row <= fa.BF16_ROW_TOL,
+          f"flash bf16 {what}: row error {row} beyond BF16_ROW_TOL "
+          f"{fa.BF16_ROW_TOL} of the plain version")
+    check(ref_err <= 2e-2 * scale, f"flash bf16 {what}: max err {ref_err} "
+          f"beyond 2e-2 x {scale} of the reference's arithmetic")
+    return {"max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "row_err": row, "ref_max_abs_err": ref_err}
+
+
+def dropped_block(q, k, v, rows, k0):
+    """A planted fault for the tolerance's self-check: causal attention
+    in fp32 with kv columns [k0, k0 + 64) hidden from q rows >= ``rows``
+    (a kv block a faulty kernel skips)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    lq, lkv, group = q.shape[2], k.shape[2], q.shape[1] // k.shape[1]
+    kf, vf = (x.float().repeat_interleave(group, dim=1) for x in (k, v))
+    scores = torch.matmul(q.float(), kf.transpose(-1, -2)) / q.shape[3] ** 0.5
+    mask = ref.attention_mask(lq, lkv, causal=True, window=None,
+                              device=q.device)
+    mask[rows:, k0:k0 + 64] = False
+    p = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.matmul(p, vf).to(q.dtype)
+
+
 def flash_check(lm, cases, g, check):
     """Check (e): the flash kernel (through ``ops.attention``) against
     ``attention_ref`` at ``lm``'s heads for each (length, window): bf16
-    within 2e-2 x max|out|, fp32 within 1e-4 x max|out| (other sum order
-    and ``expf``).  Returns the max error per case."""
+    within 2e-2 x max|out| and, against the plain version that rounds P
+    to bf16, within ``BF16_ROW_TOL`` of each row's norm; fp32 within
+    1e-4 x max|out| (other sum order and ``expf``).  Returns the errors
+    per case."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
     hq, hkv, d = lm.n_heads, lm.n_kv_heads, lm.head_dim
     worst = {}
     for length, window in cases:
-        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for dtype in (torch.bfloat16, torch.float32):
             q, k, v = [torch.randn((1, h, length, d), generator=g,
                                    device=dev).to(dtype)
                        for h in (hq, hkv, hkv)]
-            out = ops.attention(q, k, v, causal=True, window=window).float()
-            want = ref.attention_ref(q, k, v, causal=True,
-                                     window=window).float()
-            err = (out - want).abs().max().item()
-            scale = want.abs().max().item()
-            check(bool(torch.isfinite(out).all()) and err <= tol * scale,
-                  f"(e) flash L={length} window={window} {dtype}: max err "
-                  f"{err} beyond {tol} x {scale}")
-            worst[f"L={length} w={window} {str(dtype)[6:]}"] = err
-    print(f"serve checks: (e) {lm.name} flash vs attention_ref max err "
-          f"{worst}")
+            out = ops.attention(q, k, v, causal=True, window=window)
+            want = ref.attention_ref(q, k, v, causal=True, window=window)
+            case = f"L={length} w={window} {str(dtype)[6:]}"
+            if dtype == torch.bfloat16:
+                worst[case] = bf16_flash_errors(
+                    out, fa.flash_attention_plain(
+                        q, k, v, causal=True, window=window, round_p=True),
+                    want, check, f"(e) {case}")
+                continue
+            err = (out.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            check(bool(torch.isfinite(out).all()) and err <= 1e-4 * scale,
+                  f"(e) flash {case}: max err {err} beyond 1e-4 x {scale}")
+            worst[case] = err
+    print(f"serve checks: (e) {lm.name} flash errors {worst}")
     return worst
 
 
@@ -1057,6 +1142,8 @@ def main() -> int:
             acc = repro_torch.generate(name, s, bounds=bounds,
                                        validate=False)
             worst = max(worst, acc.validate())
+    check(worst == 0.0, f"validate: max err {worst} against the loop-nest "
+          f"oracle on integer operands")
     print(f"validate: {len(SMALL) * len(VALIDATE_STTS)} small "
           f"accelerators, max err {worst}")
     phase("validate")
@@ -1188,8 +1275,10 @@ def main() -> int:
                  "bound_by": roof.bound_by, "library_ms": library_ms,
                  "shape": f"{name} x {s}: nb={nb} m={m} n={n} k={kk}"}
         if template == "operand_stationary":
-            chunks = -(-kk // WS_CHUNK_K)
-            strip = 4.0 * nb * m * n * (2 * chunks - 1)
+            # one strip read and write per chunk after the first; the
+            # last chunk is flushed from registers
+            chunks = -(-kk // stt_gemm.WS_CHUNK_K)
+            strip = 4.0 * nb * m * n * 2 * (chunks - 1)
             entry["bound_with_strip_ms"] = max(
                 roof.compute_s, (roof.bytes + strip) / roof.spec.hbm_bw) * 1e3
         kernels.append(entry)

@@ -8,9 +8,9 @@ hand-written CUDA kernels (``csrc/stt_gemm.cu``):
   an output tile and keeps its sum in registers for the whole k loop
   while A/B tiles stream through shared memory.
 * ``operand_stationary`` (paper (a)(c)(b), e.g. MNK-STS / MNK-TSS): a
-  chunk of the stationary operand is pinned in shared memory while the
-  CTA sweeps m; the output strip accumulates in an fp32 global workspace
-  (the TPU kept it in VMEM).
+  ``WS_CHUNK_K``-deep chunk of the stationary operand is pinned in shared
+  memory while the CTA sweeps m; the output strip accumulates in an fp32
+  global workspace (the TPU kept it in VMEM).
 * ``reduction_tree``     (paper (f)+tree, K-spatial dataflows, and
   ``streaming``): one pass per output tile over the full K.
 
@@ -42,6 +42,13 @@ DEFAULT_BLOCK = 128
 #: default cap on the operand-stationary strip workspace per batch slice
 #: (the reference's VMEM budget; see core/tiling.ArrayConfig)
 DEFAULT_STRIP_BUDGET = 16 * 1024 * 1024
+
+#: k depth of the operand-stationary kernels' pinned chunk of the
+#: stationary operand (``WS_KC`` in ``csrc/stt_gemm.cu``): the fp32 strip
+#: is read-modify-written once per chunk after the first, and the last
+#: chunk is flushed from registers, so ``2 * (ceil(k / WS_CHUNK_K) - 1)``
+#: passes over the strip remain
+WS_CHUNK_K = 256
 
 #: kernel launches per template since the last ``reset_launches``
 launches = {"output_stationary": 0, "operand_stationary": 0,
@@ -304,6 +311,21 @@ def matmul_operand_stationary(a: torch.Tensor, b: torch.Tensor, *,
     m (weight-stationary); ``stationary='A'`` is the symmetric
     input-stationary template, by transposition (C^T = B^T A^T with B^T
     stationary, batch dims untouched).
+
+    On the card (``csrc/stt_gemm.cu``, ``ws_tile_kernel``) the bound is
+    fp32 FLOPs on the CUDA cores.  Each CTA pins a ``WS_CHUNK_K`` x 128
+    (or x 64 where 128-wide tiles would not fill the card) fp32 chunk of
+    B in shared memory and streams A through it in 32-deep slabs, double
+    buffered with one barrier a slab; every thread owns an 8 x 8 (or
+    4 x 4) register tile read from shared memory as float4.  Operands
+    are staged through registers, 4 elements a load along whichever axis
+    has unit stride (gemm's ``B.T`` view is k-contiguous), element by
+    element for other views.  The strip takes one vectorised
+    read-modify-write per (m tile, chunk), its old values copied into
+    shared memory while the tile is multiplied; the last chunk flushes
+    from registers.  Sums are fp32 in a fixed order (ascending k in a chunk,
+    chunks ascending), with no atomics; bf16 operands are converted at
+    staging.  ``n <= 8`` keeps the first version's narrow kernel.
 
     The strip accumulator is (m, bn) fp32 per batch slice, growing with
     the *full* per-slice M extent.  ``strip_budget`` bounds it (None skips

@@ -12,10 +12,12 @@ exactly (every sum stays below 2^24); fp32 epilogues to rtol 1e-5 and
 1e-5 of the largest output (the card's ``expf``/``tanhf`` against
 PyTorch's); bf16 to 2e-2 of the largest output, compared in fp32.  The
 flash-attention kernel is held to its plain version within 1e-4 x
-max|out| in fp32 (other sum order, the card's ``expf``) and 2e-2 x
-max|out| in bf16; the paged gather, a copy, exactly; the SSD scan's y
-and final state within 1e-4 x max|.| of its plain version in fp32 (other
-sum order and scan association, the card's ``expf``).
+max|out| in fp32 (other sum order, the card's ``expf``); in bf16 within
+2e-2 x max|out| of it, and within ``BF16_ROW_TOL`` of each row's norm of
+the plain version that rounds P to bf16 as the kernel does; the paged
+gather, a copy, exactly; the SSD scan's y and final state within 1e-4 x
+max|.| of its plain version in fp32 (other sum order and scan
+association, the card's ``expf``).
 """
 import numpy as np
 import pytest
@@ -168,6 +170,79 @@ def test_transposed_view_operand(cuda):
                                             bk=24)
     want = stt_gemm.matmul_output_stationary(a, bt, bm=8, bn=72, bk=24)
     _compare(got, want, torch.float32, exact=True)
+
+
+def _ws_view(x, layout):
+    """``x`` (.., rows, cols) as the view the staging mode under test
+    reads: "row" contiguous, "t" stored transposed (unit stride on rows),
+    "step" every other column of wider storage (no unit stride),
+    "offset" one element past an aligned start (misaligned)."""
+    if layout == "row":
+        return x.contiguous()
+    if layout == "t":
+        return x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    if layout == "step":
+        wide = torch.zeros(*x.shape[:-1], 2 * x.shape[-1], dtype=x.dtype,
+                           device=x.device)
+        wide[..., ::2] = x
+        return wide[..., ::2]
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+#: (A shape, B shape, A layout, B layout): both operand-stationary tiles
+#: (128 wide where they fill one wave of the card, else 64), k not a
+#: multiple of the chunk, ragged m and n, n % 4 != 0 (scalar strip), the
+#: staging modes (k-contiguous, m/n-contiguous, strided, misaligned) and
+#: batch broadcast
+WS_CASES = {
+    "wide_k_contig": ((1536, 520), (520, 1536), "row", "t"),
+    "wide_n_contig": ((1536, 300), (300, 1600), "row", "row"),
+    "conv_like_mn": ((196, 700), (700, 256), "t", "t"),
+    "strided": ((200, 260), (260, 136), "step", "step"),
+    "misaligned": ((130, 520), (520, 72), "offset", "offset"),
+    "ragged_n": ((150, 270), (270, 130), "row", "t"),
+    "broadcast_b": ((3, 160, 264), (264, 96), "row", "t"),
+    "narrow_n": ((200, 300), (300, 5), "row", "t"),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", list(WS_CASES))
+def test_operand_stationary_tile_kernel_exact(cuda, case, dtype):
+    sa, sb, la, lb = WS_CASES[case]
+    rng = np.random.default_rng(len(case))
+    a, b = (torch.as_tensor(rng.integers(-4, 5, size=s).astype(np.float32)
+                            ).to(dtype) for s in (sa, sb))
+    m, n, k = sa[-2], sb[-1], sa[-1]
+    kw = dict(bm=m, bn=n, bk=k)
+    ga, gb = _ws_view(a.to(cuda), la), _ws_view(b.to(cuda), lb)
+    stt_gemm.reset_launches()
+    got = stt_gemm.matmul_operand_stationary(ga, gb, **kw)
+    torch.cuda.synchronize()
+    assert stt_gemm.launches["operand_stationary"] == 1
+    want = stt_gemm.matmul_operand_stationary(a, b, **kw)
+    assert torch.equal(got.cpu().float(), want.float())
+    # two calls give the same bits
+    assert torch.equal(stt_gemm.matmul_operand_stationary(ga, gb, **kw), got)
+
+
+@pytest.mark.parametrize("m", [300, 132 * 128])
+def test_operand_stationary_row_mode_softmax(cuda, m):
+    # a softmax epilogue makes each CTA cover whole rows (row mode); at
+    # 132 x 128 rows the 128-wide tile fills one wave
+    rng = np.random.default_rng(m)
+    a = torch.as_tensor(rng.integers(-4, 5, size=(m, 300)).astype(
+        np.float32))
+    b = torch.as_tensor(rng.integers(-4, 5, size=(300, 136)).astype(
+        np.float32))
+    kw = dict(bm=m, bn=136, bk=300, epilogue=("scale:0.05", "softmax"))
+    got = stt_gemm.matmul_operand_stationary(a.to(cuda), b.to(cuda).T.
+                                             contiguous().T, **kw)
+    _compare(got, stt_gemm.matmul_operand_stationary(a, b, **kw),
+             torch.float32, exact=False)
 
 
 def test_launch_checks_raise(cuda):
@@ -392,13 +467,21 @@ def _attn_inputs(b, hq, hkv, lq, lkv, d, dtype, seed):
             for s in ((b, hq, lq, d), (b, hkv, lkv, d), (b, hkv, lkv, d))]
 
 
-def _attn_compare(got, want, dtype):
-    got, want = got.cpu().float(), want.float()
+def _attn_compare(got, want, dtype, qkv=None, causal=True, window=None):
+    """``got`` against ``want``; in bf16 also against the plain version
+    on ``qkv`` that rounds P to bf16, row by row."""
+    from repro_torch.kernels import flash_attention as fa
+    got, want = got.cpu().float(), want.cpu().float()
     assert got.shape == want.shape
     assert bool(torch.isfinite(got).all())
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     err = (got - want).abs().max().item()
     assert err <= tol * want.abs().max().item(), err
+    if dtype == torch.bfloat16:
+        rounded = fa.flash_attention_plain(*qkv, causal=causal,
+                                           window=window, round_p=True)
+        row = fa.row_error(got, rounded)
+        assert row <= fa.BF16_ROW_TOL, row
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -416,7 +499,7 @@ def test_flash_attention_kernel(cuda, mask, hq, hkv, d, dtype):
     assert fa.launches["flash_attention"] == 1
     want = fa.flash_attention(q, k, v, causal=causal, window=window)
     assert fa.launches["flash_attention"] == 1    # the CPU never launches
-    _attn_compare(got, want, dtype)
+    _attn_compare(got, want, dtype, (q, k, v), causal, window)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -427,13 +510,78 @@ def test_attention_ragged_q_and_masked_rows_on_card(cuda, dtype):
     got = ops.attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=True,
                         bq=16, bkv=16)
     assert got.shape == (1, 2, 50, 16)
-    _attn_compare(got, ref.attention_ref(q, k, v, causal=True), dtype)
+    _attn_compare(got, ref.attention_ref(q, k, v, causal=True), dtype,
+                  (q, k, v))
     # a window of 4 hides whole 64-column kv blocks from later q blocks
     q, k, v = _attn_inputs(1, 1, 1, 200, 200, 80, dtype, seed=1)
     got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
                              causal=True, window=4)
     _attn_compare(got, ref.attention_ref(q, k, v, causal=True, window=4),
-                  dtype)
+                  dtype, (q, k, v), window=4)
+
+
+#: bf16 at the serve shapes: h2o-danube-1.8b (32 q heads over 8 kv
+#: heads, D = 80) and zamba2-1.2b's shared block (32 / 32, D = 64), the
+#: longest prefill of the serve traffic, unpadded
+@pytest.mark.parametrize("hq,hkv,d", [(32, 8, 80), (32, 32, 64)])
+def test_flash_attention_bf16_serve_shapes(cuda, hq, hkv, d):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, hq, hkv, 1495, 1495, d,
+                                                  torch.bfloat16, seed=d))
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, causal=True)
+    assert fa.launches["flash_attention"] == 1
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    _attn_compare(got, want, torch.bfloat16, (q, k, v))
+
+
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
+def test_flash_attention_bf16_every_head_dim(cuda, d, mask):
+    from repro_torch.kernels import flash_attention as fa
+    assert d in fa.HEAD_DIMS
+    causal, window = MASKS[mask]
+    q, k, v = _attn_inputs(2, 4, 2, 150, 150, d, torch.bfloat16, seed=d)
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal, window=window)
+    _attn_compare(got, fa.flash_attention(q, k, v, causal=causal,
+                                          window=window), torch.bfloat16,
+                  (q, k, v), causal, window)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_attention_bf16_rows_ignore_kv_padding(cuda, window):
+    # a row's output must not depend on how far Lq and Lkv are padded past
+    # it (the slot engine and DecodeEngine prefill at different pads), and
+    # two calls give the same bits
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 4, 2, 256, 320, 80,
+                                                  torch.bfloat16, seed=7))
+    base = fa.flash_attention(q[:, :, :100], k[:, :, :100], v[:, :, :100],
+                              causal=True, window=window)
+    for lq, lkv in ((128, 128), (256, 192), (100, 320)):
+        out = fa.flash_attention(q[:, :, :lq], k[:, :, :lkv],
+                                 v[:, :, :lkv], causal=True, window=window)
+        assert torch.equal(out[:, :, :100], base), (lq, lkv)
+    assert torch.equal(fa.flash_attention(
+        q[:, :, :100], k[:, :, :100], v[:, :, :100], causal=True,
+        window=window), base)
+
+
+def test_flash_attention_bf16_misaligned_view_raises(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 2, 2, 64, 64, 64,
+                                                  torch.bfloat16, seed=0))
+    flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="q 16-byte aligned"):
+        fa.flash_attention(shifted, k, v)
+    wide = torch.zeros((1, 2, 64, 68), dtype=q.dtype, device=cuda)
+    with pytest.raises(ValueError, match="v 16-byte aligned"):
+        fa.flash_attention(q, k, wide[..., :64])
+    # fp32 runs the SIMT kernel, which reads any row stride
+    wide32 = torch.zeros((1, 2, 64, 68), device=cuda)
+    fa.flash_attention(q.float(), k.float(), wide32[..., :64])
 
 
 def test_flash_attention_reads_strided_heads(cuda):

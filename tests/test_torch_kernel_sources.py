@@ -1,0 +1,123 @@
+"""The kernels' sources against the Python side that launches and times
+them: the operand-stationary chunk depth is defined once, the bf16
+attention path has a tensor-core kernel for every head dim, the plain
+version of the bf16 kernel's one numeric departure (P rounded to bf16
+before P V) stays inside the reference's stated tolerance, and the row
+error that holds the kernel to it catches a dropped kv block.  CPU only:
+nothing here compiles or launches a kernel."""
+import pathlib
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref, stt_gemm  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "csrc"
+
+
+def test_ws_chunk_depth_is_the_kernels_kc():
+    src = (CSRC / "stt_gemm.cu").read_text()
+    (kc,) = re.findall(r"constexpr int WS_KC = (\d+);", src)
+    assert int(kc) == stt_gemm.WS_CHUNK_K
+    # every operand-stationary configuration takes its depth from WS_KC
+    assert re.findall(r"\bKC = (\w+)", src) == ["WS_KC"]
+    assert "WS_KC * C::BN" in src
+
+
+def test_chip_smoke_reads_the_ws_chunk_depth():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert not re.search(r"^WS_CHUNK_K\s*=", src, re.M)
+    assert "stt_gemm.WS_CHUNK_K" in src
+
+
+def test_flash_bf16_runs_on_tensor_cores_for_every_head_dim():
+    src = (CSRC / "flash_attention.cu").read_text()
+    cases = tuple(int(d) for d in re.findall(r"FLASH_CASE\((\d+)\)", src))
+    assert cases == fa.HEAD_DIMS
+    assert all(d % 16 == 0 for d in fa.HEAD_DIMS)   # the mma's k depth
+    # bf16 (dtype 1) dispatches to the mma kernel, fp32 to the SIMT one
+    assert "dispatch_d<__nv_bfloat16>" in src
+    assert re.search(r"if constexpr \(tc\)\s+kernel = flash_mma_kernel<D>;"
+                     r"\s+else\s+kernel = flash_kernel<D>;", src)
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "heads_of_bldh"])
+def test_bf16_alignment_check_accepts_the_models_views(layout):
+    x = torch.zeros((2, 70, 12, 80), dtype=torch.bfloat16)
+    if layout == "contiguous":
+        views = dict(q=x[:, :, :8].transpose(1, 2).contiguous())
+    else:   # (B, L, H, D) storage viewed as (B, H, L, D), as the models do
+        views = dict(q=x[:, :, 0:8].transpose(1, 2),
+                     k=x[:, :, 8:10].transpose(1, 2),
+                     v=x[:, :, 10:12].transpose(1, 2))
+    fa._check_aligned(**views)
+
+
+@pytest.mark.parametrize("how", ["pointer", "row_stride", "head_stride"])
+def test_bf16_alignment_check_names_the_operand(how):
+    if how == "pointer":
+        flat = torch.zeros(2 * 64 * 64 + 1, dtype=torch.bfloat16)
+        view = flat[1:].view(1, 2, 64, 64)
+    elif how == "row_stride":
+        view = torch.zeros((1, 2, 64, 68), dtype=torch.bfloat16)[..., :64]
+    else:
+        view = torch.zeros((1, 2, 64 * 64 + 4), dtype=torch.bfloat16
+                           )[:, :, :64 * 64].view(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="k 16-byte aligned"):
+        fa._check_aligned(q=torch.zeros((1, 2, 64, 64),
+                                        dtype=torch.bfloat16), k=view)
+    if how != "pointer":    # a length-1 axis's stride is never read
+        fa._check_aligned(k=view[:, :1, :1])
+
+
+def _bf16(rng, *shapes):
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32)
+                            ).bfloat16() for s in shapes]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 24),
+                                           (False, None)])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 1, 80), (2, 2, 64)])
+def test_bf16_probability_rounding_within_tolerance(hq, hkv, d, causal,
+                                                    window):
+    # the plain version with P rounded to bf16 (the bf16 kernel's
+    # arithmetic) stays inside the reference's bf16 tolerance, and rounds
+    rng = np.random.default_rng(d + hq)
+    q, k, v = _bf16(rng, (1, hq, 150, d), (1, hkv, 150, d),
+                    (1, hkv, 150, d))
+    got = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   round_p=True).float()
+    want = ref.attention_ref(q, k, v, causal=causal, window=window).float()
+    plain = fa.flash_attention_plain(q, k, v, causal=causal,
+                                     window=window).float()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 2e-2 * scale
+    assert (plain - want).abs().max().item() <= 2e-2 * scale
+    assert 0.0 < fa.row_error(got, plain) <= fa.BF16_ROW_TOL
+
+
+def test_row_error_holds_masked_rows_and_catches_a_dropped_block():
+    rng = np.random.default_rng(0)
+    q, k, v = _bf16(rng, (1, 4, 300, 64), (1, 2, 300, 64), (1, 2, 300, 64))
+    want = fa.flash_attention_plain(q, k, v, causal=True, round_p=True)
+    # the same attention with kv block 2 hidden from the last 64 rows
+    kf, vf = (x.float().repeat_interleave(2, dim=1) for x in (k, v))
+    mask = ref.attention_mask(300, 300, causal=True, window=None)
+    mask[236:, 128:192] = False
+    scores = (q.float() @ kf.transpose(-1, -2)) / 8.0
+    fault = torch.softmax(scores.masked_fill(~mask, float("-inf")),
+                          dim=-1) @ vf
+    assert fa.row_error(fault, want) > 10 * fa.BF16_ROW_TOL
+    assert fa.row_error(want, want) == 0.0
+    # a row of want that is all 0 (fully masked) holds got to 0 itself
+    zero = torch.zeros((1, 2, 3, 8))
+    off = zero.clone()
+    off[0, 1, 2, 5] = 1e-3
+    assert fa.row_error(zero, zero) == 0.0
+    assert fa.row_error(off, zero) == pytest.approx(1e-3)
