@@ -1,6 +1,7 @@
 """Time the port's redesigned kernels of one source tree on the card.
 
     python benchmarks/torch_kernel_ab.py [--src SRC] [--tag TAG]
+        [--cases flash,ws,os,rt] [--match TEXT]
 
 Imports ``repro_torch`` from ``SRC`` (default: this checkout's ``src``),
 so that the same script times two trees, for example a parent commit
@@ -12,15 +13,21 @@ the card's ``nvidia-smi`` name and power limit:
   serve path's longest prefill (1495 tokens, causal) at h2o-danube-1.8b's
   heads (32 over 8, D = 80) and zamba2-1.2b's shared block (32 over 32,
   D = 64); CUDA-event mean of 20 calls;
-* ``ws``: every case of ``chip_smoke.py``'s main path (``SIZES`` x
-  ``STTS``) that runs the operand-stationary template, on integer
-  operands: the device time of the template's kernels in one traced
-  ``Accelerator.__call__`` (``torch.profiler``; ``ws_kernel`` and
-  ``ws_tile_kernel``; null when three traces held neither, with the
-  number of traces taken), and the CUDA-event mean of 5 calls.
+* ``ws``, ``os``, ``rt``: every case of ``chip_smoke.py``'s main path
+  (``SIZES`` x ``STTS``) that runs the operand-stationary, the
+  output-stationary or the reduction-tree template (``streaming``
+  included), on integer operands; ``os`` adds the bf16 gemm and the
+  graph cases that run sequentially on the templates, (c) (the
+  h2o-danube-1.8b layer at l = 64) and (d) (at l = 512, ``merge=False``).
+  Each gives the device time of the port's kernels in one traced
+  ``Accelerator.__call__`` (``torch.profiler``; the names of both this
+  tree's kernels and the earlier ``os_kernel``/``rt_kernel``; null when
+  three traces held none, with the number of traces taken), and the
+  CUDA-event mean of 5 calls.
 
-Timing and tracing are ``chip_smoke.py``'s own (``event_ms``,
-``kernel_times``).
+``--match`` keeps only the cases whose label holds one of its
+comma-separated strings (for example ``gemm x,mttkrp``).  Timing and
+tracing are ``chip_smoke.py``'s own (``event_ms``, ``kernel_times``).
 
 Needs a CUDA card; exits 1 without one.
 """
@@ -50,11 +57,24 @@ def traced_ms(fn, names, tries=3):
     return None, tries
 
 
+#: template names of the main-path cases each group times
+GROUPS = {"ws": ("operand_stationary",), "os": ("output_stationary",),
+          "rt": ("reduction_tree", "streaming")}
+#: kernel names of the STT templates before the tile/stream redesign
+EARLIER_KERNELS = ("os_kernel<", "rt_kernel<")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="change")
+    ap.add_argument("--cases", default="flash,ws,os,rt",
+                    help="comma-separated groups: flash, ws, os, rt")
+    ap.add_argument("--match", default="",
+                    help="time only the cases whose label holds one of "
+                         "these comma-separated strings")
     args = ap.parse_args()
+    groups = args.cases.split(",")
     import torch
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
@@ -62,8 +82,13 @@ def main() -> int:
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
     import repro_torch
-    from chip_smoke import SIZES, STTS, event_ms
+    from chip_smoke import (GRAPH_BUDGET, GRAPH_MODEL, OUR_KERNELS, SIZES,
+                            STTS, event_ms, graph_operands)
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.algebra import get_algebra
+    from repro_torch.core.tiling import ArrayConfig
+    from repro_torch.graph import executor as graph_executor
+    from repro_torch.graph import from_model
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
@@ -75,19 +100,33 @@ def main() -> int:
     _build.build_all()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    names = OUR_KERNELS + EARLIER_KERNELS
 
     def emit(**row):
         print(json.dumps({"tag": args.tag, "card": smi, **row}), flush=True)
 
-    for hq, hkv, d in ((32, 8, 80), (32, 32, 64)):
-        q, k, v = [torch.randn((1, h, 1495, d), generator=gen, device=dev
-                               ).to(torch.bfloat16) for h in (hq, hkv, hkv)]
-        emit(case=f"flash q (1, {hq}, 1495, {d}) k/v (1, {hkv}, 1495, {d})",
-             ms=event_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                         20))
-        del q, k, v
+    def timed(case, fn):
+        if not any(m in case for m in args.match.split(",")):
+            return
+        ms, traces = traced_ms(fn, names)
+        emit(case=case, traced_kernel_ms=ms, traces=traces,
+             call_event_ms=event_ms(fn, 5))
 
+    if "flash" in groups:
+        for hq, hkv, d in ((32, 8, 80), (32, 32, 64)):
+            q, k, v = [torch.randn((1, h, 1495, d), generator=gen,
+                                   device=dev).to(torch.bfloat16)
+                       for h in (hq, hkv, hkv)]
+            emit(case=f"flash q (1, {hq}, 1495, {d}) k/v (1, {hkv}, 1495, "
+                      f"{d})",
+                 ms=event_ms(lambda: fa.flash_attention(q, k, v,
+                                                        causal=True), 20))
+            del q, k, v
+
+    stt = [g for g in groups if g in GROUPS]
     for name, bounds in SIZES.items():
+        if not stt:
+            break
         alg = get_algebra(name, **bounds)
         ops = {t.name: torch.randint(-4, 5, alg.tensor_shape(t),
                                      generator=gen, device=dev,
@@ -96,13 +135,35 @@ def main() -> int:
         for s in STTS:
             acc = repro_torch.generate(name, s, bounds=bounds,
                                        validate=False)
-            if acc.template != "operand_stationary":
-                continue
-            ms, traces = traced_ms(lambda: acc(ops),
-                                   ("ws_kernel<", "ws_tile_kernel<"))
-            emit(case=f"ws {name} x {s}", traced_kernel_ms=ms,
-                 traces=traces, call_event_ms=event_ms(lambda: acc(ops), 5))
+            for g in stt:
+                if acc.template in GROUPS[g]:
+                    timed(f"{g} {name} x {s}", lambda: acc(ops))
         del ops
+
+    if "os" in groups:
+        gemm = get_algebra("gemm", **SIZES["gemm"])
+        ops16 = {t.name: torch.randn(gemm.tensor_shape(t), generator=gen,
+                                     device=dev).to(torch.bfloat16)
+                 for t in gemm.inputs}
+        acc16 = repro_torch.generate("gemm", "output_stationary",
+                                     bounds=SIZES["gemm"],
+                                     dtype=torch.bfloat16, validate=False)
+        timed("os gemm x output_stationary bf16", lambda: acc16(ops16))
+        del ops16
+        # graph (c) and (d) of chip_smoke.py, sequential on the templates
+        model = get_config(GRAPH_MODEL)
+        layer512 = from_model.layer_graph_from_config(model, l=512)
+        layer64 = from_model.layer_graph_from_config(model, l=64)
+        gops = graph_operands(layer512,
+                              torch.Generator(device=dev).manual_seed(2))
+        for label, g, ops, cfg, merge in (
+                ("(c) layer l=64", layer64, {**gops, "x": gops["x"][:64]},
+                 ArrayConfig(), True),
+                ("(d) layer l=512 merge=False", layer512, gops,
+                 ArrayConfig(strip_budget_bytes=GRAPH_BUDGET), False)):
+            acc = graph_executor.build(g, cfg=cfg, merge=merge,
+                                       validate=False)
+            timed(f"os graph {label}", lambda: acc(ops))
     return 0
 
 

@@ -47,10 +47,11 @@ each of which fails the run (non-zero exit) when it fails:
 9. each kernel timed with CUDA events at a main-path shape beside its
    plain version, one PyTorch call computing the same function where
    there is one (``torch.matmul``; a yardstick the port never calls) and
-   its roofline bound from ``core/hopper.py``; then every main-path,
-   sparse and graph case timed end to end (host clock, 3 calls); the
-   sparse and graph cases and one STT per dense algebra are traced
-   once;
+   its roofline bound from ``core/hopper.py``; each STT template's
+   timed case must give the same bits on a second call; then every
+   main-path, sparse and graph case timed end to end (host clock, 3
+   calls); the sparse and graph cases and one STT per dense algebra are
+   traced once;
 10. LM serving at the full width and depth of h2o-danube-1.8b (24
    layers, bf16 compute, fp32 master weights drawn on the card from a
    seed): a ``ContinuousServer`` over a ``SlotEngine(capacity=8,
@@ -163,7 +164,8 @@ SPARSE = (
 GRAPH_MODEL = "h2o-danube-1.8b"
 GRAPH_BUDGET = 512 << 20
 #: the port's kernels, by the names the profiler reports
-OUR_KERNELS = ("os_kernel<", "ws_kernel<", "ws_tile_kernel<", "rt_kernel<",
+OUR_KERNELS = ("stt_tile_kernel<", "os_stream_kernel<", "rt_tree_kernel<",
+               "os_inplace_kernel<", "ws_kernel<", "ws_tile_kernel<",
                "bsr_kernel<", "stages_kernel<", "gather_kernel<",
                "flash_kernel<", "flash_mma_kernel<", "ssd_kernel")
 #: the serve phase: model, slot engine, traffic
@@ -238,6 +240,23 @@ def event_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_operands(g, gen):
+    """Operands of graph ``g`` on the card, drawn from ``gen``: x ~ N(0,
+    1); weights ~ N(0, 1/fan_in) in (out, in) storage; biases ~ N(0,
+    0.01): activations stay O(1) through the layer."""
+    import torch
+    ops = {}
+    for e in g.inputs:
+        shape = g.edge_shape(e)
+        v = torch.randn(shape, generator=gen, device=gen.device)
+        if len(shape) == 1:
+            v *= 0.1
+        elif e != "x":
+            v /= shape[-1] ** 0.5
+        ops[e] = v
+    return ops
 
 
 def device_breakdown(fn, top: int = 8):
@@ -1044,24 +1063,8 @@ def main() -> int:
     mlp512 = chains.mlp_graph(l=512, d=model.d_model, f=model.d_ff)
     layer64 = from_model.layer_graph_from_config(model, l=64)
     ggen = torch.Generator(device=dev).manual_seed(2)
-
-    def graph_operands(g):
-        """x ~ N(0, 1); weights ~ N(0, 1/fan_in) in (out, in) storage;
-        biases ~ N(0, 0.01): activations stay O(1) through the layer.
-        Made on the card from the seed."""
-        ops = {}
-        for e in g.inputs:
-            shape = g.edge_shape(e)
-            v = torch.randn(shape, generator=ggen, device=dev)
-            if len(shape) == 1:
-                v *= 0.1
-            elif e != "x":
-                v /= shape[-1] ** 0.5
-            ops[e] = v
-        return ops
-
-    graph_ops = {"layer512": graph_operands(layer512),
-                 "mlp512": graph_operands(mlp512)}
+    graph_ops = {"layer512": graph_operands(layer512, ggen),
+                 "mlp512": graph_operands(mlp512, ggen)}
     # the same layer's weights at l = 64: the first 64 rows of x
     graph_ops["layer64"] = {**graph_ops["layer512"],
                             "x": graph_ops["layer512"]["x"][:64]}
@@ -1264,6 +1267,7 @@ def main() -> int:
         errs[template] = max(errs[template],
                              (got.reshape(want.shape) - want).abs().max()
                              .item())
+        check(torch.equal(run(), got), f"{template}: two calls differ")
         roof = hopper.gemm_roofline(
             f"{name} x {s}", nb, m, n, kk, a_batched=a3.shape[0] > 1,
             b_batched=b3.shape[0] > 1)

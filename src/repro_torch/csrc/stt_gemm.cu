@@ -6,11 +6,9 @@
 // Each operand is read through a strided view (batch, row and column
 // strides in elements), so the wrappers pass transposed views -- gemm's
 // B.T, the input-stationary transposition -- without a copy, and an
-// operand broadcast over the batch has batch stride 0.  Tile loads walk
-// the operand's unit-stride axis so that neighbouring threads read
-// neighbouring addresses.  Inputs are fp32 or bf16; products and sums are
-// fp32 on the CUDA cores (TF32 is off so fp32 results match the
-// reference); the output has the input dtype.
+// operand broadcast over the batch has batch stride 0.  Inputs are fp32
+// or bf16; products and sums are fp32 on the CUDA cores (TF32 is off so
+// fp32 results match the reference); the output has the input dtype.
 //
 // The plan's blocks (bm, bn, bk) come from the 16x16 PE-array tile
 // chooser and define semantics (residency, the in-place rounding step,
@@ -19,34 +17,68 @@
 //
 // What bounds these kernels on the H100: fp32 without TF32 is bound by
 // CUDA-core FLOPs (67 TFLOP/s) at the main path's shapes, except the
-// skinny batched forms (batched_gemv, depthwise_conv), which are bound by
-// bytes.  The operand-stationary strip adds its own term: the fp32 (m, bn)
-// strip is read-modify-written once per k-chunk.  All are SIMT tiles
-// (register micro-tiles fed from shared memory).  The operand-stationary
-// tile kernel has its own mainloop (float4 fragments, double-buffered A
-// slabs, one barrier a slab; see ws_tile_kernel), written as device
-// functions of its own so that the output-stationary template can adopt
-// it; the others still stage element by element through common.cuh.
+// skinny batched forms (batched_gemv, depthwise_conv: m <= SKINNY_M a
+// batch slice), which are bound by bytes (3.35 TB/s).  The
+// operand-stationary strip adds its own term: the fp32 (m, bn) strip is
+// read-modify-written once per k-chunk.  The kernels:
+// - stt_tile_kernel (output stationary and reduction tree, m > SKINNY_M)
+//   and ws_tile_kernel (operand stationary, n > 8) run the SIMT tile
+//   mainloop of simt_tile.cuh: float4 register fragments, operands staged
+//   in SLAB_K-deep slabs double-buffered through registers, one barrier a
+//   slab;
+// - os_stream_kernel and rt_tree_kernel (m <= SKINNY_M) stream B along
+//   its unit-stride axis with 16-byte loads, several in flight a thread,
+//   and hold A's few rows in shared memory;
+// - os_inplace_kernel (accum="inplace") and ws_kernel (operand
+//   stationary, n <= 8) keep the first version's element-by-element
+//   staging through common.cuh.
 // wgmma, TMA and warp specialisation are later work.
 //
 // Launch contract: every kernel runs on the stream it is given, allocates
 // nothing (outputs and the fp32 workspace come from the caller), and each
 // host entry point returns cudaGetLastError() right after its launch.
 
-#include "common.cuh"
+#include "simt_tile.cuh"
 
 namespace {
 
-// Shared body of the output-stationary and reduction-tree kernels.
-// Without a workspace each CTA owns one output tile (n_fast: consecutive
-// CTAs walk along n) and flushes it straight from registers.  With a
-// workspace (softmax epilogues) each CTA owns BM full rows: it writes the
-// raw sums of every n tile to the fp32 workspace, then runs the row phase.
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool INPLACE>
-__device__ __forceinline__ void tiles_body(View<T> A, View<T> B, T* out,
-                                           float* ws, int m, int n, int k,
-                                           int kstep, int n_fast,
-                                           const Epi& epi) {
+// m a batch slice at or under which the output-stationary and
+// reduction-tree templates take their streaming kernels (the grid-folded
+// batched forms have m = 1); the in-place path's skinny tile is as tall
+constexpr int SKINNY_M = 8;
+static_assert(TileS::BM == SKINNY_M, "one skinny threshold");
+
+// Output-stationary template; replaces the reference's
+// kernels/stt_gemm.py:matmul_output_stationary (_os_kernel_scratch,
+// _os_kernel_inplace).  The C tile is the resident accumulator: it stays
+// in registers for the whole k loop while A and B stream through.  On the
+// TPU the k-outer grid orders ("kmn", "knm") revisit the output block
+// between k-steps; here CTAs do not run in order, so those orders compute
+// exactly the k-inner in-place sums and only pick the raster order
+// (n_fast).  Which kernel runs each mode:
+// - accum="scratch", m > SKINNY_M: stt_tile_kernel (below), fp32 sums
+//   cast once at the flush; with a softmax epilogue (a workspace) each
+//   CTA covers BM whole rows and ends with the row phase;
+// - accum="scratch", m <= SKINNY_M: os_stream_kernel (below);
+// - accum="inplace": os_inplace_kernel, the first version's tile over
+//   common.cuh's tile_product, which rounds the running sum to the output
+//   dtype after every plan k-step of bk (kstep).  It is off the main path
+//   (ops.stt_matmul resolves "auto" to scratch).
+// Every scratch output keeps one fp32 accumulator that adds its products
+// in ascending k from 0, one fmaf each, as the BSR kernel does
+// (bsr_gemm.cu): at density 1.0 the two are bit-identical.  So there is
+// no split-K for this template.
+//
+// Shared body of os_inplace_kernel.  Without a workspace each CTA owns one
+// output tile (n_fast: consecutive CTAs walk along n) and flushes it
+// straight from registers.  With a workspace (softmax epilogues) each CTA
+// owns BM full rows: it writes the raw sums of every n tile to the fp32
+// workspace, then runs the row phase.
+template <typename T, int BM, int BN, int BK, int TM, int TN>
+__device__ __forceinline__ void inplace_body(View<T> A, View<T> B, T* out,
+                                             float* ws, int m, int n, int k,
+                                             int kstep, int n_fast,
+                                             const Epi& epi) {
   __shared__ float As[BK * BM];
   __shared__ float Bs[BK * BN];
   const int b = blockIdx.z;
@@ -56,7 +88,7 @@ __device__ __forceinline__ void tiles_body(View<T> A, View<T> B, T* out,
   if (ws == nullptr) {
     const int tm = n_fast ? blockIdx.y : blockIdx.x;
     const int tn = n_fast ? blockIdx.x : blockIdx.y;
-    tile_product<T, BM, BN, BK, TM, TN, INPLACE>(
+    tile_product<T, BM, BN, BK, TM, TN, true>(
         A, B, b, m, n, k, tm * BM, tn * BN, kstep, acc, As, Bs);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
@@ -72,7 +104,7 @@ __device__ __forceinline__ void tiles_body(View<T> A, View<T> B, T* out,
   }
   const int tm = blockIdx.x;
   for (int tn = 0; tn * BN < n; ++tn) {
-    tile_product<T, BM, BN, BK, TM, TN, INPLACE>(
+    tile_product<T, BM, BN, BK, TM, TN, true>(
         A, B, b, m, n, k, tm * BM, tn * BN, kstep, acc, As, Bs);
 #pragma unroll
     for (int i = 0; i < TM; ++i)
@@ -88,50 +120,365 @@ __device__ __forceinline__ void tiles_body(View<T> A, View<T> B, T* out,
                 epi);
 }
 
-// Output-stationary template; replaces the reference's
-// kernels/stt_gemm.py:matmul_output_stationary (_os_kernel_scratch,
-// _os_kernel_inplace).  The C tile is the resident accumulator: it stays
-// in registers for the whole k loop while A and B tiles stream through
-// shared memory.  accum="scratch" keeps it fp32 and casts once at the
-// flush; accum="inplace" rounds it to the output dtype after every plan
-// k-step of bk (kstep).  On the TPU the k-outer grid orders ("kmn",
-// "knm") revisit the output block between k-steps; here CTAs do not run
-// in order, so those orders compute exactly the k-inner in-place sums
-// and only pick the raster order (n_fast).  Bound on the H100: fp32
-// FLOPs at the main path's shapes (gemm 4096^3: 2.05 ms at 67 TFLOP/s);
-// the 128x128 tile gives every staged element 128 FMAs of reuse, and
-// the 8x128 skinny tile keeps the m=1 batch slices of grid-folded forms
-// from wasting 128x the FMAs.
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool INPLACE>
+template <typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    os_kernel(View<T> A, View<T> B, T* out, float* ws, int m, int n, int k,
-              int kstep, int n_fast, Epi epi) {
-  tiles_body<T, BM, BN, BK, TM, TN, INPLACE>(A, B, out, ws, m, n, k, kstep,
-                                             n_fast, epi);
+    os_inplace_kernel(View<T> A, View<T> B, T* out, float* ws, int m, int n,
+                      int k, int kstep, int n_fast, Epi epi) {
+  inplace_body<T, BM, BN, BK, TM, TN>(A, B, out, ws, m, n, k, kstep, n_fast,
+                                      epi);
+}
+
+// The tile kernel of the output-stationary (scratch) and reduction-tree
+// templates for m > SKINNY_M.  Bound on the H100: fp32 FLOPs (gemm
+// 4096^3: 2.05 ms at 67 TFLOP/s).  The design:
+// - a BM x BN CTA tile, 128 x 128 where that gives at least one wave of
+//   the card's 132 SMs, else 64 x 64 (the operand-stationary rule); 256
+//   threads in warps of 4 x 8, each owning a TM x TN register tile read
+//   from shared memory as float4 quadrants (fma_quads): 64 FMAs for 4
+//   shared loads at 128 x 128;
+// - A and B both arrive in SLAB_K-deep slabs, double-buffered through
+//   registers (Slab; B as its transposed view): the next slab's global
+//   loads are issued before this slab's FMAs and stored to the other
+//   buffer after them, one barrier a slab (2,048 FMAs a thread at 128 x
+//   128).  Loads are 16 bytes along each operand's unit-stride axis (A
+//   row-major and gemm's B.T view: k; an n-contiguous B: n), scalar for
+//   other views; the host picks each operand's mode (stage_mode);
+// - both slabs are stored swizzled (swz), so that the k-major stores of
+//   a k-contiguous operand hit 32 banks a warp: with the operand-
+//   stationary kernel's padded rows they took 4 passes, twice a slab;
+// - the shared memory (2 x SLAB_K x (BM + BN) fp32, 64 KB at 128) is
+//   dynamic, opted in once per instantiation;
+// - the flush applies the epilogue and the cast straight from registers,
+//   with 16-byte stores where n % 4 == 0.
+// Each output sums in ascending k from 0, one fmaf a product (see the
+// output-stationary note); bf16 operands convert to fp32 at staging.
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    stt_tile_kernel(View<T> A, View<T> Bt, T* out, float* ws, int m, int n,
+                    int k, int n_fast, int a_mode, int b_mode, Epi epi) {
+  constexpr int TM = BM / 16, TN = BN / 16, QM = TM / 4, QN = TN / 4;
+  constexpr int LDA = Slab<T, BM, true>::LD, LDB = Slab<T, BN, true>::LD;
+  extern __shared__ __align__(16) float tsm[];
+  float* As = tsm;                    // 2 x SLAB_K x LDA
+  float* Bs = As + 2 * SLAB_K * LDA;  // 2 x SLAB_K x LDB
+  const int b = blockIdx.z;
+  const int tx = quad_tx(), ty = quad_ty();
+  const long long aoff = (long long)b * A.sb, boff = (long long)b * Bt.sb;
+  const long long cbase = (long long)b * m * n;
+  const bool row_mode = ws != nullptr;
+  const bool vec = n % 4 == 0;  // output rows hold whole float4s
+  const int tm = row_mode || !n_fast ? blockIdx.x : blockIdx.y;
+  const int tn_begin = row_mode ? 0 : (n_fast ? blockIdx.x : blockIdx.y);
+  const int tn_end = row_mode ? cdiv(n, BN) : tn_begin + 1;
+  const int m0 = tm * BM;
+  const int nsl = cdiv(k, SLAB_K);
+  Slab<T, BM, true> na;
+  Slab<T, BN, true> nb;
+  float acc[TM][TN];
+  for (int tn = tn_begin; tn < tn_end; ++tn) {
+    const int n0 = tn * BN;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+    na.load(A, aoff, m0, 0, m, k, a_mode);
+    nb.load(Bt, boff, n0, 0, n, k, b_mode);
+    na.store(As, a_mode);
+    nb.store(Bs, b_mode);
+    __syncthreads();
+    for (int s = 0; s < nsl; ++s) {
+      const bool more = s + 1 < nsl;
+      if (more) {
+        na.load(A, aoff, m0, (s + 1) * SLAB_K, m, k, a_mode);
+        nb.load(Bt, boff, n0, (s + 1) * SLAB_K, n, k, b_mode);
+      }
+      fma_quads<BM, BN, TM, TN, LDB, true>(
+          acc, As + (s & 1) * SLAB_K * LDA, Bs + (s & 1) * SLAB_K * LDB, ty,
+          tx);
+      if (more) {
+        na.store(As + ((s + 1) & 1) * SLAB_K * LDA, a_mode);
+        nb.store(Bs + ((s + 1) & 1) * SLAB_K * LDB, b_mode);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = m0 + (i / 4) * (BM / QM) + 4 * ty + i % 4;
+      if (r >= m) continue;
+#pragma unroll
+      for (int q = 0; q < QN; ++q) {
+        const int c = n0 + q * (BN / QN) + 4 * tx;
+        if (c >= n) continue;
+        const long long idx = cbase + (long long)r * n + c;
+        const float4 v = make_float4(acc[i][4 * q], acc[i][4 * q + 1],
+                                     acc[i][4 * q + 2], acc[i][4 * q + 3]);
+        if (row_mode)
+          store4(ws, idx, v, c, n, vec);
+        else
+          flush4<T>(out, idx, v, c, n, vec, epi);
+      }
+    }
+  }
+  if (row_mode) {
+    __syncthreads();
+    flush_rows<T>(ws + cbase, out + cbase, m0, min(m, m0 + BM), n, epi);
+  }
+}
+
+// ---- the streaming kernels (m <= SKINNY_M) ----
+//
+// A warp owns STREAM_COLS columns of one batch slice, 4 a lane, and a k
+// range.  Each lane loads its B elements itself, STREAM_UK k at a time
+// (STREAM_UK 16-byte loads: one per k where B is n-contiguous, one per
+// column and 4 k where it is k-contiguous, elements one by one for other
+// views), and issues the next group's loads before this group's FMAs, so
+// 8 to 16 loads a lane are in flight.  A's rows (at most SKINNY_M) are
+// staged per warp in shared memory, STREAM_AK k at a time, as Aw[k][r];
+// a warp touches no barrier of its CTA on the way.  Sums run in ascending
+// k, one fmaf a product, from 0.
+constexpr int STREAM_COLS = 128;
+constexpr int STREAM_UK = 8;
+constexpr int STREAM_AK = 128;
+static_assert(STREAM_AK % STREAM_UK == 0, "whole groups in an A chunk");
+
+// B elements (k, c + j) for k in [kg, kg + STREAM_UK), as STREAM_UK
+// float4s: x[u] holds k = kg + u (MODE STAGE_MN or STAGE_SCALAR) or, in
+// STAGE_K, x[4 q + j] holds column c + j at k = kg + 4 q .. +3.
+template <typename T, int MODE>
+__device__ __forceinline__ void stream_load(float4 (&x)[STREAM_UK],
+                                            const View<T>& B, long long boff,
+                                            int kg, int c, int ke, int n) {
+  const bool full = kg + STREAM_UK <= ke && c + 4 <= n;
+  if (MODE == STAGE_MN && full) {
+    const T* p = B.p + boff + (long long)kg * B.sr + c;
+#pragma unroll
+    for (int u = 0; u < STREAM_UK; ++u) x[u] = load4(p + (long long)u * B.sr);
+  } else if (MODE == STAGE_K && full) {
+    const T* p = B.p + boff + kg + (long long)c * B.sc;
+#pragma unroll
+    for (int q = 0; q < STREAM_UK / 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[4 * q + j] = load4(p + 4 * q + (long long)j * B.sc);
+  } else if (MODE == STAGE_K) {
+#pragma unroll
+    for (int q = 0; q < STREAM_UK / 4; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[4 * q + j] = fetch4(B, boff, kg + 4 * q, c + j, 1, 0, ke, n, true);
+  } else {
+#pragma unroll
+    for (int u = 0; u < STREAM_UK; ++u)
+      x[u] = fetch4(B, boff, kg + u, c, 0, 1, ke, n, MODE == STAGE_MN);
+  }
+}
+
+// acc[r][j] += Aw[u][r] * B(kg + u, c + j) for u ascending
+template <int MR, int MODE>
+__device__ __forceinline__ void stream_fma(float (&acc)[MR][4],
+                                           const float4 (&x)[STREAM_UK],
+                                           const float* Aw) {
+#pragma unroll
+  for (int u = 0; u < STREAM_UK; ++u) {
+    float a[MR];
+#pragma unroll
+    for (int r = 0; r < MR; ++r) a[r] = Aw[u * MR + r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float bv = MODE == STAGE_K ? at(x[4 * (u / 4) + j], u % 4)
+                                       : at(x[u], j);
+#pragma unroll
+      for (int r = 0; r < MR; ++r) acc[r][j] = fmaf(a[r], bv, acc[r][j]);
+    }
+  }
+}
+
+// One warp's sums over k in [kb, ke) for rows [0, MR) (zero past m) and
+// columns c .. c + 3 of its lane (zero past n); Aw is the warp's own
+// STREAM_AK x MR staging area.
+template <typename T, int MR, int MODE>
+__device__ __forceinline__ void stream_warp(float (&acc)[MR][4],
+                                            const View<T>& A,
+                                            const View<T>& B, long long aoff,
+                                            long long boff, float* Aw, int m,
+                                            int n, int c, int kb, int ke) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int r = 0; r < MR; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+  if (kb >= ke) return;
+  float4 cur[STREAM_UK], nxt[STREAM_UK];
+  stream_load<T, MODE>(cur, B, boff, kb, c, ke, n);
+#pragma unroll 1
+  for (int kg = kb; kg < ke; kg += STREAM_UK) {
+    const bool more = kg + STREAM_UK < ke;
+    if (more) stream_load<T, MODE>(nxt, B, boff, kg + STREAM_UK, c, ke, n);
+    const int off = (kg - kb) % STREAM_AK;
+    if (off == 0) {  // the next A chunk, while both groups' loads fly
+      __syncwarp();
+      for (int e = lane; e < STREAM_AK * MR; e += 32) {
+        const int kk = kg + e / MR, r = e % MR;
+        Aw[e] = r < m && kk < ke
+                    ? to_f(A.p[aoff + (long long)r * A.sr +
+                               (long long)kk * A.sc])
+                    : 0.0f;
+      }
+      __syncwarp();
+    }
+    stream_fma<MR, MODE>(acc, cur, Aw + off * MR);
+    if (more) {
+#pragma unroll
+      for (int u = 0; u < STREAM_UK; ++u) cur[u] = nxt[u];
+    }
+  }
+}
+
+template <typename T, int MR>
+__device__ __forceinline__ void stream_warp_any(
+    float (&acc)[MR][4], const View<T>& A, const View<T>& B, long long aoff,
+    long long boff, float* Aw, int m, int n, int c, int kb, int ke,
+    int b_mode) {
+  if (b_mode == STAGE_MN)
+    stream_warp<T, MR, STAGE_MN>(acc, A, B, aoff, boff, Aw, m, n, c, kb, ke);
+  else if (b_mode == STAGE_K)
+    stream_warp<T, MR, STAGE_K>(acc, A, B, aoff, boff, Aw, m, n, c, kb, ke);
+  else
+    stream_warp<T, MR, STAGE_SCALAR>(acc, A, B, aoff, boff, Aw, m, n, c, kb,
+                                     ke);
+}
+
+// Rows r < m of a lane's 4 columns: flushed to out, or (row mode) the raw
+// sums stored to the workspace.
+template <typename T, int MR>
+__device__ __forceinline__ void stream_flush(const float (&acc)[MR][4],
+                                             T* out, float* ws,
+                                             long long cbase, int m, int n,
+                                             int c, const Epi& epi) {
+  if (c >= n) return;
+  const bool vec = n % 4 == 0;
+#pragma unroll
+  for (int r = 0; r < MR; ++r) {
+    if (r >= m) break;
+    const long long idx = cbase + (long long)r * n + c;
+    const float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    if (ws != nullptr)
+      store4(ws, idx, v, c, n, vec);
+    else
+      flush4<T>(out, idx, v, c, n, vec, epi);
+  }
+}
+
+// Output stationary for m <= SKINNY_M: bound by bytes (batched_gemv's
+// 64 x (1 x 4096 @ 4096 x 4096) moves 4.3 GB, 1.28 ms at 3.35 TB/s).  One
+// CTA per (batch slice, STREAM_WARPS x STREAM_COLS columns), each warp its
+// own columns over the whole k, so every output's sum stays temporal:
+// one accumulator, ascending k.  With a workspace (softmax) one CTA walks
+// every column of its slice and ends with the row phase.  At m = 1 the
+// registers are capped so that 4 CTAs fit an SM: batched_gemv's 512 CTAs
+// then run as one wave on the 132 SMs.
+constexpr int STREAM_WARPS = 4;
+
+template <typename T, int MR>
+__global__ void __launch_bounds__(STREAM_WARPS * 32, MR == 1 ? 4 : 2)
+    os_stream_kernel(View<T> A, View<T> B, T* out, float* ws, int m, int n,
+                     int k, int b_mode, Epi epi) {
+  __shared__ float Aws[STREAM_WARPS][STREAM_AK * MR];
+  constexpr int SPAN = STREAM_WARPS * STREAM_COLS;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.z;
+  const long long aoff = (long long)b * A.sb, boff = (long long)b * B.sb;
+  const long long cbase = (long long)b * m * n;
+  const int c_begin = ws != nullptr ? 0 : blockIdx.x * SPAN;
+  const int c_end = ws != nullptr ? n : min(n, c_begin + SPAN);
+  for (int c0 = c_begin + w * STREAM_COLS; c0 < c_end; c0 += SPAN) {
+    float acc[MR][4];
+    const int c = c0 + 4 * lane;
+    stream_warp_any<T, MR>(acc, A, B, aoff, boff, Aws[w], m, n, c, 0, k,
+                           b_mode);
+    stream_flush<T, MR>(acc, out, ws, cbase, m, n, c, epi);
+  }
+  if (ws != nullptr) {
+    __syncthreads();
+    flush_rows<T>(ws + cbase, out + cbase, 0, m, n, epi);
+  }
 }
 
 // Reduction-tree template (also "streaming"); replaces the reference's
-// kernels/stt_gemm.py:matmul_reduction_tree (_rt_kernel).  One pass per
-// output tile over the full K with nothing resident between tiles; the
-// split-K adder-tree form across CTAs is later work.  Bound on the H100:
-// bytes on its main-path users (streaming batched_gemv and
-// depthwise_conv, one pass over a batched operand), where the skinny
-// tile keeps the FMA work near the algebra's; FLOPs on large square
-// shapes, as for the output-stationary kernel.
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-    rt_kernel(View<T> A, View<T> B, T* out, float* ws, int m, int n, int k,
-              int n_fast, Epi epi) {
-  tiles_body<T, BM, BN, BK, TM, TN, false>(A, B, out, ws, m, n, k, k,
-                                           n_fast, epi);
+// kernels/stt_gemm.py:matmul_reduction_tree (_rt_kernel): one full-K
+// reduction per output block with nothing resident between blocks.
+// - m > SKINNY_M: stt_tile_kernel, one pass over the full K (FLOPs-bound
+//   on large shapes, as the output-stationary template);
+// - m <= SKINNY_M (the main path's streaming batched_gemv and
+//   depthwise_conv): rt_tree_kernel, bound by bytes (the same 4.3 GB at
+//   batched_gemv as above).  k is made spatial, as the paper's adder tree
+//   does: one CTA per (batch slice, STREAM_COLS columns), whose
+//   TREE_WARPS warps split k into contiguous ranges (a multiple of
+//   STREAM_UK each), each warp streaming its range in ascending k; the
+//   warps' partial sums then meet in shared memory in a fixed binary tree
+//   (warp w adds warp w + s for s = TREE_WARPS / 2, ..., 1).  The order
+//   depends on the tile constants only, never on scheduling, and there
+//   are no atomics; with batched_gemv's 2,048 CTAs the grid fills the
+//   card many times over, so there is no split across CTAs.  With a
+//   workspace (softmax) one CTA walks every column block of its slice
+//   and ends with the row phase.
+constexpr int TREE_WARPS = 8;
+// the tree's partial sums reuse the A staging area
+static_assert(STREAM_AK >= 32 * 4, "tree sums fit the A staging area");
+
+template <typename T, int MR>
+__global__ void __launch_bounds__(TREE_WARPS * 32)
+    rt_tree_kernel(View<T> A, View<T> B, T* out, float* ws, int m, int n,
+                   int k, int b_mode, Epi epi) {
+  __shared__ __align__(16) float tree[TREE_WARPS * STREAM_AK * MR];
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.z;
+  const long long aoff = (long long)b * A.sb, boff = (long long)b * B.sb;
+  const long long cbase = (long long)b * m * n;
+  const int len = cdiv(cdiv(k, TREE_WARPS), STREAM_UK) * STREAM_UK;
+  const int kb = min(k, w * len), ke = min(k, kb + len);
+  const int c_begin = ws != nullptr ? 0 : blockIdx.x * STREAM_COLS;
+  const int c_end = ws != nullptr ? n : c_begin + 1;
+  float4* part = reinterpret_cast<float4*>(tree);  // [warp][row][lane]
+  for (int c0 = c_begin; c0 < c_end; c0 += STREAM_COLS) {
+    float acc[MR][4];
+    const int c = c0 + 4 * lane;
+    stream_warp_any<T, MR>(acc, A, B, aoff, boff,
+                           tree + w * STREAM_AK * MR, m, n, c, kb, ke,
+                           b_mode);
+    __syncthreads();  // every warp is done with its A chunks
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+      part[(w * MR + r) * 32 + lane] =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __syncthreads();
+#pragma unroll
+    for (int s = TREE_WARPS / 2; s > 0; s /= 2) {
+      if (w < s) {
+#pragma unroll
+        for (int r = 0; r < MR; ++r) {
+          const float4 o = part[((w + s) * MR + r) * 32 + lane];
+          acc[r][0] += o.x; acc[r][1] += o.y; acc[r][2] += o.z;
+          acc[r][3] += o.w;
+          if (s > 1)
+            part[(w * MR + r) * 32 + lane] =
+                make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+        }
+      }
+      __syncthreads();
+    }
+    if (w == 0) stream_flush<T, MR>(acc, out, ws, cbase, m, n, c, epi);
+  }
+  if (ws != nullptr) {
+    __syncthreads();
+    flush_rows<T>(ws + cbase, out + cbase, 0, m, n, epi);
+  }
 }
 
 // k depth of the operand-stationary kernels' pinned B chunk
-// (kernels/stt_gemm.py:WS_CHUNK_K), of a streamed A slab, and the tile
-// kernel's threads (16 x 16)
+// (kernels/stt_gemm.py:WS_CHUNK_K), a whole number of slabs
 constexpr int WS_KC = 256;
-constexpr int WS_BK = 32;
-constexpr int WS_THREADS = 256;
+static_assert(WS_KC % SLAB_K == 0, "the pinned chunk holds whole slabs");
 
 // Operand-stationary template (stationary="B"); replaces the reference's
 // kernels/stt_gemm.py:matmul_operand_stationary (_ws_kernel).  Per batch
@@ -145,26 +492,19 @@ constexpr int WS_THREADS = 256;
 //
 // What bounds it on the H100: fp32 FLOPs on the CUDA cores (67 TFLOP/s;
 // gemm 4096^3: 2.05 ms), plus the strip's own term.  The design:
-// - ws_tile_kernel, for n > 8: a BM x BN CTA tile (128 x 128, or 64 x 64
-//   where 128-wide tiles would not fill one wave of the card), 256
-//   threads, each owning a TM x TN register tile laid out as 4-wide
-//   quadrants (rows 4 ty + i and BM/2 + 4 ty + i at 128), so that every k
-//   step reads A and B fragments from shared memory as float4: 64 FMAs for
-//   4 shared loads at 128 x 128.  A warp covers 4 x 8 threads of the 16 x
-//   16 grid, so its fragment loads touch 4 (A) and 8 (B) distinct float4s,
-//   one shared-memory wavefront each;
+// - ws_tile_kernel, for n > 8: the SIMT tile of simt_tile.cuh (128 x 128,
+//   or 64 x 64 where 128-wide tiles would not fill one wave of the card;
+//   float4 quadrant fragments in warps of 4 x 8 threads), with the
+//   stationary operand in place of a streamed B slab;
 // - the pinned chunk is WS_KC x BN fp32 in dynamic shared memory (128 KB
 //   at 128 wide), loaded with 8 vector loads in flight a thread; A streams
-//   through it in WS_BK-deep slabs, double buffered: the next slab's
-//   global loads (16 bytes, or 8 for bf16, wherever the view's unit
-//   stride and alignment allow) are issued before this slab's FMAs and
-//   stored to the other buffer after them, so one barrier a slab (2048
-//   FMAs a thread) remains;
+//   through it in SLAB_K-deep slabs (Slab), double buffered with one
+//   barrier a slab (2048 FMAs a thread);
 // - both operands of the timed gemm arrive k-contiguous (A row-major, B
 //   as gemm's B.T view); cp.async cannot transpose, so staging goes
 //   through registers and stores k-major.  A view with no unit stride or
 //   a misaligned one takes scalar staging; the host picks the mode of
-//   each operand per launch (Stage);
+//   each operand per launch (stage_mode);
 // - the strip is read-modify-written once per (m tile, chunk): its fp32
 //   values are copied into shared memory by cp.async while the m tile is
 //   multiplied, and written back as float4 where n allows; the last chunk
@@ -252,115 +592,6 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
   }
 }
 
-// How an operand's tile is staged: 4 elements a load along k, 4 along its
-// other axis (m for A, n for B), or one at a time (any view).
-enum Stage { STAGE_SCALAR = 0, STAGE_K = 1, STAGE_MN = 2 };
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-// element j of a float4 (j a constant after unrolling)
-__device__ __forceinline__ float& at(float4& v, int j) {
-  return (&v.x)[j];
-}
-__device__ __forceinline__ float at(const float4& v, int j) {
-  return (&v.x)[j];
-}
-
-// Elements (r + j * dr, c + j * dc), j = 0..3, one of dr and dc 1 and the
-// other 0, of one batch slice of a view as fp32: one vector load when
-// `vec` and all four lie inside [0, rmax) x [0, cmax), else element by
-// element with zeros outside.
-template <typename T>
-__device__ __forceinline__ float4 fetch4(const View<T>& v, long long boff,
-                                         int r, int c, int dr, int dc,
-                                         int rmax, int cmax, bool vec) {
-  if (vec && r + 3 * dr < rmax && c + 3 * dc < cmax)
-    return load4(v.p + boff + (long long)r * v.sr + (long long)c * v.sc);
-  float4 x;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int rr = r + j * dr, cc = c + j * dc;
-    at(x, j) = rr < rmax && cc < cmax
-                   ? to_f(v.p[boff + (long long)rr * v.sr +
-                              (long long)cc * v.sc])
-                   : 0.0f;
-  }
-  return x;
-}
-
-// 16 bytes global -> shared, asynchronously; bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// The next A slab (rows [m0, m0 + BM) x k [kk, kk + WS_BK)), held in
-// registers between its global loads and its k-major store As[k][r].
-template <typename T, int BM>
-struct ASlab {
-  static constexpr int LDA = BM + 4;  // float4 rows, offset banks
-  static constexpr int N4 = BM * WS_BK / 4 / WS_THREADS;
-  float4 v[N4];
-
-  __device__ __forceinline__ void load(const View<T>& A, long long aoff,
-                                       int m0, int kk, int m, int kend,
-                                       int mode) {
-    if (mode != STAGE_SCALAR && m0 + BM <= m && kk + WS_BK <= kend) {
-      // the whole slab in range: vector loads, no element checks
-      const T* base = A.p + aoff + (long long)m0 * A.sr + (long long)kk * A.sc;
-#pragma unroll
-      for (int i = 0; i < N4; ++i) {
-        const int idx = threadIdx.x + i * WS_THREADS;
-        if (mode == STAGE_MN)
-          v[i] = load4(base + 4 * (idx % (BM / 4)) +
-                       (long long)(idx / (BM / 4)) * A.sc);
-        else
-          v[i] = load4(base + (long long)(idx / (WS_BK / 4)) * A.sr +
-                       4 * (idx % (WS_BK / 4)));
-      }
-      return;
-    }
-#pragma unroll
-    for (int i = 0; i < N4; ++i) {
-      const int idx = threadIdx.x + i * WS_THREADS;
-      if (mode == STAGE_MN) {  // 4 rows at one k
-        const int r = 4 * (idx % (BM / 4)), kq = idx / (BM / 4);
-        v[i] = fetch4(A, aoff, m0 + r, kk + kq, 1, 0, m, kend, true);
-      } else {                 // 4 k at one row
-        const int r = idx / (WS_BK / 4), kq = 4 * (idx % (WS_BK / 4));
-        v[i] = fetch4(A, aoff, m0 + r, kk + kq, 0, 1, m, kend,
-                      mode == STAGE_K);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* As, int mode) const {
-#pragma unroll
-    for (int i = 0; i < N4; ++i) {
-      const int idx = threadIdx.x + i * WS_THREADS;
-      if (mode == STAGE_MN) {
-        const int r = 4 * (idx % (BM / 4)), kq = idx / (BM / 4);
-        *reinterpret_cast<float4*>(As + kq * LDA + r) = v[i];
-      } else {
-        const int r = idx / (WS_BK / 4), kq = 4 * (idx % (WS_BK / 4));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) As[(kq + j) * LDA + r] = at(v[i], j);
-      }
-    }
-  }
-};
-
 // The pinned chunk Bs[k][c] = B[kc + k][n0 + c] for k < WS_KC, c < BN;
 // zero past kend and n.
 template <typename T, int BN>
@@ -368,7 +599,7 @@ __device__ __forceinline__ void load_chunk(float* Bs, const View<T>& B,
                                            long long boff, int kc, int n0,
                                            int kend, int n, int mode) {
   if (mode == STAGE_MN) {  // 4 columns at one k
-    for (int f = threadIdx.x; f < WS_KC * BN / 4; f += WS_THREADS) {
+    for (int f = threadIdx.x; f < WS_KC * BN / 4; f += TILE_THREADS) {
       const int c = 4 * (f % (BN / 4)), kq = f / (BN / 4);
       *reinterpret_cast<float4*>(Bs + kq * BN + c) =
           fetch4(B, boff, kc + kq, n0 + c, 0, 1, kend, n, true);
@@ -376,7 +607,7 @@ __device__ __forceinline__ void load_chunk(float* Bs, const View<T>& B,
   } else if (mode == STAGE_K && kc + WS_KC <= kend && n0 + BN <= n) {
     // the whole chunk in range: 4 k at one column, a warp spanning
     // columns, 8 loads in flight before their stores
-    constexpr int PER = WS_KC * BN / 4 / WS_THREADS, U = 8;
+    constexpr int PER = WS_KC * BN / 4 / TILE_THREADS, U = 8;
     static_assert(PER % U == 0, "whole rounds of loads");
     const T* base = B.p + boff + (long long)kc * B.sr + (long long)n0 * B.sc;
 #pragma unroll 1
@@ -384,12 +615,12 @@ __device__ __forceinline__ void load_chunk(float* Bs, const View<T>& B,
       float4 x[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int f = threadIdx.x + (u0 + u) * WS_THREADS;
+        const int f = threadIdx.x + (u0 + u) * TILE_THREADS;
         x[u] = load4(base + (long long)(f % BN) * B.sc + 4 * (f / BN));
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        const int f = threadIdx.x + (u0 + u) * WS_THREADS;
+        const int f = threadIdx.x + (u0 + u) * TILE_THREADS;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           Bs[(4 * (f / BN) + j) * BN + f % BN] = at(x[u], j);
@@ -397,14 +628,14 @@ __device__ __forceinline__ void load_chunk(float* Bs, const View<T>& B,
     }
   } else if (mode == STAGE_K) {  // 4 k at one column; a warp spans columns
 #pragma unroll 4
-    for (int f = threadIdx.x; f < WS_KC * BN / 4; f += WS_THREADS) {
+    for (int f = threadIdx.x; f < WS_KC * BN / 4; f += TILE_THREADS) {
       const int c = f % BN, kq = 4 * (f / BN);
       const float4 x = fetch4(B, boff, kc + kq, n0 + c, 1, 0, kend, n, true);
 #pragma unroll
       for (int j = 0; j < 4; ++j) Bs[(kq + j) * BN + c] = at(x, j);
     }
   } else {
-    for (int f = threadIdx.x; f < WS_KC * BN; f += WS_THREADS) {
+    for (int f = threadIdx.x; f < WS_KC * BN; f += TILE_THREADS) {
       const int c = f % BN, kk = f / BN;
       Bs[kk * BN + c] =
           kc + kk < kend && n0 + c < n
@@ -415,76 +646,8 @@ __device__ __forceinline__ void load_chunk(float* Bs, const View<T>& B,
   }
 }
 
-// acc += As(:, slab) x Bs(slab, :) over WS_BK k, ascending.  Thread (ty,
-// tx) owns rows q * (BM / QM) + 4 ty + i and columns q * (BN / QN) + 4 tx
-// + j of the tile.
-template <int BM, int BN, int TM, int TN>
-__device__ __forceinline__ void fma_quads(float (&acc)[TM][TN],
-                                          const float* As, const float* Bs,
-                                          int ty, int tx) {
-  constexpr int QM = TM / 4, QN = TN / 4, LDA = BM + 4;
-#pragma unroll
-  for (int kq = 0; kq < WS_BK; ++kq) {
-    float a[TM], bv[TN];
-#pragma unroll
-    for (int q = 0; q < QM; ++q) {
-      const float4 x = *reinterpret_cast<const float4*>(
-          As + kq * LDA + q * (BM / QM) + 4 * ty);
-      a[4 * q] = x.x; a[4 * q + 1] = x.y; a[4 * q + 2] = x.z;
-      a[4 * q + 3] = x.w;
-    }
-#pragma unroll
-    for (int q = 0; q < QN; ++q) {
-      const float4 x = *reinterpret_cast<const float4*>(
-          Bs + kq * BN + q * (BN / QN) + 4 * tx);
-      bv[4 * q] = x.x; bv[4 * q + 1] = x.y; bv[4 * q + 2] = x.z;
-      bv[4 * q + 3] = x.w;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-  }
-}
-
-// 4 flushed values (epilogue + cast) at out[idx + j], columns c + j < n.
-template <typename T>
-__device__ __forceinline__ void flush4(T* out, long long idx, float4 v,
-                                       int c, int n, bool vec,
-                                       const Epi& epi) {
-  if (vec && epi.n_ops == 0) {
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float4*>(out + idx) = v;
-    } else {
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-      uint2 u;
-      u.x = *reinterpret_cast<const unsigned*>(&lo);
-      u.y = *reinterpret_cast<const unsigned*>(&hi);
-      *reinterpret_cast<uint2*>(out + idx) = u;
-    }
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (c + j < n) flush_store<T>(out, idx + j, at(v, j), c + j, epi);
-}
-
-// One m tile's partial sums of this chunk into the strip: strip + part
-// (part alone at the first chunk); at the last chunk outside row mode the
-// sum is flushed to `out` instead of stored.
-// Thread (ty, tx) of the 16 x 16 grid: warp w covers ty 4 (w / 2) ..
-// +3 and tx 8 (w % 2) .. +7, so that a warp's float4 fragment loads hit 4
-// (A) and 8 (B) distinct addresses, one shared-memory wavefront each.
-__device__ __forceinline__ int ws_ty() {
-  return 4 * (threadIdx.x / 64) + (threadIdx.x % 32) / 8;
-}
-__device__ __forceinline__ int ws_tx() {
-  return 8 * ((threadIdx.x / 32) % 2) + threadIdx.x % 8;
-}
-
 // Start copying this thread's entries of the fp32 strip of an m tile into
-// shared memory (Ss: float4 j of thread t at 4 (j * WS_THREADS + t)),
+// shared memory (Ss: float4 j of thread t at 4 (j * TILE_THREADS + t)),
 // where strip_update reads them back; whole float4s only (vec).
 template <int BM, int BN, int TM, int TN>
 __device__ __forceinline__ void strip_prefetch(float* Ss, const float* wsb,
@@ -498,13 +661,16 @@ __device__ __forceinline__ void strip_prefetch(float* Ss, const float* wsb,
     for (int q = 0; q < QN; ++q) {
       const int c = n0 + q * (BN / QN) + 4 * tx;
       const bool in = r < r_end && c < n;
-      cp_async16(Ss + 4 * ((i * QN + q) * WS_THREADS + threadIdx.x),
+      cp_async16(Ss + 4 * ((i * QN + q) * TILE_THREADS + threadIdx.x),
                  in ? wsb + (long long)r * n + c : wsb, in ? 16 : 0);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// One m tile's partial sums of this chunk into the strip: strip + part
+// (part alone at the first chunk); at the last chunk outside row mode the
+// sum is flushed to `out` instead of stored.
 template <typename T, int BM, int BN, int TM, int TN>
 __device__ __forceinline__ void strip_update(
     float (&acc)[TM][TN], float* wsb, const float* Ss, T* outb, int m0,
@@ -526,7 +692,7 @@ __device__ __forceinline__ void strip_update(
       if (!first) {
         if (vec) {
           const float4 w = *reinterpret_cast<const float4*>(
-              Ss + 4 * ((i * QN + q) * WS_THREADS + threadIdx.x));
+              Ss + 4 * ((i * QN + q) * TILE_THREADS + threadIdx.x));
           v.x = w.x + v.x; v.y = w.y + v.y; v.z = w.z + v.z;
           v.w = w.w + v.w;
         } else {
@@ -535,32 +701,27 @@ __device__ __forceinline__ void strip_update(
             if (c + j < n) at(v, j) = wsb[idx + j] + at(v, j);
         }
       }
-      if (flush) {
+      if (flush)
         flush4<T>(outb, idx, v, c, n, vec, epi);
-      } else if (vec) {
-        *reinterpret_cast<float4*>(wsb + idx) = v;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < n) wsb[idx + j] = at(v, j);
-      }
+      else
+        store4(wsb, idx, v, c, n, vec);
     }
   }
 }
 
 template <typename T, int BM, int BN>
-__global__ void __launch_bounds__(WS_THREADS, 1)
+__global__ void __launch_bounds__(TILE_THREADS, 1)
     ws_tile_kernel(View<T> A, View<T> B, T* out, float* ws, int m, int n,
                    int k, int rows_per_cta, int row_mode, int a_mode,
                    int b_mode, Epi epi) {
   constexpr int TM = BM / 16, TN = BN / 16;
-  constexpr int LDA = ASlab<T, BM>::LDA;
+  constexpr int LDA = Slab<T, BM, false>::LD;
   extern __shared__ __align__(16) float wsm[];
   float* Bs = wsm;                    // WS_KC x BN, the pinned chunk
-  float* As = Bs + WS_KC * BN;        // 2 x WS_BK x LDA, the A slabs
-  float* Ss = As + 2 * WS_BK * LDA;   // BM x BN, an m tile's strip
+  float* As = Bs + WS_KC * BN;        // 2 x SLAB_K x LDA, the A slabs
+  float* Ss = As + 2 * SLAB_K * LDA;  // BM x BN, an m tile's strip
   const int b = blockIdx.z;
-  const int tx = ws_tx(), ty = ws_ty();
+  const int tx = quad_tx(), ty = quad_ty();
   const long long aoff = (long long)b * A.sb, boff = (long long)b * B.sb;
   const long long cbase = (long long)b * m * n;
   float* wsb = ws + cbase;
@@ -572,13 +733,13 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   const int tiles_n = (n + BN - 1) / BN;
   const int tn_begin = row_mode ? 0 : blockIdx.x;
   const int tn_end = row_mode ? tiles_n : blockIdx.x + 1;
-  ASlab<T, BM> next;
+  Slab<T, BM, false> next;
   float acc[TM][TN];
   for (int tn = tn_begin; tn < tn_end; ++tn) {
     const int n0 = tn * BN;
     for (int kc = 0; kc < k; kc += WS_KC) {
       const int kend = min(k, kc + WS_KC);
-      const int nsl = (kend - kc + WS_BK - 1) / WS_BK;  // slabs a tile
+      const int nsl = (kend - kc + SLAB_K - 1) / SLAB_K;  // slabs a tile
       const int total = n_mt * nsl;
       __syncthreads();  // the previous chunk's readers are done
       load_chunk<T, BN>(Bs, B, boff, kc, n0, kend, n, b_mode);
@@ -599,10 +760,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           strip_prefetch<BM, BN, TM, TN>(Ss, wsb, r_begin + mt * BM, n0,
                                          r_end, n, ty, tx);
         if (more)
-          next.load(A, aoff, r_begin + mt2 * BM, kc + s2 * WS_BK, m, kend,
+          next.load(A, aoff, r_begin + mt2 * BM, kc + s2 * SLAB_K, m, kend,
                     a_mode);
-        fma_quads<BM, BN, TM, TN>(acc, As + (it & 1) * WS_BK * LDA,
-                                  Bs + s * WS_BK * BN, ty, tx);
+        fma_quads<BM, BN, TM, TN, BN, false>(
+            acc, As + (it & 1) * SLAB_K * LDA, Bs + s * SLAB_K * BN, ty, tx);
         if (s == nsl - 1) {
           strip_update<T, BM, BN, TM, TN>(
               acc, wsb, Ss, outb, r_begin + mt * BM, n0, r_end, n, kc == 0,
@@ -612,7 +773,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 #pragma unroll
             for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
         }
-        if (more) next.store(As + ((it + 1) & 1) * WS_BK * LDA, a_mode);
+        if (more) next.store(As + ((it + 1) & 1) * SLAB_K * LDA, a_mode);
         __syncthreads();
         s = s2;
         mt = mt2;
@@ -625,14 +786,20 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
-// Operand-stationary configurations: the tile kernel's square tiles, and
-// a narrow-n one for the input-stationary transposition of matvec-like
-// forms (n of 1).
+// Square tile configurations of the SIMT tile kernels, and a narrow-n one
+// for the operand-stationary transposition of matvec-like forms (n of 1).
 template <int BM_, int BN_>
-struct WsTile { static constexpr int BM = BM_, BN = BN_; };
-using WsL = WsTile<128, 128>;
-using WsM = WsTile<64, 64>;
+struct SimtTile { static constexpr int BM = BM_, BN = BN_; };
+using TileWide = SimtTile<128, 128>;
+using TileNarrow = SimtTile<64, 64>;
 struct StripN { static constexpr int BM = 128, BN = 8, BK = 8, TM = 4, TN = 1, KC = WS_KC; };
+
+// 128-wide tiles where they fill one wave of the card's 132 SMs
+bool wide_tile(int m, int n, int nb, bool row_mode) {
+  const long long ctas = (long long)(row_mode ? 1 : cdiv(n, TileWide::BN)) *
+                         cdiv(m, TileWide::BM) * nb;
+  return ctas >= 132;
+}
 
 template <typename C>
 dim3 tile_grid(int m, int n, int nb, bool row_mode, int n_fast) {
@@ -641,17 +808,101 @@ dim3 tile_grid(int m, int n, int nb, bool row_mode, int n_fast) {
   return n_fast ? dim3(tn, tm, nb) : dim3(tm, tn, nb);
 }
 
-template <typename T, typename C, bool INPLACE>
-int os_launch_t(View<T> A, View<T> B, void* out, void* ws, int nb, int m,
-                int n, int k, int kstep, int n_fast, Epi epi,
-                cudaStream_t st) {
+// Opt a kernel into `smem` bytes of dynamic shared memory, once.
+template <typename K>
+cudaError_t opt_in_smem(K kernel, int smem, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  done = e == cudaSuccess;
+  return e;
+}
+
+template <typename T, typename C>
+int os_inplace_launch(View<T> A, View<T> B, void* out, void* ws, int nb,
+                      int m, int n, int k, int kstep, int n_fast, Epi epi,
+                      cudaStream_t st) {
   const dim3 g = tile_grid<C>(m, n, nb, ws != nullptr, n_fast);
   if (!grid_ok(g)) return (int)cudaErrorInvalidConfiguration;
-  os_kernel<T, C::BM, C::BN, C::BK, C::TM, C::TN, INPLACE>
+  os_inplace_kernel<T, C::BM, C::BN, C::BK, C::TM, C::TN>
       <<<g, (C::BM / C::TM) * (C::BN / C::TN), 0, st>>>(
           A, B, static_cast<T*>(out), static_cast<float*>(ws), m, n, k,
-          INPLACE ? kstep : k, n_fast, epi);
+          kstep, n_fast, epi);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename C>
+int tile_launch(View<T> A, View<T> B, void* out, void* ws, int nb, int m,
+                int n, int k, int n_fast, int a_mode, int b_mode, Epi epi,
+                cudaStream_t st) {
+  static bool attr_set = false;  // one opt-in per instantiation
+  constexpr int smem = 2 * SLAB_K *
+                       (Slab<T, C::BM, true>::LD + Slab<T, C::BN, true>::LD) *
+                       (int)sizeof(float);
+  const cudaError_t e =
+      opt_in_smem(stt_tile_kernel<T, C::BM, C::BN>, smem, attr_set);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 g = tile_grid<C>(m, n, nb, ws != nullptr, n_fast);
+  if (!grid_ok(g)) return (int)cudaErrorInvalidConfiguration;
+  stt_tile_kernel<T, C::BM, C::BN><<<g, TILE_THREADS, smem, st>>>(
+      A, transposed(B), static_cast<T*>(out),
+      static_cast<float*>(ws), m, n, k, n_fast, a_mode, b_mode, epi);
+  return (int)cudaGetLastError();
+}
+
+// The tile kernel of both templates (m > SKINNY_M), on the tile that
+// fills the card.
+template <typename T>
+int tile_dispatch(const void* a, long long a_sb, long long a_sr,
+                  long long a_sc, const void* b, long long b_sb,
+                  long long b_sr, long long b_sc, void* out, void* ws,
+                  int nb, int m, int n, int k, int n_fast, Epi epi,
+                  cudaStream_t st) {
+  View<T> A = make_view<T>(a, a_sb, a_sr, a_sc);
+  View<T> B = make_view<T>(b, b_sb, b_sr, b_sc);
+  const int a_mode = stage_mode<T>(a, a_sb, a_sc, a_sr);
+  const int b_mode = stage_mode<T>(b, b_sb, b_sr, b_sc);
+  if (wide_tile(m, n, nb, ws != nullptr))
+    return tile_launch<T, TileWide>(A, B, out, ws, nb, m, n, k, n_fast,
+                                    a_mode, b_mode, epi, st);
+  return tile_launch<T, TileNarrow>(A, B, out, ws, nb, m, n, k, n_fast,
+                                    a_mode, b_mode, epi, st);
+}
+
+// The streaming kernels (m <= SKINNY_M): a row count of 1 (the batched
+// forms' m) or up to SKINNY_M.
+template <typename T, int MR>
+int skinny_launch_mr(View<T> A, View<T> B, void* out, void* ws, int nb,
+                     int m, int n, int k, int b_mode, bool tree, Epi epi,
+                     cudaStream_t st) {
+  const int span = tree ? STREAM_COLS : STREAM_WARPS * STREAM_COLS;
+  const dim3 g(ws != nullptr ? 1 : cdiv(n, span), 1, nb);
+  if (!grid_ok(g)) return (int)cudaErrorInvalidConfiguration;
+  if (tree)
+    rt_tree_kernel<T, MR><<<g, TREE_WARPS * 32, 0, st>>>(
+        A, B, static_cast<T*>(out), static_cast<float*>(ws), m, n, k,
+        b_mode, epi);
+  else
+    os_stream_kernel<T, MR><<<g, STREAM_WARPS * 32, 0, st>>>(
+        A, B, static_cast<T*>(out), static_cast<float*>(ws), m, n, k,
+        b_mode, epi);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int skinny_dispatch(const void* a, long long a_sb, long long a_sr,
+                    long long a_sc, const void* b, long long b_sb,
+                    long long b_sr, long long b_sc, void* out, void* ws,
+                    int nb, int m, int n, int k, bool tree, Epi epi,
+                    cudaStream_t st) {
+  View<T> A = make_view<T>(a, a_sb, a_sr, a_sc);
+  View<T> B = make_view<T>(b, b_sb, b_sr, b_sc);
+  const int b_mode = stage_mode<T>(b, b_sb, b_sr, b_sc);
+  if (m == 1)
+    return skinny_launch_mr<T, 1>(A, B, out, ws, nb, m, n, k, b_mode, tree,
+                                  epi, st);
+  return skinny_launch_mr<T, SKINNY_M>(A, B, out, ws, nb, m, n, k, b_mode,
+                                       tree, epi, st);
 }
 
 template <typename T>
@@ -660,30 +911,20 @@ int os_dispatch(const void* a, long long a_sb, long long a_sr,
                 long long b_sr, long long b_sc, void* out, void* ws, int nb,
                 int m, int n, int k, int kstep, int inplace, int n_fast,
                 Epi epi, cudaStream_t st) {
-  View<T> A = make_view<T>(a, a_sb, a_sr, a_sc);
-  View<T> B = make_view<T>(b, b_sb, b_sr, b_sc);
-  const bool skinny = m <= TileS::BM;
-  if (inplace)
-    return skinny ? os_launch_t<T, TileS, true>(A, B, out, ws, nb, m, n, k,
-                                                kstep, n_fast, epi, st)
-                  : os_launch_t<T, TileL, true>(A, B, out, ws, nb, m, n, k,
-                                                kstep, n_fast, epi, st);
-  return skinny ? os_launch_t<T, TileS, false>(A, B, out, ws, nb, m, n, k,
-                                               kstep, n_fast, epi, st)
-                : os_launch_t<T, TileL, false>(A, B, out, ws, nb, m, n, k,
-                                               kstep, n_fast, epi, st);
-}
-
-template <typename T, typename C>
-int rt_launch_t(View<T> A, View<T> B, void* out, void* ws, int nb, int m,
-                int n, int k, int n_fast, Epi epi, cudaStream_t st) {
-  const dim3 g = tile_grid<C>(m, n, nb, ws != nullptr, n_fast);
-  if (!grid_ok(g)) return (int)cudaErrorInvalidConfiguration;
-  rt_kernel<T, C::BM, C::BN, C::BK, C::TM, C::TN>
-      <<<g, (C::BM / C::TM) * (C::BN / C::TN), 0, st>>>(
-          A, B, static_cast<T*>(out), static_cast<float*>(ws), m, n, k,
-          n_fast, epi);
-  return (int)cudaGetLastError();
+  if (inplace) {
+    View<T> A = make_view<T>(a, a_sb, a_sr, a_sc);
+    View<T> B = make_view<T>(b, b_sb, b_sr, b_sc);
+    return m <= SKINNY_M
+               ? os_inplace_launch<T, TileS>(A, B, out, ws, nb, m, n, k,
+                                             kstep, n_fast, epi, st)
+               : os_inplace_launch<T, TileL>(A, B, out, ws, nb, m, n, k,
+                                             kstep, n_fast, epi, st);
+  }
+  if (m <= SKINNY_M)
+    return skinny_dispatch<T>(a, a_sb, a_sr, a_sc, b, b_sb, b_sr, b_sc, out,
+                              ws, nb, m, n, k, false, epi, st);
+  return tile_dispatch<T>(a, a_sb, a_sr, a_sc, b, b_sb, b_sr, b_sc, out, ws,
+                          nb, m, n, k, n_fast, epi, st);
 }
 
 template <typename T>
@@ -691,11 +932,11 @@ int rt_dispatch(const void* a, long long a_sb, long long a_sr,
                 long long a_sc, const void* b, long long b_sb,
                 long long b_sr, long long b_sc, void* out, void* ws, int nb,
                 int m, int n, int k, int n_fast, Epi epi, cudaStream_t st) {
-  View<T> A = make_view<T>(a, a_sb, a_sr, a_sc);
-  View<T> B = make_view<T>(b, b_sb, b_sr, b_sc);
-  if (m <= TileS::BM)
-    return rt_launch_t<T, TileS>(A, B, out, ws, nb, m, n, k, n_fast, epi, st);
-  return rt_launch_t<T, TileL>(A, B, out, ws, nb, m, n, k, n_fast, epi, st);
+  if (m <= SKINNY_M)
+    return skinny_dispatch<T>(a, a_sb, a_sr, a_sc, b, b_sb, b_sr, b_sc, out,
+                              ws, nb, m, n, k, true, epi, st);
+  return tile_dispatch<T>(a, a_sb, a_sr, a_sc, b, b_sb, b_sr, b_sc, out, ws,
+                          nb, m, n, k, n_fast, epi, st);
 }
 
 // CTAs along m for the operand-stationary grid: enough CTAs in all to
@@ -734,35 +975,19 @@ int ws_tile_launch(View<T> A, View<T> B, void* out, void* ws, int nb, int m,
                    Epi epi, cudaStream_t st) {
   static bool attr_set = false;  // one opt-in per instantiation
   constexpr int smem =
-      (WS_KC * C::BN + 2 * WS_BK * (C::BM + 4) + C::BM * C::BN) *
+      (WS_KC * C::BN + 2 * SLAB_K * Slab<T, C::BM, false>::LD +
+       C::BM * C::BN) *
       (int)sizeof(float);
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ws_tile_kernel<T, C::BM, C::BN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  const cudaError_t e =
+      opt_in_smem(ws_tile_kernel<T, C::BM, C::BN>, smem, attr_set);
+  if (e != cudaSuccess) return (int)e;
   const int rows = ws_rows_per_cta<C>(m, n, nb, row_mode != 0, 2);
   const dim3 g(row_mode ? 1 : cdiv(n, C::BN), cdiv(m, rows), nb);
   if (!grid_ok(g)) return (int)cudaErrorInvalidConfiguration;
-  ws_tile_kernel<T, C::BM, C::BN><<<g, WS_THREADS, smem, st>>>(
+  ws_tile_kernel<T, C::BM, C::BN><<<g, TILE_THREADS, smem, st>>>(
       A, B, static_cast<T*>(out), static_cast<float*>(ws), m, n, k, rows,
       row_mode, a_mode, b_mode, epi);
   return (int)cudaGetLastError();
-}
-
-// The staging mode of one operand: s_k is its stride along k, s_o along
-// its other axis.  Vector loads need that axis's unit stride, the other
-// strides and the base pointer in whole 4-element steps.
-template <typename T>
-int stage_mode(const void* p, long long sb, long long s_k, long long s_o) {
-  const bool aligned =
-      reinterpret_cast<unsigned long long>(p) % (4 * sizeof(T)) == 0 &&
-      sb % 4 == 0;
-  if (aligned && s_k == 1 && s_o % 4 == 0) return STAGE_K;
-  if (aligned && s_o == 1 && s_k % 4 == 0) return STAGE_MN;
-  return STAGE_SCALAR;
 }
 
 template <typename T>
@@ -777,14 +1002,11 @@ int ws_dispatch(const void* a, long long a_sb, long long a_sr,
     return ws_strip_launch<T>(A, B, out, ws, nb, m, n, k, row_mode, epi, st);
   const int a_mode = stage_mode<T>(a, a_sb, a_sc, a_sr);
   const int b_mode = stage_mode<T>(b, b_sb, b_sr, b_sc);
-  // 128-wide tiles where they fill one wave of the card, else 64-wide
-  const long long ctas =
-      (long long)(row_mode ? 1 : cdiv(n, WsL::BN)) * cdiv(m, WsL::BM) * nb;
-  if (ctas >= 132)
-    return ws_tile_launch<T, WsL>(A, B, out, ws, nb, m, n, k, row_mode,
-                                  a_mode, b_mode, epi, st);
-  return ws_tile_launch<T, WsM>(A, B, out, ws, nb, m, n, k, row_mode, a_mode,
-                                b_mode, epi, st);
+  if (wide_tile(m, n, nb, row_mode != 0))
+    return ws_tile_launch<T, TileWide>(A, B, out, ws, nb, m, n, k, row_mode,
+                                       a_mode, b_mode, epi, st);
+  return ws_tile_launch<T, TileNarrow>(A, B, out, ws, nb, m, n, k, row_mode,
+                                       a_mode, b_mode, epi, st);
 }
 
 }  // namespace

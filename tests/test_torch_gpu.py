@@ -245,6 +245,119 @@ def test_operand_stationary_row_mode_softmax(cuda, m):
              torch.float32, exact=False)
 
 
+#: (A shape, B shape, A layout, B layout) for the output-stationary and
+#: reduction-tree kernels: the tile kernel at 128 wide (at least 132 CTAs)
+#: and 64 wide, the streaming kernels (m <= 8 a batch slice: m = 1 and
+#: m = 5), ragged m, n and k, k not a multiple of the 32-deep slab and k
+#: under it, gemm's B.T view ("t"), views with no unit stride ("step",
+#: scalar staging), misaligned views and operands broadcast over the batch
+TILE_CASES = {
+    "wide_bt": ((1536, 520), (520, 1412), "row", "t"),
+    "wide_n_contig": ((1600, 200), (200, 1536), "row", "row"),
+    "narrow_ragged": ((150, 270), (270, 130), "row", "t"),
+    "k_under_slab": ((100, 19), (19, 72), "row", "row"),
+    "k_ragged_mn": ((72, 75), (75, 66), "t", "t"),
+    "strided": ((200, 260), (260, 136), "step", "step"),
+    "misaligned": ((130, 90), (90, 72), "offset", "offset"),
+    "broadcast_b": ((3, 160, 264), (264, 96), "row", "t"),
+    "broadcast_a": ((160, 100), (3, 100, 96), "row", "row"),
+    "skinny_m1": ((64, 1, 600), (64, 600, 520), "row", "row"),
+    "skinny_m5_bt": ((4, 5, 300), (4, 300, 136), "row", "t"),
+    "skinny_k_under": ((6, 1, 9), (6, 9, 196), "row", "row"),
+    "skinny_strided": ((3, 2, 70), (3, 70, 50), "step", "step"),
+    "skinny_misaligned": ((5, 1, 41), (5, 41, 67), "offset", "offset"),
+    "skinny_broadcast": ((8, 1, 130), (130, 260), "row", "row"),
+}
+OS_RT = {"os": stt_gemm.matmul_output_stationary,
+         "rt": stt_gemm.matmul_reduction_tree}
+
+
+def _os_rt_kw(template, a, b, **kw):
+    """Plan blocks spanning the whole problem (they divide it)."""
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    kw = dict(bm=m, bn=n, **kw)
+    if template == "os":
+        kw.setdefault("bk", k)
+    return kw
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("template", list(OS_RT))
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_tile_and_streaming_kernels_exact(cuda, case, template, dtype):
+    # integer operands: every fp32 sum is exact, so any sum order gives
+    # the plain version's bits, in bf16 too (one rounding of an exact sum)
+    sa, sb, la, lb = TILE_CASES[case]
+    rng = np.random.default_rng(len(case) + 7)
+    a, b = (torch.as_tensor(rng.integers(-4, 5, size=s).astype(np.float32)
+                            ).to(dtype) for s in (sa, sb))
+    kw = _os_rt_kw(template, a, b)
+    ga, gb = _ws_view(a.to(cuda), la), _ws_view(b.to(cuda), lb)
+    stt_gemm.reset_launches()
+    got = OS_RT[template](ga, gb, **kw)
+    torch.cuda.synchronize()
+    assert sum(stt_gemm.launches.values()) == 1
+    want = OS_RT[template](a, b, **kw)
+    assert torch.equal(got.cpu().float(), want.float())
+    # two calls give the same bits
+    assert torch.equal(OS_RT[template](ga, gb, **kw), got)
+
+
+@pytest.mark.parametrize("template", list(OS_RT))
+@pytest.mark.parametrize("case", ["wide_bt", "narrow_ragged", "skinny_m1",
+                                  "skinny_m5_bt"])
+def test_repeat_calls_bit_identical(cuda, case, template):
+    # random-normal operands: the sum order shows in the bits, and it is
+    # fixed (ascending k, or the reduction tree's fixed shape)
+    sa, sb, la, lb = TILE_CASES[case]
+    rng = np.random.default_rng(11)
+    a, b = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+            for s in (sa, sb))
+    kw = _os_rt_kw(template, a, b)
+    ga, gb = _ws_view(a.to(cuda), la), _ws_view(b.to(cuda), lb)
+    first = OS_RT[template](ga, gb, **kw)
+    for _ in range(2):
+        assert torch.equal(OS_RT[template](ga, gb, **kw), first)
+    _compare(first, OS_RT[template](a, b, **kw), torch.float32, exact=False)
+
+
+@pytest.mark.parametrize("template", list(OS_RT))
+@pytest.mark.parametrize("shapes", [((300, 100), (100, 136)),
+                                    ((132 * 128, 40), (40, 72)),
+                                    ((5, 1, 80), (5, 80, 300)),
+                                    ((3, 6, 33), (3, 33, 200))],
+                         ids=["narrow_tile", "wide_tile", "stream_m1",
+                              "stream_m6"])
+def test_softmax_row_mode(cuda, shapes, template):
+    # a softmax epilogue makes each CTA cover whole rows: the tile kernel
+    # at both widths (132 x 128 rows fill one wave of 128-wide tiles) and
+    # the streaming kernels
+    rng = np.random.default_rng(len(shapes[0]))
+    a, b = (torch.as_tensor(rng.integers(-4, 5, size=s).astype(np.float32))
+            for s in shapes)
+    kw = _os_rt_kw(template, a, b, epilogue=("scale:0.05", "softmax"))
+    got = OS_RT[template](a.to(cuda), b.to(cuda), **kw)
+    _compare(got, OS_RT[template](a, b, **kw), torch.float32, exact=False)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("bk", [16, 24, 192])
+@pytest.mark.parametrize("shapes", [((3, 160, 192), (192, 96)),
+                                    ((4, 1, 192), (4, 192, 136))],
+                         ids=["tile", "skinny"])
+def test_inplace_step_boundaries(cuda, shapes, bk, dtype):
+    # accum="inplace" rounds at every plan k-step of bk, whatever the
+    # kernel's own slab depth
+    rng = np.random.default_rng(bk)
+    integer = dtype == torch.float32
+    a, b = (torch.as_tensor((rng.integers(-4, 5, size=s) if integer else
+                             rng.standard_normal(s)).astype(np.float32)
+                            ).to(dtype) for s in shapes)
+    kw = _os_rt_kw("os", a, b, bk=bk, accum="inplace")
+    got, want = _run(stt_gemm.matmul_output_stationary, a, b, cuda, **kw)
+    _compare(got, want, dtype, exact=True)
+
+
 def test_launch_checks_raise(cuda):
     a = torch.ones(16, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):

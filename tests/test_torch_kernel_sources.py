@@ -1,12 +1,17 @@
 """The kernels' sources against the Python side that launches and times
-them: the operand-stationary chunk depth is defined once, the bf16
-attention path has a tensor-core kernel for every head dim, the plain
-version of the bf16 kernel's one numeric departure (P rounded to bf16
-before P V) stays inside the reference's stated tolerance, and the row
-error that holds the kernel to it catches a dropped kv block.  CPU only:
-nothing here compiles or launches a kernel."""
+them: every kernel is named where chip_smoke.py finds it in a trace, the
+output-stationary scratch path and the reduction tree run the SIMT tile
+and streaming kernels (never the first version's tile_product), the BSR
+kernel still sums as the output-stationary template does, tile constants
+are defined once, the operand-stationary chunk depth is defined once,
+the bf16 attention path has a tensor-core kernel for every head dim, the
+plain version of the bf16 kernel's one numeric departure (P rounded to
+bf16 before P V) stays inside the reference's stated tolerance, and the
+row error that holds the kernel to it catches a dropped kv block.  CPU
+only: nothing here compiles or launches a kernel."""
 import pathlib
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -18,6 +23,141 @@ from repro_torch.kernels import ref, stt_gemm  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
+
+
+def _functions(*names):
+    """name -> (header, body) of every function defined at namespace
+    scope in the given csrc files, comments and preprocessor lines
+    stripped (a later file's definition of a name wins)."""
+    out = {}
+    for fname in names:
+        src = re.sub(r"//[^\n]*", "", (CSRC / fname).read_text())
+        src = re.sub(r"^\s*#[^\n]*", "", src, flags=re.M)
+        i, start = 0, 0
+        while i < len(src):
+            ch = src[i]
+            if ch in ";}":
+                start = i + 1
+            elif ch == "{":
+                header = src[start:i]
+                if re.fullmatch(r"\s*namespace\s*", header):
+                    start = i + 1
+                    i += 1
+                    continue
+                depth, j = 1, i + 1
+                while depth:
+                    depth += {"{": 1, "}": -1}.get(src[j], 0)
+                    j += 1
+                plain = re.sub(r"__launch_bounds__\((?:[^()]|\([^()]*\))*\)",
+                               "", header)
+                m = re.search(r"(\w+)\s*\(", plain)
+                if m:
+                    out[m.group(1)] = (header, src[i + 1:j - 1])
+                i, start = j, j
+                continue
+            i += 1
+    return out
+
+
+def _reachable(text, funcs):
+    """Names of the functions in ``funcs`` that ``text`` reaches through
+    calls (or mentions, as a kernel in a launch), transitively."""
+    seen, todo = set(), [text]
+    while todo:
+        body = todo.pop()
+        for name in funcs:
+            if name not in seen and re.search(rf"\b{name}\b", body):
+                seen.add(name)
+                todo.append(funcs[name][1])
+    return seen
+
+
+def _block_after(body, opener):
+    """The brace block that follows ``opener`` in ``body``."""
+    i = body.index(opener) + len(opener)
+    i = body.index("{", i)
+    depth, j = 1, i + 1
+    while depth:
+        depth += {"{": 1, "}": -1}.get(body[j], 0)
+        j += 1
+    return body[i:j]
+
+
+GEMM_SOURCES = ("common.cuh", "simt_tile.cuh", "stt_gemm.cu")
+
+
+@pytest.mark.parametrize("source",
+                         sorted(p.name for p in CSRC.glob("*.cu")))
+def test_every_kernel_is_named_in_chip_smoke(source):
+    # chip_smoke.py and the A/B script find the port's kernels in a trace
+    # by name: a kernel missing from OUR_KERNELS is timed as "other"
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    kernels = {name for name, (header, _) in _functions(source).items()
+               if "__global__" in header}
+    assert kernels
+    assert kernels <= {k.rstrip("<") for k in chip_smoke.OUR_KERNELS}
+
+
+def test_output_stationary_scratch_path_never_reaches_tile_product():
+    funcs = _functions(*GEMM_SOURCES)
+    os_body = funcs["os_dispatch"][1]
+    inplace = _block_after(os_body, "if (inplace)")
+    scratch = os_body.replace(inplace, "")
+    first_version = {"tile_product", "load_tile", "fma_slab"}
+    for text, kernels in ((scratch, {"stt_tile_kernel", "os_stream_kernel"}),
+                          (funcs["rt_dispatch"][1],
+                           {"stt_tile_kernel", "rt_tree_kernel"})):
+        reach = _reachable(text, funcs)
+        assert kernels <= reach
+        assert not reach & first_version
+        assert "fma_quads" in reach
+    # only accum="inplace" stays on the first version's tile
+    assert "tile_product" in _reachable(inplace, funcs)
+    users = {name for name, (_, body) in funcs.items()
+             if re.search(r"\btile_product\b", body)}
+    assert users == {"inplace_body"}
+
+
+def test_bsr_sums_as_the_output_stationary_tile_does():
+    # BSR at density 1.0 is bit-identical to output stationary: both keep
+    # one fp32 accumulator a output, from 0, one fmaf a product, ascending k
+    funcs = _functions("common.cuh", "simt_tile.cuh", "stt_gemm.cu",
+                       "bsr_gemm.cu")
+    bsr = funcs["bsr_kernel"][1]
+    assert "acc[i][j] = 0.0f" in bsr
+    assert re.search(r"fma_slab<BM, BN, BK, TM, TN>\(acc, As, Bs, ty, tx\)",
+                     bsr)
+    slab = funcs["fma_slab"][1]
+    assert "for (int q = 0; q < BK; ++q)" in slab
+    assert "dst[i][j] = fmaf(af[i], bf[j], dst[i][j])" in slab
+    quads = funcs["fma_quads"][1]
+    assert "for (int kq = 0; kq < SLAB_K; ++kq)" in quads
+    assert "acc[i][j] = fmaf(a[i], bv[j], acc[i][j])" in quads
+    tile = funcs["stt_tile_kernel"][1]
+    assert "acc[i][j] = 0.0f" in tile
+    assert "for (int s = 0; s < nsl; ++s)" in tile
+    # the streaming path: ascending k, one fmaf a product, from 0
+    stream = funcs["stream_fma"][1]
+    assert "for (int u = 0; u < STREAM_UK; ++u)" in stream
+    assert "acc[r][j] = fmaf(a[r], bv, acc[r][j])" in stream
+
+
+@pytest.mark.parametrize("name", ["SLAB_K", "TILE_THREADS", "SKINNY_M",
+                                  "STREAM_COLS", "STREAM_UK", "STREAM_AK",
+                                  "STREAM_WARPS", "TREE_WARPS", "WS_KC"])
+def test_tile_constant_defined_once(name):
+    text = "".join(p.read_text() for p in sorted(CSRC.glob("*.cu*")))
+    assert len(re.findall(rf"\bconstexpr int {name} = \d+;", text)) == 1
+
+
+def test_both_templates_share_one_skinny_threshold_and_staging():
+    funcs = _functions(*GEMM_SOURCES)
+    for d in ("os_dispatch", "rt_dispatch"):
+        assert "m <= SKINNY_M" in funcs[d][1]
+    text = "".join(p.read_text() for p in sorted(CSRC.glob("*.cu*")))
+    assert len(re.findall(r"\bint stage_mode\(", text)) == 1
+    assert not re.search(r"\b(WS_BK|WS_THREADS|ASlab)\b", text)
 
 
 def test_ws_chunk_depth_is_the_kernels_kc():
