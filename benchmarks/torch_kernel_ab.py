@@ -1,7 +1,8 @@
 """Time the port's redesigned kernels of one source tree on the card.
 
     python benchmarks/torch_kernel_ab.py [--src SRC] [--tag TAG]
-        [--cases flash,ws,os,rt] [--match TEXT]
+        [--cases flash,ws,os,rt,ssd,gather] [--match TEXT]
+        [--ssd-head-blocks 1,2,4,8]
 
 Imports ``repro_torch`` from ``SRC`` (default: this checkout's ``src``),
 so that the same script times two trees, for example a parent commit
@@ -23,7 +24,21 @@ the card's ``nvidia-smi`` name and power limit:
   ``Accelerator.__call__`` (``torch.profiler``; the names of both this
   tree's kernels and the earlier ``os_kernel``/``rt_kernel``; null when
   three traces held none, with the number of traces taken), and the
-  CUDA-event mean of 5 calls.
+  CUDA-event mean of 5 calls;
+* ``ssd``: the SSD scan on ``chip_smoke.ssd_operands`` at the longest
+  serve prefill of zamba2-1.2b (x (1, 1536, 64, 64), N = 64) and of
+  mamba2-370m (x (1, 1472, 32, 64), N = 128), and at shorter serve
+  prefills of each (zamba2 512 and 256, mamba2 1024 and 512 tokens),
+  where the launch plan takes fewer heads a CTA: the CUDA-event mean of 20
+  wrapper calls, and in one traced call the device time of the port's
+  kernels and of everything on the device (the earlier wrapper's prep
+  passes included); ``--ssd-head-blocks`` adds the same at other head
+  blocks of the chunk-output kernel than the launch plan's;
+* ``gather``: the paged gather at h2o-danube-1.8b's serve pool (513, 16,
+  15360) and zamba2-1.2b's shared pool (513, 16, 12288), bf16, with the
+  serve phase's table (8 slots of 128 pages holding the first 8
+  requests of its traffic, the rest on the scratch page): the CUDA-event
+  mean of 20 calls, and of 20 ``index_select`` calls on the same table.
 
 ``--match`` keeps only the cases whose label holds one of its
 comma-separated strings (for example ``gemm x,mttkrp``).  Timing and
@@ -60,16 +75,46 @@ def traced_ms(fn, names, tries=3):
 #: template names of the main-path cases each group times
 GROUPS = {"ws": ("operand_stationary",), "os": ("output_stationary",),
           "rt": ("reduction_tree", "streaming")}
-#: kernel names of the STT templates before the tile/stream redesign
-EARLIER_KERNELS = ("os_kernel<", "rt_kernel<")
+#: kernel names of the STT templates before the tile/stream redesign, and
+#: of the SSD scan before the chunk-parallel one
+EARLIER_KERNELS = ("os_kernel<", "rt_kernel<", "ssd_kernel(")
+#: the SSD cases: model, prefill length (the longest serve prefill, then
+#: shorter ones, where the launch plan halves the head block)
+SSD_CASES = (("zamba2-1.2b", 1536), ("mamba2-370m", 1472),
+             ("zamba2-1.2b", 512), ("zamba2-1.2b", 256),
+             ("mamba2-370m", 1024), ("mamba2-370m", 512))
+#: the gather cases: model, row width F of its paged pool
+GATHER_CASES = (("h2o-danube-1.8b", 15360), ("zamba2-1.2b", 12288))
+
+
+def gather_table(engine, requests=16, seed=0):
+    """The serve phase's page table: each of the first ``capacity``
+    requests of its traffic (``chip_smoke.serve_traffic``) holds the pages
+    its prompt and new tokens need, drawn from a permutation of the pool;
+    the rest point at the scratch page (index ``total_pages``)."""
+    import numpy as np
+    from chip_smoke import serve_traffic
+    _, lens, news, _ = serve_traffic(requests, seed, vocab=2)
+    cap, page, total = (engine["capacity"], engine["page_size"],
+                        engine["total_pages"])
+    free = np.random.default_rng(seed).permutation(total).tolist()
+    table = np.full((cap, engine["max_context"] // page), total, np.int32)
+    for c in range(cap):
+        need = min(-(-int(lens[c] + news[c]) // page), len(free))
+        table[c, :need] = [free.pop() for _ in range(need)]
+    return table
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="change")
-    ap.add_argument("--cases", default="flash,ws,os,rt",
-                    help="comma-separated groups: flash, ws, os, rt")
+    ap.add_argument("--cases", default="flash,ws,os,rt,ssd,gather",
+                    help="comma-separated groups: flash, ws, os, rt, ssd, "
+                         "gather")
+    ap.add_argument("--ssd-head-blocks", default="",
+                    help="comma-separated head blocks to time the SSD "
+                         "cases at besides the launch plan's")
     ap.add_argument("--match", default="",
                     help="time only the cases whose label holds one of "
                          "these comma-separated strings")
@@ -82,8 +127,9 @@ def main() -> int:
     sys.path.insert(0, str(pathlib.Path(args.src).resolve()))
     sys.path.insert(1, str(ROOT))
     import repro_torch
-    from chip_smoke import (GRAPH_BUDGET, GRAPH_MODEL, OUR_KERNELS, SIZES,
-                            STTS, event_ms, graph_operands)
+    from chip_smoke import (GRAPH_BUDGET, GRAPH_MODEL, OUR_KERNELS,
+                            SERVE_ENGINE, SIZES, STTS, event_ms,
+                            graph_operands, kernel_times, ssd_operands)
     from repro_torch.configs.registry import get_config
     from repro_torch.core.algebra import get_algebra
     from repro_torch.core.tiling import ArrayConfig
@@ -91,6 +137,7 @@ def main() -> int:
     from repro_torch.graph import from_model
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged, ssd_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -122,6 +169,56 @@ def main() -> int:
                  ms=event_ms(lambda: fa.flash_attention(q, k, v,
                                                         causal=True), 20))
             del q, k, v
+
+    if "ssd" in groups:
+        for model, length in SSD_CASES:
+            lm = get_config(model)
+            ops = ssd_operands(1, length, lm, gen)
+
+            def call():
+                return ssd_scan.ssd_scan(*ops, chunk=lm.ssm_chunk)
+            plan = getattr(ssd_scan, "launch_plan", None)   # None: earlier
+            planned = plan(1, length, lm.ssm_heads, lm.ssm_groups,
+                           lm.ssm_state, lm.ssm_head_dim,
+                           lm.ssm_chunk).head_block if plan else None
+            blocks = [None] + [int(b) for b in args.ssd_head_blocks.split(",")
+                               if b and plan]
+            for hb in blocks:
+                if hb is not None:
+                    ssd_scan.launch_plan = (
+                        lambda *a, hb=hb, **k: plan(*a, **k)._replace(
+                            head_block=hb))
+                call()
+                rows = kernel_times(call)
+                ours = [t for k, t, _ in rows if any(x in k for x in names)]
+                emit(case=f"ssd {model} x (1, {length}, {lm.ssm_heads}, "
+                          f"{lm.ssm_head_dim}) N={lm.ssm_state}",
+                     head_block=planned if hb is None else hb,
+                     ms=event_ms(call, 20),
+                     traced_kernel_ms=sum(ours) if ours else None,
+                     traced_device_ms=sum(t for _, t, _ in rows) or None,
+                     kernels={k[:60]: t for k, t, _ in rows})
+                if plan:
+                    ssd_scan.launch_plan = plan
+            del ops
+
+    if "gather" in groups:
+        table_np = gather_table(SERVE_ENGINE)
+        table = torch.as_tensor(table_np, device=dev)
+        for model, f in GATHER_CASES:
+            pool = torch.randn((SERVE_ENGINE["total_pages"] + 1,
+                                SERVE_ENGINE["page_size"], f),
+                               generator=gen, device=dev).to(torch.bfloat16)
+            flat = table.flatten().long()
+            emit(case=f"gather {model} pool {tuple(pool.shape)} bf16, table "
+                      f"{tuple(table.shape)}, {len(set(table_np.flat))} "
+                      f"distinct pages",
+                 exact=torch.equal(paged.paged_gather(pool, table).flatten(),
+                                   pool.index_select(0, flat).flatten()),
+                 ms=event_ms(lambda: paged.paged_gather(pool, table), 20),
+                 index_select_ms=event_ms(lambda: pool.index_select(0, flat),
+                                          20))
+            del pool
 
     stt = [g for g in groups if g in GROUPS]
     for name, bounds in SIZES.items():

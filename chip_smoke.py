@@ -93,12 +93,13 @@ each of which fails the run (non-zero exit) when it fails:
    in phase 10 ((b) on the prefill logits and the first token); for
    zamba2 (d) the gather bit-exact at the shared pool and (e) flash at
    the shared block's heads (D = 64, 32 heads, no GQA) within phase 10's
-   tolerances; (f) the SSD kernel against its plain version at each
+   tolerances; (f) the SSD kernels against their plain version at each
    model's longest prefill and at a ragged chunk (Q = 37), y and the
    final state within 1e-4 x max|.| (other sum order and scan
-   association, ``expf``).  Step, prefill and SSD times, tokens per
-   second, and one traced decode step and prefill per model are
-   reported.
+   association, ``expf``), and a second call the same bits.  Step,
+   prefill and SSD times (the wrapper's, and the traced device time of
+   its three kernels), tokens per second, and one traced decode step
+   and prefill per model are reported.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel),
@@ -163,11 +164,14 @@ SPARSE = (
 #: the graph phase's model and merged-kernel budget
 GRAPH_MODEL = "h2o-danube-1.8b"
 GRAPH_BUDGET = 512 << 20
+#: the SSD scan's three kernels (one call launches each once), and all of
 #: the port's kernels, by the names the profiler reports
+SSD_KERNELS = ("ssd_chunk_state_kernel<", "ssd_state_pass_kernel",
+               "ssd_chunk_scan_kernel<")
 OUR_KERNELS = ("stt_tile_kernel<", "os_stream_kernel<", "rt_tree_kernel<",
                "os_inplace_kernel<", "ws_kernel<", "ws_tile_kernel<",
                "bsr_kernel<", "stages_kernel<", "gather_kernel<",
-               "flash_kernel<", "flash_mma_kernel<", "ssd_kernel")
+               "flash_kernel<", "flash_mma_kernel<") + SSD_KERNELS
 #: the serve phase: model, slot engine, traffic
 SERVE_MODEL = "h2o-danube-1.8b"
 SERVE_ENGINE = dict(capacity=8, max_context=2048, page_size=16,
@@ -722,11 +726,11 @@ def ssd_operands(bsz, length, lm, g):
 
 
 def ssd_check(lm, cases, g, check):
-    """Check (f): the SSD kernel against its plain version
+    """Check (f): the SSD kernels against their plain version
     ``ref.ssd_chunked_ref`` at each (length, chunk) of ``cases``: y and
     the final state within 1e-4 x max|.| in fp32 (other sum order and
-    scan association, the card's ``expf``).  Returns the max error
-    relative to max|.| per case."""
+    scan association, the card's ``expf``), and a second call the same
+    bits.  Returns the max error relative to max|.| per case."""
     import torch
 
     from repro_torch.kernels import ref, ssd_scan
@@ -736,6 +740,10 @@ def ssd_check(lm, cases, g, check):
         args = ssd_operands(1, length, lm, g)
         got = ssd_scan.ssd_scan(*args, chunk=chunk)
         want = ref.ssd_chunked_ref(*args, chunk=chunk)
+        again = ssd_scan.ssd_scan(*args, chunk=chunk)
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              f"(f) ssd_scan {lm.name} L={length} chunk={chunk}: a second "
+              f"call gives other bits")
         rel = []
         for name, gv, wv in zip(("y", "state"), got, want):
             err = (gv - wv).abs().max().item()
@@ -746,7 +754,7 @@ def ssd_check(lm, cases, g, check):
             rel.append(err / scale)
         worst[f"L={length} Q={chunk} N={lm.ssm_state}"] = max(rel)
     print(f"ssm serve checks: (f) {lm.name} ssd_scan vs plain, max err / "
-          f"max|.| {worst}")
+          f"max|.| {worst}; two calls the same bits")
     return worst
 
 
@@ -754,8 +762,9 @@ def ssd_roofline(bsz, length, chunk, lm):
     """The SSD's least time on the card (fp32 on the CUDA cores).  Per
     chunk, C B^T's lower triangle is needed once per group, Q(Q+1)/2 N
     multiply-adds; per head, its masked product with x Q(Q+1)/2 P, and
-    the inter-chunk term and the state update Q N P each; the prep folds
-    dt into x and forms dt * a, one multiply an element.  Bytes are x,
+    the inter-chunk term and the state update Q N P each; scaling by dt
+    and forming dt * a take one multiply an element of x and of dt (the
+    kernels fold both into their decay weights).  Bytes are x,
     dt, a, y, B and C per group, and the final state, each once."""
     from repro_torch.core import hopper
     h, p = lm.ssm_heads, lm.ssm_head_dim
@@ -847,21 +856,36 @@ def ssm_serve_phase(check):
         roof = ssd_roofline(1, longest, lm.ssm_chunk, lm)
         got = ssd_scan.ssd_scan(*args, chunk=lm.ssm_chunk)
         want = ref.ssd_chunked_ref(*args, chunk=lm.ssm_chunk)
+
+        def ssd_call():
+            return ssd_scan.ssd_scan(*args, chunk=lm.ssm_chunk)
+        for _ in range(3):      # a trace may come back without device events
+            traced = kernel_times(ssd_call)
+            ssd_ms = [ms for k, ms, _ in traced
+                      if any(n in k for n in SSD_KERNELS)]
+            if ssd_ms:
+                break
         part["ssd"] = {
             "shape": f"x (1, {longest}, {lm.ssm_heads}, "
                      f"{lm.ssm_head_dim}), b/c (1, {longest}, "
                      f"{lm.ssm_groups}, {lm.ssm_state}) fp32, chunk "
-                     f"{lm.ssm_chunk}",
+                     f"{lm.ssm_chunk}; ms: one wrapper call (the "
+                     f"single-kernel wrapper's time held its prep passes "
+                     f"too), kernels_ms: the traced device time of its "
+                     f"three kernels",
             "max_abs_err": max((gv - wv).abs().max().item()
                                for gv, wv in zip(got, want)),
-            "ms": event_ms(lambda: ssd_scan.ssd_scan(
-                *args, chunk=lm.ssm_chunk), 20),
+            "ms": event_ms(ssd_call, 20),
+            "kernels_ms": sum(ssd_ms) if ssd_ms else None,
+            "device_ms": sum(ms for _, ms, _ in traced) or None,
             "plain_ms": event_ms(lambda: ref.ssd_chunked_ref(
                 *args, chunk=lm.ssm_chunk), 3),
             "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
             "gflop": roof.flops / 1e9, "mbytes": roof.bytes / 1e6}
         print(f"ssm serve {model}: ssd_scan at {part['ssd']['shape']}: "
-              f"{part['ssd']['ms']:.4f} ms, plain "
+              f"{part['ssd']['ms']:.4f} ms (traced: kernels "
+              f"{part['ssd']['kernels_ms']} ms, device "
+              f"{part['ssd']['device_ms']} ms), plain "
               f"{part['ssd']['plain_ms']:.3f} ms, bound "
               f"{part['ssd']['bound_ms']:.4f} ms ({roof.bound_by}, "
               f"{part['ssd']['gflop']:.3f} GFLOP, "
@@ -886,8 +910,8 @@ def ssm_serve_phase(check):
            "source": "src/repro_torch/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:61",
            "launches": ssd_launches,
-           **{k: timed[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by")},
+           **{k: timed[k] for k in ("max_abs_err", "ms", "kernels_ms",
+                                    "plain_ms", "bound_ms", "bound_by")},
            "library_ms": None, "shape": timed["shape"]}
     return [row], summary
 

@@ -1,263 +1,557 @@
 // Mamba-2 chunked SSD scan for Hopper (sm_90a); replaces the reference's
-// kernels/ssd_scan.py:ssd_scan (_ssd_kernel).
+// kernels/ssd_scan.py:ssd_scan (_ssd_kernel;
+// src/repro/kernels/ssd_scan.py:61).
 //
-// For each (batch, head) sequence, chunk by chunk of Q steps, with the
-// inclusive cumulative log decay lc of the chunk:
+// For each (batch, head) sequence, cut into chunks of Q steps, with the
+// log decays da_j = dt_j a and their inclusive sum lc within the chunk:
 //
-//   y[i]  = sum_{j<=i} e^{lc_i - lc_j} (C_i . B_j) xdt[j]       (intra)
-//         + e^{lc_i} C_i . h                                     (inter)
-//   h    <- e^{lc_{Q-1}} h + sum_j e^{lc_{Q-1} - lc_j} B_j xdt[j]^T
+//   y[i]  = sum_{j<=i} e^{lc_i - lc_j} (C_i . B_j) dt_j x[j]      (intra)
+//         + e^{lc_i} C_i . h_in                                  (inter)
+//   h_out = e^{lc_{Q-1}} h_in + sum_j e^{lc_{Q-1} - lc_j} dt_j B_j x[j]^T
 //
-// xdt (B, L, H, P), da (B, L, H), b/c (B, L, G, N) and y (B, L, H, P) are
-// contiguous fp32; the final state h goes out as (B, H, N, P) fp32.  Head
-// h reads B and C at its group h / (H / G) in the address: the repeat
-// from groups to heads that the TPU wrapper materialises is never made.
+// The TPU kernel runs the chunks as its sequential grid axis and carries
+// the (N, P) state from one to the next in VMEM scratch.  Here only the
+// carry is sequential, so one call is three launches of the chunk-parallel
+// form (the decomposition ref.ssd_chunked_ref writes in PyTorch):
 //
-// The TPU kernel runs the chunks as the sequential "arbitrary" grid axis
-// and carries the (N, P) state in VMEM scratch, dropping it at the end.
-// CTAs have no order here, so one CTA owns one (batch, head, 16-column
-// slice of P) and loops over the chunks itself.  The state's P columns
-// are independent (y[:, p] depends on xdt[:, p] and h[:, p] only), so the
-// split over P is exact; it gives 4 CTAs a head at P = 64, enough to fill
-// the 132 SMs at batch-1 prefill (64 heads for zamba2-1.2b, 32 for
-// mamba2-370m).  The (N, 16) state slice stays in shared memory for the
-// whole loop and reaches global memory once, at the end, as the second
-// output the models' prefill needs for the decode cache.
+//   1. ssd_chunk_state_kernel, one CTA a (chunk, head, batch):
+//      chunk_state = sum_j B_j (w_j x[j])^T with w_j = dt_j e^{lc_{Q-1} -
+//      lc_j}, and the chunk's decay e^{lc_{Q-1}}, to scratch;
+//   2. ssd_state_pass_kernel, 4 state elements a thread of a (batch,
+//      head): walks the chunks in order, h_in[c] = h, h = decay_c h +
+//      chunk_state[c], writing h_in over chunk_state in place, and the
+//      final h as the second output.  The sum order is fixed, so the
+//      result is deterministic;
+//   3. ssd_chunk_scan_kernel, one CTA a (chunk, group, batch, block of
+//      heads): the lower triangle of C B^T once, kept in registers, then
+//      per head G = mask * e^{lc_i - lc_j} * CB * dt_j (masked before the
+//      exponential: above the diagonal lc_i - lc_j is positive and
+//      overflows) and y = G x + e^{lc} (C h_in), in x's layout.
 //
-// Per chunk, 256 threads as a 16 x 16 grid (ty, tx):
-//   1. stage B, C (Q x N, rows padded to N + 1 floats so column reads of
-//      16 rows hit distinct banks) and the 16 xdt columns (Q x 16); warp
-//      0 scans the Q log decays by shuffles into lc, e^{lc} and the end
-//      weights e^{lc_{Q-1} - lc};
-//   2. G = mask(C B^T) * e^{lc_i - lc_j}, a 4 x 4 register tile of rows
-//      ty + 16a and columns tx + 16b per thread; tiles wholly above the
-//      diagonal (b > a) are never computed, and the exponential is taken
-//      only where j <= i (masked before the exp: above the diagonal
-//      lc_i - lc_j is positive and would overflow);
-//   3. y = G xdt + e^{lc} (C h): rows ty + 16a, column tx;
-//   4. h <- e^{lc_{Q-1}} h + B^T (w * xdt): rows n = ty + 16a, column tx.
-// Rows past a ragged chunk (Q < 64) are staged as zeros and never stored.
+// x (B, L, H, P), dt (B, L, H) and b/c (B, L, G, N) are fp32 read where
+// they lie, through element strides (the innermost stride of x, b and c
+// is 1; b and c share theirs), a is (H,).  Head h reads B and C at its
+// group h / (H / G): the repeat from groups to heads is never made.  y is
+// contiguous (B, L, H, P), the final state (B, H, N, P), and the scratch
+// holds the chunk states (B, nc, H, N, P) and then the decays (B, nc, H).
 //
-// What bounds it on the H100: the operations.  A chunk needs C B^T's
-// lower triangle once per group, Q(Q+1)/2 N multiply-adds, and per head
-// Q(Q+1)/2 P for its masked product with xdt and 2 Q N P for the
-// inter-chunk term and the state update: 2.0 GFLOP over zamba2-1.2b's
-// longest serve prefill (L = 1536, 64 heads, one group,
-// Q = N = P = 64), 0.030 ms at 67 TFLOP/s fp32, against 53 MB of inputs
-// and outputs (0.016 ms at 3.35 TB/s).  The design keeps every
-// intermediate and the state on chip and skips the upper triangle; it
-// multiplies on the CUDA cores in fp32 (the models feed fp32), does not
-// overlap the next chunk's loads with this chunk's products, and
-// recomputes C B^T in every CTA: once per head and P slice, 256 times a
-// chunk at zamba2-1.2b (64 heads x 4 slices) where the bound counts it
-// once.  Later work.
+// What bounds it on the H100: the operations.  Per chunk, C B^T's lower
+// triangle once per group, Q(Q+1)/2 N multiply-adds, and per head
+// Q(Q+1)/2 P for its masked product with x and 2 Q N P for the
+// inter-chunk term and the chunk state: 2.0 GFLOP at zamba2-1.2b's
+// longest serve prefill (L = 1536, 64 heads, one group, Q = N = P = 64),
+// 0.030 ms at 67 TFLOP/s fp32, against 53 MB of inputs and outputs
+// (0.016 ms at 3.35 TB/s).  The design: every product runs from register
+// tiles of 4 x 4 per thread fed by 16-byte shared-memory reads (8 FMAs a
+// read); C B^T is formed once per (batch, chunk, group, block of heads)
+// and reused for the up to 4 heads of the block; the chunk
+// scan loads the next head's x, h_in and dt into registers behind the
+// current head's products; the state pass keeps 8 chunks' loads in flight
+// and its 25 MB of scratch stays within L2.  The arithmetic stays fp32 on
+// the CUDA cores (the tolerance, 1e-4 of max|.|, rules out TF32).
 //
-// Launch contract: runs on the given stream, allocates nothing, and the
-// entry point returns cudaGetLastError() right after the launch.
+// Launch contract: runs on the given stream, allocates nothing (the
+// wrapper allocates the scratch), sets its shared-memory opt-in once, and
+// the entry point returns the first launch error.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TX = 16;      // thread grid: THREADS = 16 x 16
-constexpr int QMAX = 64;    // longest chunk
-constexpr int NMAX = 128;   // widest state
-constexpr int PC = 16;      // state columns per CTA (= TX)
-constexpr int GS = QMAX + 1;  // row stride of the G tile
+constexpr int THREADS = 256;        // chunk kernels: 16 x 16 threads
+constexpr int TX = 16;
+constexpr int QMAX = 64;            // longest chunk
+constexpr int NMAX = 128;           // widest state
+constexpr int PT = 64;              // state columns a tile: 16 x float4
+constexpr int QS = QMAX + 4;        // row stride of the chunk-slot tiles
+constexpr int PASS_THREADS = 128;   // state pass
+constexpr int PASS_DEPTH = 8;       // chunks in flight in the state pass
 
-__host__ __device__ constexpr int smem_floats(int n) {
-  return 2 * QMAX * (n + 1) + QMAX * GS + QMAX * PC + n * PC + 3 * QMAX;
+struct SsdArgs {
+  const float *x, *dt, *a, *b, *c;
+  float *y, *state, *cs, *decay;
+  long long xb, xt, xh;      // x strides: batch, step, head
+  long long db, dtt, dh;     // dt strides
+  long long bb, bt, bg;      // b and c strides: batch, step, group
+  int L, H, G, N, P, Q, nc, hblk;
+  bool xvec, bvec;           // 16-byte loads of x / of b and c
+};
+
+// Shared floats of each kernel, by the state's 64-row groups NR.
+__host__ __device__ constexpr int state_smem(int nr) {
+  return QMAX * 64 * nr + QMAX * PT + 3 * QMAX;
+}
+__host__ __device__ constexpr int scan_smem(int nr) {
+  return 64 * nr * QS + QMAX * QS + QMAX * PT + 64 * nr * PT + 3 * QMAX;
 }
 
+// Chunk row i (i < 64) lives at slot (i % 16) * 4 + i / 16, so the rows
+// ty, ty + 16, ty + 32, ty + 48 of thread row ty are one float4.
+__device__ __forceinline__ int slot(int i) { return (i % 16) * 4 + i / 16; }
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// row[k .. k+3], columns at or past lim read as 0; one 16-byte load where
+// the row allows it (vec: the base and the strides are 16-byte aligned,
+// k is a multiple of 4).
+__device__ __forceinline__ float4 ld4(const float* row, int k, int lim,
+                                      bool vec) {
+  if (vec && k + 4 <= lim)
+    return __ldg(reinterpret_cast<const float4*>(row + k));
+  float4 v = zero4();
+  if (k < lim) v.x = row[k];
+  if (k + 1 < lim) v.y = row[k + 1];
+  if (k + 2 < lim) v.z = row[k + 2];
+  if (k + 3 < lim) v.w = row[k + 3];
+  return v;
+}
+
+// row[k .. k+3] = v, columns at or past lim dropped.
+__device__ __forceinline__ void st4(float* row, int k, int lim, bool vec,
+                                    const float (&v)[4]) {
+  if (vec && k + 4 <= lim) {
+    *reinterpret_cast<float4*>(row + k) =
+        make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    if (k + u < lim) row[k + u] = v[u];
+}
+
+// acc[r][k] += a[r] * b[k]
+__device__ __forceinline__ void outer4(float (&acc)[4][4], const float4& a,
+                                       const float4& b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+  const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[r][k] = fmaf(av[r], bv[k], acc[r][k]);
+}
+
+// The dt of steps 2l and 2l + 1 of the chunk for lane l of a warp (0 past
+// q).
+__device__ __forceinline__ void load_dt(const float* dtp, long long stride,
+                                        int q, float& d0, float& d1) {
+  const int r0 = 2 * (threadIdx.x & 31), r1 = r0 + 1;
+  d0 = r0 < q ? dtp[r0 * stride] : 0.0f;
+  d1 = r1 < q ? dtp[r1 * stride] : 0.0f;
+}
+
+// Warp-wide inclusive scan of the log decays da = dt a: lane l holds
+// steps 2l and 2l + 1 (l0, l1).  Returns lc_{q-1}.
+__device__ __forceinline__ float scan_decay(float d0, float d1, float a,
+                                            int q, float& l0, float& l1) {
+  const int lane = threadIdx.x & 31;
+  const float e0 = d0 * a, e1 = d1 * a;
+  float incl = e0 + e1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0f;
+  l0 = excl + e0;
+  l1 = incl;
+  return __shfl_sync(0xffffffffu, ((q - 1) & 1) ? l1 : l0, (q - 1) >> 1);
+}
+
+// -- 1. chunk states ------------------------------------------------------
+// Thread (ty, tx) owns state rows 64 g + 4 ty + r (g < NR) and columns
+// 4 tx + k of each 64-column tile: per step j, NR + 1 float4 reads for
+// 16 NR FMAs.
+template <int NR>
 __global__ void __launch_bounds__(THREADS)
-    ssd_kernel(const float* __restrict__ xdt, const float* __restrict__ da,
-               const float* __restrict__ bm, const float* __restrict__ cm,
-               float* __restrict__ y, float* __restrict__ state, int L,
-               int H, int G, int N, int P, int Q) {
-  extern __shared__ float smem[];
-  const int NS = N + 1;               // padded row stride of B and C
-  float* Bs = smem;                   // QMAX x NS
-  float* Cs = Bs + QMAX * NS;         // QMAX x NS
-  float* Gs = Cs + QMAX * NS;         // QMAX x GS
-  float* Xs = Gs + QMAX * GS;         // QMAX x PC
-  float* Ss = Xs + QMAX * PC;         // N x PC, the state slice
-  float* lc = Ss + N * PC;            // QMAX: inclusive log decay
-  float* el = lc + QMAX;              // QMAX: e^{lc_i}
-  float* wl = el + QMAX;              // QMAX: e^{lc_{Q-1} - lc_j}
+    ssd_chunk_state_kernel(const SsdArgs s) {
+  extern __shared__ float4 smem4[];
+  constexpr int NS = 64 * NR;            // padded row width of Bs
+  constexpr int XV = QMAX * PT / 4 / THREADS;
+  float* Bs = reinterpret_cast<float*>(smem4);   // QMAX x NS: B_j rows
+  float* Xs = Bs + QMAX * NS;                    // QMAX x PT: w_j x[j]
+  float* w = Xs + QMAX * PT;                     // QMAX: dt_j e^{...}
+  const float4* Bs4 = reinterpret_cast<const float4*>(Bs);
+  float4* Xs4 = reinterpret_cast<float4*>(Xs);
 
-  const int p0 = blockIdx.x * PC, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (H / G);
-  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
-  const int pc = min(PC, P - p0);     // live columns of this slice
+  const int ci = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (s.H / s.G);
+  const int Q = s.Q, N = s.N, P = s.P, tid = threadIdx.x;
+  const int ty = tid / TX, tx = tid % TX;
+  const long long t0 = (long long)ci * Q;
+  const float* xb = s.x + b * s.xb + t0 * s.xt + h * s.xh;
+  const float* bb = s.b + b * s.bb + t0 * s.bt + g * s.bg;
+  float* csb = s.cs + (((long long)b * s.nc + ci) * s.H + h) * N * P;
+  const bool cvec = P % 4 == 0;
 
-  const long long xrow = (long long)H * P;   // step stride of xdt and y
-  const long long brow = (long long)G * N;   // step stride of b and c
-  const float* xb = xdt + (long long)b * L * xrow + (long long)h * P + p0;
-  float* yb = y + (long long)b * L * xrow + (long long)h * P + p0;
-  const float* bb = bm + (long long)b * L * brow + (long long)g * N;
-  const float* cb = cm + (long long)b * L * brow + (long long)g * N;
-  const float* db = da + (long long)b * L * H + h;
+  if (tid < 32) {
+    float d0, d1, l0, l1;
+    load_dt(s.dt + b * s.db + t0 * s.dtt + h * s.dh, s.dtt, Q, d0, d1);
+    const float last = scan_decay(d0, d1, s.a[h], Q, l0, l1);
+    w[2 * tid] = d0 * expf(last - l0);       // 0 past Q: d is 0
+    w[2 * tid + 1] = d1 * expf(last - l1);
+    if (tid == 0)
+      s.decay[((long long)b * s.nc + ci) * s.H + h] = expf(last);
+  }
+  for (int idx = tid; idx < QMAX * NS / 4; idx += THREADS) {
+    const int r = idx / (NS / 4), k = idx % (NS / 4) * 4;
+    reinterpret_cast<float4*>(Bs)[idx] =
+        r < Q ? ld4(bb + r * s.bt, k, N, s.bvec) : zero4();
+  }
 
-  for (int i = tid; i < N * PC; i += THREADS) Ss[i] = 0.0f;
-
-  const int nc = L / Q;
-  for (int ci = 0; ci < nc; ++ci) {
-    const long long t0 = (long long)ci * Q;
-
-    // -- 1. stage the chunk ---------------------------------------------
-    for (int idx = tid; idx < QMAX * N; idx += THREADS) {
-      const int r = idx / N, n = idx % N;
-      const bool ok = r < Q;
-      const long long at = (t0 + r) * brow + n;
-      Bs[r * NS + n] = ok ? bb[at] : 0.0f;
-      Cs[r * NS + n] = ok ? cb[at] : 0.0f;
+  for (int pt = 0; pt < P; pt += PT) {
+    float4 xr[XV];
+#pragma unroll
+    for (int k = 0; k < XV; ++k) {
+      const int idx = tid + k * THREADS, r = idx / (PT / 4);
+      xr[k] = r < Q ? ld4(xb + r * s.xt, pt + idx % (PT / 4) * 4, P, s.xvec)
+                    : zero4();
     }
-    for (int idx = tid; idx < QMAX * PC; idx += THREADS) {
-      const int r = idx / PC, p = idx % PC;
-      Xs[idx] = (r < Q && p < pc) ? xb[(t0 + r) * xrow + p] : 0.0f;
+    __syncthreads();  // w and Bs staged; the last tile's reads of Xs done
+#pragma unroll
+    for (int k = 0; k < XV; ++k) {
+      const int idx = tid + k * THREADS;
+      const float wv = w[idx / (PT / 4)];
+      Xs4[idx] = make_float4(xr[k].x * wv, xr[k].y * wv, xr[k].z * wv,
+                             xr[k].w * wv);
+    }
+    __syncthreads();
+
+    float acc[NR][4][4];
+#pragma unroll
+    for (int q = 0; q < NR; ++q)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[q][r][k] = 0.0f;
+    for (int j = 0; j < Q; ++j) {
+      const float4 xv = Xs4[j * (PT / 4) + tx];
+#pragma unroll
+      for (int q = 0; q < NR; ++q)
+        outer4(acc[q], Bs4[(j * NS + 64 * q) / 4 + ty], xv);
+    }
+#pragma unroll
+    for (int q = 0; q < NR; ++q)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int n = 64 * q + 4 * ty + r;
+        if (n < N)
+          st4(csb + (long long)n * P, pt + 4 * tx, P, cvec, acc[q][r]);
+      }
+  }
+}
+
+// -- 2. the carry over chunks ---------------------------------------------
+__device__ __forceinline__ void ld_run(const float* p, int live, bool vec,
+                                       float (&v)[4]) {
+  if (vec) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v[u] = u < live ? p[u] : 0.0f;
+}
+
+__global__ void __launch_bounds__(PASS_THREADS)
+    ssd_state_pass_kernel(const SsdArgs s) {
+  const long long np = (long long)s.N * s.P;
+  const long long e =
+      ((long long)blockIdx.x * PASS_THREADS + threadIdx.x) * 4;
+  if (e >= np) return;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int live = (int)(np - e < 4 ? np - e : 4);
+  const bool vec = np % 4 == 0;          // every run of 4 is one float4
+  const long long step = (long long)s.H * np;     // chunk stride
+  float* cs = s.cs + ((long long)b * s.nc * s.H + h) * np + e;
+  const float* dec = s.decay + (long long)b * s.nc * s.H + h;
+  float hv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c0 = 0; c0 < s.nc; c0 += PASS_DEPTH) {
+    float v[PASS_DEPTH][4], d[PASS_DEPTH];
+#pragma unroll
+    for (int k = 0; k < PASS_DEPTH; ++k)
+      if (c0 + k < s.nc) {
+        ld_run(cs + (c0 + k) * step, live, vec, v[k]);
+        d[k] = dec[(long long)(c0 + k) * s.H];
+      }
+#pragma unroll
+    for (int k = 0; k < PASS_DEPTH; ++k)
+      if (c0 + k < s.nc) {
+        st4(cs + (c0 + k) * step, 0, live, vec, hv);   // h_in of the chunk
+#pragma unroll
+        for (int u = 0; u < 4; ++u) hv[u] = fmaf(d[k], hv[u], v[k][u]);
+      }
+  }
+  st4(s.state + ((long long)b * s.H + h) * np + e, 0, live, vec, hv);
+}
+
+// -- 3. the chunk outputs -------------------------------------------------
+// One (head, 64-column tile) of the CTA's block: its x rows, its h_in
+// rows and its dt, loaded into registers ahead of use.
+template <int NR>
+struct Item {
+  float4 x[QMAX * PT / 4 / THREADS];
+  float4 h[64 * NR * PT / 4 / THREADS];
+  float d0, d1, a;
+};
+
+// Thread (ty, tx) owns output rows ty + 16 r and columns 4 tx + k; the C B^T
+// tile it keeps holds rows ty + 16 r and columns tx + 16 u, u <= r (the
+// tiles with u > r lie wholly above the diagonal).
+template <int NR>
+__global__ void __launch_bounds__(THREADS, 2)
+    ssd_chunk_scan_kernel(const SsdArgs s) {
+  extern __shared__ float4 smem4[];
+  constexpr int XV = QMAX * PT / 4 / THREADS;
+  constexpr int HV = 64 * NR * PT / 4 / THREADS;
+  float* Ct = reinterpret_cast<float*>(smem4);   // 64 NR x QS: C^T by slot
+  float* Bt = Ct + 64 * NR * QS;                 // 64 NR x QS, until CB
+  float* Gt = Bt;                                // QMAX x QS: G^T by slot
+  float* Xs = Gt + QMAX * QS;                    // QMAX x PT: x rows
+  float* Hs = Xs + QMAX * PT;                    // 64 NR x PT: h_in rows
+  float* lc = Hs + 64 * NR * PT;                 // QMAX each
+  float* el = lc + QMAX;
+  float* dts = el + QMAX;
+  const float4* Ct4 = reinterpret_cast<const float4*>(Ct);
+  const float4* Bt4 = reinterpret_cast<const float4*>(Bt);
+  float4* Gt4 = reinterpret_cast<float4*>(Gt);
+  float4* Xs4 = reinterpret_cast<float4*>(Xs);
+  float4* Hs4 = reinterpret_cast<float4*>(Hs);
+
+  const int Q = s.Q, N = s.N, P = s.P, tid = threadIdx.x;
+  const int ty = tid / TX, tx = tid % TX;
+  const int R = s.H / s.G, nhb = (R + s.hblk - 1) / s.hblk;
+  const int ci = blockIdx.x, g = blockIdx.y;
+  const int b = blockIdx.z / nhb, hb = blockIdx.z % nhb;
+  const int h0 = g * R + hb * s.hblk, nh = min(s.hblk, R - hb * s.hblk);
+  const int npt = (P + PT - 1) / PT, items = nh * npt;
+  const long long t0 = (long long)ci * Q;
+  const bool cvec = P % 4 == 0;
+
+  auto load_item = [&](int it, Item<NR>& m) {
+    const int h = h0 + it / npt, pt = it % npt * PT;
+    const float* xb = s.x + b * s.xb + t0 * s.xt + h * s.xh;
+    const float* hin =
+        s.cs + (((long long)b * s.nc + ci) * s.H + h) * N * P;
+#pragma unroll
+    for (int k = 0; k < XV; ++k) {
+      const int idx = tid + k * THREADS, r = idx / (PT / 4);
+      m.x[k] = r < Q ? ld4(xb + r * s.xt, pt + idx % (PT / 4) * 4, P,
+                           s.xvec)
+                     : zero4();
+    }
+#pragma unroll
+    for (int k = 0; k < HV; ++k) {
+      const int idx = tid + k * THREADS, n = idx / (PT / 4);
+      m.h[k] = n < N ? ld4(hin + (long long)n * P, pt + idx % (PT / 4) * 4,
+                           P, cvec)
+                     : zero4();
     }
     if (tid < 32) {
-      // lane l holds steps 2l and 2l + 1; steps past Q add nothing
-      const int r0 = 2 * tid, r1 = r0 + 1;
-      const float d0 = r0 < Q ? db[(t0 + r0) * H] : 0.0f;
-      const float d1 = r1 < Q ? db[(t0 + r1) * H] : 0.0f;
-      float incl = d0 + d1;
+      load_dt(s.dt + b * s.db + t0 * s.dtt + h * s.dh, s.dtt, Q, m.d0, m.d1);
+      m.a = s.a[h];
+    }
+  };
+  auto put_item = [&](const Item<NR>& m) {
 #pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (tid >= o) incl += v;
+    for (int k = 0; k < XV; ++k) Xs4[tid + k * THREADS] = m.x[k];
+#pragma unroll
+    for (int k = 0; k < HV; ++k) Hs4[tid + k * THREADS] = m.h[k];
+    if (tid < 32) {
+      float l0, l1;
+      scan_decay(m.d0, m.d1, m.a, Q, l0, l1);
+      lc[2 * tid] = l0;
+      lc[2 * tid + 1] = l1;
+      el[2 * tid] = expf(l0);
+      el[2 * tid + 1] = expf(l1);
+      dts[2 * tid] = m.d0;
+      dts[2 * tid + 1] = m.d1;
+    }
+  };
+
+  // stage C^T and B^T of the group's chunk by slot (rows past Q are 0)
+  const float* cb0 = s.c + b * s.bb + t0 * s.bt + g * s.bg;
+  const float* bb0 = s.b + b * s.bb + t0 * s.bt + g * s.bg;
+  for (int idx = tid; idx < QMAX * ((N + 3) / 4); idx += THREADS) {
+    const int i = idx % QMAX, k = idx / QMAX * 4, sl = slot(i);
+    const float4 cv = i < Q ? ld4(cb0 + i * s.bt, k, N, s.bvec) : zero4();
+    const float4 bv = i < Q ? ld4(bb0 + i * s.bt, k, N, s.bvec) : zero4();
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (k + u < N) {
+        Ct[(k + u) * QS + sl] = lane4(cv, u);
+        Bt[(k + u) * QS + sl] = lane4(bv, u);
       }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.0f;
-      const float l0 = excl + d0, l1 = incl;
-      const float last =
-          __shfl_sync(0xffffffffu, ((Q - 1) & 1) ? l1 : l0, (Q - 1) >> 1);
-      lc[r0] = l0;
-      lc[r1] = l1;
-      el[r0] = expf(l0);
-      el[r1] = expf(l1);
-      wl[r0] = r0 < Q ? expf(last - l0) : 0.0f;
-      wl[r1] = r1 < Q ? expf(last - l1) : 0.0f;
+  }
+  Item<NR> m;
+  load_item(0, m);
+  __syncthreads();
+
+  // C B^T, lower triangle, once for every head of the block
+  float cb[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) cb[r][u] = 0.0f;
+  for (int n = 0; n < N; ++n) {
+    const float4 c4 = Ct4[n * (QS / 4) + ty], b4 = Bt4[n * (QS / 4) + tx];
+    const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+    const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u <= r; ++u) cb[r][u] = fmaf(cv[r], bv[u], cb[r][u]);
+  }
+  __syncthreads();  // Bt's space goes to the heads' tiles
+  put_item(m);
+
+  for (int it = 0; it < items; ++it) {
+    const int h = h0 + it / npt, pt = it % npt * PT;
+    __syncthreads();  // this item's x, h_in and decays are staged
+    if (it + 1 < items) load_item(it + 1, m);
+
+    // G^T = (mask * e^{lc_i - lc_j} * CB * dt_j)^T, rows j, columns by slot
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = tx + 16 * u;
+      float gv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = ty + 16 * r;
+        gv[r] = (u <= r && j <= i && i < Q)
+                    ? cb[r][u] * expf(lc[i] - lc[j]) * dts[j]
+                    : 0.0f;
+      }
+      Gt4[j * (QS / 4) + ty] = make_float4(gv[0], gv[1], gv[2], gv[3]);
     }
     __syncthreads();
 
-    // -- 2. G = mask(C B^T) * e^{lc_i - lc_j} -----------------------------
-    {
-      float s[4][4];
+    float acc[4][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
-      for (int n = 0; n < N; ++n) {
-        float cv[4], bv[4];
+      for (int k = 0; k < 4; ++k) acc[r][k] = 0.0f;
+    for (int n = 0; n < N; ++n)
+      outer4(acc, Ct4[n * (QS / 4) + ty], Hs4[n * (PT / 4) + tx]);
 #pragma unroll
-        for (int a = 0; a < 4; ++a) cv[a] = Cs[(ty + 16 * a) * NS + n];
+    for (int r = 0; r < 4; ++r) {
+      const float e = el[ty + 16 * r];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = Bs[(tx + 16 * c) * NS + n];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c <= a; ++c) s[a][c] = fmaf(cv[a], bv[c], s[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = ty + 16 * a, j = tx + 16 * c;
-          float gv = 0.0f;
-          if (c <= a && j <= i && i < Q) gv = s[a][c] * expf(lc[i] - lc[j]);
-          Gs[i * GS + j] = gv;
-        }
+      for (int k = 0; k < 4; ++k) acc[r][k] *= e;
     }
-    __syncthreads();
-
-    // -- 3. y = G xdt + e^{lc} (C h) --------------------------------------
-    {
-      float intra[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float inter[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      const int jmax = min(Q, ty + 16 * 3 + 1);   // row i sees j <= i
-      for (int j = 0; j < jmax; ++j) {
-        const float xv = Xs[j * PC + tx];
+    const int jmax = min(Q, ty + 16 * 3 + 1);   // row i sees j <= i
+    for (int j = 0; j < jmax; ++j)
+      outer4(acc, Gt4[j * (QS / 4) + ty], Xs4[j * (PT / 4) + tx]);
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
-          intra[a] = fmaf(Gs[(ty + 16 * a) * GS + j], xv, intra[a]);
-      }
-      for (int n = 0; n < N; ++n) {
-        const float sv = Ss[n * PC + tx];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-          inter[a] = fmaf(Cs[(ty + 16 * a) * NS + n], sv, inter[a]);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int i = ty + 16 * a;
-        if (i < Q && tx < pc)
-          yb[(t0 + i) * xrow + tx] = intra[a] + el[i] * inter[a];
-      }
+    for (int r = 0; r < 4; ++r) {
+      const int i = ty + 16 * r;
+      if (i < Q)
+        st4(s.y + ((b * (long long)s.L + t0 + i) * s.H + h) * P, pt + 4 * tx,
+            P, cvec, acc[r]);
     }
-    __syncthreads();  // every read of the state for this chunk is done
-
-    // -- 4. h <- e^{lc_{Q-1}} h + B^T (w * xdt) ---------------------------
-    {
-      float acc[NMAX / 16];
-#pragma unroll
-      for (int a = 0; a < NMAX / 16; ++a) acc[a] = 0.0f;
-      for (int j = 0; j < Q; ++j) {
-        const float xw = Xs[j * PC + tx] * wl[j];
-#pragma unroll
-        for (int a = 0; a < NMAX / 16; ++a) {
-          const int n = ty + 16 * a;
-          if (n < N) acc[a] = fmaf(Bs[j * NS + n], xw, acc[a]);
-        }
-      }
-      const float dec = el[Q - 1];
-#pragma unroll
-      for (int a = 0; a < NMAX / 16; ++a) {
-        const int n = ty + 16 * a;
-        if (n < N) Ss[n * PC + tx] = dec * Ss[n * PC + tx] + acc[a];
-      }
-    }
-    __syncthreads();  // the next chunk overwrites B, C, xdt
+    __syncthreads();  // every read of this item's tiles is done
+    if (it + 1 < items) put_item(m);
   }
-  __syncthreads();  // L == 0: the zeroed state is complete
+}
 
-  float* sb = state + ((long long)b * H + h) * N * P + p0;
-  for (int idx = tid; idx < N * PC; idx += THREADS) {
-    const int n = idx / PC, p = idx % PC;
-    if (p < pc) sb[(long long)n * P + p] = Ss[idx];
+template <typename K>
+cudaError_t opt_in(K kernel, int floats) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              floats * (int)sizeof(float));
+}
+
+template <int NR>
+cudaError_t launch(const SsdArgs& s, int batch, cudaStream_t st) {
+  const int nhb = (s.H / s.G + s.hblk - 1) / s.hblk;
+  if (s.nc > 0) {
+    ssd_chunk_state_kernel<NR>
+        <<<dim3(s.nc, s.H, batch), THREADS,
+           state_smem(NR) * sizeof(float), st>>>(s);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
   }
+  const long long np = (long long)s.N * s.P;
+  ssd_state_pass_kernel<<<
+      dim3((unsigned)((np + 4 * PASS_THREADS - 1) / (4 * PASS_THREADS)),
+           s.H, batch),
+      PASS_THREADS, 0, st>>>(s);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || s.nc == 0) return e;
+  ssd_chunk_scan_kernel<NR><<<dim3(s.nc, s.G, batch * nhb), THREADS,
+                              scan_smem(NR) * sizeof(float), st>>>(s);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p, const long long* strides, int n) {
+  long long bits = (long long)reinterpret_cast<uintptr_t>(p) & 15;
+  for (int i = 0; i < n; ++i) bits |= (strides[i] * 4) & 15;
+  return bits == 0;
 }
 
 }  // namespace
 
-// C interface (loaded with ctypes).  xdt (batch, L, H, P), da (batch, L,
-// H), b/c (batch, L, G, N), y (batch, L, H, P) and state (batch, H, N, P),
-// all contiguous fp32.  Takes 1 <= Q <= 64 with L % Q == 0, 1 <= N <= 128
-// and H % G == 0; anything else returns cudaErrorInvalidValue unlaunched.
-// Nothing is launched for an empty batch or head set.
-extern "C" int ssd_scan_launch(const void* xdt, const void* da,
-                               const void* b, const void* c, void* y,
-                               void* state, int batch, int L, int H, int G,
-                               int N, int P, int Q, void* stream) {
+// C interface (loaded with ctypes).  x (batch, L, H, P), dt (batch, L, H)
+// and b/c (batch, L, G, N) fp32 with element strides xs, dts (batch, step,
+// head) and bs (batch, step, group; shared by b and c), innermost strides
+// 1; a (H,) fp32; y (batch, L, H, P) and state (batch, H, N, P)
+// contiguous fp32; scratch batch * (L / Q) * H * (N * P + 1) floats.
+// head_block heads share one C B^T in the chunk scan.  Takes 1 <= Q <= 64
+// with L % Q == 0, 1 <= N <= 128 and H % G == 0; anything else returns
+// cudaErrorInvalidValue unlaunched.  Nothing is launched for an empty
+// batch, head set or state column set; L == 0 gives a zero state.
+extern "C" int ssd_scan_launch(const void* x, const long long* xs,
+                               const void* dt, const long long* dts,
+                               const void* a, const void* b, const void* c,
+                               const long long* bs, void* y, void* state,
+                               void* scratch, int batch, int L, int H,
+                               int G, int N, int P, int Q, int head_block,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch == 0 || H == 0 || P == 0) return 0;
-  if (Q < 1 || Q > QMAX || L % Q || N < 1 || N > NMAX || G < 1 || H % G)
+  if (Q < 1 || Q > QMAX || L % Q || N < 1 || N > NMAX || G < 1 || H % G ||
+      head_block < 1)
     return (int)cudaErrorInvalidValue;
-  if (H > 65535 || batch > 65535) return (int)cudaErrorInvalidConfiguration;
-  static bool attr_set = false;  // one opt-in, at the widest state
+  const int nhb = (H / G + head_block - 1) / head_block;
+  if (H > 65535 || batch > 65535 || (long long)batch * nhb > 65535 ||
+      G > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  static bool attr_set = false;  // one opt-in per kernel, at its size
   if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ssd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_floats(NMAX) * (int)sizeof(float));
-    if (e != cudaSuccess) return (int)e;
+    cudaError_t e;
+    if ((e = opt_in(ssd_chunk_state_kernel<1>, state_smem(1))) ||
+        (e = opt_in(ssd_chunk_state_kernel<2>, state_smem(2))) ||
+        (e = opt_in(ssd_chunk_scan_kernel<1>, scan_smem(1))) ||
+        (e = opt_in(ssd_chunk_scan_kernel<2>, scan_smem(2))))
+      return (int)e;
     attr_set = true;
   }
-  const dim3 grid((P + PC - 1) / PC, H, batch);
-  ssd_kernel<<<grid, THREADS, smem_floats(N) * sizeof(float), st>>>(
-      static_cast<const float*>(xdt), static_cast<const float*>(da),
-      static_cast<const float*>(b), static_cast<const float*>(c),
-      static_cast<float*>(y), static_cast<float*>(state), L, H, G, N, P, Q);
-  return (int)cudaGetLastError();
+  const int nc = L / Q;
+  float* cs = static_cast<float*>(scratch);
+  SsdArgs s;
+  s.x = static_cast<const float*>(x);
+  s.dt = static_cast<const float*>(dt);
+  s.a = static_cast<const float*>(a);
+  s.b = static_cast<const float*>(b);
+  s.c = static_cast<const float*>(c);
+  s.y = static_cast<float*>(y);
+  s.state = static_cast<float*>(state);
+  s.cs = cs;
+  s.decay = cs + (long long)batch * nc * H * N * P;
+  s.xb = xs[0]; s.xt = xs[1]; s.xh = xs[2];
+  s.db = dts[0]; s.dtt = dts[1]; s.dh = dts[2];
+  s.bb = bs[0]; s.bt = bs[1]; s.bg = bs[2];
+  s.L = L; s.H = H; s.G = G; s.N = N; s.P = P; s.Q = Q; s.nc = nc;
+  s.hblk = head_block;
+  s.xvec = aligned16(x, xs, 3);
+  s.bvec = aligned16(b, bs, 3) && aligned16(c, bs, 3);
+  return (int)(N <= 64 ? launch<1>(s, batch, st) : launch<2>(s, batch, st));
 }

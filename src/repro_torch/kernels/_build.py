@@ -80,9 +80,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                    ctypes.c_float, _I, _I, _P),
     },
     "ssd_scan": {
-        # xdt, da, b, c, y, state, batch, L, H, G, N, P, chunk, stream
-        "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _P),
+        # x, x strides, dt, dt strides, a, b, c, b/c strides, y, state,
+        # scratch, batch, L, H, G, N, P, chunk, head block, stream
+        "ssd_scan_launch": (_P, _LLS, _P, _LLS, _P, _P, _P, _LLS, _P, _P,
+                            _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
 }
 

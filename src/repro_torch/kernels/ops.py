@@ -234,9 +234,8 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b/c (B, L, G, N) -> y (B, L, H, P) in x's dtype.
 
     ``backend="kernel"`` runs :func:`ssd_scan.ssd_scan` (on the card the
-    CUDA kernel, fed dt folded into x and the log decays ``dt * a`` as the
-    reference's wrapper does, but with B and C per group rather than
-    repeated to heads; on the CPU the plain version);
+    CUDA kernels, which read x, dt and a as they are, with B and C per
+    group rather than repeated to heads; on the CPU the plain version);
     ``backend="xla"`` is the reference's name for the plain oracle
     :func:`ref.ssd_chunked_ref`.
     """

@@ -6,10 +6,11 @@ resident sequence's K/V as fixed-size pages in one shared pool
 ``j`` to a physical page id.  Assembling the contiguous per-slot decode
 view is a gather.  The reference's TPU kernel scalar-prefetches the
 table into its BlockSpec index maps; the CUDA kernel
-(``csrc/paged.cu``) runs one CTA per (slot, logical page), which reads
-its page id from the device table and copies the page with 16-byte
-vectors.  Both are pure copies, so the kernel is bit-identical to the
-plain version :func:`paged_gather_plain`.
+(``csrc/paged.cu``) cuts each (slot, logical page) into 32 KB runs, one
+CTA a run, which reads its page id from the device table and copies the
+run with 16-byte vectors, 8 loads in flight a thread before their
+streaming stores.  Both are pure copies, so the kernel is bit-identical
+to the plain version :func:`paged_gather_plain`.
 
 :func:`paged_gather` runs the plain version on a CPU tensor and the
 kernel on a CUDA tensor (or raises); ``launches`` counts kernel launches.

@@ -2,7 +2,7 @@
 
 The port of the reference's ``models/ssm.py``.  Prefill runs the chunked
 SSD through ``kernels/ssd_scan.py``, which also hands back the final
-state: on a CUDA tensor the hand-written scan kernel
+state: on a CUDA tensor the hand-written scan kernels
 (``csrc/ssd_scan.cu``), on a CPU tensor the plain
 ``ref.ssd_chunked_ref``, as the reference's models run it.  Decode keeps
 an O(1) recurrent state (B, H, N, P) plus a rolling conv window and

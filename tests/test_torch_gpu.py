@@ -727,6 +727,41 @@ def test_paged_gather_kernel_exact(cuda, dtype, f):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("model,f", [("h2o-danube-1.8b", 15360),
+                                     ("zamba2-1.2b", 12288)])
+def test_paged_gather_serve_shape_exact(cuda, model, f):
+    # the serve phase's pool and table shape: 8 slots of 128 pages of 16
+    # rows, each slot holding 9..100 pages (the traffic's range) drawn from
+    # a permutation of the pool, the rest on the scratch page
+    from repro_torch.kernels import paged
+    rng = np.random.default_rng(0)
+    pool = torch.randn((513, 16, f), device=cuda).to(torch.bfloat16)
+    table = np.full((8, 128), 512, np.int32)
+    free = rng.permutation(512).tolist()
+    for c, need in enumerate(rng.integers(9, 101, 8)):
+        table[c, :need] = [free.pop() for _ in range(need)]
+    table = torch.as_tensor(table, device=cuda)
+    got = paged.paged_gather(pool, table)
+    assert torch.equal(got, paged.paged_gather_plain(pool, table))
+    assert torch.equal(got.view(8 * 128, 16, f),
+                       pool.index_select(0, table.flatten().long()))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8])
+@pytest.mark.parametrize("f", [15360, 7])
+def test_paged_gather_misaligned_pool_exact(cuda, f, offset):
+    # a pool whose base is not 16-byte aligned (offset bf16 elements into
+    # its storage; 8 elements keep it aligned): every page takes the
+    # element path, or the vector path with an element tail
+    from repro_torch.kernels import paged
+    flat = torch.randn(9 * 4 * f + offset, device=cuda).to(torch.bfloat16)
+    pool = flat[offset:].view(9, 4, f)
+    table = torch.as_tensor(np.random.default_rng(f).integers(
+        0, 9, (3, 5)).astype(np.int32), device=cuda)
+    got = paged.paged_gather(pool, table)
+    assert torch.equal(got, paged.paged_gather_plain(pool, table))
+
+
 def _ssd_operands(b, L, h, p, g, n, seed):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, L, h, p)).astype(np.float32)
@@ -760,6 +795,70 @@ def test_ssd_scan_kernel(cuda, q, n, p, g):
     assert ssd_scan.launches["ssd_scan"] == 1     # the CPU never launches
     assert got[1].shape == (2, 4, n, p)
     _ssd_compare(got, want)
+
+
+@pytest.mark.parametrize("model", ["zamba2-1.2b", "mamba2-370m"])
+def test_ssd_full_width_longest_prefill(cuda, model):
+    # the serve phase's longest prefill at the model's heads and state;
+    # the plain version runs on the card in fp32 (TF32 off)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ref, ssd_scan
+    lm = get_config(model)
+    length = {"zamba2-1.2b": 1536, "mamba2-370m": 1472}[model]
+    ops_ = [t.to(cuda) for t in _ssd_operands(
+        1, length, lm.ssm_heads, lm.ssm_head_dim, lm.ssm_groups,
+        lm.ssm_state, seed=length)]
+    got = ssd_scan.ssd_scan(*ops_, chunk=lm.ssm_chunk)
+    _ssd_compare(got, ref.ssd_chunked_ref(*ops_, chunk=lm.ssm_chunk))
+    again = ssd_scan.ssd_scan(*ops_, chunk=lm.ssm_chunk)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.parametrize("g,h,p,q", [(1, 42, 24, 32), (2, 42, 64, 16),
+                                     (1, 42, 64, 37)])
+def test_ssd_many_chunks_and_a_partial_head_block(cuda, g, h, p, q):
+    # 24 chunks; the plan's head block (4) does not divide the heads of a
+    # group, so the last block of each group is partial
+    from repro_torch.kernels import ref, ssd_scan
+    plan = ssd_scan.launch_plan(2, 24 * q, h, g, 64, p, q)
+    assert plan.n_chunks >= 24 and (h // g) % plan.head_block
+    ops_ = [t.to(cuda) for t in _ssd_operands(2, 24 * q, h, p, g, 64,
+                                               seed=h + p + q)]
+    got = ssd_scan.ssd_scan(*ops_, chunk=q)
+    _ssd_compare(got, ref.ssd_chunked_ref(*ops_, chunk=q))
+
+
+def test_ssd_empty_sequence_gives_a_zero_state(cuda):
+    from repro_torch.kernels import ssd_scan
+    x, dt, a, b, c = (t.to(cuda) for t in _ssd_operands(2, 0, 4, 24, 2, 16,
+                                                         seed=0))
+    ssd_scan.reset_launches()
+    y, h = ssd_scan.ssd_scan(x, dt, a, b, c, chunk=16)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 0, 4, 24)
+    assert torch.equal(h, torch.zeros((2, 4, 16, 24), device=cuda))
+    assert ssd_scan.launches["ssd_scan"] == 1
+
+
+def test_ssd_reads_the_models_strided_views(cuda):
+    # the models pass x, B and C as views of one projection (row stride
+    # the projection's width) and dt as its own tensor; a misaligned
+    # start takes the scalar loads
+    from repro_torch.kernels import ref, ssd_scan
+    rng = np.random.default_rng(4)
+    h, p, g, n, L = 6, 24, 2, 20, 3 * 37
+    for off in (0, 1):
+        proj = torch.as_tensor(rng.standard_normal(
+            (2, L, off + h * p + 2 * g * n)).astype(np.float32)).to(cuda)
+        x = proj[..., off:off + h * p].reshape(2, L, h, p)
+        b = proj[..., off + h * p:off + h * p + g * n].reshape(2, L, g, n)
+        c = proj[..., off + h * p + g * n:].reshape(2, L, g, n)
+        dt = torch.as_tensor((0.1 + 0.9 * rng.random((2, L, 2 * h))).astype(
+            np.float32)).to(cuda)[..., ::2]
+        a = torch.as_tensor((-0.5 - rng.random(h)).astype(np.float32)
+                            ).to(cuda)
+        got = ssd_scan.ssd_scan(x, dt, a, b, c, chunk=37)
+        _ssd_compare(got, ref.ssd_chunked_ref(x, dt, a, b, c, chunk=37))
 
 
 def test_ssd_on_card_matches_the_oracle_and_rejects_shapes(cuda):

@@ -7,8 +7,10 @@ are defined once, the operand-stationary chunk depth is defined once,
 the bf16 attention path has a tensor-core kernel for every head dim, the
 plain version of the bf16 kernel's one numeric departure (P rounded to
 bf16 before P V) stays inside the reference's stated tolerance, and the
-row error that holds the kernel to it catches a dropped kv block.  CPU
-only: nothing here compiles or launches a kernel."""
+row error that holds the kernel to it catches a dropped kv block, the
+SSD scan forms C B^T once per CTA and walks the chunks in one kernel only,
+and the paged gather stays one launch.  CPU only: nothing here compiles
+or launches a kernel."""
 import pathlib
 import re
 import sys
@@ -261,3 +263,35 @@ def test_row_error_holds_masked_rows_and_catches_a_dropped_block():
     off[0, 1, 2, 5] = 1e-3
     assert fa.row_error(zero, zero) == 0.0
     assert fa.row_error(off, zero) == pytest.approx(1e-3)
+
+
+def test_ssd_forms_cb_once_per_block_of_heads():
+    # the chunk-output kernel sums C B^T before its loop over the block's
+    # heads and never inside it; no kernel of the old chunk loop is left
+    funcs = _functions("ssd_scan.cu")
+    body = funcs["ssd_chunk_scan_kernel"][1]
+    head_loop = _block_after(body, "for (int it = 0; it < items; ++it)")
+    cb_sum = "cb[r][u] = fmaf(cv[r], bv[u], cb[r][u])"
+    assert body.count(cb_sum) == 1 and cb_sum not in head_loop
+    assert body.index(cb_sum) < body.index(head_loop)
+    assert "ssd_kernel" not in funcs
+    kernels = {n for n, (h, _) in funcs.items() if "__global__" in h}
+    assert kernels == {"ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                       "ssd_chunk_scan_kernel"}
+
+
+def test_ssd_only_the_state_pass_walks_the_chunks():
+    # every other kernel works on the chunk of its blockIdx.x
+    funcs = _functions("ssd_scan.cu")
+    walkers = {n for n, (_, body) in funcs.items()
+               if re.search(r"for \(int \w+ = 0; \w+ < s\.nc", body)}
+    assert walkers == {"ssd_state_pass_kernel"}
+    for name in ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel"):
+        assert "ci = blockIdx.x" in funcs[name][1]
+
+
+def test_paged_gather_is_one_launch():
+    funcs = _functions("paged.cu")
+    launches = [n for n, (_, body) in funcs.items() if "<<<" in body]
+    assert launches == ["launch"]
+    assert funcs["launch"][1].count("<<<") == 1

@@ -136,6 +136,47 @@ def test_ssd_scan_rejects_bad_shapes():
         ssd_scan.ssd_scan(x, dt, a[:2], b, c, chunk=8)
 
 
+@pytest.mark.parametrize("arch,length", [("zamba2-1.2b", 1536),
+                                         ("mamba2-370m", 1472)])
+def test_ssd_launch_plan_fills_the_card(arch, length):
+    # at each model's longest serve prefill the chunk-output grid shares
+    # C B^T over the largest head block, 4 heads, and still gives each of
+    # the 132 SMs a CTA
+    cfg = get_config(arch)
+    h, g = cfg.ssm_heads, cfg.ssm_groups
+    n, p, q = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
+    plan = ssd_scan.launch_plan(1, length, h, g, n, p, q)
+    nc = length // q
+    assert plan == (nc, ssd_scan.HEAD_BLOCK, nc * h * (n * p + 1))
+    assert nc * g * -(-(h // g) // plan.head_block) >= 132
+
+
+@pytest.mark.parametrize("arch,length,block", [("zamba2-1.2b", 512, 2),
+                                               ("zamba2-1.2b", 256, 1),
+                                               ("mamba2-370m", 1024, 2),
+                                               ("mamba2-370m", 512, 1)])
+def test_ssd_launch_plan_halves_at_short_prefills(arch, length, block):
+    # shorter serve prefills have too few chunks for 4 heads a CTA to
+    # give each SM one: the block halves until the grid does
+    cfg = get_config(arch)
+    h, g = cfg.ssm_heads, cfg.ssm_groups
+    plan = ssd_scan.launch_plan(1, length, h, g, cfg.ssm_state,
+                                cfg.ssm_head_dim, cfg.ssm_chunk)
+    nc = length // cfg.ssm_chunk
+    assert plan.head_block == block
+    assert nc * g * -(-(h // g) // block) >= 132
+    assert nc * g * -(-(h // g) // (2 * block)) < 132
+
+
+def test_ssd_launch_plan_small_and_empty():
+    # the head block halves until every SM has a CTA, down to one head a
+    # CTA; with no chunks the scratch is empty
+    assert ssd_scan.launch_plan(2, 3 * 37, 4, 2, 16, 24, 37) == (
+        3, 1, 2 * 3 * 4 * (16 * 24 + 1))
+    assert ssd_scan.launch_plan(1, 8 * 64, 64, 1, 64, 64, 64).head_block == 2
+    assert ssd_scan.launch_plan(1, 0, 4, 1, 16, 24, 16) == (0, 1, 0)
+
+
 def test_ssd_runs_the_plain_version_on_the_cpu():
     ssd_scan.reset_launches()
     ops.ssd(*both(ssd_inputs(L=16))[1], chunk=8)
