@@ -1,7 +1,8 @@
 """Time the port's redesigned kernels of one source tree on the card.
 
     python benchmarks/torch_kernel_ab.py [--src SRC] [--tag TAG]
-        [--cases flash,ws,os,rt,ssd,gather] [--match TEXT]
+        [--cases flash,ws,os,rt,ssd,gather,fused,fused-tiles]
+        [--match TEXT]
         [--ssd-head-blocks 1,2,4,8]
 
 Imports ``repro_torch`` from ``SRC`` (default: this checkout's ``src``),
@@ -38,7 +39,19 @@ the card's ``nvidia-smi`` name and power limit:
   15360) and zamba2-1.2b's shared pool (513, 16, 12288), bf16, with the
   serve phase's table (8 slots of 128 pages holding the first 8
   requests of its traffic, the rest on the scratch page): the CUDA-event
-  mean of 20 calls, and of 20 ``index_select`` calls on the same table.
+  mean of 20 calls, and of 20 ``index_select`` calls on the same table;
+* ``fused``: the fused-chain and fused-DAG kernels on ``chip_smoke.py``'s
+  graph operands (h2o-danube-1.8b at l = 512: its MLP chain, row 5, and
+  its layer's DAG, row 6), fp32 and bf16, each the CUDA-event mean of
+  10 calls, the traced device time of its kernel and, where the tree has
+  one, its launch plan and the DAG's traced time cut after each
+  dependency level; then graphs (a) (fp32 and bf16), (b) and (d) as
+  ``timed`` cases (traced kernel time of one call, event mean of 5);
+* ``fused-tiles``: the fused DAG of the h2o-danube-1.8b layer at l = 64,
+  128 and 256 (the lengths where the launch plan puts stages on 64-wide
+  tiles), fp32 and bf16, with the plan's tiles and with 128-wide tiles
+  only (``fused_chain.TILES`` narrowed): each plan, the traced kernel
+  time (3 traces) and the largest difference between the two outputs.
 
 ``--match`` keeps only the cases whose label holds one of its
 comma-separated strings (for example ``gemm x,mttkrp``).  Timing and
@@ -49,6 +62,7 @@ Needs a CUDA card; exits 1 without one.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -109,9 +123,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tag", default="change")
-    ap.add_argument("--cases", default="flash,ws,os,rt,ssd,gather",
+    ap.add_argument("--cases", default="flash,ws,os,rt,ssd,gather,fused",
                     help="comma-separated groups: flash, ws, os, rt, ssd, "
-                         "gather")
+                         "gather, fused, fused-tiles")
     ap.add_argument("--ssd-head-blocks", default="",
                     help="comma-separated head blocks to time the SSD "
                          "cases at besides the launch plan's")
@@ -137,7 +151,8 @@ def main() -> int:
     from repro_torch.graph import from_model
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged, ssd_scan
+    from repro_torch.kernels import fused_chain, paged, ssd_scan
+    from repro_torch.models import chains
 
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
@@ -219,6 +234,109 @@ def main() -> int:
                  index_select_ms=event_ms(lambda: pool.index_select(0, flat),
                                           20))
             del pool
+
+    if "fused" in groups:
+        model = get_config(GRAPH_MODEL)
+        big = ArrayConfig(strip_budget_bytes=GRAPH_BUDGET)
+        layer512 = from_model.layer_graph_from_config(model, l=512)
+        mlp512 = chains.mlp_graph(l=512, d=model.d_model, f=model.d_ff)
+        ggen = torch.Generator(device=dev).manual_seed(2)
+        lops = graph_operands(layer512, ggen)
+        mops = graph_operands(mlp512, ggen)
+        accs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            acc = graph_executor.build(mlp512, cfg=big, dtype=dtype,
+                                       validate=False)
+            (gk,) = acc.group_kernels.values()
+            lhs = mops["x"].to(dtype)
+            rhs_kn = [mops["W1"].to(dtype).T, mops["W2"].to(dtype).T]
+
+            def chain():
+                return fused_chain.fused_chain_matmul(
+                    lhs, rhs_kn, [mops["b1"]], stages=gk.chain, bm=gk.bm,
+                    interleave=gk.interleave)
+            plan = getattr(fused_chain, "card_plan", None)
+            emit(case=f"fused chain {GRAPH_MODEL} MLP m=512 {name}",
+                 ms=event_ms(chain, 10),
+                 traced_kernel_ms=traced_ms(chain, names)[0],
+                 plan=plan(fused_chain.chain_as_dag(gk.chain, gk.m), dtype,
+                           dev).describe() if plan else None)
+            acc = graph_executor.build(layer512, cfg=big, dtype=dtype,
+                                       validate=False)
+            accs[name] = acc
+            (gk,) = acc.group_kernels.values()
+            exts = [gk._dag_prep(lops[e], role, gk.dtype)
+                    for e, role in gk.ext_roles]
+
+            def dag():
+                return fused_chain.fused_dag(exts, stages=gk.dag)
+            emit(case=f"fused dag {GRAPH_MODEL} layer l=512 {name}",
+                 ms=event_ms(dag, 10),
+                 traced_kernel_ms=traced_ms(dag, names)[0],
+                 plan=plan(gk.dag, dtype, dev).describe() if plan else None)
+            levels = getattr(fused_chain, "dependency_levels", None)
+            lv = levels(gk.dag) if levels else ()
+            for top in range(max(lv, default=0)):
+                # the DAG cut after level `top` (a prefix of its stages
+                # here), its last stage untapped: the time of each level
+                # with its syncs is the step from one cut to the next
+                n = sum(1 for v in lv if v <= top)
+                if sorted(lv[:n]) != list(lv[:n]) or max(lv[:n]) != top:
+                    break
+                cut = gk.dag[:n - 1] + (dataclasses.replace(
+                    gk.dag[n - 1], tap=-1),)
+                emit(case=f"fused dag {GRAPH_MODEL} layer l=512 {name} "
+                          f"levels 0-{top}",
+                     traced_kernel_ms=traced_ms(lambda: fused_chain.fused_dag(
+                         exts, stages=cut), names)[0])
+            del exts
+        seq = graph_executor.build(layer512, cfg=big, merge=False,
+                                   validate=False)
+        mlp = graph_executor.build(mlp512, cfg=big, validate=False)
+        for label, acc, ops in (
+                ("(a) layer l=512", accs["float32"], lops),
+                ("(a) layer l=512 bf16", accs["bfloat16"], lops),
+                ("(b) mlp l=512", mlp, mops),
+                ("(d) layer l=512 merge=False", seq, lops)):
+            timed(f"fused graph {label}", lambda: acc(ops))
+
+    if "fused-tiles" in groups:
+        model = get_config(GRAPH_MODEL)
+        big = ArrayConfig(strip_budget_bytes=GRAPH_BUDGET)
+        ggen = torch.Generator(device=dev).manual_seed(3)
+        wide = fused_chain.TILES
+        for l in (64, 128, 256):
+            layer = from_model.layer_graph_from_config(model, l=l)
+            ops = graph_operands(layer, ggen)
+            for dtype in (torch.float32, torch.bfloat16):
+                acc = graph_executor.build(layer, cfg=big, dtype=dtype,
+                                           validate=False)
+                (gk,) = acc.group_kernels.values()
+                exts = [gk._dag_prep(ops[e], role, gk.dtype)
+                        for e, role in gk.ext_roles]
+                outs = {}
+                for tiles in (wide, wide[:1]):
+                    fused_chain.TILES = tiles
+                    try:
+                        def dag():
+                            return fused_chain.fused_dag(exts, stages=gk.dag)
+                        outs[tiles] = dag()[0].float()
+                        emit(case=f"fused dag {GRAPH_MODEL} layer l={l} "
+                                  f"{str(dtype)[6:]} tiles "
+                                  f"{','.join(map(str, tiles))}",
+                             traced_kernel_ms=[traced_ms(dag, names)[0]
+                                               for _ in range(3)],
+                             plan=fused_chain.card_plan(
+                                 gk.dag, dtype, dev).describe())
+                    finally:
+                        fused_chain.TILES = wide
+                a, b = outs.values()
+                emit(case=f"fused dag {GRAPH_MODEL} layer l={l} "
+                          f"{str(dtype)[6:]} tiles agree",
+                     max_abs_diff=(a - b).abs().max().item(),
+                     max_abs_out=a.abs().max().item())
+                del exts, outs
 
     stt = [g for g in groups if g in GROUPS]
     for name, bounds in SIZES.items():

@@ -48,7 +48,10 @@ each of which fails the run (non-zero exit) when it fails:
    plain version, one PyTorch call computing the same function where
    there is one (``torch.matmul``; a yardstick the port never calls) and
    its roofline bound from ``core/hopper.py``; each STT template's
-   timed case must give the same bits on a second call; then every
+   timed case and the two fused kernels' must give the same bits on a
+   second call; graph (a)'s merged kernel time is printed beside
+   (d)'s sequential one, and each fused launch's plan (levels, tile
+   and k split a stage, grid) in phase 5; then every
    main-path, sparse and graph case timed end to end (host clock, 3
    calls); the sparse and graph cases and one STT per dense algebra are
    traced once;
@@ -1142,6 +1145,12 @@ def main() -> int:
               f"{err:.3e} (max|out| {scale:.3e}), launches {ran}")
         for ln in lines:
             print(f"  {ln.strip()}")
+        for gk in acc.group_kernels.values():
+            # the fused launch's layout: levels, tile/split a stage, grid
+            stages = (gk.dag if gk.kind == "dag"
+                      else fused_chain.chain_as_dag(gk.chain, gk.m))
+            print("  plan: " + fused_chain.card_plan(
+                stages, dtype, dev).describe().replace("\n", "\n  "))
         graph_accs[label] = acc
         graph_outs[label] = out
         cases.append(dict(algebra=GRAPH_MODEL, stt=label,
@@ -1368,6 +1377,7 @@ def main() -> int:
     err = (got - want).abs().max().item()
     check(err <= 1e-4 * want.abs().max().item(),
           f"fused chain vs plain: max err {err}")
+    check(torch.equal(run(), got), "fused chain: two calls differ")
     flops = 2.0 * gk.m * sum(st.k * st.n for st in gk.chain)
     nbytes = 4.0 * (gk.m * gk.k0 + sum(st.k * st.n for st in gk.chain)
                     + sum(st.n for st in gk.chain if st.has_bias)
@@ -1400,6 +1410,8 @@ def main() -> int:
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     check(err <= 1e-4 * max(w.abs().max().item() for w in want),
           f"fused DAG vs plain: max err {err}")
+    check(all(torch.equal(a, b) for a, b in zip(run(), got)),
+          "fused DAG: two calls differ")
     flops = 2.0 * sum(st.m * st.k * st.n for st in gk.dag)
     # each graph input once, though x feeds three roles (lhs, rhs, res)
     nbytes = float(sum(e.numel() * e.element_size() for e in
@@ -1438,6 +1450,12 @@ def main() -> int:
         else:
             c.update(kernel_ms=None, other_device_ms=None, busy_share=None)
         del ops
+    merged, seq = (next(c["kernel_ms"] for c in cases if c["stt"] == label)
+                   for label in ("(a) layer l=512",
+                                 "(d) layer l=512 merge=False"))
+    if merged is not None and seq is not None:
+        print(f"graph (a) merged kernel {merged:.3f} ms vs (d) sequential "
+              f"{seq:.3f} ms ({seq / merged:.2f}x)")
     phase("timing")
 
     # -- 10. LM serving ---------------------------------------------------

@@ -1,7 +1,7 @@
 // The SIMT tile mainloop's pieces, shared by the STT GEMM templates
 // (stt_gemm.cu: the output-stationary and reduction-tree tile kernel and
-// the operand-stationary tile kernel) and written so that the fused
-// megakernels can include them too.
+// the operand-stationary tile kernel) and the fused megakernels'
+// `dot` stages (fused_chain.cu).
 //
 // A CTA of TILE_THREADS threads owns a BM x BN output tile; each thread
 // owns a TM x TN register tile laid out as 4-wide quadrants, so that
@@ -10,7 +10,7 @@
 // registers (Slab): the next slab's global loads are issued before this
 // slab's FMAs and stored to shared memory after them, so one barrier a
 // slab remains.  Loads are 16 bytes (8 for bf16) along whichever axis of
-// the view has unit stride (Stage, picked on the host by stage_mode), and
+// the view has unit stride (Stage, picked by stage_mode), and
 // element by element for other views.  Every output adds its products in
 // ascending k, one fmaf at a time into one fp32 register.
 #pragma once
@@ -224,7 +224,8 @@ __device__ __forceinline__ void flush4(T* out, long long idx, float4 v,
 }
 
 // 4 raw fp32 sums at ws[idx + j], columns c + j < n (the softmax row
-// phase's workspace); one vector store when `vec`.
+// phase's workspace, or a k split's partials); one vector store when
+// `vec`.
 __device__ __forceinline__ void store4(float* ws, long long idx, float4 v,
                                        int c, int n, bool vec) {
   if (vec) {
@@ -236,13 +237,13 @@ __device__ __forceinline__ void store4(float* ws, long long idx, float4 v,
     if (c + j < n) ws[idx + j] = at(v, j);
 }
 
-// ---- host helpers ----
-
 // The staging mode of one operand: s_k is its stride along k, s_o along
 // its other axis.  Vector loads need that axis's unit stride, the other
-// strides and the base pointer in whole 4-element steps.
+// strides and the base pointer in whole 4-element steps.  The STT
+// wrappers ask it on the host, the fused kernel once a stage on the card.
 template <typename T>
-int stage_mode(const void* p, long long sb, long long s_k, long long s_o) {
+__host__ __device__ int stage_mode(const void* p, long long sb, long long s_k,
+                                   long long s_o) {
   const bool aligned =
       reinterpret_cast<unsigned long long>(p) % (4 * sizeof(T)) == 0 &&
       sb % 4 == 0;

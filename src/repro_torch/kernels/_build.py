@@ -60,12 +60,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                        _I, _I, _P),
     },
     "fused_chain": {
-        # dtype, stage table (device int64 words), n_stage, fp32 softmax
-        # row workspace, m_fast, stream
-        "fused_chain_launch": (_I, _P, _I, _P, _I, _P),
-        # dtype, stage table, n_stage, softmax row workspace, stream
-        "fused_dag_launch": (_I, _P, _I, _P, _P),
+        # dtype, stage and phase tables (device int64 words), n_stage,
+        # n_phase, fp32 workspace (split partials, softmax rows), m_fast,
+        # grid, stream
+        "fused_chain_launch": (_I, _P, _I, _I, _P, _I, _I, _P),
+        # dtype, tables, n_stage, n_phase, fp32 workspace, grid, stream
+        "fused_dag_launch": (_I, _P, _I, _I, _P, _I, _P),
+        # dtype -> CTAs an SM (negative: a CUDA error)
+        "fused_ctas_per_sm": (_I,),
         "fused_stage_words": (),
+        "fused_phase_words": (),
     },
     "paged": {
         # pool, table, out, n_pages_pool, C, n, page elements, element

@@ -566,6 +566,186 @@ def test_graph_validate_on_card(cuda):
         g.reference(g.random_operands(0))).max()
 
 
+# The launch plan's paths, each held to the plain version: exactly on
+# integer operands (both dtypes: every partial sum is an exact integer
+# below 2^24, checked by _sum_bound, so the sum order and the split do
+# not show and both versions round at the same casts), within the gates
+# of chip_smoke.py on random-normal ones (fp32 1e-4, bf16 2e-2 x
+# max|out|: other sum order, the card's expf/tanhf); a second call must
+# give the same bits.
+
+def _fused_operand(rng, shape, integer, nz=None, scale=1.0):
+    """Integers in [-1, 1] (with ``nz``: ``nz`` nonzeros a row, so that
+    sums stay small through a deep DAG), or N(0, scale^2)."""
+    if not integer:
+        return torch.as_tensor(
+            (rng.standard_normal(shape) * scale).astype(np.float32))
+    if nz is None:
+        return torch.as_tensor(rng.integers(-1, 2, size=shape).astype(
+            np.float32))
+    x = np.zeros(shape, np.float32)
+    for row in x:
+        row[rng.choice(shape[-1], nz, replace=False)] = rng.choice(
+            [-1.0, 1.0], nz)
+    return torch.as_tensor(x)
+
+
+def _sum_bound(exts, stages):
+    """The largest magnitude any partial sum of any stage can reach on
+    these operands, in any order: the stages on |operands|, with the
+    bias and scale epilogues by magnitude (relu only shrinks)."""
+    vals = []
+
+    def get(src, transpose=False):
+        buf = exts[src[1]] if src[0] == "ext" else vals[src[1]]
+        buf = buf.double().abs()
+        return buf.T if transpose else buf
+    for st in stages:
+        acc = get(st.lhs) @ get(st.rhs, transpose=st.rhs[0] == "scr")
+        for op in st.epilogue:
+            if op == "bias":
+                acc = acc + get(("ext", st.bias)).reshape(1, -1)
+            elif op.startswith("scale:"):
+                acc = acc * abs(float(op[6:]))
+        if st.res is not None:
+            acc = acc + get(st.res)
+        vals.append(acc)
+    return max(v.max().item() for v in vals)
+
+
+def _fused_compare(got, want, integer):
+    for g, w in zip(got, want):
+        g, w = g.cpu().float(), w.float()
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        if integer:
+            assert torch.equal(g, w), (g - w).abs().max()
+        else:
+            tol = 1e-4 if want[0].dtype == torch.float32 else 2e-2
+            assert (g - w).abs().max().item() <= tol * w.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("operands", ["integer", "normal"])
+@pytest.mark.parametrize("entry", ["chain", "dag"])
+def test_fused_wide_tiles_then_a_k_split(cuda, entry, operands, dtype):
+    # stage 0's 128-wide tiles fill a wave of the grid and flush from
+    # registers (the DAG writes its tap there too); stage 1 (n = 72) has
+    # 4 of them over a deep k and splits it: a plain epilogue summed
+    # after a grid sync (integer; the DAG adds an fp32 residual there),
+    # or a softmax summed in its row phase (normal)
+    integer = operands == "integer"
+    grid = fused_chain.card_plan(fused_chain.chain_as_dag(CHAIN, 8), dtype,
+                                 cuda).grid
+    m, k0, n0, n1 = 512, 96, 128 * -(-grid // 4), 72
+    rng = np.random.default_rng(11)
+    lhs = _fused_operand(rng, (m, k0), integer).to(dtype)
+    w0, w1 = (_fused_operand(rng, shape, integer, scale=shape[1] ** -0.5)
+              .to(dtype) for shape in ((n0, k0), (n1, n0)))
+    b0 = _fused_operand(rng, (1, n0), integer, scale=0.1)
+    res = _fused_operand(rng, (m, n1), integer)
+    exts = [lhs, w0.T, b0, w1.T, res]
+    dag = (fused_chain.DagStage(
+               m, k0, n0, lhs=("ext", 0), rhs=("ext", 1), has_bias=True,
+               bias=2, epilogue=("bias", "relu"),
+               tap=0 if entry == "dag" else -1),
+           fused_chain.DagStage(
+               m, n0, n1, lhs=("scr", 0), rhs=("ext", 3),
+               res=("ext", 4) if entry == "dag" else None,
+               epilogue=("scale:2",) if integer
+               else ("scale:0.5", "softmax")))
+    plan = fused_chain.card_plan(dag, dtype, cuda)
+    assert (plan.stages[0].tile, plan.stages[0].split) == (128, 1)
+    assert plan.stages[1].split > 1
+    assert plan.stages[1].k_chunk % fused_chain.SLAB_K == 0
+    if integer:
+        assert _sum_bound(exts, dag) < 2 ** 24
+    if entry == "chain":
+        chain = tuple(fused_chain.ChainStage(st.k, st.n, st.epilogue,
+                                             st.has_bias) for st in dag)
+        want = [fused_chain.chain_reference(lhs, w0.T, w1.T, b0.reshape(-1),
+                                            stages=chain)]
+
+        def run():
+            return [fused_chain.fused_chain_matmul(
+                lhs.to(cuda), [w0.T.to(cuda), w1.T.to(cuda)],
+                [b0.reshape(-1).to(cuda)], stages=chain)]
+    else:
+        want = fused_chain.dag_reference(exts, stages=dag)
+
+        def run():
+            return fused_chain.fused_dag([e.to(cuda) for e in exts],
+                                         stages=dag)
+    fused_chain.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    assert fused_chain.launches == {"fused_chain": int(entry == "chain"),
+                                    "fused_dag": int(entry == "dag")}
+    _fused_compare(got, want, integer)
+    assert all(torch.equal(a, b) for a, b in zip(run(), got))
+
+
+def _dag_case(rng, integer, dtype, l=72, d=136, f=130):
+    """A DAG of the danube layer's shape at small widths: level 0 holds
+    three stages, one tapped and one reading an unaligned view of x;
+    scores read a scratch rhs transposed (softmax on random operands);
+    attend adds an fp32 residual; up has n % 4 != 0 (unaligned rows
+    downstream); down adds a chain-dtype residual from scratch."""
+    D = fused_chain.DagStage
+    x = _fused_operand(rng, (l, d), integer).to(dtype)
+    flat = torch.empty(l * d + 1, dtype=dtype)
+    flat[1:] = x.flatten()
+    xu = flat[1:].view(l, d)                  # x, 2 or 4 bytes off 16
+    w = {name: _fused_operand(rng, shape, integer, nz=3,
+                              scale=shape[1] ** -0.5).to(dtype)
+         for name, shape in (("wq", (d, d)), ("wk", (d, d)),
+                             ("wv", (d, d)), ("w1", (f, d)),
+                             ("w2", (d, f)))}
+    res = _fused_operand(rng, (l, d), integer)
+    b1 = _fused_operand(rng, (1, f), integer, scale=0.1)
+    exts = [x, w["wq"].T, xu, w["wk"].T, w["wv"], x.T, res, w["w1"].T, b1,
+            w["w2"].T]
+    scores = ("scale:2",) if integer else (f"scale:{d ** -0.5}", "softmax")
+    stages = (
+        D(l, d, d, lhs=("ext", 0), rhs=("ext", 1), tap=0),
+        D(l, d, d, lhs=("ext", 2), rhs=("ext", 3)),
+        D(d, d, l, lhs=("ext", 4), rhs=("ext", 5)),
+        D(l, d, l, lhs=("scr", 0), rhs=("scr", 1), epilogue=scores),
+        D(l, l, d, lhs=("scr", 3), rhs=("scr", 2), res=("ext", 6)),
+        D(l, d, f, lhs=("scr", 4), rhs=("ext", 7), has_bias=True, bias=8,
+          epilogue=("bias", "relu" if integer else "gelu")),
+        D(l, f, d, lhs=("scr", 5), rhs=("ext", 9), res=("scr", 4)))
+    return exts, stages
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("operands", ["integer", "normal"])
+def test_fused_dag_shared_level_taps_and_residuals(cuda, operands, dtype):
+    integer = operands == "integer"
+    exts, stages = _dag_case(np.random.default_rng(12), integer, dtype)
+    plan = fused_chain.card_plan(stages, dtype, cuda)
+    assert [sp.level for sp in plan.stages] == [0, 0, 0, 1, 2, 3, 4]
+    assert len(plan.phases) == 5
+    # every stage on 64-wide tiles; the tapped stage and scores split k,
+    # so the tap is written by the split sum and the softmax row phase
+    # sums its row's partials
+    assert {sp.tile for sp in plan.stages} == {64}
+    assert plan.stages[0].split > 1 and plan.stages[3].split > 1
+    if integer:
+        assert _sum_bound(exts, stages) < 2 ** 24
+    want = fused_chain.dag_reference(exts, stages=stages)
+
+    def run():
+        return fused_chain.fused_dag([e.to(cuda) for e in exts],
+                                     stages=stages)
+    fused_chain.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    assert fused_chain.launches["fused_dag"] == 1
+    assert len(got) == 2                      # the result and one tap
+    _fused_compare(got, want, integer)
+    assert all(torch.equal(a, b) for a, b in zip(run(), got))
+
+
 # ---------------------------------------------------------------------------
 # the serving path's kernels (csrc/flash_attention.cu, csrc/paged.cu)
 # ---------------------------------------------------------------------------

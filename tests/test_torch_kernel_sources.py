@@ -4,7 +4,9 @@ output-stationary scratch path and the reduction tree run the SIMT tile
 and streaming kernels (never the first version's tile_product), the BSR
 kernel still sums as the output-stationary template does, tile constants
 are defined once, the operand-stationary chunk depth is defined once,
-the bf16 attention path has a tensor-core kernel for every head dim, the
+the fused megakernel's dot stages run the SIMT tile mainloop and sum
+their k splits without atomics, the bf16 attention path has a
+tensor-core kernel for every head dim, the
 plain version of the bf16 kernel's one numeric departure (P rounded to
 bf16 before P V) stays inside the reference's stated tolerance, and the
 row error that holds the kernel to it catches a dropped kv block, the
@@ -119,6 +121,22 @@ def test_output_stationary_scratch_path_never_reaches_tile_product():
     users = {name for name, (_, body) in funcs.items()
              if re.search(r"\btile_product\b", body)}
     assert users == {"inplace_body"}
+
+
+def test_fused_stages_run_the_simt_tile_mainloop():
+    # dot stages stage slabs and add float4 fragments as stt_tile_kernel
+    # does, never through the first version's element-by-element tile
+    funcs = _functions("common.cuh", "simt_tile.cuh", "fused_chain.cu")
+    reach = _reachable(funcs["stages_kernel"][1], funcs)
+    assert {"dot_item", "fma_quads", "reduce_phase", "row_phase",
+            "batched_stage"} <= reach
+    assert not reach & {"tile_product", "load_tile", "fma_slab"}
+    # split partials are summed in split order, one thread an output,
+    # never with atomics
+    text = (CSRC / "fused_chain.cu").read_text()
+    assert "atomic" not in re.sub(r"//[^\n]*", "", text)
+    assert "for (int s = 1; s < d.split; ++s) acc += p[s * pl + e];" \
+        in funcs["reduce_phase"][1]
 
 
 def test_bsr_sums_as_the_output_stationary_tile_does():
