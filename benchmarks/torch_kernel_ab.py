@@ -1,7 +1,7 @@
 """Time the port's redesigned kernels of one source tree on the card.
 
     python benchmarks/torch_kernel_ab.py [--src SRC] [--tag TAG]
-        [--cases flash,ws,os,rt,ssd,gather,fused,fused-tiles]
+        [--cases flash,ws,os,rt,ssd,gather,fused,fused-tiles,bsr,bsr-order]
         [--match TEXT]
         [--ssd-head-blocks 1,2,4,8]
 
@@ -51,7 +51,19 @@ the card's ``nvidia-smi`` name and power limit:
   128 and 256 (the lengths where the launch plan puts stages on 64-wide
   tiles), fp32 and bf16, with the plan's tiles and with 128-wide tiles
   only (``fused_chain.TILES`` narrowed): each plan, the traced kernel
-  time (3 traces) and the largest difference between the two outputs.
+  time (3 traces) and the largest difference between the two outputs;
+* ``bsr``: the BSR kernel at ``chip_smoke.py``'s five sparse cases
+  (``SPARSE``: gemm 4096^3 with A at density 0.25 and 1.0 and B at 0.25,
+  conv2d with sparse weights, mttkrp with A sparse), called as the
+  compiled kernel calls it, on integer operands: the traced kernel time
+  (the names of this tree's kernel and the earlier ``bsr_kernel``), the
+  CUDA-event mean of 20 calls, whether it equals the plain version, the
+  CUDA-event mean of ``torch.matmul`` on the masked dense operands, and
+  the launch plan where the tree has one;
+* ``bsr-order``: row 4 (gemm A d=0.25) and mttkrp A with the plan's work
+  order, heaviest block-row first, and in raster order
+  (``bsr_gemm.ORDER`` set to "raster"): 3 traced kernel times and the
+  CUDA-event mean of 20 calls each.
 
 ``--match`` keeps only the cases whose label holds one of its
 comma-separated strings (for example ``gemm x,mttkrp``).  Timing and
@@ -89,9 +101,11 @@ def traced_ms(fn, names, tries=3):
 #: template names of the main-path cases each group times
 GROUPS = {"ws": ("operand_stationary",), "os": ("output_stationary",),
           "rt": ("reduction_tree", "streaming")}
-#: kernel names of the STT templates before the tile/stream redesign, and
-#: of the SSD scan before the chunk-parallel one
-EARLIER_KERNELS = ("os_kernel<", "rt_kernel<", "ssd_kernel(")
+#: kernel names of the STT templates before the tile/stream redesign, of
+#: the SSD scan before the chunk-parallel one, and of the first BSR kernel
+EARLIER_KERNELS = ("os_kernel<", "rt_kernel<", "ssd_kernel(", "bsr_kernel<")
+#: the sparse cases ``bsr-order`` times in both work orders
+BSR_ORDER_CASES = ("gemm A d=0.25", "mttkrp A d=0.25")
 #: the SSD cases: model, prefill length (the longest serve prefill, then
 #: shorter ones, where the launch plan halves the head block)
 SSD_CASES = (("zamba2-1.2b", 1536), ("mamba2-370m", 1472),
@@ -125,7 +139,7 @@ def main() -> int:
     ap.add_argument("--tag", default="change")
     ap.add_argument("--cases", default="flash,ws,os,rt,ssd,gather,fused",
                     help="comma-separated groups: flash, ws, os, rt, ssd, "
-                         "gather, fused, fused-tiles")
+                         "gather, fused, fused-tiles, bsr, bsr-order")
     ap.add_argument("--ssd-head-blocks", default="",
                     help="comma-separated head blocks to time the SSD "
                          "cases at besides the launch plan's")
@@ -337,6 +351,61 @@ def main() -> int:
                      max_abs_diff=(a - b).abs().max().item(),
                      max_abs_out=a.abs().max().item())
                 del exts, outs
+
+    if "bsr" in groups or "bsr-order" in groups:
+        from chip_smoke import SPARSE, bsr_operands, bsr_pattern
+        from repro_torch.core.algebra import Sparsity
+        from repro_torch.kernels import bsr_gemm
+        plan = getattr(bsr_gemm, "launch_plan", None)   # None: earlier
+        for label, name, tensor, shape, block, density in SPARSE:
+            ordered = "bsr-order" in groups and label in BSR_ORDER_CASES
+            if not any(m in label for m in args.match.split(",")) or not (
+                    "bsr" in groups or ordered):
+                continue
+            acc = repro_torch.generate(
+                name, "output_stationary", bounds=SIZES[name],
+                sparsity={tensor: Sparsity.random(shape, block, density,
+                                                  seed=0)},
+                validate=False)
+            k = acc.kernel
+            ops = {t.name: torch.randint(-4, 5, acc.algebra.tensor_shape(t),
+                                         generator=gen, device=dev,
+                                         dtype=torch.float32)
+                   for t in acc.algebra.inputs}
+            acc(ops)                            # builds the CSR arrays
+            lhs, rhs = k.form.prepare(k.cast_operands(ops))
+            s_op, d_op = bsr_operands(k, lhs, rhs)
+            coords, bm, bk, m, n = bsr_pattern(k)
+
+            def run():
+                return bsr_gemm.bsr_matmul(s_op, d_op, coords=coords, bm=bm,
+                                           bk=bk, bn=128, csr=k._csr)
+
+            def describe():
+                return plan(coords, bm, bk, m, n, bsr_gemm.ORDER).describe() \
+                    if plan else None
+            if "bsr" in groups:
+                emit(case=f"bsr {label}",
+                     traced_kernel_ms=traced_ms(run, names)[0],
+                     ms=event_ms(run, 20),
+                     exact=torch.equal(run(), bsr_gemm.bsr_matmul_plain(
+                         s_op, d_op, coords=coords, bm=bm, bk=bk,
+                         out_dtype=s_op.dtype)),
+                     masked_dense_matmul_ms=event_ms(
+                         lambda: torch.matmul(lhs, rhs), 20),
+                     plan=describe())
+            if ordered and plan:
+                default = bsr_gemm.ORDER
+                for order in ("heaviest", "raster"):
+                    bsr_gemm.ORDER = order
+                    try:
+                        emit(case=f"bsr-order {label} {order}",
+                             traced_kernel_ms=[traced_ms(run, names)[0]
+                                               for _ in range(3)],
+                             ms=event_ms(run, 20), plan=describe())
+                    finally:
+                        bsr_gemm.ORDER = default
+            del ops, lhs, rhs, s_op, d_op
 
     stt = [g for g in groups if g in GROUPS]
     for name, bounds in SIZES.items():

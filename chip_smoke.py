@@ -25,7 +25,8 @@ each of which fails the run (non-zero exit) when it fails:
    mttkrp with A sparse), on the BSR kernel.  Each output equals the
    plain path exactly (integer operands); at density 1.0 the output is
    bit-identical to the dense output-stationary call on random-normal
-   operands;
+   operands.  Each case's launch plan (tile, CTAs, the head of the work
+   order) is printed;
 5. the whole-graph path at the full width of h2o-danube-1.8b
    (``generate(AlgebraGraph)`` -> ``GraphAccelerator``): (a) one layer at
    l = 512 under a 512 MiB budget, one merged DAG group on the fused-DAG
@@ -47,7 +48,9 @@ each of which fails the run (non-zero exit) when it fails:
 9. each kernel timed with CUDA events at a main-path shape beside its
    plain version, one PyTorch call computing the same function where
    there is one (``torch.matmul``; a yardstick the port never calls) and
-   its roofline bound from ``core/hopper.py``; each STT template's
+   its roofline bound from ``core/hopper.py`` (the BSR kernel also at the
+   other four sparse shapes, printed and kept on its entry); each STT
+   template's
    timed case and the two fused kernels' must give the same bits on a
    second call; graph (a)'s merged kernel time is printed beside
    (d)'s sequential one, and each fused launch's plan (levels, tile
@@ -173,7 +176,7 @@ SSD_KERNELS = ("ssd_chunk_state_kernel<", "ssd_state_pass_kernel",
                "ssd_chunk_scan_kernel<")
 OUR_KERNELS = ("stt_tile_kernel<", "os_stream_kernel<", "rt_tree_kernel<",
                "os_inplace_kernel<", "ws_kernel<", "ws_tile_kernel<",
-               "bsr_kernel<", "stages_kernel<", "gather_kernel<",
+               "bsr_tile_kernel<", "stages_kernel<", "gather_kernel<",
                "flash_kernel<", "flash_mma_kernel<") + SSD_KERNELS
 #: the serve phase: model, slot engine, traffic
 SERVE_MODEL = "h2o-danube-1.8b"
@@ -919,6 +922,23 @@ def ssm_serve_phase(check):
     return [row], summary
 
 
+def bsr_pattern(k):
+    """The BSR kernel's view of sparse kernel ``k``'s pattern: ``(coords,
+    bm, bk, m, n)`` of ``C (m, n) = S @ D``, the rhs side transposed as
+    ``ops.bsr_matmul`` hands it to the kernel."""
+    from repro_torch.kernels import bsr_gemm
+    sp, f = k.sparse, k.form
+    if sp.side == "lhs":
+        return sp.coords, sp.block[0], sp.block[1], f.m, f.n
+    return (bsr_gemm.transpose_coords(sp.coords), sp.block[1], sp.block[0],
+            f.n, f.m)
+
+
+def bsr_operands(k, lhs, rhs):
+    """``(S, D)`` of :func:`bsr_pattern` from ``k``'s prepared operands."""
+    return (lhs, rhs) if k.sparse.side == "lhs" else (rhs.T, lhs.T)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1059,6 +1079,9 @@ def main() -> int:
         check(out.shape == want.shape and torch.equal(out, want),
               f"{label}: BSR output differs from the plain path (max err "
               f"{(out - want).abs().max().item()})")
+        plan = bsr_gemm.launch_plan(*bsr_pattern(acc.kernel),
+                                    order=bsr_gemm.ORDER)
+        print(f"  {label}: {plan.describe()}")
         if density == 1.0:
             dense = repro_torch.generate(name, "output_stationary",
                                          bounds=SIZES[name], validate=False)
@@ -1321,6 +1344,41 @@ def main() -> int:
         kernels.append(entry)
         del ops, lhs, rhs, a3, b3, got, want
 
+    # the BSR kernel at the other four sparse shapes: its time, bound and
+    # the masked dense product's (kept on row 4's entry)
+    bsr_shapes = []
+    for label, acc in sparse_accs.items():
+        if label == "gemm A d=0.25":
+            continue
+        k = acc.kernel
+        lhs, rhs = k.form.prepare(k.cast_operands(int_operands(acc.algebra)))
+        s_op, d_op = bsr_operands(k, lhs, rhs)
+        coords, bm, bk, m, n = bsr_pattern(k)
+
+        def run():
+            return bsr_gemm.bsr_matmul(s_op, d_op, coords=coords, bm=bm,
+                                       bk=bk, bn=128, csr=k._csr)
+        got = run()
+        err = (got - bsr_gemm.bsr_matmul_plain(
+            s_op, d_op, coords=coords, bm=bm, bk=bk,
+            out_dtype=k.dtype)).abs().max().item()
+        check(err == 0.0, f"BSR kernel vs plain, {label}: max err {err}")
+        nz = len(coords) * bm * bk
+        roof = hopper.RooflineTerms(
+            label, 2.0 * nz * n, 4.0 * (nz + s_op.shape[1] * n + m * n))
+        bsr_shapes.append({
+            "case": label, "ms": event_ms(run, 10),
+            "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
+            "library_ms": event_ms(lambda: torch.matmul(lhs, rhs), 10),
+            "max_abs_err": err,
+            "plan": bsr_gemm.launch_plan(coords, bm, bk, m, n,
+                                         bsr_gemm.ORDER).describe()})
+        print(f"bsr {label}: {bsr_shapes[-1]['ms']:.4f} ms, bound "
+              f"{bsr_shapes[-1]['bound_ms']:.4f} ms "
+              f"({roof.bound_by}), masked dense torch.matmul "
+              f"{bsr_shapes[-1]['library_ms']:.4f} ms")
+        del lhs, rhs, s_op, d_op, got
+
     # row 4: the BSR kernel at gemm 4096^3, A at density 0.25
     acc = sparse_accs["gemm A d=0.25"]
     k = acc.kernel
@@ -1354,7 +1412,8 @@ def main() -> int:
         # the masked dense product: one PyTorch call, same function
         "library_ms": event_ms(lambda: torch.matmul(lhs, rhs), 10),
         "shape": f"gemm m={m} k={kk} n={n}, A {sp.nnz_blocks} of "
-                 f"{sp.grid[0] * sp.grid[1]} ({bm}x{bk}) blocks"})
+                 f"{sp.grid[0] * sp.grid[1]} ({bm}x{bk}) blocks",
+        "other_shapes": bsr_shapes})
     del ops, lhs, rhs, got, want
 
     # row 5: the fused-chain kernel on (b), the danube MLP at l = 512

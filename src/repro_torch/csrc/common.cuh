@@ -1,11 +1,14 @@
 // Device helpers shared by the port's CUDA kernels (stt_gemm.cu,
 // bsr_gemm.cu, fused_chain.cu): operand views, the epilogue flush and its
-// softmax row phase, shared-memory tile staging and the FMA micro-tile.
+// softmax row phase, and the first version's element-by-element tile
+// staging and FMA micro-tile (load_tile, fma_slab, tile_product), which
+// only stt_gemm.cu's in-place and narrow operand-stationary kernels use.
 //
-// Every kernel that adds products with fma_slab adds each output's
-// products in ascending k, one fmaf at a time into one fp32 register, so
-// two kernels that walk k the same way give bit-identical sums (the BSR
-// kernel at density 1.0 against the output-stationary template).
+// Every kernel that adds products with fma_slab, or with simt_tile.cuh's
+// fma_quads, adds each output's products in ascending k, one fmaf at a
+// time into one fp32 register, so two kernels that walk k the same way
+// give bit-identical sums (the BSR kernel's fma_quads walk over its
+// block-rows at density 1.0 against the output-stationary tile kernel).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -65,9 +65,10 @@ static_assert(TileS::BM == SKINNY_M, "one skinny threshold");
 //   dtype after every plan k-step of bk (kstep).  It is off the main path
 //   (ops.stt_matmul resolves "auto" to scratch).
 // Every scratch output keeps one fp32 accumulator that adds its products
-// in ascending k from 0, one fmaf each, as the BSR kernel does
-// (bsr_gemm.cu): at density 1.0 the two are bit-identical.  So there is
-// no split-K for this template.
+// in ascending k from 0, one fmaf each, as the BSR kernel's fma_quads
+// walk over a block-row's nonzero blocks does (bsr_gemm.cu): at density
+// 1.0 the two are bit-identical.  So there is no split-K for this
+// template.
 //
 // Shared body of os_inplace_kernel.  Without a workspace each CTA owns one
 // output tile (n_fast: consecutive CTAs walk along n) and flushes it

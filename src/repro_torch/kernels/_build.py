@@ -55,9 +55,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "bsr_gemm": {
         # dtype, S (ptr, row and column strides), D (same), out, row_ptr,
-        # col_idx, m, n, bm, bk, stream
-        "bsr_launch": (_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _I, _I,
-                       _I, _I, _P),
+        # col_idx, work order, m, n, bm, bk, tile, k_vec, m_vec, stream
+        "bsr_launch": (_I, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _I,
+                       _I, _I, _I, _I, _I, _I, _P),
     },
     "fused_chain": {
         # dtype, stage and phase tables (device int64 words), n_stage,

@@ -6,7 +6,12 @@ reference's Pallas grid iterates only the nonzero blocks of a row-major
 coordinate list, in order, resetting its accumulator on every block-row
 change.  The CUDA kernel (``csrc/bsr_gemm.cu``) has no ordered grid: the
 pattern reaches it as CSR row pointers and block-column indices (int32
-device arrays, :func:`csr_arrays`), and one CTA per (block-row, n-tile)
+device arrays, :func:`csr_arrays`), and :func:`launch_plan` lays out the
+launch.  It picks the CTA tile (128 x 128 where that divides bm and fills
+a wave of the card's SMs, else 64 x 64) and cuts each block-row into
+``cdiv(bm, tile)`` sub-tiles, so a tile never straddles two block-rows.
+It orders the (block-row, sub-tile) work items heaviest block-row
+first, and the kernel runs all n tiles of an item together.  Each CTA
 walks its row's nonzero blocks in ascending k with the sum in registers.
 Each output adds its products in the same ascending order as the
 output-stationary template, so at density 1.0 the two are bit-identical.
@@ -20,12 +25,14 @@ launches the kernel or raises.  ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
+from ..core.hopper import H100
 from .stt_gemm import _DTYPE_CODES, _fp32_product, _on_cpu, _stream
 
 #: static block-COO coordinate list: ((block_row, block_col), ...) sorted
@@ -99,6 +106,82 @@ def csr_arrays(coords: Coords, n_block_rows: int, device
             torch.as_tensor(col_idx, device=device))
 
 
+# ---------------------------------------------------------------------------
+# the launch plan: tile, sub-tiles, work order, staging
+# ---------------------------------------------------------------------------
+
+#: CTA tile edges the kernel instantiates (``bsr_launch_t<T, TILE>``)
+WIDE, NARROW = 128, 64
+#: the plan's work order (read at each call): "heaviest" runs block-rows
+#: by nonzero count, descending; "raster" in block-row order
+ORDER = "heaviest"
+
+
+class LaunchPlan(NamedTuple):
+    """One pattern's launch: a CTA a (work item, n tile), n tiles
+    fastest.  Item ``i`` is block-row ``i // subtiles``, rows ``(i %
+    subtiles) * tile`` .. ``+ tile`` of it (masked at its end).
+    ``k_vec`` / ``m_vec``: every slab of a block starts on a whole
+    4-element step along k (``bk % 4 == 0``) / every block-row along m
+    (``bm % 4 == 0``), so that 16-byte staging loads stay aligned."""
+    tile: int
+    subtiles: int
+    n_tiles: int
+    row_nnz: Tuple[int, ...]   # nonzero blocks of each block-row
+    order: Tuple[int, ...]     # the items, in launch order
+    k_vec: bool
+    m_vec: bool
+
+    @property
+    def ctas(self) -> int:
+        return len(self.order) * self.n_tiles
+
+    def describe(self) -> str:
+        """Tile, grid and the first items as ``r<block-row>:<nnz>``."""
+        rows = [i // self.subtiles for i in self.order[:6]]
+        head = " ".join(f"r{r}:{self.row_nnz[r]}" for r in rows)
+        return (f"tile {self.tile}, {self.ctas} CTAs ({len(self.order)} "
+                f"items x {self.n_tiles} n tiles), order head {head}"
+                f"{' ...' if len(self.order) > 6 else ''}")
+
+
+def launch_plan(coords: Coords, bm: int, bk: int, m: int, n: int,
+                order: str = "heaviest") -> LaunchPlan:
+    """Lay out the kernel's launch for ``coords`` (sorted row-major) on an
+    (m, k) sparse operand of (bm, bk) blocks and n output columns: the
+    128 tile where it divides bm and its grid covers the card's SMs, else
+    the 64 tile; items heaviest block-row first (a stable sort, so ties
+    keep row order and empty rows come last) or in raster order.  Pure:
+    the CPU tests check it."""
+    if order not in ("heaviest", "raster"):
+        raise ValueError(f"order must be 'heaviest' or 'raster', got "
+                         f"{order!r}")
+    rows = m // bm
+    nnz = [0] * rows
+    for r, _ in coords:
+        nnz[r] += 1
+    tile = NARROW
+    if bm % WIDE == 0 and rows * (bm // WIDE) * -(-n // WIDE) >= H100.sms:
+        tile = WIDE
+    subtiles = -(-bm // tile)
+    items = range(rows * subtiles)
+    if order == "heaviest":
+        items = sorted(items, key=lambda i: -nnz[i // subtiles])
+    return LaunchPlan(tile, subtiles, -(-n // tile), tuple(nnz),
+                      tuple(items), bk % 4 == 0, bm % 4 == 0)
+
+
+#: plans by (pattern, blocks, shape, order), and their order arrays by
+#: device: built once, never copied from the host again
+_cached_plan = functools.lru_cache(maxsize=256)(launch_plan)
+
+
+@functools.lru_cache(maxsize=256)
+def _order_array(plan: LaunchPlan, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(plan.order, dtype=np.int32),
+                           device=device)
+
+
 def bsr_matmul_plain(sparse: torch.Tensor, dense: torch.Tensor, *,
                      coords: Coords, bm: int, bk: int, out_dtype
                      ) -> torch.Tensor:
@@ -165,12 +248,15 @@ def bsr_matmul(sparse: torch.Tensor, dense: torch.Tensor, *,
             or row_ptr.device != sparse.device):
         raise ValueError("csr arrays do not describe this pattern on this "
                          "device")
+    plan = _cached_plan(coords, bm, bk, m, n, ORDER)
+    order = _order_array(plan, sparse.device)
     out = torch.empty((m, n), dtype=out_dtype, device=sparse.device)
     lib = _build.library("bsr_gemm")
     _build.check(lib.bsr_launch(
         _DTYPE_CODES[sparse.dtype], sparse.data_ptr(), sparse.stride(0),
         sparse.stride(1), dense.data_ptr(), dense.stride(0), dense.stride(1),
-        out.data_ptr(), row_ptr.data_ptr(), col_idx.data_ptr(), m, n, bm, bk,
-        _stream()), "bsr_launch")
+        out.data_ptr(), row_ptr.data_ptr(), col_idx.data_ptr(),
+        order.data_ptr(), m, n, bm, bk, plan.tile, int(plan.k_vec),
+        int(plan.m_vec), _stream()), "bsr_launch")
     launches["bsr"] += 1
     return out

@@ -10,7 +10,9 @@ card and without JAX it runs on its own:
 Tolerances: integer-valued fp32 operands without an epilogue compare
 exactly (every sum stays below 2^24); fp32 epilogues to rtol 1e-5 and
 1e-5 of the largest output (the card's ``expf``/``tanhf`` against
-PyTorch's); bf16 to 2e-2 of the largest output, compared in fp32.  The
+PyTorch's); bf16 to 2e-2 of the largest output, compared in fp32, but
+the BSR kernel's bf16 outputs on integer operands exactly (it and its
+plain version round the same exact fp32 sums once).  The
 flash-attention kernel is held to its plain version within 1e-4 x
 max|out| in fp32 (other sum order, the card's ``expf``); in bf16 within
 2e-2 x max|out| of it, and within ``BF16_ROW_TOL`` of each row's norm of
@@ -402,8 +404,8 @@ def test_generate_on_card_matches_cpu(cuda, name, kind):
 from repro_torch.core.algebra import Sparsity  # noqa: E402
 from repro_torch.kernels import bsr_gemm, fused_chain, ops  # noqa: E402
 
-#: (m, k, n, (bm, bk), density): CTA tiles (128x128, 8x128) do not divide
-#: these, block-rows of 4 take the skinny tile, 0.3 leaves rows empty
+#: (m, k, n, (bm, bk), density): the plan's 64 tile does not divide
+#: these, block-rows of 4 run it with rows masked, 0.3 leaves rows empty
 BSR_CASES = [(64, 48, 40, (16, 8), 0.5), (256, 256, 200, (128, 128), 1.0),
              (32, 64, 24, (4, 16), 0.3), (384, 256, 130, (128, 64), 0.25),
              (96, 90, 70, (32, 18), 0.6)]
@@ -479,6 +481,187 @@ def test_sparse_generate_on_card_matches_cpu(cuda, kind):
     assert bsr_gemm.launches["bsr"] == 1
     assert torch.equal(got.cpu(), cpu(ops_))
     assert acc.validate() == 0.0
+
+
+def _int_tensor(rng, shape, dtype=torch.float32):
+    return torch.as_tensor(rng.integers(-4, 5, size=shape).astype(
+        np.float32)).to(dtype)
+
+
+def _bsr_exact(cuda, sparse, dense, coords, bm, bk):
+    """The kernel on the card against the plain version on the CPU, bit
+    for bit, with one launch; returns the card's output."""
+    bsr_gemm.reset_launches()
+    got = bsr_gemm.bsr_matmul(sparse.to(cuda), dense.to(cuda), coords=coords,
+                              bm=bm, bk=bk, bn=128)
+    torch.cuda.synchronize()
+    assert bsr_gemm.launches["bsr"] == 1
+    want = bsr_gemm.bsr_matmul_plain(sparse, dense, coords=coords, bm=bm,
+                                     bk=bk, out_dtype=sparse.dtype)
+    assert torch.equal(got.cpu(), want), (got.cpu().float()
+                                          - want.float()).abs().max()
+    return got
+
+
+#: (m, k, n, (bm, bk)) giving each tile of the plan: 12 block-rows x 11
+#: n tiles fill the card's 132 SMs at 128; 3 x 2 do not (64, 2 sub-tiles)
+BSR_TILE_CASES = {128: (1536, 384, 1400, (128, 64)),
+                  64: (384, 384, 200, (128, 64))}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("tile", sorted(BSR_TILE_CASES))
+def test_bsr_tile_widths_exact(cuda, tile, dtype):
+    # integer operands: fp32 sums are exact, and both sides round them to
+    # bf16 once
+    m, k, n, (bm, bk) = BSR_TILE_CASES[tile]
+    sp = Sparsity.random((m, k), (bm, bk), 0.5, seed=tile)
+    assert bsr_gemm.launch_plan(sp.coords, bm, bk, m, n).tile == tile
+    rng = np.random.default_rng(tile)
+    _bsr_exact(cuda, _int_tensor(rng, (m, k), dtype),
+               _int_tensor(rng, (k, n), dtype), sp.coords, bm, bk)
+
+
+@pytest.mark.parametrize("d_layout", ["n-contiguous", "k-contiguous"])
+@pytest.mark.parametrize("bk", [144, 18])
+def test_bsr_block_depth_off_the_slab(cuda, bk, d_layout):
+    # 144 ends a block half-way through a slab; 18 also starts slabs off
+    # 16-byte boundaries, so k-contiguous operands stage element by element
+    m, k, n, bm = 256, bk * 6, 136, 64
+    sp = Sparsity.random((m, k), (bm, bk), 0.5, seed=bk)
+    plan = bsr_gemm.launch_plan(sp.coords, bm, bk, m, n)
+    assert plan.k_vec == (bk % 4 == 0)
+    rng = np.random.default_rng(bk)
+    dense = _int_tensor(rng, (k, n))
+    if d_layout == "k-contiguous":
+        dense = dense.T.contiguous().T
+    _bsr_exact(cuda, _int_tensor(rng, (m, k)), dense, sp.coords, bm, bk)
+
+
+@pytest.mark.parametrize("bm", [4, 6])
+def test_bsr_rhs_side_row_staging(cuda, bm):
+    # the rhs side hands the kernel sparse.T, unit-stride along its rows:
+    # 4-row blocks stage 16 bytes along m, 6-row blocks element by element
+    k, n = 64, 48
+    sp = Sparsity.random((k, n), (16, bm), 0.5, seed=bm)
+    assert bsr_gemm.launch_plan(bsr_gemm.transpose_coords(sp.coords), bm,
+                                16, n, 40).m_vec == (bm % 4 == 0)
+    rng = np.random.default_rng(bm)
+    sparse = _int_tensor(rng, (k, n))
+    dense = _int_tensor(rng, (40, k))
+    bsr_gemm.reset_launches()
+    got = ops.bsr_matmul(sparse.to(cuda), dense.to(cuda), coords=sp.coords,
+                         block=(16, bm), side="rhs")
+    torch.cuda.synchronize()
+    assert bsr_gemm.launches["bsr"] == 1
+    want = ops.bsr_matmul(sparse, dense, coords=sp.coords, block=(16, bm),
+                          side="rhs")
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bsr_empty_block_rows_and_heaviest_first(cuda):
+    # rows 0, 2 and 5 empty; row 3 holds every block and runs first
+    m, k, n, bm, bk = 768, 512, 264, 128, 64
+    cols = k // bk
+    coords = bsr_gemm.sort_coords(
+        [(3, c) for c in range(cols)] + [(1, 2), (4, 0), (4, 7)])
+    plan = bsr_gemm.launch_plan(coords, bm, bk, m, n)
+    assert plan.order[0] // plan.subtiles == 3
+    assert {i // plan.subtiles for i in plan.order[-3 * plan.subtiles:]} \
+        == {0, 2, 5}
+    rng = np.random.default_rng(5)
+    sparse = _int_tensor(rng, (m, k))
+    got = _bsr_exact(cuda, sparse, _int_tensor(rng, (k, n)), coords, bm, bk)
+    for r in (0, 2, 5):
+        assert not got[r * bm:(r + 1) * bm].any()
+
+
+@pytest.mark.parametrize("side", ["lhs", "rhs"])
+def test_bsr_non_finite_outside_pattern_at_the_wide_tile(cuda, side):
+    # the kernel's view: S (1536, 256) in (128, 64) blocks, n = 1408, the
+    # 128 tile; the sparse operand is nan outside its pattern's blocks
+    shape, block = ((1536, 256), (128, 64)) if side == "lhs" else \
+        ((256, 1536), (64, 128))
+    sp = Sparsity.random(shape, block, 0.4, seed=7)
+    rng = np.random.default_rng(7)
+    sparse = _int_tensor(rng, shape)
+    sparse[~torch.as_tensor(sp.element_mask(shape))] = float("nan")
+    dense = _int_tensor(rng, (256, 1408) if side == "lhs" else (1408, 256))
+    plan_coords = sp.coords if side == "lhs" else \
+        bsr_gemm.transpose_coords(sp.coords)
+    assert bsr_gemm.launch_plan(plan_coords, 128, 64, 1536, 1408).tile == 128
+    got = ops.bsr_matmul(sparse.to(cuda), dense.to(cuda), coords=sp.coords,
+                         block=block, side=side)
+    want = ops.bsr_matmul(sparse, dense, coords=sp.coords, block=block,
+                          side=side)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", ["gemm", "conv2d"])
+def test_bsr_density_one_bit_identical_at_main_path_blocks(cuda, shape):
+    # random normals: only the same fmaf sequence gives the same bits
+    (m, k, n), (bm, bk) = {"gemm": ((4096, 4096, 4096), (128, 128)),
+                           "conv2d": ((256, 2304, 196), (64, 144))}[shape]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = torch.randn((m, k), generator=gen, device=cuda)
+    b = torch.randn((k, n), generator=gen, device=cuda)
+    sp = Sparsity.random((m, k), (bm, bk), 1.0)
+    got = bsr_gemm.bsr_matmul(a, b, coords=sp.coords, bm=bm, bk=bk, bn=128)
+    want = stt_gemm.matmul_output_stationary(a, b, bm=128, bn=n, bk=128)
+    assert torch.equal(got, want)
+
+
+def test_bsr_two_calls_same_bits(cuda):
+    m, k, n, (bm, bk) = BSR_TILE_CASES[128]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    a = torch.randn((m, k), generator=gen, device=cuda)
+    b = torch.randn((k, n), generator=gen, device=cuda)
+    sp = Sparsity.random((m, k), (bm, bk), 0.5, seed=12)
+    csr = bsr_gemm.csr_arrays(sp.coords, m // bm, cuda)
+    first = bsr_gemm.bsr_matmul(a, b, coords=sp.coords, bm=bm, bk=bk, bn=128,
+                                csr=csr)
+    assert torch.equal(bsr_gemm.bsr_matmul(a, b, coords=sp.coords, bm=bm,
+                                           bk=bk, bn=128, csr=csr), first)
+
+
+#: chip_smoke.py's sparse cases: (algebra, its bounds, sparse tensor, its
+#: shape, block, density)
+BSR_MAIN_PATH = {
+    "gemm A d=0.25": ("gemm", dict(m=4096, n=4096, k=4096), "A",
+                      (4096, 4096), (128, 128), 0.25),
+    "gemm A d=1.0": ("gemm", dict(m=4096, n=4096, k=4096), "A",
+                     (4096, 4096), (128, 128), 1.0),
+    "gemm B d=0.25": ("gemm", dict(m=4096, n=4096, k=4096), "B",
+                      (4096, 4096), (128, 128), 0.25),
+    "conv2d B d=0.25": ("conv2d", dict(k=256, c=256, y=14, x=14, p=3, q=3),
+                        "B", (256, 256, 3, 3), (64, 16, 3, 3), 0.25),
+    "mttkrp A d=0.25": ("mttkrp", dict(i=1024, j=1024, k=64, l=64), "A",
+                        (1024, 64, 64), (128, 8, 64), 0.25),
+}
+
+
+@pytest.mark.parametrize("label", sorted(BSR_MAIN_PATH))
+def test_bsr_main_path_shapes_against_plain(cuda, label):
+    name, bounds, tensor, shape, block, density = BSR_MAIN_PATH[label]
+    sp = Sparsity.random(shape, block, density, seed=0)
+    acc = repro_torch.generate(name, "output_stationary", bounds=bounds,
+                               sparsity={tensor: sp}, validate=False)
+    k = acc.kernel
+    lhs, rhs = k.form.prepare(k.cast_operands(
+        acc.algebra.random_sparse_inputs(seed=1)))
+    s = k.sparse
+    sparse, dense = (lhs, rhs) if s.side == "lhs" else (rhs.T, lhs.T)
+    coords, (bm, bk) = s.coords, s.block
+    if s.side == "rhs":
+        coords, bm, bk = bsr_gemm.transpose_coords(coords), bk, bm
+    bsr_gemm.reset_launches()
+    got = bsr_gemm.bsr_matmul(sparse, dense, coords=coords, bm=bm, bk=bk,
+                              bn=128)
+    want = bsr_gemm.bsr_matmul_plain(sparse, dense, coords=coords, bm=bm,
+                                     bk=bk, out_dtype=sparse.dtype)
+    assert bsr_gemm.launches["bsr"] == 1
+    assert torch.equal(got, want), (got - want).abs().max()
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 them: every kernel is named where chip_smoke.py finds it in a trace, the
 output-stationary scratch path and the reduction tree run the SIMT tile
 and streaming kernels (never the first version's tile_product), the BSR
-kernel still sums as the output-stationary template does, tile constants
+kernel runs the same SIMT tile mainloop over its block-rows and sums as
+the output-stationary tile does, without atomics, tile constants
 are defined once, the operand-stationary chunk depth is defined once,
 the fused megakernel's dot stages run the SIMT tile mainloop and sum
 their k splits without atomics, the bf16 attention path has a
@@ -142,15 +143,21 @@ def test_fused_stages_run_the_simt_tile_mainloop():
 def test_bsr_sums_as_the_output_stationary_tile_does():
     # BSR at density 1.0 is bit-identical to output stationary: both keep
     # one fp32 accumulator a output, from 0, one fmaf a product, ascending k
+    # -- the same SIMT tile mainloop, without split-k or atomics
     funcs = _functions("common.cuh", "simt_tile.cuh", "stt_gemm.cu",
                        "bsr_gemm.cu")
-    bsr = funcs["bsr_kernel"][1]
+    assert "bsr_kernel" not in funcs
+    bsr = funcs["bsr_tile_kernel"][1]
     assert "acc[i][j] = 0.0f" in bsr
-    assert re.search(r"fma_slab<BM, BN, BK, TM, TN>\(acc, As, Bs, ty, tx\)",
-                     bsr)
-    slab = funcs["fma_slab"][1]
-    assert "for (int q = 0; q < BK; ++q)" in slab
-    assert "dst[i][j] = fmaf(af[i], bf[j], dst[i][j])" in slab
+    assert re.search(r"Slab<T, BM, true> \w+;", bsr)
+    assert re.search(r"Slab<T, BN, true> \w+;", bsr)
+    assert "fma_quads<BM, BN, TM, TN, LDB, true>(" in bsr
+    assert "for (int s = 0; s < nsl; ++s)" in bsr
+    reach = _reachable(bsr, funcs)
+    assert "fma_quads" in reach
+    assert not reach & {"fma_slab", "load_tile", "tile_product"}
+    text = re.sub(r"//[^\n]*", "", (CSRC / "bsr_gemm.cu").read_text())
+    assert "atomic" not in text
     quads = funcs["fma_quads"][1]
     assert "for (int kq = 0; kq < SLAB_K; ++kq)" in quads
     assert "acc[i][j] = fmaf(a[i], bv[j], acc[i][j])" in quads
