@@ -36,16 +36,35 @@ each of which fails the run (non-zero exit) when it fails:
    fp32 results are held to the plain path (and (a) to (d)) within
    1e-4 x max|out|: the sum order differs from cuBLAS and exp/tanh are
    other implementations; bf16 within 2e-2 x max|out|;
-6. ``Accelerator.validate()`` (the loop-nest oracle) at small bounds for
+6. measured autotuning (``repro_torch.tune``) at full width, on a fresh
+   tuning cache in a temporary directory (every other phase reads an
+   empty one): (a) ``generate("gemm", bounds=4096^3, tune=4)`` — every
+   trial with its dataflow, template, knobs, ok flag and median, the
+   untuned and tuned medians, the winner beside the analytical top-1,
+   and how many distinct launch signatures the trials held (the launch
+   entry points' scalar arguments: shapes, strides, flags); every failed
+   trial must be a knob rejection, the winner exact against the plain
+   path on integer operands, a second call a cache hit with no trials,
+   and ``lower()`` without knobs then ``source == "tuned"``; the same
+   for depthwise_conv at its ``SIZES`` width, whose candidates take the
+   streaming (reduction-tree) template; (b) ``build(tune=8)`` of phase
+   5's h2o-danube-1.8b layer at l = 512 (512 MiB budget): each group's
+   merged-or-sequential verdict with both medians, the output within
+   1e-4 x max|out| of the plain path, a second build answered from the
+   group cache; (c) ``rank_measured`` over ``dse.search(gemm 4096^3,
+   top_k=4)`` and over the four named STTs, each beside the analytical
+   order.  The STT templates' and the fused kernel's launch counts are
+   zeroed at the phase's start and must all be above 0 at its end;
+7. ``Accelerator.validate()`` (the loop-nest oracle) at small bounds for
    every algebra under the output- and weight-stationary STTs, which
    between them reach all three templates (``VALIDATE_STTS``): exact on
    integer operands;
-7. fused epilogues (bias+gelu, softmax) on every template, against the
+8. fused epilogues (bias+gelu, softmax) on every template, against the
    numpy mirror (rtol 1e-5, atol 1e-5: fp32 vs fp64 transcendental
    rounding on exact integer sums);
-8. an ``AcceleratorEngine`` answering mixed requests; repeat shapes on a
+9. an ``AcceleratorEngine`` answering mixed requests; repeat shapes on a
    second engine must hit the compile cache;
-9. each kernel timed with CUDA events at a main-path shape beside its
+10. each kernel timed with CUDA events at a main-path shape beside its
    plain version, one PyTorch call computing the same function where
    there is one (``torch.matmul``; a yardstick the port never calls) and
    its roofline bound from ``core/hopper.py`` (the BSR kernel also at the
@@ -58,7 +77,7 @@ each of which fails the run (non-zero exit) when it fails:
    main-path, sparse and graph case timed end to end (host clock, 3
    calls); the sparse and graph cases and one STT per dense algebra are
    traced once;
-10. LM serving at the full width and depth of h2o-danube-1.8b (24
+11. LM serving at the full width and depth of h2o-danube-1.8b (24
    layers, bf16 compute, fp32 master weights drawn on the card from a
    seed): a ``ContinuousServer`` over a ``SlotEngine(capacity=8,
    max_context=2048, page_size=16, total_pages=512)`` answers 16 greedy
@@ -85,7 +104,7 @@ each of which fails the run (non-zero exit) when it fails:
    to its plain versions as in (e), and the row error of a planted fault,
    a kv block hidden from the last q block, which must exceed the
    limit), and one traced decode step and prefill are reported;
-11. serving the SSM families at full width and depth (``SSM_SERVE``):
+12. serving the SSM families at full width and depth (``SSM_SERVE``):
    zamba2-1.2b (38 Mamba-2 layers, the shared attention+MLP block after
    every 6, bf16) over ``SlotEngine(capacity=8, max_context=2048,
    page_size=16, total_pages=512)`` answering 16 greedy requests of the
@@ -96,9 +115,9 @@ each of which fails the run (non-zero exit) when it fails:
    in prefill and gathers its paged K/V every decode step.  The three
    launch counts are zeroed before each server run and read after it
    (zamba2: all three above 0; mamba2: the SSD scan).  Checks (a)–(c) as
-   in phase 10 ((b) on the prefill logits and the first token); for
+   in phase 11 ((b) on the prefill logits and the first token); for
    zamba2 (d) the gather bit-exact at the shared pool and (e) flash at
-   the shared block's heads (D = 64, 32 heads, no GQA) within phase 10's
+   the shared block's heads (D = 64, 32 heads, no GQA) within phase 11's
    tolerances; (f) the SSD kernels against their plain version at each
    model's longest prefill and at a ragged chunk (Q = 37), y and the
    final state within 1e-4 x max|.| (other sum order and scan
@@ -922,6 +941,223 @@ def ssm_serve_phase(check):
     return [row], summary
 
 
+#: the tune phase's algebras: gemm, whose candidates all take the
+#: output-stationary template, and depthwise_conv, whose take streaming
+TUNE_ALGEBRAS = ("gemm", "depthwise_conv")
+
+
+def record_launches(stems):
+    """Wrap the C launch entry points of the ``stems`` libraries so each
+    launch adds its scalar arguments (dtype, shapes, strides, flags — no
+    pointers) to a set: two trials with one signature launched the same
+    kernel on the same problem.  Returns (the set, a function that
+    unwraps)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    scalar = (ctypes.c_int, ctypes.c_longlong, ctypes.c_float)
+    seen, undo = set(), []
+    for stem in stems:
+        lib = _build.library(stem)
+        for name, types in _build.SIGNATURES[stem].items():
+            real = getattr(lib, name)
+
+            def rec(*args, _real=real, _name=name, _types=types):
+                seen.add((_name,) + tuple(a for a, t in zip(args, _types)
+                                          if t in scalar))
+                return _real(*args)
+            setattr(lib, name, rec)
+            undo.append((lib, name, real))
+
+    def unwrap():
+        for lib, name, real in undo:
+            setattr(lib, name, real)
+    return seen, unwrap
+
+
+def tune_gemm_like(name, check, int_operands, plain_path):
+    """Phase 6 (a): ``generate(name, tune=4)`` at ``SIZES[name]`` on the
+    current (fresh) tuning cache; prints and checks every trial."""
+    import torch
+
+    import repro_torch
+    from repro_torch.compile import lower
+    from repro_torch.core import dse
+    from repro_torch.core.algebra import get_algebra
+
+    bounds = SIZES[name]
+    alg = get_algebra(name, **bounds)
+    pairs = dse.search(alg, top_k=4)
+    templates = {df.name: lower(alg, df, validate=False,
+                                tuned=False).template for _, df in pairs}
+    seen, unwrap = record_launches(("stt_gemm",))
+    try:
+        t0 = time.perf_counter()
+        acc = repro_torch.generate(name, bounds=bounds, tune=4,
+                                   validate=False)
+        tune_s = time.perf_counter() - t0
+    finally:
+        unwrap()
+    tr = acc.tune_result
+    check(not tr.cache_hit and len(tr.trials) > 1,
+          f"tune {name}: no trials on a fresh cache")
+    for t in tr.trials:
+        v = t.variant
+        print(f"  trial {t.dataflow_name} {templates[t.dataflow_name]} "
+              f"blocks={v.blocks} {v.grid_order}/{v.accum} ok={t.ok} "
+              + (f"median {t.median_s * 1e3:.4f} ms" if t.ok
+                 else t.error[:70]))
+    bad = [t.error for t in tr.trials
+           if not t.ok and not t.error.startswith("ValueError")]
+    check(not bad, f"tune {name}: trials failed other than by a knob "
+          f"rejection: {bad[:2]}")
+    ops = int_operands(alg)
+    out, want = acc(ops), plain_path(acc, ops)
+    check(out.shape == want.shape and torch.equal(out, want),
+          f"tune {name}: the winner differs from the plain path")
+    del ops, out, want
+    again = repro_torch.generate(name, bounds=bounds, tune=4,
+                                 validate=False)
+    check(again.tune_result.cache_hit and again.tune_result.trials == (),
+          f"tune {name}: the second call was not a cache hit")
+    k = lower(alg, tr.dataflow, validate=False)
+    check(k.source == "tuned", f"tune {name}: lower() without knobs gave "
+          f"source {k.source!r}")
+    top = pairs[0][1]
+    top_k = lower(alg, top, validate=False, tuned=False)
+    n_ok = sum(t.ok for t in tr.trials)
+    print(f"tune (a) {name}: {len(tr.trials)} trials ({n_ok} ok), "
+          f"{len(seen)} distinct launch signatures, {tune_s:.1f} s; untuned "
+          f"{tr.untuned_s * 1e3:.4f} ms, tuned {tr.tuned_s * 1e3:.4f} ms "
+          f"({tr.speedup:.3f}x); winner {tr.dataflow.name} "
+          f"{k.template} blocks={tr.variant.blocks} "
+          f"{tr.variant.grid_order}/{tr.variant.accum}; analytical top-1 "
+          f"{top.name} {top_k.template} blocks={top_k.blocks}; winner "
+          f"exact, second call a cache hit")
+    return {"algebra": name, "bounds": bounds, "tune_s": tune_s,
+            "trials": [{"dataflow": t.dataflow_name,
+                        "template": templates[t.dataflow_name],
+                        "blocks": list(t.variant.blocks),
+                        "grid_order": t.variant.grid_order,
+                        "accum": t.variant.accum, "ok": t.ok,
+                        "median_ms": t.median_s * 1e3 if t.ok else None,
+                        "error": t.error} for t in tr.trials],
+            "distinct_launch_signatures": len(seen),
+            "untuned_ms": tr.untuned_s * 1e3, "tuned_ms": tr.tuned_s * 1e3,
+            "winner": {"dataflow": tr.dataflow.name, "template": k.template,
+                       "blocks": list(tr.variant.blocks),
+                       "grid_order": tr.variant.grid_order,
+                       "accum": tr.variant.accum},
+            "analytical_top1": {"dataflow": top.name,
+                                "template": top_k.template,
+                                "blocks": list(top_k.blocks)}}
+
+
+def tune_phase(check, int_operands, plain_path, layer512, layer_ops, big):
+    """Phase 6: measured autotuning at full width on a fresh tuning cache
+    in a temporary directory; the variable is restored afterwards, so
+    the later phases read the run's empty cache."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.compile import lower
+    from repro_torch.core import dse, stt
+    from repro_torch.core.algebra import get_algebra
+    from repro_torch.graph import executor as graph_executor
+    from repro_torch.graph import from_model
+    from repro_torch.kernels import fused_chain, stt_gemm
+    from repro_torch.tune import tuner
+
+    summary = {}
+    prior = os.environ.get("REPRO_TUNE_CACHE")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as tmp:
+        os.environ["REPRO_TUNE_CACHE"] = tmp
+        try:
+            stt_gemm.reset_launches()
+            fused_chain.reset_launches()
+            summary["a"] = [tune_gemm_like(name, check, int_operands,
+                                           plain_path)
+                            for name in TUNE_ALGEBRAS]
+
+            # (b) merged or sequential: the danube layer at l = 512
+            acc = graph_executor.build(layer512, cfg=big, merge=True,
+                                       tune=8, validate=False)
+            out = acc(layer_ops)
+            want = from_model.layer_oracle(layer_ops, dtype="float32")
+            err = (out - want).abs().max().item()
+            scale = want.abs().max().item()
+            check(out.shape == want.shape and err <= 1e-4 * scale,
+                  f"tune (b): max err {err} beyond 1e-4 x {scale}")
+            groups = []
+            for gname, res in acc.group_tuning.items():
+                verdict = "merged" if res.merged else "sequential"
+                ms = (f"{res.merged_s * 1e3:.4f}"
+                      if res.merged_s is not None else "none")
+                print(f"tune (b) {gname}: {verdict}; merged {ms} ms, "
+                      f"sequential {res.sequential_s * 1e3:.4f} ms, "
+                      f"trials {[(t.variant.bm, t.variant.interleave, t.ok)
+                                 for t in res.trials]}")
+                groups.append({"group": gname, "verdict": verdict,
+                               "merged_ms": (res.merged_s * 1e3
+                                             if res.merged_s else None),
+                               "sequential_ms": res.sequential_s * 1e3,
+                               "trials": len(res.trials)})
+            check(bool(groups), "tune (b): no merged-eligible group")
+            for ln in acc.describe().splitlines():
+                if ln.startswith(("  merged", "  sequential")):
+                    print(f"  {ln.strip()}")
+            print(f"tune (b): output max err {err:.3e} (max|out| "
+                  f"{scale:.3e})")
+            again = graph_executor.build(layer512, cfg=big, merge=True,
+                                         tune=8, validate=False)
+            check(all(r.cache_hit for r in again.group_tuning.values()),
+                  "tune (b): the second build did not answer from the "
+                  "group cache")
+            summary["b"] = {"groups": groups, "max_err": err,
+                            "max_out": scale}
+            del out, want
+
+            # (c) measured ranking of the analytical candidates
+            alg = get_algebra("gemm", **SIZES["gemm"])
+            named = [(None, stt.apply_stt(alg, alg.loops[:3],
+                                          stt.stt_from_name(s)))
+                     for s in STTS]
+            summary["c"] = {}
+            for label, pairs in (("dse top-4", dse.search(alg, top_k=4)),
+                                 ("named STTs", named)):
+                ranked = tuner.rank_measured(alg, pairs)
+                order = [pairs.index(next(p for p in pairs if p[1] is df))
+                         for _, df, _ in ranked]
+                rows = [{"rank_analytical": i, "dataflow": df.name,
+                         "template": lower(alg, df, validate=False,
+                                           tuned=False).template,
+                         "median_ms": t * 1e3}
+                        for i, (_, df, t) in zip(order, ranked)]
+                print(f"tune (c) gemm 4096^3 {label}, measured order "
+                      f"(analytical rank: dataflow template median): "
+                      + "; ".join(f"{r['rank_analytical']}: "
+                                  f"{r['dataflow']} {r['template']} "
+                                  f"{r['median_ms']:.4f} ms"
+                                  for r in rows))
+                summary["c"][label] = rows
+        finally:
+            if prior is None:
+                os.environ.pop("REPRO_TUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TUNE_CACHE"] = prior
+    torch.cuda.synchronize()
+    launches = {**stt_gemm.launches, **fused_chain.launches}
+    for t in ("output_stationary", "operand_stationary", "reduction_tree",
+              "fused_dag"):
+        check(launches[t] > 0, f"the tune phase never launched {t}")
+    print(f"tune: launches {launches}")
+    summary["launches"] = launches
+    return summary
+
+
 def bsr_pattern(k):
     """The BSR kernel's view of sparse kernel ``k``'s pattern: ``(coords,
     bm, bk, m, n)`` of ``C (m, n) = S @ D``, the rhs side transposed as
@@ -946,7 +1182,16 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    import os
+    import tempfile
+
     import numpy as np
+
+    # an empty tuning cache for the whole run (removed at exit): lower()
+    # reads the cache before the analytical choice, and no phase may
+    # pick up variants tuned elsewhere
+    run_cache = tempfile.TemporaryDirectory(prefix="chip_smoke_cache_")
+    os.environ["REPRO_TUNE_CACHE"] = run_cache.name
 
     import repro_torch
     from repro_torch.compile import cache_info, lower
@@ -1194,7 +1439,12 @@ def main() -> int:
           f"{dict(stt_gemm.launches)}")
     phase("graph")
 
-    # -- 6. loop-nest oracle at small bounds -------------------------------
+    # -- 6. measured autotuning ------------------------------------------
+    tune_summary = tune_phase(check, int_operands, plain_path, layer512,
+                              graph_ops["layer512"], big)
+    phase("tune")
+
+    # -- 7. loop-nest oracle at small bounds -------------------------------
     worst = 0.0
     for name, bounds in SMALL.items():
         for s in VALIDATE_STTS:
@@ -1207,7 +1457,7 @@ def main() -> int:
           f"accelerators, max err {worst}")
     phase("validate")
 
-    # -- 7. fused epilogues against the numpy mirror -----------------------
+    # -- 8. fused epilogues against the numpy mirror -----------------------
     rng = np.random.default_rng(1)
     egemm = get_algebra("gemm", m=512, n=384, k=256)
     a = rng.integers(-4, 5, size=(512, 256)).astype(np.float32)
@@ -1242,7 +1492,7 @@ def main() -> int:
     print("epilogues: bias+gelu and softmax on output/operand-stationary, "
           "scale+gelu on reduction-tree, all within 1e-5")
 
-    # -- 8. serving -------------------------------------------------------
+    # -- 9. serving -------------------------------------------------------
     # small enough for the python loop-nest oracle
     requests = [("gemm", dict(m=64, n=48, k=32), "output_stationary"),
                 ("conv2d", dict(k=8, c=4, y=6, x=6, p=3, q=3),
@@ -1276,7 +1526,7 @@ def main() -> int:
           f"{cache_info()}")
     phase("epilogues + serve")
 
-    # -- 9. timing --------------------------------------------------------
+    # -- 10. timing --------------------------------------------------------
     kernels = []
     for template, (replaces, (name, s)) in KERNELS.items():
         bounds = SIZES[name]
@@ -1517,19 +1767,19 @@ def main() -> int:
               f"{seq:.3f} ms ({seq / merged:.2f}x)")
     phase("timing")
 
-    # -- 10. LM serving ---------------------------------------------------
+    # -- 11. LM serving ---------------------------------------------------
     serve_rows, serve_summary = serve_phase(check)
     kernels.extend(serve_rows)
     phase("serve")
 
-    # -- 11. SSM and hybrid serving ----------------------------------------
+    # -- 12. SSM and hybrid serving ----------------------------------------
     ssm_rows, ssm_summary = ssm_serve_phase(check)
     kernels.extend(ssm_rows)
     phase("ssm serve")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
-         "serve": serve_summary, "ssm_serve": ssm_summary,
-         "phase_s": phase_s}, indent=1))
+         "tune": tune_summary, "serve": serve_summary,
+         "ssm_serve": ssm_summary, "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

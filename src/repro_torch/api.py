@@ -12,13 +12,14 @@ CUDA kernel:
     c = acc({"A": a, "B": b})
 
     acc = repro_torch.generate(alg, search=5)                 # DSE pick
+    acc = repro_torch.generate("gemm", tune=4)                # measured
     acc = repro_torch.generate("gemm", sparsity={"A": sp})    # BSR kernel
     gacc = repro_torch.generate(graph)                        # megakernels
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (the kernels' plain versions); with no card and no device given they
-raise.  Not here yet, each raising ``NotImplementedError`` that names its
-slice: ``mesh=`` / ``Accelerator.sharded`` (mesh) and ``tune=`` (tuning).
+raise.  Not here yet, raising ``NotImplementedError`` that names its
+slice: ``mesh=`` / ``Accelerator.sharded`` (mesh).
 """
 from __future__ import annotations
 
@@ -71,6 +72,10 @@ class Accelerator:
     #: DSE candidates considered when built via ``generate(search=...)``,
     #: best first; ``candidates[0]`` is the one this accelerator runs.
     candidates: Optional[Tuple[Tuple[CostReport, Dataflow], ...]] = None
+    #: the measured autotuner's result when built via ``generate(tune=...)``
+    #: (:class:`repro_torch.tune.TuneResult`): winning variant, measured
+    #: medians, whether the on-disk tuning cache answered
+    tune_result: Optional[object] = None
 
     # -- introspection ----------------------------------------------------
     @property
@@ -111,10 +116,29 @@ class Accelerator:
                  f"device={self.device}",
                  f"  macs:   executed={rep.executed_macs} "
                  f"ratio={rep.executed_mac_ratio:.2f} (executed/priced)"]
-        if self.kernel.source != "analytical":
+        if self.kernel.source == "tuned" or self.tune_result is not None:
+            tr = self.tune_result
+            bits = [f"source={self.kernel.source}",
+                    f"grid_order={self.kernel.grid_order}",
+                    f"accum={self.kernel.accum}"]
+            if self.kernel.measured_s is not None:
+                bits.append(f"measured={self.kernel.measured_s * 1e3:.3f}ms")
+            if tr is not None:
+                if tr.speedup is not None:
+                    bits.append(f"speedup={tr.speedup:.2f}x")
+                bits.append("cache-hit" if tr.cache_hit
+                            else f"trials={len(tr.trials)}")
+            lines.append("  tuned:  " + " ".join(bits))
+        elif self.kernel.source != "analytical":
             lines.append(f"  knobs:  source={self.kernel.source} "
                          f"grid_order={self.kernel.grid_order} "
                          f"accum={self.kernel.accum}")
+        if rep.measured_cycles is not None or rep.calibrated:
+            cyc = (f"  cycles: model={rep.cycles:.0f}"
+                   + (" (calibrated)" if rep.calibrated else ""))
+            if rep.measured_cycles is not None:
+                cyc += f" measured={rep.measured_cycles:.0f}"
+            lines.append(cyc)
         if self.algebra.is_sparse:
             dens = " ".join(f"{name}:{self.algebra.density_of(name):.3f}"
                             for name, _ in self.algebra.sparsity)
@@ -170,6 +194,14 @@ def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
         ``[(report, dataflow), ...]`` from a previous search.  Candidates
         are lowered best-first; the first that lowers (and validates)
         wins.
+      tune: measured autotuning (``repro_torch.tune``): True runs the
+        timing-driven tuner over the analytical top candidates (an int
+        sets the candidate width, default 4), picks the dataflow +
+        kernel variant with the best *measured* median on ``device``,
+        and persists the winner in the on-disk tuning cache — so a
+        second ``generate(tune=...)`` on the same shape is a pure cache
+        hit.  The result is ``Accelerator.tune_result`` and shows in
+        ``describe()``.  Mutually exclusive with ``dataflow``/``search``.
       bounds: loop-bound overrides forwarded to the algebra.
       sparsity: per-tensor block-sparse patterns (tensor name ->
         :class:`~repro_torch.core.algebra.Sparsity`), applied via
@@ -180,7 +212,7 @@ def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
       dtype: ``torch.float32`` (default) or ``torch.bfloat16``.
       device: where the accelerator runs: the card by default (raises
         without one), ``"cpu"`` for the plain versions.
-      tune, mesh: not in this slice; raise ``NotImplementedError``.
+      mesh: not in this slice; raises ``NotImplementedError``.
 
     Returns an :class:`Accelerator` — or, when ``alg`` is an
     :class:`~repro_torch.graph.ir.AlgebraGraph`, a
@@ -189,30 +221,34 @@ def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
     selection, tile agreement, merged-group derivation — the reference's
     decisions), every node lowers through this same pipeline, and each
     merged-eligible group runs as one fused-chain or fused-DAG kernel
-    launch.  For graphs, ``search`` is the per-node DSE width (int) and
-    ``dataflow`` / ``bounds`` / ``sparsity`` do not apply.
+    launch.  For graphs, ``search`` is the per-node DSE width (int),
+    ``tune=k`` measures each merged group against sequential dispatch
+    (m-block ladder x stage interleave, at most ``k`` trials a group,
+    8 for ``tune=True``) and keeps the winner, and ``dataflow`` /
+    ``bounds`` / ``sparsity`` do not apply.
     """
     if isinstance(alg, AlgebraGraph):
         if dataflow is not None or bounds or sparsity:
             raise ValueError(
                 "graph generation plans per-node dataflows itself: "
                 "dataflow=/bounds=/sparsity= do not apply; use search= "
-                "for the per-node DSE width")
+                "for the per-node DSE width and tune= for merged-group "
+                "measurement")
         if search is not None and not isinstance(search, int):
             raise ValueError("for a graph, search= must be an int "
                              "(per-node DSE width)")
         from .graph import executor as _graph_exec
+        group_trials = None
+        if tune:
+            group_trials = (tune if isinstance(tune, int)
+                            and not isinstance(tune, bool) else 8)
         return _graph_exec.build(alg, search=search, cfg=cfg, dtype=dtype,
                                  validate=validate, device=device,
-                                 tune=tune or None, mesh=mesh)
+                                 tune=group_trials, mesh=mesh)
     if not isinstance(alg, (str, TensorAlgebra)):
         raise TypeError(f"generate() takes a TensorAlgebra, a registry "
                         f"name or an AlgebraGraph, got "
                         f"{type(alg).__name__}")
-    if tune:
-        raise NotImplementedError(
-            "generate(tune=...) (measured autotuning) arrives with the "
-            "tuning slice")
     if mesh is not None:
         raise NotImplementedError(
             "generate(mesh=...) (multi-device execution) arrives with the "
@@ -223,6 +259,16 @@ def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
         algebra = algebra.with_sparsity(**sparsity)
 
     candidates: Optional[Tuple[Tuple[CostReport, Dataflow], ...]] = None
+    if tune:
+        if dataflow is not None or search is not None:
+            raise ValueError("tune= is mutually exclusive with dataflow= "
+                             "and search=")
+        from .tune import tuner as _tuner
+        width = (tune if isinstance(tune, int)
+                 and not isinstance(tune, bool) else 4)
+        result = _tuner.tune(algebra, search=width, cfg=cfg, dtype=dtype,
+                             device=device, validate=validate)
+        return Accelerator(result.kernel, tune_result=result)
     if search is not None:
         if dataflow is not None:
             raise ValueError("pass either dataflow= or search=, not both")

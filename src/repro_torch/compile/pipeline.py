@@ -15,9 +15,9 @@ The port of the reference's ``compile/pipeline.py``:
 
 A structured block-sparse operand runs on the BSR kernel
 (``ops.bsr_matmul``); ``lower_group`` lowers a merged graph group to one
-fused-chain or fused-DAG megakernel (``kernels/fused_chain.py``).  Not
-here yet, raising ``NotImplementedError`` that names its slice: the
-on-disk tuning cache (``tuned=True``).
+fused-chain or fused-DAG megakernel (``kernels/fused_chain.py``).  Both
+entry points consult the on-disk tuning cache (``repro_torch.tune``)
+before the analytical choice when the caller gives no knobs.
 """
 from __future__ import annotations
 
@@ -78,8 +78,12 @@ class CompiledKernel:
     #: block-constrained fused lowering never aliases the standalone one
     fused_group: Optional[str] = None
     #: where the blocks/knobs came from: "analytical" (shared tile
-    #: chooser) or "explicit" (caller overrides)
+    #: chooser), "explicit" (caller overrides) or "tuned" (the
+    #: measured-autotuning cache, repro_torch.tune)
     source: str = "analytical"
+    #: median measured wall-clock seconds for this kernel, when the tuner
+    #: has timed it (drives CostReport.measured_cycles)
+    measured_s: Optional[float] = None
     validated: bool = False
     _report: Optional[CostReport] = dataclasses.field(
         default=None, repr=False)
@@ -211,10 +215,20 @@ class CompiledKernel:
 
     def cost_report(self) -> CostReport:
         """The cost model's view of this exact (algebra, dataflow, config)
-        — same tile chooser, so priced and executed tiles agree."""
+        — same tile chooser, so priced and executed tiles agree.  When the
+        measured autotuner has timed this kernel (``measured_s``), the
+        report carries the measurement as ``measured_cycles`` at the
+        model's clock, so modeled and measured sit side by side."""
         if self._report is None:
             self._report = PaperCycleModel(self.cfg).evaluate(
                 self.algebra, self.dataflow)
+        if self.measured_s is not None:
+            mc = self.measured_s * self.cfg.freq_mhz * 1e6
+            if self._report.measured_cycles != mc:
+                # re-attach on every change: the compile cache shares this
+                # object, and a re-tune may update measured_s in place
+                self._report = dataclasses.replace(
+                    self._report, measured_cycles=mc)
         return self._report
 
 
@@ -335,8 +349,10 @@ def lower(alg: TensorAlgebra, df: Optional[Dataflow] = None, *,
     when the problem is small enough for the python oracle.
 
     ``blocks`` / ``grid_order`` / ``accum`` override the analytical tile
-    chooser and the kernel-knob defaults.  ``tuned=True`` (the on-disk
-    tuning cache) waits for the tuning slice and raises.
+    chooser and the kernel-knob defaults (the measured autotuner's search
+    axes).  When none are given and ``tuned`` is not False, the on-disk
+    tuning cache (``repro_torch.tune``) is consulted first — a persisted
+    winner for this exact compile key replaces the analytical choice.
 
     ``epilogue`` fuses post-processing ops into the kernel's flush; a
     ``"bias"`` op names its rank-1 operand via ``bias_tensor`` (the
@@ -350,10 +366,6 @@ def lower(alg: TensorAlgebra, df: Optional[Dataflow] = None, *,
     if df.algebra_name != alg.name:
         raise ValueError(f"dataflow {df.name} was generated for algebra "
                          f"{df.algebra_name!r}, not {alg.name!r}")
-    if tuned:
-        raise NotImplementedError(
-            "tuned=True reads the on-disk tuning cache, which arrives with "
-            "the tuning slice; lower() takes the analytical choice")
     epilogue = epilogue_mod.validate_spec(epilogue)
     if epilogue_mod.needs_bias(epilogue) and bias_tensor is None:
         raise ValueError("epilogue with a 'bias' op needs bias_tensor= "
@@ -369,6 +381,17 @@ def lower(alg: TensorAlgebra, df: Optional[Dataflow] = None, *,
                      fused_group)
     source = ("explicit" if (blocks, grid_order, accum) != (None,) * 3
               else "analytical")
+    measured_s = None
+    if source == "analytical" and tuned is not False:
+        # consult the measured-tuning cache before the analytical chooser
+        from ..tune import cache as tune_cache
+        entry = tune_cache.lookup_variant(tune_cache.key_of(key))
+        if entry is not None:
+            blocks = tuple(entry["blocks"])
+            grid_order = entry["grid_order"]
+            accum = entry["accum"]
+            source = "tuned"
+            measured_s = entry.get("measured_s")
     grid_order = "default" if grid_order is None else grid_order
     accum = "auto" if accum is None else accum
     key = _variant_key(key, blocks, grid_order, accum)
@@ -406,7 +429,8 @@ def lower(alg: TensorAlgebra, df: Optional[Dataflow] = None, *,
         algebra=alg, dataflow=df, plan=ep, form=form, blocks=tuple(blocks),
         stationary=stationary, cfg=cfg, dtype=dtype, device=device,
         epilogue=epilogue, bias_tensor=bias_tensor, fused_group=fused_group,
-        grid_order=grid_order, accum=accum, source=source)
+        grid_order=grid_order, accum=accum, source=source,
+        measured_s=measured_s)
     if validate or (validate is None
                     and alg.total_macs() <= VALIDATE_MACS_LIMIT):
         kernel.validate()
@@ -476,8 +500,13 @@ class CompiledGroupKernel:
     ext_shapes: Tuple[Tuple[int, ...], ...] = ()    # storage shapes
     n_tap: int = 0
     #: where bm/interleave came from: "analytical" (the plan's agreed
-    #: blocks) or "explicit" (caller overrides)
+    #: blocks), "explicit" (caller overrides) or "tuned" (the on-disk
+    #: group tuning cache)
     source: str = "analytical"
+    #: measured medians (seconds) of this merged kernel and of the
+    #: sequential per-node dispatch it was measured against
+    measured_s: Optional[float] = None
+    sequential_s: Optional[float] = None
     validated: bool = False
 
     def total_macs(self) -> int:
@@ -642,21 +671,20 @@ def lower_group(plan, group, *, device=None,
                 validate: Optional[bool] = None,
                 bm: Optional[int] = None,
                 interleave: Optional[str] = None,
-                tuned: Optional[bool] = None) -> CompiledGroupKernel:
+                tuned: Optional[bool] = None
+                ) -> Optional[CompiledGroupKernel]:
     """Lower a :class:`~repro_torch.graph.planner.FusedGroupPlan` to a
     single cached :class:`CompiledGroupKernel` (one kernel launch for the
     whole group).
 
     ``bm`` / ``interleave`` override the plan's agreed m-block and the
-    default stage order.  ``tuned=True`` (the on-disk group tuning cache)
-    waits for the tuning slice and raises; the analytical choice is
-    taken.
+    default stage order (the merged-kernel tuner's knobs).  When neither
+    is given and ``tuned`` is not False, the on-disk group tuning cache
+    is consulted first: a persisted winner supplies the knobs — and a
+    persisted *sequential* verdict makes this return ``None``, telling
+    the executor to keep per-node dispatch (the tuner measured merged
+    slower on this device).
     """
-    if tuned:
-        raise NotImplementedError(
-            "tuned=True reads the on-disk group tuning cache, which "
-            "arrives with the tuning slice; lower_group() takes the "
-            "analytical bm and interleave")
     if not group.eligible:
         raise ValueError(f"group {group.name} is not merged-eligible: "
                          f"{group.reason}")
@@ -664,6 +692,18 @@ def lower_group(plan, group, *, device=None,
     key = _group_cache_key(plan, group, device)
     source = ("explicit" if (bm, interleave) != (None, None)
               else "analytical")
+    measured_s = sequential_s = None
+    if source == "analytical" and tuned is not False:
+        from ..tune import cache as tune_cache
+        entry = tune_cache.lookup_group(tune_cache.key_of(key))
+        if entry is not None:
+            if not entry["merged"]:
+                return None             # measured verdict: keep sequential
+            bm = int(entry["bm"])
+            interleave = entry["interleave"]
+            source = "tuned"
+            measured_s = entry.get("merged_s")
+            sequential_s = entry.get("sequential_s")
     is_dag = getattr(group, "kind", "chain") == "dag"
     bm = group.bm if bm is None else bm
     if interleave is None:
@@ -694,7 +734,8 @@ def lower_group(plan, group, *, device=None,
         group=group.name, stages=tuple(group.stages), chain=group.chain,
         m=group.m, k0=group.k0, bm=bm, interleave=interleave,
         cfg=plan.cfg, dtype=torch_dtype(plan.dtype), device=device,
-        source=source, kind="dag" if is_dag else "chain",
+        source=source, measured_s=measured_s, sequential_s=sequential_s,
+        kind="dag" if is_dag else "chain",
         dag=group.dag if is_dag else (),
         ext_roles=tuple(group.ext_inputs) if is_dag else (),
         ext_shapes=ext_shapes,

@@ -97,9 +97,16 @@ def choose_tile(alg: TensorAlgebra, df: Dataflow,
                    key=lambda j: sum(abs(int(r[j])) for r in space_rows),
                    reverse=True)
     for i, r in enumerate(space_rows):
-        while row_extent(r, tile) > P[i]:
+        ext = row_extent(r, tile)
+        while ext > P[i]:
             j = next(jj for jj in order if int(r[jj]) != 0 and tile[jj] > 1)
-            tile[j] -= 1
+            # the reference takes one unit off tile[j] at a time, each
+            # taking |r[j]| off the extent, and stays on j until it fits
+            # or tile[j] is 1: take all of those steps at once (the same
+            # tile, without a loop as long as the bound)
+            c = abs(int(r[j]))
+            tile[j] -= min(tile[j] - 1, -(-(ext - P[i]) // c))
+            ext = row_extent(r, tile)
 
     # Packing: if a unit space row's loop bound is below the array dim,
     # replicate the tile along that dim (the paper's p=3 -> 15 rows).

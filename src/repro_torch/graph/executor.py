@@ -14,7 +14,7 @@ view of the same schedule either way.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -87,6 +87,9 @@ class GraphAccelerator:
     #: when built with ``merge=True``
     group_kernels: Dict[str, pipeline.CompiledGroupKernel] = (
         dataclasses.field(default_factory=dict))
+    #: group name -> :class:`~repro_torch.tune.GroupTuneResult` when
+    #: built with ``tune=k`` (measured merged-vs-sequential verdicts)
+    group_tuning: Dict[str, Any] = dataclasses.field(default_factory=dict)
     #: whether ``build(merge=...)`` allowed merged lowering at all —
     #: lets ``describe()`` say *why* an eligible group runs sequentially
     merge_enabled: bool = True
@@ -246,8 +249,16 @@ class GraphAccelerator:
                     f"  merged {g.name}: one kernel launch, bm={gk.bm} "
                     f"interleave={gk.interleave} ({gk.source})")
                 continue
-            why = (g.reason if not g.eligible
-                   else "merging disabled (merge=False)")
+            if not g.eligible:
+                why = g.reason
+            elif not self.merge_enabled:
+                why = "merging disabled (merge=False)"
+            else:
+                res = self.group_tuning.get(g.name)
+                why = ("tuner verdict: sequential dispatch measured "
+                       "faster" if res is not None and not res.merged
+                       else "tuned cache verdict: sequential dispatch "
+                            "wins on this machine")
             lines.append(f"  sequential {g.name}: {why}")
         return "\n".join(lines)
 
@@ -271,14 +282,12 @@ def build(graph: AlgebraGraph, *,
     ``merge=True`` (default) additionally lowers every merged-eligible
     fused group to a single megakernel (``pipeline.lower_group``);
     ``merge=False`` keeps per-node dispatch — the merged kernels'
-    baseline.  ``device`` defaults to the card (raises without one).
-    ``tune=`` (merged-group measurement) and ``mesh=`` wait for the
-    tuning and mesh slices and raise.
+    baseline.  ``tune=k`` measures merged variants (m-block ladder x
+    interleave, at most ``k`` trials per group) against sequential
+    dispatch and keeps whichever wins, persisting the verdict in the
+    on-disk tuning cache.  ``device`` defaults to the card (raises
+    without one).  ``mesh=`` waits for the mesh slice and raises.
     """
-    if tune:
-        raise NotImplementedError(
-            "build(tune=...) (merged-group measurement against sequential "
-            "dispatch) arrives with the tuning slice")
     if mesh is not None:
         raise NotImplementedError(
             "graph execution on a mesh (build(mesh=...)) arrives with the "
@@ -305,11 +314,24 @@ def build(graph: AlgebraGraph, *,
             epilogue=fused_ep, bias_tensor=bias_key,
             fused_group=plan.fused_group_for(name))
     group_kernels: Dict[str, pipeline.CompiledGroupKernel] = {}
+    group_tuning: Dict[str, Any] = {}
     if merge:
         for g in plan.groups:
-            if g.eligible:              # else the planner's fallback
-                group_kernels[g.name] = pipeline.lower_group(
-                    plan, g, device=device, validate=validate)
+            if not g.eligible:
+                continue                 # planner fallback: sequential
+            if tune:
+                from ..tune import tuner as tuner_mod
+                res = tuner_mod.tune_group(plan, g, device=device,
+                                           max_trials=tune)
+                group_tuning[g.name] = res
+                if res.merged and res.kernel is not None:
+                    group_kernels[g.name] = res.kernel
+                continue
+            gk = pipeline.lower_group(plan, g, device=device,
+                                      validate=validate)
+            if gk is not None:          # None: tuned sequential verdict
+                group_kernels[g.name] = gk
     return GraphAccelerator(graph=graph, plan=plan, kernels=kernels,
                             device=device, group_kernels=group_kernels,
+                            group_tuning=group_tuning,
                             merge_enabled=bool(merge))

@@ -236,3 +236,24 @@ def test_simulate_and_reference_copies_agree():
         ralg, ralg.loops[:3], ref_stt.stt_from_name("output_stationary"))
     np.testing.assert_array_equal(out, rout)
     assert (cycles, extent) == (rcycles, rextent)
+
+
+@pytest.mark.parametrize("name, bounds", [
+    ("gemm", dict(m=4096, n=4096, k=4096)),
+    ("conv2d", dict(k=256, c=256, y=14, x=14, p=3, q=3)),
+    ("ttmc", dict(i=256, j=64, k=64, l=64, m=64)),
+    ("gemm", dict(m=100, n=37, k=3)),
+])
+def test_choose_tile_matches_reference_at_full_size(name, bounds):
+    # the port's shrink loop takes each loop's steps at once; the tiles
+    # must stay the reference's one-step-at-a-time tiles (every 23rd
+    # dataflow of the sweep: the reference's loop is slow at 4096)
+    palg = algebra.get_algebra(name, **bounds)
+    ralg = ref_algebra.get_algebra(name, **bounds)
+    pdfs = list(dse.enumerate_dataflows(palg).values())[::23]
+    rdfs = list(ref_dse.enumerate_dataflows(ralg).values())[::23]
+    assert len(pdfs) == len(rdfs) > 0
+    for pdf, rdf in zip(pdfs, rdfs):
+        assert pdf.signature == rdf.signature
+        assert tiling.choose_tile(palg, pdf) == \
+            ref_tiling.choose_tile(ralg, rdf), pdf.name

@@ -32,6 +32,18 @@ from repro_torch.kernels import stt_gemm  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 
+@pytest.fixture(autouse=True)
+def _isolated_tune_cache(tmp_path, monkeypatch):
+    """A fresh, empty tuning cache for every case: ``lower()`` reads the
+    cache before the analytical choice, and on the card this file runs
+    without the conftest fixture that does the same for the CPU suite."""
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "repro-tune"))
+    from repro_torch.tune import cache
+    cache.cache_clear(counters_only=True)
+    yield
+    cache.cache_clear(counters_only=True)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -1306,3 +1318,90 @@ def _drive(eng, prompts, reqs):
                 eng.evict(slot)
                 del resident[slot], left[slot]
     return [np.asarray(got[i], np.int32) for i in range(len(reqs))]
+
+
+# ---------------------------------------------------------------------------
+# measured autotuning (repro_torch.tune) on the card
+# ---------------------------------------------------------------------------
+
+def _traced_kernel_s(fn):
+    """Device time of the kernels one call of ``fn`` runs, traced."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+             for ev in prof.key_averages()
+             if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+    return us / 1e6
+
+
+def test_measure_waits_for_the_card(cuda):
+    from repro_torch.tune.measure import measure
+    acc = repro_torch.generate("gemm", "output_stationary",
+                               bounds=dict(m=4096, n=4096, k=4096),
+                               validate=False)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ops = {t.name: torch.randint(-4, 5, acc.algebra.tensor_shape(t),
+                                 generator=g, device=cuda,
+                                 dtype=torch.float32)
+           for t in acc.algebra.inputs}
+    m = measure(acc, ops, warmup=1, repeats=5)
+    kernel_s = _traced_kernel_s(lambda: acc(ops))
+    if kernel_s == 0.0:
+        pytest.skip("the profiler traced no device time on this card")
+    # the host clock around a synchronized call holds the whole kernel;
+    # a launch-only clock would read a few microseconds
+    assert m.median_s >= kernel_s, (m.median_s, kernel_s)
+
+
+def test_tune_mid_size_winner_exact(cuda):
+    from repro_torch.kernels import ref
+    from repro_torch.tune import cache
+    stt_gemm.reset_launches()
+    acc = repro_torch.generate("gemm", bounds=dict(m=512, n=512, k=512),
+                               tune=4, validate=False)
+    tr = acc.tune_result
+    assert not tr.cache_hit and len(tr.trials) > 1
+    assert acc.device.type == "cuda" and acc.kernel.source == "tuned"
+    assert tr.tuned_s <= tr.untuned_s
+    assert all(t.error.startswith("ValueError") for t in tr.trials
+               if not t.ok)
+    assert sum(stt_gemm.launches.values()) > 0
+    g = torch.Generator(device=cuda).manual_seed(1)
+    ops = {t.name: torch.randint(-4, 5, acc.algebra.tensor_shape(t),
+                                 generator=g, device=cuda,
+                                 dtype=torch.float32)
+           for t in acc.algebra.inputs}
+    k = acc.kernel
+    lhs, rhs = k.form.prepare(k.cast_operands(ops))
+    want = k.form.finish(ref.matmul_ref(lhs, rhs, out_dtype=k.dtype))
+    assert torch.equal(acc(ops), want)
+    again = repro_torch.generate("gemm", bounds=dict(m=512, n=512, k=512),
+                                 tune=4, validate=False)
+    assert again.tune_result.cache_hit and again.tune_result.trials == ()
+    assert cache.cache_path().parent.name == "torch"
+
+
+def test_tune_propagates_a_launch_error(cuda, monkeypatch):
+    # a CUDA error at launch inside a trial is not a bad knob: the tune
+    # call raises instead of recording a failed trial and going on
+    from repro_torch.compile import pipeline
+    from repro_torch.core.algebra import get_algebra
+    from repro_torch.kernels import _build
+    from repro_torch.tune import tuner
+    lib = _build.library("stt_gemm")
+    real = lib.stt_os_launch
+    inplace = 16        # stt_os_launch's in-place accumulation flag
+
+    def fail_inplace(*args):
+        return 9 if args[inplace] else real(*args)
+
+    monkeypatch.setattr(lib, "stt_os_launch", fail_inplace)
+    alg = get_algebra("gemm", m=256, n=256, k=256)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        tuner.tune(alg, pipeline.default_dataflow(alg), validate=False,
+                   force=True)

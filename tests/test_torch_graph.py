@@ -610,19 +610,37 @@ def test_bias_namespace_collision_rejected():
 @pytest.mark.parametrize("call", ["tune", "mesh", "tuned", "generate_tune",
                                   "generate_mesh"])
 def test_graph_deferrals_raise_naming_their_slice(call):
+    # the tuning slice has arrived: build(tune=k), generate(graph,
+    # tune=...) and lower_group(tuned=True) measure and cache the
+    # merged-or-sequential verdict; the mesh still raises
     pg = _pkg_graph("port", "chain")
-    slice_ = "tuning" if "tune" in call else "mesh"
-    with pytest.raises(NotImplementedError, match=f"{slice_} slice"):
-        if call == "tune":
-            executor.build(pg, device="cpu", tune=4)
-        elif call == "mesh":
+    if "tune" in call:
+        from repro_torch.tune import cache as tune_cache
+        plan = plan_graph(pg)
+        (grp,) = plan.groups
+        digest = tune_cache.key_of(
+            pipeline._group_cache_key(plan, grp, torch.device("cpu")))
+        if call == "tuned":
+            tune_cache.store_group(digest, merged=True, bm=8,
+                                   interleave="stage")
+            gk = pipeline.lower_group(plan, grp, device="cpu", tuned=True)
+            assert (gk.source, gk.bm, gk.interleave) == ("tuned", 8, "stage")
+            assert gk.validated
+            return
+        acc = (executor.build(pg, device="cpu", tune=4) if call == "tune"
+               else repro_torch.generate(pg, device="cpu", tune=True))
+        res = acc.group_tuning[grp.name]
+        assert not res.cache_hit and res.trials and res.sequential_s > 0
+        assert len(res.trials) <= (4 if call == "tune" else 8)
+        assert tune_cache.lookup_group(digest)["merged"] == res.merged
+        assert bool(acc.group_kernels) == res.merged
+        acc.validate()
+        again = executor.build(pg, device="cpu", tune=4)
+        assert again.group_tuning[grp.name].cache_hit
+        return
+    with pytest.raises(NotImplementedError, match="mesh slice"):
+        if call == "mesh":
             executor.build(pg, device="cpu", mesh=(2, 2))
-        elif call == "tuned":
-            plan = plan_graph(pg)
-            pipeline.lower_group(plan, plan.groups[0], device="cpu",
-                                 tuned=True)
-        elif call == "generate_tune":
-            repro_torch.generate(pg, device="cpu", tune=True)
         else:
             repro_torch.generate(pg, device="cpu", mesh=(1, 2))
 

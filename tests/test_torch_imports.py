@@ -27,7 +27,10 @@ MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.serve", "repro_torch.serve.pages",
            "repro_torch.serve.slots", "repro_torch.serve.server",
            "repro_torch.serve.report", "repro_torch.models.ssm",
-           "repro_torch.kernels.ssd_scan")
+           "repro_torch.kernels.ssd_scan", "repro_torch.tune",
+           "repro_torch.tune.measure", "repro_torch.tune.cache",
+           "repro_torch.tune.calibrate", "repro_torch.tune.report",
+           "repro_torch.tune.tuner")
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"

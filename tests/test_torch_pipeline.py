@@ -233,8 +233,33 @@ def _chain_graph():
 @pytest.mark.parametrize("call", ["tune", "mesh", "tuned", "graph",
                                   "sharded", "lower_group"])
 def test_later_slices_raise_not_implemented(call):
-    # the graph slice has arrived: graph inputs and lower_group now run;
-    # tuning and mesh still raise, naming their slices
+    # the graph and tuning slices have arrived: graph inputs,
+    # lower_group, generate(tune=...) and lower(tuned=True) now run; the
+    # mesh still raises, naming its slice
+    if call == "tune":
+        from repro_torch.tune import TuneResult
+        acc = repro_torch.generate("gemm", bounds=dict(m=16, n=16, k=16),
+                                   tune=True, device="cpu")
+        assert isinstance(acc.tune_result, TuneResult)
+        assert acc.kernel.source == "tuned" and acc.tune_result.trials
+        assert acc.validate() == 0.0
+        return
+    if call == "tuned":
+        from repro_torch.tune import cache as tune_cache
+        alg = get_algebra("gemm", m=16, n=16, k=16)
+        df = pipeline.default_dataflow(alg)
+        key = pipeline._cache_key(alg, df, pipeline.ArrayConfig(),
+                                  torch.float32, torch.device("cpu"))
+        tune_cache.store_variant(tune_cache.key_of(key), blocks=(8, 16, 4),
+                                 grid_order="nmk", accum="inplace",
+                                 measured_s=1e-3)
+        k = pipeline.lower(alg, df, device="cpu", tuned=True)
+        assert (k.source, k.blocks, k.grid_order, k.accum, k.measured_s) \
+            == ("tuned", (8, 16, 4), "nmk", "inplace", 1e-3)
+        assert k.validated
+        assert pipeline.lower(alg, df, device="cpu",
+                              tuned=False).source == "analytical"
+        return
     if call == "graph":
         from repro_torch.graph import GraphAccelerator
         g = _chain_graph()
@@ -253,12 +278,8 @@ def test_later_slices_raise_not_implemented(call):
         assert gk.kind == "chain" and gk.validated
         return
     with pytest.raises(NotImplementedError):
-        if call == "tune":
-            repro_torch.generate("gemm", tune=True, device="cpu")
-        elif call == "mesh":
+        if call == "mesh":
             repro_torch.generate("gemm", mesh=(2, 2), device="cpu")
-        elif call == "tuned":
-            pipeline.lower(get_algebra("gemm"), device="cpu", tuned=True)
         else:
             acc = repro_torch.generate("gemm", bounds=dict(m=8, n=8, k=8),
                                        device="cpu")
