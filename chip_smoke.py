@@ -124,10 +124,36 @@ each of which fails the run (non-zero exit) when it fails:
    association, ``expf``), and a second call the same bits.  Step,
    prefill and SSD times (the wrapper's, and the traced device time of
    its three kernels), tokens per second, and one traced decode step
-   and prefill per model are reported.
+   and prefill per model are reported;
+13. serving the moe, encdec and vlm families at full width
+   (``FAMILY_SERVE``), fp32 masters drawn on the card and freed once the
+   engine has cast them: mixtral-8x22b (4 of its 56 layers, all alike;
+   8 experts, top 2) answering 8 requests (prompts 128..1536, 16..64 new
+   tokens, seed 2) over ``SlotEngine(capacity=8, max_context=2048,
+   page_size=16, total_pages=512)``; whisper-small (all 12 encoder and
+   12 decoder layers) answering 16 (its trained 448-token context,
+   prompts 4..64, 32..128 new tokens, seed 3), each with its own
+   ``0.1·normal (1500, 768)`` frames; llama-3.2-vision-11b (all 40
+   layers, 8 gated cross layers, gates opened to 0.5) answering 8
+   (prompts 128..1024, 16..64 new tokens, seed 4), each with its own
+   ``0.1·normal (1601, 4096)`` patches; from 4 threads through
+   ``ContinuousServer``.  The gather and flash launch counts are zeroed
+   before each server run, must be above 0 after it, and are added to
+   the kernels line's rows.  Checks (a)–(c) as in phase 12, (b) with
+   ``DecodeEngine`` on the engine's cast parameters; the flash kernel at
+   each family's shapes (the longest prompt's causal self-attention;
+   whisper's encoder (1, 12, 1500, 64) and cross-attention to 1500
+   frames; the vision cross-attention to 1601 patches, non-causal) held
+   to its plain version as in phase 11 (e), with a planted dropped kv
+   block that must exceed the limit; for mixtral each expert's load and
+   the dropped share of the longest prefill, and the expert products of
+   a decode step beside their bound.  Peak and held device memory,
+   step, prefill and flash times, and one traced decode step and
+   prefill per model are reported.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
-(nine rows, one per kernel),
+(nine rows, one per kernel; rows 7–8 carry the family phase's launches
+and flash shapes too),
 and, last, ``{"ok": true, "device": {...}}``.  Per-case times go to
 ``results/chip_smoke/chip_smoke_cases.json`` (gitignored), each with one
 more call traced by ``torch.profiler``: the device time of the port's
@@ -203,6 +229,22 @@ SERVE_ENGINE = dict(capacity=8, max_context=2048, page_size=16,
                     total_pages=512)
 SERVE_REQUESTS, SERVE_THREADS = 16, 4
 PROMPT_LENS, NEW_TOKENS = (128, 1536), (16, 64)
+#: the moe, encdec and vlm serve phase: (model, its depth, requests,
+#: numpy seed, engine, prompt lengths, new tokens).  mixtral-8x22b runs 4
+#: of its 56 layers (every layer has the same pattern; 10.4 B parameters,
+#: 41.7 GB of fp32 masters), whisper-small all 12 + 12 at Whisper's
+#: trained 448-token context (transcription: 1500 frames, short prompts),
+#: llama-3.2-vision-11b all 40 with its 8 gated cross layers
+FAMILY_SERVE = (
+    ("mixtral-8x22b", 4, 8, 2, dict(capacity=8, max_context=2048,
+                                    page_size=16, total_pages=512),
+     (128, 1536), (16, 64)),
+    ("whisper-small", 12, 16, 3, dict(capacity=8, max_context=448,
+                                      page_size=16), (4, 64), (32, 128)),
+    ("llama-3.2-vision-11b", 40, 8, 4, dict(capacity=8, max_context=2048,
+                                            page_size=16, total_pages=512),
+     (128, 1024), (16, 64)),
+)
 #: the SSM serve phase: (model, its depth, requests, numpy seed, engine)
 SSM_SERVE = (
     ("zamba2-1.2b", 38, 16, 0, dict(capacity=8, max_context=2048,
@@ -310,35 +352,39 @@ def device_breakdown(fn, top: int = 8):
                         for k, ms, n in rows[:top]]}
 
 
-def serve_traffic(n, seed, vocab):
-    """``n`` requests: prompts uniform in ``PROMPT_LENS`` tokens, new
-    tokens uniform in ``NEW_TOKENS``, from numpy seed ``seed``.  Returns
+def serve_traffic(n, seed, vocab, prompt_lens=PROMPT_LENS,
+                  new_tokens=NEW_TOKENS):
+    """``n`` requests: prompts uniform in ``prompt_lens`` tokens, new
+    tokens uniform in ``new_tokens``, from numpy seed ``seed``.  Returns
     (the generator, for later draws; lens; news; prompts)."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, n)
-    news = rng.integers(NEW_TOKENS[0], NEW_TOKENS[1] + 1, n)
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n)
+    news = rng.integers(new_tokens[0], new_tokens[1] + 1, n)
     prompts = [rng.integers(0, vocab, (int(s),)).astype(np.int32)
                for s in lens]
     return rng, lens, news, prompts
 
 
-def run_server(eng, prompts, news, check):
-    """Every request through a ``ContinuousServer`` over ``eng``, submitted
-    from ``SERVE_THREADS`` client threads.  Returns (tokens per request,
-    seconds, server stats, mean occupancy)."""
+def run_server(eng, prompts, news, check, frontends=None):
+    """Every request (with its frontend array, if any) through a
+    ``ContinuousServer`` over ``eng``, submitted from ``SERVE_THREADS``
+    client threads.  Returns (tokens per request, seconds, server stats,
+    mean occupancy)."""
     import torch
 
     from repro_torch.serve import ContinuousServer
 
     n = len(prompts)
+    frontends = frontends or [None] * n
     futures = [None] * n
     t0 = time.perf_counter()
     with ContinuousServer(eng) as server:
         def client(ids):
             for i in ids:
                 futures[i] = server.submit(prompts[i],
-                                           max_new_tokens=int(news[i]))
+                                           max_new_tokens=int(news[i]),
+                                           frontend=frontends[i])
         threads = [threading.Thread(target=client,
                                     args=(range(t, n, SERVE_THREADS),))
                    for t in range(SERVE_THREADS)]
@@ -357,15 +403,17 @@ def run_server(eng, prompts, news, check):
     return served, serve_s, dict(server.stats), server.mean_occupancy()
 
 
-def serve_alone(eng, prompts, news, served, check):
+def serve_alone(eng, prompts, news, served, check, frontends=None):
     """Checks (a) and (c): each request served alone on the same engine
     gives its continuous tokens; the decode step was built once.  Returns
     (step ms, [(prompt length, prefill ms)]), host clock."""
     import numpy as np
+    frontends = frontends or [None] * len(prompts)
     step_ms, prefill_ms = [], []
     for i, prompt in enumerate(prompts):
         t = time.perf_counter()
-        res = eng.insert(prompt, max_new_tokens=int(news[i]))
+        res = eng.insert(prompt, max_new_tokens=int(news[i]),
+                         frontend=frontends[i])
         prefill_ms.append((len(prompt), (time.perf_counter() - t) * 1e3))
         check(res is not None, f"request {i} not admitted alone")
         slot, tok = res
@@ -384,7 +432,8 @@ def serve_alone(eng, prompts, news, served, check):
     return step_ms, prefill_ms
 
 
-def check_prefill(eng, de, lm, prompts, news, served, check, *, full):
+def check_prefill(eng, de, lm, prompts, news, served, check, *, full,
+                  frontends=None):
     """Check (b): the slot engine's prefill logits equal
     ``DecodeEngine``'s and so does its first token.  With ``full`` the
     whole ``DecodeEngine`` generation runs (batch 1, cache at the slot
@@ -398,17 +447,21 @@ def check_prefill(eng, de, lm, prompts, news, served, check, *, full):
 
     dev = torch.device("cuda")
     max_context = eng.max_context
+    frontends = frontends or [None] * len(prompts)
     diverge = []
     for i, prompt in enumerate(prompts):
         toks = torch.as_tensor(prompt, device=dev).long()[None]
+        fe = frontends[i]
+        fe = None if fe is None else fe[None]
+        fe_dev = None if fe is None else torch.as_tensor(fe, device=dev)
         with torch.no_grad():
-            la = lm_decode.prefill(eng.params, toks, lm,
+            la = lm_decode.prefill(eng.params, toks, lm, frontend=fe_dev,
                                    max_len=max_context)[0]
-            lb = lm_decode.prefill(de.params, toks, lm,
+            lb = lm_decode.prefill(de.params, toks, lm, frontend=fe_dev,
                                    max_len=max_context)[0]
         check(torch.equal(la, lb), f"(b) request {i}: prefill logits of "
               f"the slot engine and DecodeEngine differ")
-        want = de.generate(prompt[None],
+        want = de.generate(prompt[None], frontend=fe,
                            max_new_tokens=int(news[i]) if full else 1,
                            cache_len=max_context)[0][0]
         check(want[0] == served[i][0], f"(b) request {i}: first token "
@@ -419,7 +472,7 @@ def check_prefill(eng, de, lm, prompts, news, served, check, *, full):
     return diverge
 
 
-def trace_step_and_prefill(eng, lm, prompts, lens, check):
+def trace_step_and_prefill(eng, lm, prompts, lens, check, frontends=None):
     """Fill every slot, then one decode step and the longest prompt's
     prefill, each on the host clock and once more traced."""
     import numpy as np
@@ -427,16 +480,21 @@ def trace_step_and_prefill(eng, lm, prompts, lens, check):
 
     from repro_torch.models import decode as lm_decode
 
+    dev = torch.device("cuda")
+    frontends = frontends or [None] * len(prompts)
     for i in range(eng.capacity):
-        check(eng.insert(prompts[i][:128], max_new_tokens=64) is not None,
+        check(eng.insert(prompts[i][:128], max_new_tokens=64,
+                         frontend=frontends[i]) is not None,
               "could not fill the batch for the traced step")
     eng.step()
     step_prof = device_breakdown(eng.step)
-    pre = torch.as_tensor(prompts[int(np.argmax(lens))],
-                          device=torch.device("cuda")).long()[None]
+    longest = int(np.argmax(lens))
+    pre = torch.as_tensor(prompts[longest], device=dev).long()[None]
+    fe = frontends[longest]
+    fe = None if fe is None else torch.as_tensor(fe, device=dev)[None]
     with torch.no_grad():
         pre_prof = device_breakdown(lambda: lm_decode.prefill(
-            eng.params, pre, lm, max_len=eng.max_context))
+            eng.params, pre, lm, frontend=fe, max_len=eng.max_context))
     for slot in eng.live_slots():
         eng.evict(slot)
     return step_prof, pre_prof
@@ -607,49 +665,58 @@ def gather_check(eng, path, lens, news, rng, check):
                  f"pages"}
 
 
-def flash_times(hq, hkv, d, length, g, check):
-    """The flash kernel on random bf16 q (1, hq, length, d) and k, v (1,
-    hkv, length, d), causal: its errors against the plain version that
-    rounds P to bf16 as the kernel does (max abs, and ``row_error``, held
-    to ``BF16_ROW_TOL``) and against the reference's arithmetic (held to
-    2e-2 x max|out|); the errors of a planted fault, a kv block hidden
-    from the last q block, against the same plain version (its row error
-    must exceed the limit); the kernel's time, the plain version's,
-    SDPA's and the bound (4 d flops an unmasked pair and q head, bf16
-    tensor cores)."""
+def flash_times(hq, hkv, d, length, g, check, *, lq=None, causal=True):
+    """The flash kernel on random bf16 q (1, hq, lq, d) and k, v (1, hkv,
+    length, d), causal (``lq`` = ``length``) or not (an encoder's
+    self-attention, or cross-attention to ``length`` frontend tokens):
+    its errors against the plain version that rounds P to bf16 as the
+    kernel does (max abs, and ``row_error``, held to ``BF16_ROW_TOL``)
+    and against the reference's arithmetic (held to 2e-2 x max|out|);
+    the errors of a planted fault, a kv block hidden from the last q
+    rows, against the same plain version (its row error must exceed the
+    limit); the kernel's time, the plain version's, SDPA's and the bound
+    (4 d flops an unmasked pair and q head, bf16 tensor cores)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.core import hopper
     from repro_torch.kernels import flash_attention as fa
 
-    q, k, v = [torch.randn((1, h, length, d), generator=g,
+    lq = length if lq is None else lq
+    q, k, v = [torch.randn((1, h, n, d), generator=g,
                            device=torch.device("cuda")).to(torch.bfloat16)
-               for h in (hq, hkv, hkv)]
-    shape = (f"q (1, {hq}, {length}, {d}), k/v (1, {hkv}, {length}, {d}) "
-             f"bf16, causal")
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = fa.flash_attention_plain(q, k, v, causal=True, round_p=True)
+               for h, n in ((hq, lq), (hkv, length), (hkv, length))]
+    shape = (f"q (1, {hq}, {lq}, {d}), k/v (1, {hkv}, {length}, {d}) "
+             f"bf16, {'causal' if causal else 'non-causal'}")
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, round_p=True)
     errs = bf16_flash_errors(got, want, fa.flash_attention_plain(
-        q, k, v, causal=True), check, shape)
-    fault = dropped_block(q, k, v, length - 64, length // 2 // 64 * 64)
+        q, k, v, causal=causal), check, shape)
+    # the middle kv block (half the keys when there are fewer than 128),
+    # hidden from the last 64 q rows or, causal, from the rows that see
+    # past it
+    width = min(64, length // 2)
+    k0 = length // 2 // 64 * 64
+    fault = dropped_block(q, k, v, max(lq - 64, k0 + width if causal else 0),
+                          k0, width, causal=causal)
     fault_row = fa.row_error(fault, want)
     check(fault_row > fa.BF16_ROW_TOL,
           f"flash {shape}: a dropped kv block reads {fault_row}, inside "
           f"BF16_ROW_TOL {fa.BF16_ROW_TOL}")
-    pairs = length * (length + 1) // 2
+    pairs = length * (length + 1) // 2 if causal else lq * length
     roof = hopper.RooflineTerms(
         "flash attention", 4.0 * d * hq * pairs,
         2.0 * (2 * q.numel() + k.numel() + v.numel()), dtype="bfloat16")
     return {
         **errs, "fault_row_err": fault_row,
         "fault_max_abs_err": (fault.float() - want.float()).abs().max().item(),
-        "ms": event_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10),
+        "ms": event_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                       10),
         "plain_ms": event_ms(lambda: fa.flash_attention_plain(
-            q, k, v, causal=True, round_p=True), 3),
+            q, k, v, causal=causal, round_p=True), 3),
         "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
         "library_ms": event_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=hq != hkv), 10),
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv), 10),
         "shape": shape}
 
 
@@ -675,10 +742,10 @@ def bf16_flash_errors(got, want, want_ref, check, what):
             "row_err": row, "ref_max_abs_err": ref_err}
 
 
-def dropped_block(q, k, v, rows, k0):
-    """A planted fault for the tolerance's self-check: causal attention
-    in fp32 with kv columns [k0, k0 + 64) hidden from q rows >= ``rows``
-    (a kv block a faulty kernel skips)."""
+def dropped_block(q, k, v, rows, k0, width=64, *, causal=True):
+    """A planted fault for the tolerance's self-check: attention in fp32
+    (causal, or not) with kv columns [k0, k0 + width) hidden from q rows
+    >= ``rows`` (a kv block a faulty kernel skips)."""
     import torch
 
     from repro_torch.kernels import ref
@@ -686,9 +753,9 @@ def dropped_block(q, k, v, rows, k0):
     lq, lkv, group = q.shape[2], k.shape[2], q.shape[1] // k.shape[1]
     kf, vf = (x.float().repeat_interleave(group, dim=1) for x in (k, v))
     scores = torch.matmul(q.float(), kf.transpose(-1, -2)) / q.shape[3] ** 0.5
-    mask = ref.attention_mask(lq, lkv, causal=True, window=None,
+    mask = ref.attention_mask(lq, lkv, causal=causal, window=None,
                               device=q.device)
-    mask[rows:, k0:k0 + 64] = False
+    mask[rows:, k0:k0 + width] = False
     p = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
     return torch.matmul(p, vf).to(q.dtype)
 
@@ -939,6 +1006,210 @@ def ssm_serve_phase(check):
                                     "plain_ms", "bound_ms", "bound_by")},
            "library_ms": None, "shape": timed["shape"]}
     return [row], summary
+
+
+def moe_load(eng, lm, prompt, check):
+    """The MoE's routing on one prefill of ``prompt``: per layer, the
+    choices each expert kept and the share of choices dropped by the
+    capacity race.  Reads ``mlp._dispatch``'s results during the call."""
+    import torch
+
+    from repro_torch.models import decode as lm_decode
+    from repro_torch.models import mlp
+
+    real, seen = mlp._dispatch, []
+
+    def spy(top_idx, n_experts, capacity):
+        out = real(top_idx, n_experts, capacity)
+        seen.append((top_idx, out[1], capacity))
+        return out
+
+    mlp._dispatch = spy
+    try:
+        with torch.no_grad():
+            lm_decode.prefill(eng.params, torch.as_tensor(
+                prompt, device=torch.device("cuda")).long()[None], lm,
+                max_len=eng.max_context)
+    finally:
+        mlp._dispatch = real
+    check(len(seen) == lm.n_layers, f"moe load: {len(seen)} MoE calls for "
+          f"{lm.n_layers} layers")
+    layers = []
+    for top_idx, keep, cap in seen:
+        chosen = torch.bincount(top_idx.flatten(), minlength=lm.n_experts)
+        kept = torch.bincount(top_idx[keep], minlength=lm.n_experts)
+        layers.append({"capacity": cap, "chosen": chosen.tolist(),
+                       "kept": kept.tolist(),
+                       "dropped_share": 1.0 - kept.sum().item()
+                       / top_idx.numel()})
+    return {"prompt_len": len(prompt), "layers": layers,
+            "dropped_share": sum(x["dropped_share"] for x in layers)
+            / len(layers)}
+
+
+def moe_step_ms(eng, lm, check):
+    """The expert products of one decode step at full occupancy: every
+    layer's ``apply_moe`` on (capacity, 1, d) bf16, timed with CUDA
+    events, beside the bound of reading every expert's three weights
+    once (a step reads them all: with top-2 of 8 over 8 slots, nearly
+    every expert has a token)."""
+    import torch
+
+    from repro_torch.core import hopper
+    from repro_torch.models import mlp
+    from repro_torch.models.transformer import layer_params
+
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(5)
+    x = torch.randn((eng.capacity, 1, lm.d_model), generator=g,
+                    device=torch.device("cuda")).to(torch.bfloat16)
+    ffn = [layer_params(eng.params["layers"]["ffn"], i)
+           for i in range(lm.n_layers)]
+
+    def step():
+        for p in ffn:
+            mlp.apply_moe(p, x, lm)
+    nbytes = sum(p[w].numel() * p[w].element_size() for p in ffn
+                 for w in ("wg", "wu", "wd"))
+    roof = hopper.RooflineTerms("moe decode", 0.0, float(nbytes),
+                                dtype="bfloat16")
+    ms = event_ms(step, 10)
+    check(ms > 0, "moe step time")
+    return {"ms": ms, "bound_ms": roof.bound_s * 1e3,
+            "gbytes": nbytes / 1e9}
+
+
+def family_serve_phase(check):
+    """Phase 13: serving the moe, encdec and vlm families (``FAMILY_SERVE``)
+    at full width on the flash and paged-gather kernels.  Returns (the
+    launches of both kernels over the three server runs, the flash times
+    at the non-causal and cross shapes, summary)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention, paged
+    from repro_torch.models import init_params
+    from repro_torch.serve import DecodeEngine, SlotEngine
+
+    dev = torch.device("cuda")
+    summary, flash_rows = {}, []
+    # an engine and its decode step refer to each other: only the cycle
+    # collector frees an earlier model, and two of these do not fit at once
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {"paged_gather": 0, "flash_attention": 0}
+    for model, depth, n, seed, engine_kw, lens_r, news_r in FAMILY_SERVE:
+        torch.cuda.reset_peak_memory_stats()
+        full = get_config(model)
+        lm = dataclasses.replace(full, n_layers=depth)
+        check(lm.dtype == "bfloat16", f"{model}: not bf16")
+        t0 = time.perf_counter()
+        params = init_params(torch.Generator(device=dev).manual_seed(0), lm)
+        if lm.family == "vlm":
+            params["cross_layers"]["gate"].fill_(0.5)   # the image matters
+        eng = SlotEngine(params, lm, **engine_kw)
+        del params                 # the fp32 masters: the engine cast them
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t0
+        rng, lens, news, prompts = serve_traffic(n, seed, lm.vocab, lens_r,
+                                                 news_r)
+        fes = [None] * n
+        if lm.frontend_tokens:
+            fes = [(0.1 * rng.standard_normal(
+                (lm.frontend_tokens, lm.d_model), dtype=np.float32))
+                for _ in range(n)]
+
+        # the main path: the requests from 4 threads through the server
+        flash_attention.reset_launches()
+        paged.reset_launches()
+        served, serve_s, stats, occupancy = run_server(eng, prompts, news,
+                                                       check, fes)
+        launches = {**paged.launches, **flash_attention.launches}
+        for name, count in launches.items():
+            check(count > 0, f"the {model} serve path never launched {name}")
+            total[name] += count
+        n_tokens = int(news.sum())
+        print(f"family serve {model} ({lm.family}, {depth} of "
+              f"{full.n_layers} layers): {n} requests ({n_tokens} tokens) "
+              f"in {serve_s:.2f} s, {n_tokens / serve_s:.1f} tok/s; steps "
+              f"{stats['steps']}, mean occupancy {occupancy:.2f}, admission "
+              f"stalls {stats['admission_stalls']}; launches {launches}; "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB "
+              f"peak, {torch.cuda.memory_allocated() / 1e9:.1f} GB held")
+
+        # (a), (c); (b) on the prefill logits and the first token, with
+        # DecodeEngine on the engine's cast parameters
+        step_ms, prefill_ms = serve_alone(eng, prompts, news, served, check,
+                                          fes)
+        de = DecodeEngine(eng.params, lm)
+        check_prefill(eng, de, lm, prompts, news, served, check, full=False,
+                      frontends=fes)
+        del de
+        print(f"family serve checks {model}: (a) continuous == alone for "
+              f"{n} requests, (b) prefill logits and first token == "
+              f"DecodeEngine, (c) decode_compiles 1")
+        part = {"layers": depth, "setup_s": setup_s, "serve_s": serve_s,
+                "tokens": n_tokens, "tok_per_s": n_tokens / serve_s,
+                "server_stats": stats, "mean_occupancy": occupancy,
+                "launches": launches, "prefill_ms": prefill_ms,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+        # the flash kernel at the shapes this family launched
+        g = torch.Generator(device=dev).manual_seed(3)
+        hq, hkv, d = lm.n_heads, lm.n_kv_heads, lm.head_dim
+        longest = int(lens.max())
+        cases = [("self, causal", dict(length=longest))]
+        if lm.family == "encdec":
+            cases += [("encoder", dict(length=lm.frontend_tokens,
+                                       causal=False)),
+                      ("cross", dict(length=lm.frontend_tokens, lq=longest,
+                                     causal=False))]
+        if lm.family == "vlm":
+            cases += [("cross", dict(length=lm.frontend_tokens, lq=longest,
+                                     causal=False))]
+        part["flash"] = {}
+        for label, kw in cases:
+            t = flash_times(hq, hkv, d, g=g, check=check, **kw)
+            part["flash"][label] = t
+            if kw.get("causal", True) is False:
+                flash_rows.append({"model": model, "case": label, **t})
+            print(f"family serve {model}: flash {label} {t['shape']}: "
+                  f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, plain "
+                  f"{t['plain_ms']:.3f}, SDPA {t['library_ms']:.4f}); row "
+                  f"error {t['row_err']:.3e} (limit "
+                  f"{flash_attention.BF16_ROW_TOL}), a dropped kv block "
+                  f"{t['fault_row_err']:.3e}")
+        if lm.family == "moe":
+            part["moe_load"] = load = moe_load(
+                eng, lm, prompts[int(np.argmax(lens))], check)
+            for i, lay in enumerate(load["layers"]):
+                print(f"family serve {model}: layer {i} prefill "
+                      f"L={load['prompt_len']} capacity {lay['capacity']}: "
+                      f"chosen {lay['chosen']}, kept {lay['kept']}, "
+                      f"dropped {lay['dropped_share']:.3f}")
+            part["moe_step"] = ms = moe_step_ms(eng, lm, check)
+            print(f"family serve {model}: the expert products of a decode "
+                  f"step ({depth} layers): {ms['ms']:.3f} ms, bound "
+                  f"{ms['bound_ms']:.3f} ms (bytes: {ms['gbytes']:.2f} GB "
+                  f"of expert weights)")
+
+        # one decode step at full occupancy and one prefill, traced
+        step_prof, pre_prof = trace_step_and_prefill(eng, lm, prompts, lens,
+                                                     check, fes)
+        part["decode_step_ms"] = report_times(
+            f"family serve {model}", step_ms, prefill_ms, step_prof,
+            pre_prof, longest)
+        part["traced_step"] = step_prof
+        part["traced_prefill"] = {"len": longest, **pre_prof}
+        summary[model] = part
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total, flash_rows, summary
 
 
 #: the tune phase's algebras: gemm, whose candidates all take the
@@ -1776,10 +2047,22 @@ def main() -> int:
     ssm_rows, ssm_summary = ssm_serve_phase(check)
     kernels.extend(ssm_rows)
     phase("ssm serve")
+
+    # -- 13. MoE, encdec and vlm serving -------------------------------------
+    family_launches, family_flash, family_summary = family_serve_phase(check)
+    for row in kernels:
+        name = row["name"].split(".")[-1]
+        if name in family_launches:
+            row["launches"] += family_launches[name]
+            row["launches_family_serve"] = family_launches[name]
+        if name == "flash_attention":
+            row["family_shapes"] = family_flash
+    phase("family serve")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
-         "ssm_serve": ssm_summary, "phase_s": phase_s}, indent=1))
+         "ssm_serve": ssm_summary, "family_serve": family_summary,
+         "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

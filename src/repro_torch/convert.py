@@ -14,7 +14,9 @@ device.  The parity tests use these so that the two packages run the
 same plan on the same data.  ``params_from_reference`` carries a
 reference model's parameters (the nested dict of stacked numpy arrays
 that ``jax.tree.map(np.asarray, split(init_params(key, cfg))[0])``
-gives) across to the port's models, leaf for leaf.
+gives, for any family: the MoE's router and expert stacks, the encdec
+encoder and cross layers, the vlm cross layers and gates) across to the
+port's models, leaf for leaf.
 """
 from __future__ import annotations
 

@@ -1,11 +1,17 @@
-"""Attention layers: GQA + RoPE + SWA + KV caches.
+"""Attention layers: GQA + RoPE + SWA + cross-attention + KV caches.
 
-The port of the reference's ``models/attention.py`` (self-attention).
-Three execution paths:
+The port of the reference's ``models/attention.py``.  Three execution
+paths:
 
-* prefill on a CUDA tensor: ``kernels.ops.attention``, i.e. the
-  hand-written flash-attention kernel (``csrc/flash_attention.cu``),
-  which the reference names its TPU hot-spot implementation;
+* prefill on a CUDA tensor: the hand-written flash-attention kernel
+  (``csrc/flash_attention.cu``), which the reference names its TPU
+  hot-spot implementation — causal attention through
+  ``kernels.ops.attention`` (which pads to whole blocks as the
+  reference's wrapper does), non-causal attention (an encoder, or
+  cross-attention to a frontend's ``Lkv`` tokens) through
+  ``flash_attention.flash_attention`` itself, which masks a ragged
+  ``Lkv`` (1500 frames, 1601 patches) where zero-padded keys would take
+  part in the softmax;
 * prefill on a CPU tensor: the plain full-scores path (``ref.
   attention_ref``) up to ``FULL_SCORES_MAX_LEN`` and the chunked
   online-softmax path above it, as the reference's models run them;
@@ -14,9 +20,11 @@ Three execution paths:
 
 Decode writes the new K/V row into the given cache tensors **in place**
 (the reference returns updated copies); the returned cache holds the
-same tensors.  Cross-attention (``kv_x``, the encdec/vlm families) and
-the explicit-collective branches (the mesh) raise ``NotImplementedError``
-naming their slices.
+same tensors.  Cross-attention (``kv_x``) takes its K/V from the
+frontend's tokens with no rope and no mask; in decode a **static** cross
+cache (``precompute_cross_cache``, bf16 whatever the compute dtype) is
+read whole and never written.  The explicit-collective branches (the
+mesh) raise ``NotImplementedError`` naming their slice.
 """
 from __future__ import annotations
 
@@ -26,8 +34,8 @@ import torch
 
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
+from ..kernels import flash_attention as fa
 from ..kernels import ops, ref
-from ..kernels.flash_attention import flash_attention_plain
 from . import common
 from .common import stacked_dense_init
 
@@ -72,8 +80,8 @@ def _full_scores_attn(q, k, v, *, causal, window, q_offset=0):
 def _chunked_attn(q, k, v, *, causal, window, bkv: int = 1024):
     """Online softmax over kv chunks of ``bkv`` — O(Lq * bkv) memory: the
     flash kernel's plain version, which is this computation."""
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 bkv=bkv)
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    bkv=bkv)
 
 
 def _decode_attn(q, k_cache, v_cache, *, pos, window, cache_len):
@@ -153,21 +161,25 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
                     pos=None,
                     collect_kv: bool = False,
                     ) -> Tuple[torch.Tensor, Optional[KV]]:
-    """One self-attention block on per-layer (already unstacked) params.
+    """One attention block on per-layer (already unstacked) params.
 
-    x: (B, Lq, D).  With ``cache`` (decode): Lq == 1, the new K/V row is
-    written into the cache in place at ``pos`` (an int, or a ``(B,)``
-    tensor of per-slot positions) and attention runs over the cache.
-    With ``collect_kv`` (prefill) the rotated K / V come back as
-    ``(B, Lq, kv_dim)``.  Returns (out, cache_or_None).
+    x: (B, Lq, D).  Self-attention when ``kv_x`` is None, else
+    cross-attention to ``kv_x`` (B, Lkv, D): no rope, no window, not
+    causal.  With ``cache`` and self-attention (decode): Lq == 1, the new
+    K/V row is written into the cache in place at ``pos`` (an int, or a
+    ``(B,)`` tensor of per-slot positions) and attention runs over the
+    cache.  With ``cache`` and ``kv_x`` (decode against a static cross
+    cache, ``kv_x`` only marks the block as cross): the cache is
+    attended in full and left as it is.  With ``collect_kv`` (prefill)
+    the rotated K / V come back as ``(B, Lq, kv_dim)``.  Returns (out,
+    cache_or_None).
     """
-    if kv_x is not None:
-        raise NotImplementedError("cross-attention (kv_x) arrives with the "
-                                  "encdec/vlm slice")
     if cfg.explicit_collectives:
         raise NotImplementedError(
             "explicit_collectives (explicit_tp) arrives with the mesh slice")
     b, lq, _ = x.shape
+    is_self = kv_x is None
+    static_cross = cache is not None and not is_self
     compute = torch_dtype(cfg.dtype)
 
     def heads(t, n):
@@ -175,26 +187,37 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     xq = x.to(compute)
     q = xq @ p["wq"].to(compute)
-    k = xq @ p["wk"].to(compute)
-    v = xq @ p["wv"].to(compute)
     if cfg.qkv_bias:
         q = q + p["bq"].to(compute)
-        k = k + p["bk"].to(compute)
-        v = v + p["bv"].to(compute)
     qh = heads(q, cfg.n_heads)                    # (B, Hq, Lq, dh)
-    kh = heads(k, cfg.n_kv_heads)
-    vh = heads(v, cfg.n_kv_heads)
-    if positions is None:
-        positions = _positions(pos, b, lq, x.device)
-    qh = common.rope(qh, positions, cfg.rope_theta)
-    kh = common.rope(kh, positions, cfg.rope_theta)
+    if not static_cross:
+        xkv = xq if is_self else kv_x.to(compute)
+        k = xkv @ p["wk"].to(compute)
+        v = xkv @ p["wv"].to(compute)
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(compute)
+            v = v + p["bv"].to(compute)
+        kh = heads(k, cfg.n_kv_heads)
+        vh = heads(v, cfg.n_kv_heads)
+    if is_self:
+        if positions is None:
+            positions = _positions(pos, b, lq, x.device)
+        qh = common.rope(qh, positions, cfg.rope_theta)
+        kh = common.rope(kh, positions, cfg.rope_theta)
 
     def from_cache(c):
         return c.reshape(b, c.shape[1], cfg.n_kv_heads, cfg.head_dim
                          ).transpose(1, 2).to(compute)
 
     new_cache = None
-    if cache is not None:
+    if static_cross:
+        # read-only precomputed cross K/V (e.g. whisper's encoder
+        # output): non-causal attention over the whole cache
+        s_cache = cache["k"].shape[1]
+        out = _decode_attn(qh, from_cache(cache["k"]),
+                           from_cache(cache["v"]), pos=s_cache - 1,
+                           window=None, cache_len=s_cache)
+    elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         s_cache = ck.shape[1]
         k_flat = kh.transpose(1, 2).reshape(b, lq, cfg.kv_dim)
@@ -220,14 +243,19 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
                            window=cfg.swa_window, cache_len=s_cache)
     else:
         lkv = kh.shape[2]
-        window = cfg.swa_window
-        if qh.is_cuda:
-            out = ops.attention(qh, kh, vh, causal=causal, window=window)
+        window = cfg.swa_window if is_self else None
+        use_causal = causal and is_self
+        if qh.is_cuda and use_causal:
+            out = ops.attention(qh, kh, vh, causal=True, window=window)
+        elif qh.is_cuda:
+            out = fa.flash_attention(qh, kh, vh, causal=False,
+                                     window=window)
         elif lkv <= FULL_SCORES_MAX_LEN:
-            out = _full_scores_attn(qh, kh, vh, causal=causal,
+            out = _full_scores_attn(qh, kh, vh, causal=use_causal,
                                     window=window)
         else:
-            out = _chunked_attn(qh, kh, vh, causal=causal, window=window)
+            out = _chunked_attn(qh, kh, vh, causal=use_causal,
+                                window=window)
         if collect_kv:
             # prefill: hand rotated K / V back for the decode cache
             new_cache = {
@@ -237,3 +265,19 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     out = out.transpose(1, 2).reshape(b, lq, cfg.q_dim)
     return (out @ p["wo"].to(compute)).to(x.dtype), new_cache
+
+
+def precompute_cross_cache(p: Dict[str, torch.Tensor], enc_out: torch.Tensor,
+                           cfg: ModelConfig, dtype=torch.bfloat16) -> KV:
+    """Project the frontend's tokens (an encoder's output, image patch
+    embeddings) to K/V once, ``(B, F, kv_dim)`` in ``dtype`` (bf16
+    whatever the compute dtype, as in the reference); decode steps read
+    it statically."""
+    compute = torch_dtype(cfg.dtype)
+    xkv = enc_out.to(compute)
+    k = xkv @ p["wk"].to(compute)
+    v = xkv @ p["wv"].to(compute)
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(compute)
+        v = v + p["bv"].to(compute)
+    return {"k": k.to(dtype), "v": v.to(dtype)}

@@ -1,22 +1,36 @@
-"""Feed-forward layers: the dense SwiGLU MLP.
+"""Feed-forward layers: the dense SwiGLU MLP and the top-k MoE with
+capacity dispatch.
 
-The port of the reference's ``models/mlp.py`` dense path.  Weights are
-``(in, out)`` and stacked ``(L, ...)`` as there.  The reference casts
-its fp32 master weights to the compute dtype on every call; here
+The port of the reference's ``models/mlp.py``.  Weights are ``(in,
+out)`` and stacked ``(L, ...)`` as there; expert weights carry an
+expert axis after the layer axis, ``(L, E, in, out)``.  The reference
+casts its fp32 master weights to the compute dtype on every call; here
 ``.to(compute)`` is a no-op on weights the engines cast once
 (``transformer.compute_params``), and the values are the same.  The
-reference's explicit-collective (mesh) branches have no counterpart on
-one device; ``apply_moe`` arrives with the MoE slice.
+router stays fp32 (``compute_params`` keeps it), as the reference routes
+from the fp32 master.
+
+The MoE dispatches by index: tokens are grouped by batch row, each group
+with its own capacity, and ``_dispatch_indices`` gives every group an
+``(E, C)`` table of the choices that won a place (token order, then
+slot; the rest are dropped).  The reference ``vmap``s its per-group
+expert products; here each product is one batched product over all
+groups, ``(E, G * C, D) @ (E, D, F)``, so the expert weights are read
+once a call.  The combine gathers each token's kept contributions and
+sums them in slot order, so a token's output does not depend on the
+other groups.  The reference's explicit-collective (mesh) branches have
+no counterpart on one device.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
-from .common import stacked_dense_init
+from .common import normal, stacked_dense_init
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, n_layers: int
@@ -44,6 +58,121 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return (h @ p["wd"].to(compute)).to(x.dtype)
 
 
-def apply_moe(p, x, cfg):
-    raise NotImplementedError("the MoE family (apply_moe) arrives with the "
-                              "MoE slice")
+# ---------------------------------------------------------------------------
+# MoE (top-k, capacity-based, gather/scatter dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int
+             ) -> Dict[str, torch.Tensor]:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def expert_w(din, dout):
+        # scaled in place: an expert stack is the largest leaf there is
+        return normal(gen, (n_layers, e, din, dout)).mul_((1.0 / din) ** 0.5)
+
+    return {
+        "router": stacked_dense_init(gen, n_layers, d, e,
+                                     scale=(1.0 / d) ** 0.5),
+        "wg": expert_w(d, f),
+        "wu": expert_w(d, f),
+        "wd": expert_w(f, d),
+    }
+
+
+def capacity(cfg: ModelConfig, s: int) -> int:
+    """Expert slots per group of ``s`` tokens."""
+    return int(s * cfg.top_k / cfg.n_experts * cfg.capacity_factor + 1)
+
+
+def _dispatch(top_idx: torch.Tensor, n_experts: int, capacity: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_dispatch_indices`, plus each choice's place in its
+    expert's queue ``(..., T, K)`` (>= capacity when dropped)."""
+    *lead, t, k = top_idx.shape
+    g = top_idx.reshape(-1, t * k).long()                      # (G, T*K)
+    n = g.shape[0]
+    pos = F.one_hot(g, n_experts).cumsum(dim=1) - 1            # slot in expert
+    my_pos = pos.gather(2, g[..., None])[..., 0]
+    keep = my_pos < capacity
+    # dropped choices go to a spare row and column that are cut off, so
+    # no index depends on the data's count of drops
+    e_idx = torch.where(keep, g, torch.full_like(g, n_experts))
+    c_idx = torch.where(keep, my_pos, torch.full_like(my_pos, capacity))
+    buf = torch.full((n, n_experts + 1, capacity + 1), t * k,
+                     dtype=torch.int32, device=g.device)
+    rows = torch.arange(n, device=g.device)[:, None].expand(n, t * k)
+    ids = torch.arange(t * k, dtype=torch.int32, device=g.device)
+    buf[rows, e_idx, c_idx] = ids.expand(n, t * k)
+    return (buf[:, :n_experts, :capacity].reshape(*lead, n_experts, capacity),
+            keep.reshape(*lead, t, k), my_pos.reshape(*lead, t, k))
+
+
+def _dispatch_indices(top_idx: torch.Tensor, n_experts: int, capacity: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """top_idx: (..., T, K) expert choice per token/slot, one group per
+    leading index.
+
+    Returns (token_slot (..., E, C) int32 index into the group's T*K flat
+    choices — entries equal to T*K are empty —, keep_mask (..., T, K)
+    bool for choices that won the capacity race).  Priority: token
+    order, then slot (GShard-style)."""
+    return _dispatch(top_idx, n_experts, capacity)[:2]
+
+
+def route(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router in fp32: (logits (B, S, E), probs, gates (B, S, K)
+    renormalised over the top k, top_idx (B, S, K))."""
+    logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    gates, top_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return logits, probs, gates, top_idx
+
+
+def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out in x's dtype, aux_loss fp32 0-d).
+
+    Tokens are grouped by batch row (G = B groups of S tokens), with the
+    capacity per group; a choice that lost the capacity race contributes
+    nothing."""
+    if cfg.explicit_collectives:
+        raise NotImplementedError(
+            "explicit_collectives (explicit_tp) arrives with the mesh slice")
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    compute = torch_dtype(cfg.dtype)
+    cap = capacity(cfg, s)
+    logits, probs, gates, top_idx = route(p, x, cfg)
+
+    # aux load-balance loss (Switch-style) + router z-loss
+    me = probs.mean(dim=(0, 1))
+    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+        0, top_idx.reshape(-1),
+        torch.full((b * s * k,), 1.0 / (b * s * k), device=x.device))
+    aux = e * torch.sum(me * ce) + 1e-3 * torch.mean(
+        torch.logsumexp(logits, dim=-1) ** 2)
+
+    slots, keep, my_pos = _dispatch(top_idx, e, cap)      # (B, E, C)
+    valid = slots < s * k
+    token_of = torch.clamp(slots.long() // k, max=s - 1)
+    rows = torch.arange(b, device=x.device)[:, None, None]
+    xin = torch.where(valid[..., None], x[rows, token_of],
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    # one batched product per weight over every group: (E, B*C, D)
+    xin = xin.to(compute).transpose(0, 1).reshape(e, b * cap, d)
+    h = F.silu((xin @ p["wg"].to(compute)).to(torch.float32)).to(compute)
+    h = h * (xin @ p["wu"].to(compute))
+    out_e = (h @ p["wd"].to(compute)).reshape(e, b, cap, d)
+    # combine: each token gathers its kept choices' outputs, weighted by
+    # their gates, summed in slot order
+    c_idx = torch.clamp(my_pos, max=cap - 1)
+    contrib = (out_e[top_idx, rows, c_idx].to(torch.float32)
+               * gates[..., None])
+    contrib = torch.where(keep[..., None], contrib,
+                          torch.zeros((), device=x.device))
+    out = contrib[:, :, 0]
+    for j in range(1, k):
+        out = out + contrib[:, :, j]
+    return out.to(x.dtype), aux

@@ -1,20 +1,28 @@
-"""Model assembly and the public forward pass: the dense, SSM and
-hybrid families.
+"""Model assembly and the public forward pass for every family.
 
-The port of the reference's ``models/transformer.py`` for
+The port of the reference's ``models/transformer.py``:
 
-    dense  — decoder-only, uniform layers
-    ssm    — Mamba-2 stack (attention-free)
-    hybrid — Mamba-2 backbone + ONE shared attn+MLP block applied after
-             every ``attn_every`` layers (Zamba2-style parameter sharing),
-             each application with its own KV cache entry
+    dense / moe — decoder-only, uniform layers (moe: top-k experts in
+                  place of the MLP)
+    ssm         — Mamba-2 stack (attention-free)
+    hybrid      — Mamba-2 backbone + ONE shared attn+MLP block applied
+                  after every ``attn_every`` layers (Zamba2-style
+                  parameter sharing), each application with its own KV
+                  cache entry
+    encdec      — whisper-style: bidirectional encoder over stub frame
+                  embeddings + causal decoder with per-layer
+                  cross-attention to the encoder output
+    vlm         — llama-3.2-vision-style: causal decoder, a gated
+                  cross-attention block (to stub image embeddings)
+                  before every ``cross_attn_every`` layers
 
 and its graph-expressible layer oracle ``dense_layer_forward``.
 Parameters are nested dicts of tensors with the reference's keys;
 per-layer leaves are stacked ``(L, ...)`` and the reference's ``scan``
-over layers is a Python loop.  The other families raise
-``NotImplementedError`` naming their slice: moe (the MoE slice), encdec
-and vlm (the encdec/vlm slice).
+over layers is a Python loop.  The vlm's gated residual ``x +
+tanh(gate) * h`` is fp32 from the first cross block on, as the
+reference's is: JAX promotes the bf16 stream against the fp32 0-d gate,
+torch would not, so the port promotes explicitly.
 
 ``compute_params`` casts the fp32 master weights to the compute dtype
 once (the reference casts them on every call; the values are the same),
@@ -35,21 +43,15 @@ from ..kernels.stt_gemm import _fp32_product
 from . import attention as attn
 from . import mlp as mlp_mod
 from . import ssm as ssm_mod
-from .common import normal, ones_init, rmsnorm
+from .common import normal, ones_init, rmsnorm, zeros_init
 
 #: the families the port runs
-FAMILIES = ("dense", "ssm", "hybrid")
-#: the family each later slice brings
-LATER_FAMILIES = {"moe": "MoE", "encdec": "encdec/vlm", "vlm": "encdec/vlm"}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def require_family(cfg: ModelConfig) -> None:
-    """Raise for a family the port does not run yet, naming its slice."""
+    """Raise for a family no model here has."""
     if cfg.family not in FAMILIES:
-        if cfg.family in LATER_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family} family arrives with the "
-                f"{LATER_FAMILIES[cfg.family]} slice")
         raise ValueError(cfg.family)
 
 
@@ -69,7 +71,9 @@ def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int, int]:
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     """fp32 master parameters on the generator's device, with the
     reference's keys, shapes and initializer scales.  The hybrid's shared
-    block is unstacked (no leading layer axis), as in the reference."""
+    block is unstacked (no leading layer axis), as in the reference; the
+    vlm's cross gates start at 0, so at init the image changes no
+    logit."""
     require_family(cfg)
     d, L = cfg.d_model, cfg.n_layers
     p: Dict[str, Any] = {
@@ -78,11 +82,32 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         p["unembed"] = (1.0 / d ** 0.5) * normal(gen, (d, cfg.vocab))
-    if cfg.family == "dense":
+
+    def decoder(n, init_ffn):
+        return {"ln1": ones_init(gen, (n, d)), "ln2": ones_init(gen, (n, d)),
+                "attn": attn.init_attention(gen, cfg, n),
+                "ffn": init_ffn(gen, cfg, n)}
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        p["layers"] = decoder(L, mlp_mod.init_moe if cfg.family == "moe"
+                              else mlp_mod.init_mlp)
+        if cfg.family == "vlm":
+            n_cross = L // cfg.cross_attn_every
+            p["cross_layers"] = {
+                "ln": ones_init(gen, (n_cross, d)),
+                "attn": attn.init_attention(gen, cfg, n_cross),
+                "gate": zeros_init(gen, (n_cross,)),
+            }
+        return p
+    if cfg.family == "encdec":
+        p["encoder"] = decoder(cfg.n_enc_layers, mlp_mod.init_mlp)
+        p["enc_norm"] = ones_init(gen, (d,))
         p["layers"] = {
             "ln1": ones_init(gen, (L, d)),
             "ln2": ones_init(gen, (L, d)),
+            "ln3": ones_init(gen, (L, d)),
             "attn": attn.init_attention(gen, cfg, L),
+            "cross": attn.init_attention(gen, cfg, L),
             "ffn": mlp_mod.init_mlp(gen, cfg, L),
         }
         return p
@@ -100,12 +125,15 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
     return p
 
 
-#: leaves that stay fp32 under ``compute_params``: the norm gains and the
-#: SSM block's conv, decay, skip, dt-bias and gate-norm parameters, which
-#: the reference applies in fp32 (only ``in_proj``/``out_proj`` of an SSM
-#: block go to the compute dtype), and the prepared output projection
-_FP32_LEAVES = ("ln1", "ln2", "final_norm", "w_out", "conv_w", "conv_b",
-                "a_log", "d_skip", "dt_bias", "norm_g")
+#: leaves that stay fp32 under ``compute_params``: the norm gains, the
+#: MoE router and the vlm's cross gates (the reference routes and gates
+#: from the fp32 masters), the SSM block's conv, decay, skip, dt-bias and
+#: gate-norm parameters, which the reference applies in fp32 (only
+#: ``in_proj``/``out_proj`` of an SSM block go to the compute dtype), and
+#: the prepared output projection
+_FP32_LEAVES = ("ln1", "ln2", "ln3", "ln", "final_norm", "enc_norm",
+                "router", "gate", "w_out", "conv_w", "conv_b", "a_log",
+                "d_skip", "dt_bias", "norm_g")
 
 
 def compute_params(params: Dict[str, Any], cfg: ModelConfig
@@ -154,14 +182,51 @@ def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
 # blocks (params already unstacked)
 # ---------------------------------------------------------------------------
 
-def _dense_block(pl_, x, cfg, *, causal=True, collect_kv=False):
+def _dense_block(pl_, x, cfg, *, causal=True, cache=None, pos=None,
+                 collect_kv=False):
+    """Attention + MLP (or MoE) with pre-norms: (x, aux, kv)."""
     h, kv = attn.apply_attention(
         pl_["attn"], rmsnorm(x, pl_["ln1"], cfg.norm_eps), cfg,
-        causal=causal, collect_kv=collect_kv)
+        causal=causal, cache=cache, pos=pos, collect_kv=collect_kv)
     x = x + h
-    h = mlp_mod.apply_mlp(pl_["ffn"], rmsnorm(x, pl_["ln2"], cfg.norm_eps),
+    xn = rmsnorm(x, pl_["ln2"], cfg.norm_eps)
+    if "router" in pl_["ffn"]:
+        h, aux = mlp_mod.apply_moe(pl_["ffn"], xn, cfg)
+    else:
+        h = mlp_mod.apply_mlp(pl_["ffn"], xn, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux, kv
+
+
+def _decoder_block(pl_, x, cfg, *, enc=None, cross=None, cache=None,
+                   pos=None, collect_kv=False):
+    """An encdec decoder layer: causal self-attention, cross-attention to
+    the encoder output ``enc`` (prefill) or to its static cross cache
+    ``cross`` (decode), MLP: (x, kv)."""
+    h, kv = attn.apply_attention(
+        pl_["attn"], rmsnorm(x, pl_["ln1"], cfg.norm_eps), cfg,
+        cache=cache, pos=pos, collect_kv=collect_kv)
+    x = x + h
+    # with a static cache, kv_x only marks the block as cross-attention
+    h, _ = attn.apply_attention(
+        pl_["cross"], rmsnorm(x, pl_["ln2"], cfg.norm_eps), cfg,
+        kv_x=x if enc is None else enc, causal=False, cache=cross)
+    x = x + h
+    h = mlp_mod.apply_mlp(pl_["ffn"], rmsnorm(x, pl_["ln3"], cfg.norm_eps),
                           cfg)
-    return x + h, torch.zeros((), dtype=torch.float32, device=x.device), kv
+    return x + h, kv
+
+
+def _cross_block(cl, x, cfg, *, img=None, cross=None):
+    """A vlm gated cross-attention block to the image embeddings ``img``
+    (prefill) or to their static cross cache ``cross`` (decode).  The
+    sum takes the promoted dtype of x and the fp32 gate, as the
+    reference's does."""
+    h, _ = attn.apply_attention(
+        cl["attn"], rmsnorm(x, cl["ln"], cfg.norm_eps), cfg,
+        kv_x=x if img is None else img, causal=False, cache=cross)
+    dt = torch.promote_types(x.dtype, cl["gate"].dtype)
+    return x.to(dt) + torch.tanh(cl["gate"]).to(dt) * h.to(dt)
 
 
 def _ssm_block(pl_, x, cfg, *, cache=None, collect_cache=False):
@@ -198,42 +263,76 @@ def _stack(trees):
 # forward
 # ---------------------------------------------------------------------------
 
+def encode(params: Dict[str, Any], frontend: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """encdec: the bidirectional encoder over the stub frame embeddings
+    ``frontend`` (B, F, D), after ``enc_norm``, in the compute dtype."""
+    h = frontend.to(torch_dtype(cfg.dtype))
+    for i in range(params["encoder"]["ln1"].shape[0]):
+        h, _, _ = _dense_block(layer_params(params["encoder"], i), h, cfg,
+                               causal=False)
+    return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
-                   cfg: ModelConfig, *, collect_cache: bool = False
+                   cfg: ModelConfig, *,
+                   frontend: Optional[torch.Tensor] = None,
+                   collect_cache: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[Dict[str, Any]]]:
     """:func:`forward` up to the final norm: (hidden (B, S, D), aux_loss,
     caches|None)."""
     require_family(cfg)
+    if frontend is None and cfg.family in ("encdec", "vlm"):
+        raise ValueError(f"the {cfg.family} family needs frontend "
+                         f"embeddings (B, {cfg.frontend_tokens}, "
+                         f"{cfg.d_model})")
     compute = torch_dtype(cfg.dtype)
     x = params["embed"][tokens].to(compute)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    n_layers = params["layers"]["ln1"].shape[0]
-    if cfg.family == "dense":
+    lay = params["layers"]
+    n_layers = lay["ln1"].shape[0]
+    caches: Dict[str, Any] = {}
+    if cfg.family in ("dense", "moe", "vlm"):
+        img = None if cfg.family != "vlm" else frontend.to(compute)
         kvs = []
         for i in range(n_layers):
-            x, aux_l, kv = _dense_block(layer_params(params["layers"], i),
-                                        x, cfg, collect_kv=collect_cache)
+            if img is not None and i % cfg.cross_attn_every == 0:
+                gi = i // cfg.cross_attn_every
+                x = _cross_block(layer_params(params["cross_layers"], gi),
+                                 x, cfg, img=img)
+            x, aux_l, kv = _dense_block(layer_params(lay, i), x, cfg,
+                                        collect_kv=collect_cache)
             aux = aux + aux_l
             kvs.append(kv)
-        caches = {"self": _stack(kvs)} if collect_cache else None
-        return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux, caches
-
-    ssm_caches, shared_kv = [], []
-    for i in range(n_layers):
-        x, c = _ssm_block(layer_params(params["layers"], i), x, cfg,
-                          collect_cache=collect_cache)
-        ssm_caches.append(c)
-        if shared_after(cfg, i) is not None:
-            x, kv = _shared_block(params["shared"], x, cfg,
-                                  collect_kv=collect_cache)
-            shared_kv.append(kv)
-    caches = None
-    if collect_cache:
-        caches = {"ssm": _stack(ssm_caches)}
-        if shared_kv:
-            caches["shared"] = _stack(shared_kv)
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux, caches
+        if collect_cache:
+            caches["self"] = _stack(kvs)
+    elif cfg.family == "encdec":
+        enc = encode(params, frontend, cfg)
+        kvs = []
+        for i in range(n_layers):
+            x, kv = _decoder_block(layer_params(lay, i), x, cfg, enc=enc,
+                                   collect_kv=collect_cache)
+            kvs.append(kv)
+        if collect_cache:
+            caches["self"] = _stack(kvs)
+            caches["enc_out"] = enc
+    else:
+        ssm_caches, shared_kv = [], []
+        for i in range(n_layers):
+            x, c = _ssm_block(layer_params(lay, i), x, cfg,
+                              collect_cache=collect_cache)
+            ssm_caches.append(c)
+            if shared_after(cfg, i) is not None:
+                x, kv = _shared_block(params["shared"], x, cfg,
+                                      collect_kv=collect_cache)
+                shared_kv.append(kv)
+        if collect_cache:
+            caches["ssm"] = _stack(ssm_caches)
+            if shared_kv:
+                caches["shared"] = _stack(shared_kv)
+    return (rmsnorm(x, params["final_norm"], cfg.norm_eps), aux,
+            caches if collect_cache else None)
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
@@ -242,16 +341,15 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict[str, Any]]]:
     """tokens: (B, S) int -> (logits (B, S, V) fp32, aux_loss, caches|None).
 
-    With ``collect_cache`` the caches are, for the dense family,
-    ``{"self": {"k", "v"}}`` of rotated K / V, ``(L, B, S, kv_dim)`` each;
+    ``frontend`` feeds the stubbed modality input: encdec (B, F, D) audio
+    frames, vlm (B, F, D) image patch embeddings; the other families
+    ignore it.  With ``collect_cache`` the caches are, for the
+    attention families, ``{"self": {"k", "v"}}`` of rotated K / V, ``(L,
+    B, S, kv_dim)`` each, and for encdec also ``{"enc_out": (B, F, D)}``;
     for ssm/hybrid ``{"ssm": {"conv" (L, B, k-1, conv_dim), "state" (L,
     B, H, N, P)}}`` in fp32, and for the hybrid also ``{"shared": {"k",
-    "v"}}`` ``(n_groups, B, S, kv_dim)``.  ``frontend`` (the encdec/vlm
-    stub input) is not taken by these families."""
-    if frontend is not None:
-        raise NotImplementedError("frontend inputs arrive with the "
-                                  "encdec/vlm slice")
-    x, aux, caches = forward_hidden(params, tokens, cfg,
+    "v"}}`` ``(n_groups, B, S, kv_dim)``."""
+    x, aux, caches = forward_hidden(params, tokens, cfg, frontend=frontend,
                                     collect_cache=collect_cache)
     return logits_from_hidden(params, x, cfg), aux, caches
 

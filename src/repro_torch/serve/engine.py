@@ -48,6 +48,12 @@ def to_device(params: Dict[str, Any], device: torch.device
                 else v.to(device)) for k, v in params.items()}
 
 
+def to_frontend(frontend, device: torch.device) -> Optional[torch.Tensor]:
+    """The encdec/vlm stub input (numpy or a tensor) on ``device``."""
+    return None if frontend is None else torch.as_tensor(frontend,
+                                                         device=device)
+
+
 def sample(logits: torch.Tensor, temperature: float,
            gen: torch.Generator) -> torch.Tensor:
     """(B, V) logits -> (B, 1) int64 tokens: argmax when ``temperature``
@@ -86,10 +92,8 @@ class DecodeEngine:
         ``S0 + max_new_tokens``).  The continuous-batching slot engine
         gathers fixed-length page views, so its sequential parity oracle
         is this method with ``cache_len`` pinned to the engine's
-        ``max_context`` — same cache shape, same math."""
-        if frontend is not None:
-            raise NotImplementedError("frontend inputs arrive with the "
-                                      "encdec/vlm slice")
+        ``max_context`` — same cache shape, same math.  ``frontend`` is
+        the encdec/vlm stub input (B, F, D)."""
         scfg = self.serve_cfg
         t_new = max_new_tokens or scfg.max_new_tokens
         b, s0 = prompts.shape
@@ -100,6 +104,8 @@ class DecodeEngine:
         tokens = torch.as_tensor(np.asarray(prompts), device=self.device
                                  ).long()
         logits, cache = dec.prefill(self.params, tokens, self.cfg,
+                                    frontend=to_frontend(frontend,
+                                                         self.device),
                                     max_len=max_len)
         gen = torch.Generator(device=self.device).manual_seed(scfg.seed)
         out = []

@@ -21,12 +21,15 @@ restructures the sequence-axis caches into **pages**:
 Pools are updated **in place** (``index_copy_`` and indexed
 assignment), where the reference rebuilds them functionally.  Cache
 leaves without a sequence axis are **lane pools**: the slot index is
-their batch axis directly (the dense family has none; the SSM conv
-windows and states of the ssm and hybrid families are lanes).  Insert
-writes a slot's lane rows in place; each decode step replaces the lanes
-with ``freeze_inactive``'s selection between the step's new lanes and
-the old ones, so the decode step must hand back new lane tensors.  A
-cache with no paged leaf at all (the ssm family) keeps a 1-page
+their batch axis directly (the dense and moe families have none; the
+SSM conv windows and states of the ssm and hybrid families are lanes,
+and so are the encdec/vlm static cross K/V).  Insert writes a slot's
+lane rows in place; each decode step replaces the SSM lanes with
+``freeze_inactive``'s selection between the step's new lanes and the old
+ones, so the decode step must hand back new lane tensors for them.  The
+static cross lanes (``STATIC_PATHS``) are read-only after insert and
+stay out of that selection, which would otherwise copy them every step.
+A cache with no paged leaf at all (the ssm family) keeps a 1-page
 geometry, so the table and the step stay uniform.
 
 Bit-exactness contract: gathering a slot's pages yields exactly the
@@ -53,6 +56,9 @@ from ..kernels.ops import resolve_device
 #: ``(Lx, B, S, kv)`` leaf) and are therefore paged; everything else
 #: (minus "pos", which the slot engine owns) becomes a lane pool.
 PAGED_PATHS = (("self", "k"), ("self", "v"), ("shared", "k"), ("shared", "v"))
+#: lane leaves that only insert writes (the encdec/vlm cross K/V): the
+#: decode step reads them and hands them back unchanged
+STATIC_PATHS = (("cross", "k"), ("cross", "v"))
 
 
 def _flatten_cache(cache: Dict[str, Any]) -> Dict[Tuple[str, ...], Any]:
@@ -150,9 +156,12 @@ class PageLayout:
         """Keep inactive slots' lane state (SSM conv/state) frozen:
         decode ran on garbage lanes for those slots and its updates must
         not stick.  Returns new tensors; ``new_lanes`` must not alias
-        ``lanes``."""
+        ``lanes``.  Static lanes are kept as they are."""
         out = {}
         for path, old in lanes.items():
+            if path in STATIC_PATHS:
+                out[path] = old
+                continue
             new = new_lanes.get(path, old)
             mask = active.reshape((1, self.capacity)
                                   + (1,) * (old.dim() - 2))

@@ -19,11 +19,14 @@ kernel and writes the one new K/V row per slot back into the pools in
 place.
 
 Every step returns a :class:`ResultTokens`: tokens + validity + lengths
-packed into **one** array — one device→host copy per step.  The dense,
-ssm and hybrid families run here: the SSM conv windows and states are
-lane pools (one row per slot, fp32), frozen for idle slots after each
-step; the hybrid's shared-attention K/V are paged like the dense K/V.
-The other families raise ``NotImplementedError`` naming their slice.
+packed into **one** array — one device→host copy per step.  Every
+family runs here: the attention K/V (the hybrid's shared-attention K/V
+too) are paged; the SSM conv windows and states are lane pools (one row
+per slot, fp32), frozen for idle slots after each step; the encdec/vlm
+cross K/V are static lane pools (one row per slot, bf16), written by
+insert from the request's ``frontend`` and only read by the step.  The
+MoE groups its tokens by batch row, so each slot routes within its own
+expert capacity and idle slots take none of it.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
 from ..models import decode as dec
 from ..models.transformer import compute_params, require_family
-from .engine import ServeConfig, sample, to_device
+from .engine import ServeConfig, sample, to_device, to_frontend
 from .pages import PagedKVCache, _flatten_cache, _nest
 
 
@@ -88,7 +91,8 @@ class SlotEngine:
 
         # the leaf shapes and dtypes a prefill at max_context hands over,
         # without running one: (L, capacity, cache slots, kv_dim) in the
-        # compute dtype
+        # compute dtype, and the cross K/V's (n, capacity, frontend
+        # tokens, kv_dim) in bf16
         template = dec.init_cache(self.params, cfg, self.capacity,
                                   self.max_context,
                                   dtype=torch_dtype(cfg.dtype),
@@ -172,14 +176,12 @@ class SlotEngine:
                ) -> Optional[Tuple[int, int]]:
         """Prefill one request and land it in a free slot.
 
-        ``prompt``: (s0,) int.  Returns ``(slot, first_token)`` — the
+        ``prompt``: (s0,) int; ``frontend``: the encdec/vlm stub input,
+        (F, D) or (1, F, D).  Returns ``(slot, first_token)`` — the
         first token is sampled from the prefill logits, exactly like
         ``DecodeEngine.generate`` — or None when no slot or not enough
         free pages (the caller keeps the request queued).
         """
-        if frontend is not None:
-            raise NotImplementedError("frontend inputs arrive with the "
-                                      "encdec/vlm slice")
         s0 = int(prompt.shape[-1])
         if s0 + max_new_tokens > self.max_context:
             raise ValueError(
@@ -200,8 +202,16 @@ class SlotEngine:
             return None
         tokens = torch.as_tensor(np.asarray(prompt), device=self.device
                                  ).long()[None]
-        logits, cache_p = dec.prefill(self.params, tokens, self.cfg,
-                                      max_len=self.max_context)
+        fe = to_frontend(frontend, self.device)
+        if fe is not None and fe.dim() == 2:
+            fe = fe[None]
+        try:
+            logits, cache_p = dec.prefill(self.params, tokens, self.cfg,
+                                          frontend=fe,
+                                          max_len=self.max_context)
+        except Exception:
+            self.cache.free(slot)          # a refused request holds nothing
+            raise
         self._prefill_lens.add(s0)
         tok = int(sample(logits, self.serve_cfg.temperature, self._gen)[0, 0])
         self.cache.insert(slot, cache_p)

@@ -19,7 +19,9 @@ max|out| in fp32 (other sum order, the card's ``expf``); in bf16 within
 the plain version that rounds P to bf16 as the kernel does; the paged
 gather, a copy, exactly; the SSD scan's y and final state within 1e-4 x
 max|.| of its plain version in fp32 (other sum order and scan
-association, the card's ``expf``).
+association, the card's ``expf``).  A model's prefill and decode step on
+the card are held to the same calls on the CPU within 1e-4 x
+max|logit| (reduced configs, fp32).
 """
 import numpy as np
 import pytest
@@ -1084,6 +1086,32 @@ def test_flash_attention_reads_strided_heads(cuda):
     _attn_compare(got, fa.flash_attention(q, k, v), torch.float32)
 
 
+#: non-causal attention at ragged kv lengths: whisper's 1500 frames (12
+#: heads of 64), the vision model's 1601 patches (32 q heads over 8 kv
+#: heads of 128) and a small odd length
+RAGGED_KV = {1500: (12, 12, 64), 1601: (32, 8, 128), 37: (4, 2, 16)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("form", ["self", "cross"])
+@pytest.mark.parametrize("lkv", sorted(RAGGED_KV))
+def test_flash_attention_noncausal_ragged_kv(cuda, lkv, form, dtype):
+    """An encoder's self-attention (Lq = Lkv) and cross-attention (Lq 45
+    against Lkv): the kernel masks the kv columns past Lkv itself (no
+    block of 64 divides these lengths)."""
+    from repro_torch.kernels import flash_attention as fa
+    hq, hkv, d = RAGGED_KV[lkv]
+    lq = lkv if form == "self" else 45
+    q, k, v = _attn_inputs(1, hq, hkv, lq, lkv, d, dtype, seed=lkv)
+    fa.reset_launches()
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=False)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    _attn_compare(got, want, dtype, (q, k, v), causal=False)
+
+
 @pytest.mark.parametrize("f", [15360, 48, 7])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_paged_gather_kernel_exact(cuda, dtype, f):
@@ -1266,6 +1294,63 @@ def test_slot_engine_on_card_ssm_families(cuda, arch):
     _slot_engine_on_card(arch, cuda)
 
 
+#: the families that route to experts or take a frontend
+NEW_FAMILIES = ["mixtral-8x22b", "whisper-small", "llama-3.2-vision-11b"]
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_slot_engine_on_card_new_families(cuda, arch):
+    _slot_engine_on_card(arch, cuda)
+
+
+def _family_setup(arch):
+    """Reduced config, fp32 params drawn on the CPU (vlm gates opened to
+    0.5), and a (2, F, D) frontend or None."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch).reduced()
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    if cfg.family == "vlm":
+        params["cross_layers"]["gate"].fill_(0.5)
+    fe = None
+    if cfg.frontend_tokens:
+        fe = 0.1 * torch.randn((2, cfg.frontend_tokens, cfg.d_model),
+                               generator=torch.Generator().manual_seed(1))
+    return cfg, params, fe
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_family_prefill_and_decode_step_on_card_match_cpu(cuda, arch):
+    """One prefill (flash attention on the card: causal self-attention,
+    and for whisper its non-causal encoder and cross-attention) and one
+    decode step, within 1e-4 x max|logit| of the same calls on the CPU;
+    the cross caches within one bf16 unit in the last place."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import decode
+    from repro_torch.serve.engine import to_device
+    cfg, params, fe = _family_setup(arch)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 13)))
+    runs = {}
+    fa.reset_launches()
+    for dev in ("cpu", cuda):
+        p = to_device(params, torch.device(dev))
+        f = None if fe is None else fe.to(dev)
+        logits, cache = decode.prefill(p, toks.to(dev), cfg, frontend=f,
+                                       max_len=24)
+        step, cache = decode.decode_step(p, toks[:, -1:].to(dev), cache, cfg)
+        runs[str(dev)] = (logits.cpu(), step.cpu(),
+                          {k: v.cpu() for k, v in cache.get("cross",
+                                                            {}).items()})
+    assert fa.launches["flash_attention"] > 0
+    (lc, sc, xc), (lg, sg, xg) = runs["cpu"], runs["cuda"]
+    for got, want in ((lg, lc), (sg, sc)):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    for leaf in xc:
+        torch.testing.assert_close(xg[leaf].float(), xc[leaf].float(),
+                                   rtol=2.0 ** -7, atol=1e-6)
+
+
 def _slot_engine_on_card(arch, cuda):
     """Continuous tokens equal each request served alone, and the path
     launched the kernels the family runs."""
@@ -1280,29 +1365,39 @@ def _slot_engine_on_card(arch, cuda):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, (s,)).astype(np.int32)
                for s, _ in reqs]
+    if cfg.family == "vlm":
+        params["cross_layers"]["gate"].fill_(0.5)
+    fes = [None] * len(reqs)
+    if cfg.frontend_tokens:
+        fes = [(0.1 * rng.standard_normal((cfg.frontend_tokens,
+                                           cfg.d_model))).astype(np.float32)
+               for _ in reqs]
     eng = SlotEngine(params, cfg, capacity=3, max_context=32, page_size=8,
                      total_pages=8)
     fa.reset_launches()
     paged.reset_launches()
     ssd_scan.reset_launches()
-    got = _drive(eng, prompts, reqs)
+    got = _drive(eng, prompts, reqs, fes)
     attention = cfg.family != "ssm"
     assert (fa.launches["flash_attention"] > 0) == attention
     assert (paged.launches["paged_gather"] > 0) == attention
-    assert (ssd_scan.launches["ssd_scan"] > 0) == (cfg.family != "dense")
+    assert (ssd_scan.launches["ssd_scan"] > 0) == (
+        cfg.family in ("ssm", "hybrid"))
     for i, (p, (_, t)) in enumerate(zip(prompts, reqs)):
-        alone = _drive(eng, [p], [(len(p), t)])[0]
+        alone = _drive(eng, [p], [(len(p), t)], fes[i:i + 1])[0]
         np.testing.assert_array_equal(got[i], alone)
     assert eng.decode_compiles == 1
 
 
-def _drive(eng, prompts, reqs):
+def _drive(eng, prompts, reqs, frontends=None):
     """Queue -> insert/step/evict until every request finished."""
+    frontends = frontends or [None] * len(reqs)
     got, queue, resident, left = {}, list(range(len(reqs))), {}, {}
     while queue or resident:
         while queue and eng.free_slots():
             i = queue[0]
-            res = eng.insert(prompts[i], max_new_tokens=reqs[i][1])
+            res = eng.insert(prompts[i], max_new_tokens=reqs[i][1],
+                             frontend=frontends[i])
             if res is None:
                 break
             queue.pop(0)

@@ -364,18 +364,20 @@ def test_make_kv_cache_rolling_and_linear():
 
 
 def test_cross_attention_and_mesh_branches_raise():
+    """Cross-attention runs (``tests/test_torch_cross.py``); its
+    explicit-collective (mesh) branch raises with the others."""
     cfg, tcfg, pj, pt = _layer_attn("granite-8b")
     x = t(randn(1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="encdec/vlm"):
-        attention.apply_attention(pt, x, tcfg, kv_x=x)
     import dataclasses
     etp = dataclasses.replace(tcfg, explicit_collectives=True)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        attention.apply_attention(pt, x, etp, kv_x=x)
     with pytest.raises(NotImplementedError, match="mesh"):
         attention.apply_attention(pt, x, etp)
     with pytest.raises(NotImplementedError, match="mesh"):
         mlp.apply_mlp({}, x, etp)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        mlp.apply_moe({}, x, tcfg)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        mlp.apply_moe({}, x, etp)
 
 
 # ---------------------------------------------------------------------------
@@ -497,14 +499,15 @@ def test_compute_params_casts_once_and_keeps_norms():
     assert torch.equal(la, lb)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-small",
-                                  "llama-3.2-vision-11b"])
-def test_other_families_raise_naming_their_slice(arch):
-    tcfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="slice"):
+def test_unknown_family_raises():
+    import dataclasses
+    tcfg = dataclasses.replace(get_config("granite-8b").reduced(),
+                               family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
         transformer.init_params(torch.Generator(), tcfg)
-    with pytest.raises(NotImplementedError, match="slice"):
-        transformer.forward({}, torch.zeros((1, 2), dtype=torch.long), tcfg)
+    with pytest.raises(ValueError, match="rnn"):
+        transformer.forward({"embed": torch.zeros((4, 2))},
+                            torch.zeros((1, 2), dtype=torch.long), tcfg)
 
 
 def test_params_from_reference_copies_leaves():

@@ -6,8 +6,11 @@ The port's own copies of the reference's ``tests/test_serve.py`` cases
 ``device="cpu"``, where the paged gather runs its plain version; plus
 greedy ``DecodeEngine.generate`` held token for token to the reference
 engine on the same parameters (``convert.params_from_reference``).
-Reduced configs (``.reduced()``: 2 layers (the hybrid 4), d=64,
-head_dim 16, SWA 16, SSM state 16).
+Reduced configs (``.reduced()``: 2 layers (the hybrid and the vlm 4),
+d=64, head_dim 16, SWA 16, SSM state 16, 4 experts, 16 frontend tokens);
+the moe, encdec and vlm families are also served through the slot
+engine and the server, each request with its own frontend array, and
+their tokens held to the reference's ``DecodeEngine``.
 """
 import threading
 
@@ -35,15 +38,34 @@ from repro_torch.serve.slots import ResultTokens  # noqa: E402
 
 CPU = "cpu"
 _PARAMS = {}
+#: the families that route to experts or take a frontend
+FAMILY_ARCHS = ["mixtral-8x22b", "whisper-small", "llama-3.2-vision-11b"]
 
 
 def setup_arch(arch):
-    """(port cfg, port fp32 params drawn from a seed)."""
+    """(port cfg, port fp32 params drawn from a seed; vlm gates opened to
+    0.5, so the image matters)."""
     if arch not in _PARAMS:
         cfg = get_config(arch).reduced()
-        _PARAMS[arch] = (cfg, init_params(torch.Generator().manual_seed(0),
-                                          cfg))
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        if cfg.family == "vlm":
+            params["cross_layers"]["gate"].fill_(0.5)
+        _PARAMS[arch] = (cfg, params)
     return _PARAMS[arch]
+
+
+def make_frontends(cfg, n, seed=0):
+    """One (F, D) frontend array a request (None where the family takes
+    none)."""
+    if not cfg.frontend_tokens:
+        return [None] * n
+    rng = np.random.default_rng(seed + 100)
+    return [(0.1 * rng.standard_normal((cfg.frontend_tokens, cfg.d_model))
+             ).astype(np.float32) for _ in range(n)]
+
+
+def batch_frontend(fe):
+    return None if fe is None else fe[None]
 
 
 def make_prompts(cfg, reqs, seed=0):
@@ -173,18 +195,30 @@ def test_mesh_placement_arrives_with_the_mesh_slice():
 # decode engine: the reference's tokens, per-instance config
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["granite-8b", "h2o-danube-1.8b"])
-def test_decode_engine_greedy_tokens_equal_reference(arch):
+def ref_params(arch):
+    """(reference cfg, its params as numpy, vlm gates opened to 0.5)."""
     cfg = ref_config(arch).reduced()
     jp = jax.tree.map(np.asarray, split(
         ref_init_params(jax.random.PRNGKey(0), cfg))[0])
+    if cfg.family == "vlm":
+        jp["cross_layers"]["gate"] = np.full_like(jp["cross_layers"]["gate"],
+                                                  0.5)
+    return cfg, jp
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "h2o-danube-1.8b"]
+                         + FAMILY_ARCHS)
+def test_decode_engine_greedy_tokens_equal_reference(arch):
+    cfg, jp = ref_params(arch)
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 12)).astype(np.int32)
-    want, wstats = RefDecodeEngine(jp, cfg).generate(prompts,
+    fe = (None if not cfg.frontend_tokens else
+          np.stack(make_frontends(cfg, 2, seed=1)))
+    want, wstats = RefDecodeEngine(jp, cfg).generate(prompts, frontend=fe,
                                                      max_new_tokens=10)
     eng = DecodeEngine(params_from_reference(jp, device=CPU),
                        get_config(arch).reduced(), device=CPU)
-    got, stats = eng.generate(prompts, max_new_tokens=10)
+    got, stats = eng.generate(prompts, frontend=fe, max_new_tokens=10)
     np.testing.assert_array_equal(got, want)
     assert stats == wstats
 
@@ -231,16 +265,18 @@ PARITY_ARCHS = ["granite-8b", "h2o-danube-1.8b", "mamba2-370m",
 REQS = [(8, 6), (12, 4), (5, 8), (9, 3), (11, 6)]
 
 
-def drive_continuous(eng, prompts, reqs):
+def drive_continuous(eng, prompts, reqs, frontends=None):
     """Queue -> insert/step/evict until every request finished; returns
     per-request token lists."""
+    frontends = frontends or [None] * len(reqs)
     got = {}
     queue = list(range(len(reqs)))
     resident, left = {}, {}
     while queue or resident:
         while queue and eng.free_slots():
             i = queue[0]
-            res = eng.insert(prompts[i], max_new_tokens=reqs[i][1])
+            res = eng.insert(prompts[i], max_new_tokens=reqs[i][1],
+                             frontend=frontends[i])
             if res is None:
                 break
             queue.pop(0)
@@ -264,16 +300,18 @@ def drive_continuous(eng, prompts, reqs):
     return [np.asarray(got[i], np.int32) for i in range(len(reqs))]
 
 
-@pytest.mark.parametrize("arch", PARITY_ARCHS)
+@pytest.mark.parametrize("arch", PARITY_ARCHS + FAMILY_ARCHS)
 def test_slot_engine_bit_parity(arch):
     cfg, params = setup_arch(arch)
     base = DecodeEngine(params, cfg, device=CPU)
     eng = SlotEngine(params, cfg, capacity=3, max_context=32, page_size=8,
                      device=CPU)
     prompts = make_prompts(cfg, REQS)
-    want = [base.generate(p[None], max_new_tokens=t, cache_len=32)[0][0]
-            for p, (_, t) in zip(prompts, REQS)]
-    got = drive_continuous(eng, prompts, REQS)
+    fes = make_frontends(cfg, len(REQS))
+    want = [base.generate(p[None], frontend=batch_frontend(fe),
+                          max_new_tokens=t, cache_len=32)[0][0]
+            for p, fe, (_, t) in zip(prompts, fes, REQS)]
+    got = drive_continuous(eng, prompts, REQS, fes)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     # the continuous-batching contract: insert/evict never rebuilt the step
@@ -329,8 +367,12 @@ def test_slot_engine_pool_exhaustion_returns_none():
 
 
 def test_slot_engine_other_families_raise():
-    cfg = get_config("mixtral-8x22b").reduced()
-    with pytest.raises(NotImplementedError, match="MoE"):
+    """Every registry family serves (the cases below); a family no model
+    has is refused when the engine is built."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(),
+                              family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
         SlotEngine({}, cfg, device=CPU)
 
 
@@ -445,6 +487,64 @@ def test_server_serves_the_ssm_families(arch):
     for fut, w in zip(futures, want):
         np.testing.assert_array_equal(fut.result(timeout=5), w)
     assert eng.decode_compiles == 1
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_server_serves_the_new_families_with_the_reference_tokens(arch):
+    """Two client threads through the server, each request with its own
+    frontend: every request's tokens equal the reference
+    ``DecodeEngine``'s at the engine's context budget (the port's
+    ``DecodeEngine`` is held to the same in ``test_slot_engine_bit_parity``),
+    and the cross lanes are never copied by a step."""
+    cfg, jp = ref_params(arch)
+    reqs = [(8, 5), (11, 3), (6, 6), (9, 4)]
+    prompts = make_prompts(cfg, reqs, seed=4)
+    fes = make_frontends(cfg, len(reqs), seed=4)
+    ref_eng = RefDecodeEngine(jp, cfg)
+    want = [ref_eng.generate(p[None], frontend=batch_frontend(fe),
+                             max_new_tokens=t, cache_len=32)[0][0]
+            for p, fe, (_, t) in zip(prompts, fes, reqs)]
+    eng = SlotEngine(params_from_reference(jp, device=CPU),
+                     get_config(arch).reduced(), capacity=2, max_context=32,
+                     page_size=8, device=CPU)
+    static = {p: eng.cache.lanes[p] for p in eng.cache.lanes
+              if p[0] == "cross"}
+    assert len(static) == (0 if cfg.family == "moe" else 2)
+    futures = [None] * len(reqs)
+    with ContinuousServer(eng) as server:
+        def client(ids):
+            for i in ids:
+                futures[i] = server.submit(prompts[i],
+                                           max_new_tokens=reqs[i][1],
+                                           frontend=fes[i])
+        threads = [threading.Thread(target=client, args=(range(k, 4, 2),))
+                   for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        server.drain(timeout=300)
+    for fut, w in zip(futures, want):
+        np.testing.assert_array_equal(fut.result(timeout=5), w)
+    assert eng.decode_compiles == 1
+    for path, lane in static.items():
+        assert eng.cache.lanes[path] is lane
+        assert lane.dtype == torch.bfloat16 and lane.shape[2] == 16
+
+
+def test_encdec_insert_without_frontend_fails_the_request():
+    cfg, params = setup_arch("whisper-small")
+    eng = SlotEngine(params, cfg, capacity=2, max_context=16, page_size=8,
+                     device=CPU)
+    with ContinuousServer(eng) as server:
+        fut = server.submit(np.arange(4, dtype=np.int32), max_new_tokens=2)
+        with pytest.raises(ValueError, match="frontend"):
+            fut.result(timeout=300)
+        # the refused request gave its pages back: a good one is served
+        ok = server.submit(np.arange(4, dtype=np.int32), max_new_tokens=2,
+                           frontend=make_frontends(cfg, 1)[0])
+        assert ok.result(timeout=300).shape == (2,)
+    assert eng.cache.free_pages == eng.cache.layout.total_pages
 
 
 def test_server_waits_on_the_free_list():
