@@ -149,11 +149,40 @@ each of which fails the run (non-zero exit) when it fails:
    the dropped share of the longest prefill, and the expert products of
    a decode step beside their bound.  Peak and held device memory,
    step, prefill and flash times, and one traced decode step and
-   prefill per model are reported.
+   prefill per model are reported;
+14. training h2o-danube-1.8b (``TRAIN_MODEL``), fp32 masters and AdamW
+   moments, bf16 compute, remat: (a) the flash backward kernels
+   (``flash_bwd_prep_kernel``, then dK/dV and dQ: ``flash_bwd_dkdv_mma_
+   kernel`` and ``flash_bwd_dq_mma_kernel`` in bf16, ``flash_bwd_dkdv_
+   kernel`` and ``flash_bwd_dq_kernel`` in fp32) against
+   ``flash_attention_backward_plain`` at
+   ``FLASH_BWD_CASES`` (danube's training shape, a window that hides
+   whole kv blocks, whisper's ragged cross shape) in bf16 and fp32, dQ,
+   dK and dV within ``FLASH_BWD_TOL`` x max|.|, a second call the same
+   bits, a planted fault (dK's first kv block dropped) beyond the limit,
+   times beside the bound (2.5x the forward's flops), the plain version
+   and SDPA's forward + backward; (b) ``trainer.make_train_step`` at
+   all 24 layers, ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x
+   ``TRAIN_SEQ`` synthetic tokens (``DataConfig(seed=0)``; AdamW from
+   ``opt_config_for`` at peak lr ``TRAIN_LR``, 2 warmup steps), the flash
+   launch counts zeroed before and read after (both above 0), every loss
+   finite, the last below the first, every parameter leaf's step-1
+   gradient norm above 0; step time, tokens per second, model FLOPs
+   utilisation, peak memory and one traced step; (c) ``TrainDriver`` at
+   ``DRIVER_LAYERS`` layers (full width) under ``run_with_restarts``,
+   checkpoints every 4 steps in a temp directory (deleted after), a
+   failure at step 6: the resumed run's losses of steps 5-8 within 1e-3
+   x |loss| of an uninterrupted run's (the embedding's index-add
+   backward sums with atomics); (d) one step of that model with the
+   flash kernels against the same step with autograd through the plain
+   version that rounds P as the kernel does: loss and every gradient
+   within 2e-2 x max|.|.  Row 8 of the kernels line gains the backward's
+   entry and the training forward launches.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
-and flash shapes too),
+and flash shapes too, row 8 the training phase's launches and the flash
+backward's entry under ``backward``),
 and, last, ``{"ok": true, "device": {...}}``.  Per-case times go to
 ``results/chip_smoke/chip_smoke_cases.json`` (gitignored), each with one
 more call traced by ``torch.profiler``: the device time of the port's
@@ -219,10 +248,14 @@ GRAPH_BUDGET = 512 << 20
 #: the port's kernels, by the names the profiler reports
 SSD_KERNELS = ("ssd_chunk_state_kernel<", "ssd_state_pass_kernel",
                "ssd_chunk_scan_kernel<")
+FLASH_BWD_KERNELS = ("flash_bwd_prep_kernel<", "flash_bwd_dkdv_kernel<",
+                     "flash_bwd_dq_kernel<", "flash_bwd_dkdv_mma_kernel<",
+                     "flash_bwd_dq_mma_kernel<")
 OUR_KERNELS = ("stt_tile_kernel<", "os_stream_kernel<", "rt_tree_kernel<",
                "os_inplace_kernel<", "ws_kernel<", "ws_tile_kernel<",
                "bsr_tile_kernel<", "stages_kernel<", "gather_kernel<",
-               "flash_kernel<", "flash_mma_kernel<") + SSD_KERNELS
+               "flash_kernel<", "flash_mma_kernel<") + SSD_KERNELS + \
+    FLASH_BWD_KERNELS
 #: the serve phase: model, slot engine, traffic
 SERVE_MODEL = "h2o-danube-1.8b"
 SERVE_ENGINE = dict(capacity=8, max_context=2048, page_size=16,
@@ -252,6 +285,33 @@ SSM_SERVE = (
     ("mamba2-370m", 48, 8, 1, dict(capacity=8, max_context=2048,
                                    page_size=16)),
 )
+
+
+#: the training phase: the model (all of its layers, bf16 compute over
+#: fp32 masters and AdamW moments), batch x sequence of synthetic tokens
+#: (``DataConfig(seed=0)``), steps; the driver cell's depth at full width
+TRAIN_MODEL = "h2o-danube-1.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 8
+#: peak learning rate (2 warmup steps, cosine over 8): from random
+#: weights at full width, 1e-3 left the loss within batch noise of its
+#: start after 8 steps and 3e-3 diverged (H100 run, 700 W)
+TRAIN_LR = 5e-4
+DRIVER_LAYERS = 2
+#: the flash backward's checks: (label, B, Hq, Hkv, Lq, Lkv, D, causal,
+#: window).  The first is the danube training shape (window 4096 over 2048
+#: tokens: causal only); the second's 256-token window hides whole kv
+#: blocks from later q blocks; the third is whisper's ragged cross shape
+FLASH_BWD_CASES = (
+    ("danube training", TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 80, True,
+     4096),
+    ("window 256", 1, 32, 8, 1024, 1024, 80, True, 256),
+    ("ragged cross", 1, 12, 12, 57, 1500, 64, False, None),
+)
+#: the flash backward's tolerance against its plain version, x max|.|:
+#: bf16 the reference's bf16 tolerance (the kernels round P and dS to bf16
+#: for the tensor cores, the plain version keeps them fp32), fp32 other
+#: sum orders and the card's ``exp2f``
+FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def check(cond: bool, what: str) -> None:
@@ -546,7 +606,9 @@ def serve_phase(check):
     flash_attention.reset_launches()
     paged.reset_launches()
     served, serve_s, stats, occupancy = run_server(eng, prompts, news, check)
-    launches = {**paged.launches, **flash_attention.launches}
+    # serving runs the forward only: the backward's count stays 0
+    launches = {**paged.launches,
+                "flash_attention": flash_attention.launches["flash_attention"]}
     for name, count in launches.items():
         check(count > 0, f"the serve path never launched {name}")
     n_tokens = int(news.sum())
@@ -902,8 +964,9 @@ def ssm_serve_phase(check):
         paged.reset_launches()
         served, serve_s, stats, occupancy = run_server(eng, prompts, news,
                                                        check)
-        launches = {**ssd_scan.launches, **flash_attention.launches,
-                    **paged.launches}
+        launches = {**ssd_scan.launches, **paged.launches,
+                    "flash_attention":
+                    flash_attention.launches["flash_attention"]}
         must = (launches if hybrid else ssd_scan.launches)
         for name, count in must.items():
             check(count > 0, f"the {model} serve path never launched {name}")
@@ -1128,7 +1191,8 @@ def family_serve_phase(check):
         paged.reset_launches()
         served, serve_s, stats, occupancy = run_server(eng, prompts, news,
                                                        check, fes)
-        launches = {**paged.launches, **flash_attention.launches}
+        launches = {**paged.launches, "flash_attention":
+                    flash_attention.launches["flash_attention"]}
         for name, count in launches.items():
             check(count > 0, f"the {model} serve path never launched {name}")
             total[name] += count
@@ -1444,6 +1508,334 @@ def bsr_pattern(k):
 def bsr_operands(k, lhs, rhs):
     """``(S, D)`` of :func:`bsr_pattern` from ``k``'s prepared operands."""
     return (lhs, rhs) if k.sparse.side == "lhs" else (rhs.T, lhs.T)
+
+
+def visible_pairs(lq, lkv, causal, window):
+    """The (q row, kv column) pairs the mask lets through."""
+    import numpy as np
+    rows = np.arange(lq)
+    hi = np.minimum(lkv, rows + 1) if causal else np.full(lq, lkv)
+    lo = np.maximum(0, rows - window + 1) if window else np.zeros(lq, int)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def flash_backward_check(case, dtype, g, check):
+    """Check (a): the flash backward kernels against
+    ``flash_attention_backward_plain`` on the kernel forward's output and
+    log-sum-exp, with random dO: dQ, dK and dV within ``FLASH_BWD_TOL`` x
+    max|.|, a second call the same bits, and a planted fault (dK with its
+    first kv block dropped, the block most q rows see) beyond the limit.
+    Times: the backward, its plain version, and at the danube shape SDPA's
+    forward + backward as the library yardstick; the bound counts 2.5x
+    the forward's 4 D flops a visible pair and q head."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import hopper
+    from repro_torch.kernels import flash_attention as fa
+
+    label, b, hq, hkv, lq, lkv, d, causal, window = case
+    name = str(dtype)[6:]
+    dev = torch.device("cuda")
+    q, k, v, dout = [torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, hq, lq, d), (b, hkv, lkv, d),
+                                   (b, hkv, lkv, d), (b, hq, lq, d))]
+    out, lse = fa._forward(q, k, v, causal, window, with_lse=True)
+
+    def run():
+        return fa.flash_attention_backward(q, k, v, out, dout, lse,
+                                           causal=causal, window=window)
+
+    def plain():
+        return fa.flash_attention_backward_plain(
+            q, k, v, out, dout, lse, causal=causal, window=window)
+    got, want = run(), plain()
+    tol = FLASH_BWD_TOL[name]
+    errs = {}
+    for what, x, w in zip(("dq", "dk", "dv"), got, want):
+        scale = w.float().abs().max().item()
+        err = (x.float() - w.float()).abs().max().item()
+        check(bool(torch.isfinite(x.float()).all()) and err <= tol * scale,
+              f"flash backward {label} {name}: {what} max err {err} beyond "
+              f"{tol} x {scale}")
+        errs[what] = err / scale
+    again = run()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"flash backward {label} {name}: two calls differ")
+    fault = want[1].clone()
+    fault[:, :, :64] = 0
+    fault_err = ((fault.float() - want[1].float()).abs().max().item()
+                 / want[1].float().abs().max().item())
+    check(fault_err > tol, f"flash backward {label} {name}: a dropped kv "
+          f"block reads {fault_err}, inside the tolerance {tol}")
+    pairs = visible_pairs(lq, lkv, causal, window)
+    nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+              + 4.0 * lse.numel())
+    roof = hopper.RooflineTerms(f"flash backward {label}",
+                                2.5 * 4.0 * d * b * hq * pairs, nbytes,
+                                dtype=name)
+    row = {"case": label, "dtype": name, "rel_err": errs,
+           "max_abs_err": max((x.float() - w.float()).abs().max().item()
+                              for x, w in zip(got, want)),
+           "fault_rel_err": fault_err, "ms": event_ms(run, 3),
+           "plain_ms": event_ms(plain, 1), "bound_ms": roof.bound_s * 1e3,
+           "bound_by": roof.bound_by, "library_ms": None,
+           "shape": f"q ({b}, {hq}, {lq}, {d}), k/v ({b}, {hkv}, {lkv}, "
+                    f"{d}) {name}, {'causal' if causal else 'non-causal'}"
+                    f"{'' if window is None else f', window {window}'}"}
+    if label == "danube training":
+        qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                               enable_gqa=hq != hkv)
+            torch.autograd.grad(o, (qs, ks, vs), dout)
+        row["library_ms"] = event_ms(sdpa, 3)
+    del q, k, v, dout, out, lse, got, want, again, fault
+    torch.cuda.empty_cache()
+    print(f"train checks: (a) flash backward {row['shape']}: rel errors "
+          f"{ {k: f'{e:.2e}' for k, e in errs.items()} }, fault "
+          f"{fault_err:.3f}, {row['ms']:.3f} ms (bound {row['bound_ms']:.4f}"
+          f" {row['bound_by']}, plain {row['plain_ms']:.3f}, SDPA fwd+bwd "
+          f"{row['library_ms']})")
+    return row
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def train_phase(check):
+    """Phase 14: training h2o-danube-1.8b on the card.  (a) the flash
+    backward kernels at ``FLASH_BWD_CASES``; (b) ``make_train_step`` at
+    full width and depth, ``TRAIN_STEPS`` steps of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` synthetic tokens, with the flash launch counts zeroed
+    before and read after; (c) ``TrainDriver`` at ``DRIVER_LAYERS`` layers
+    under ``run_with_restarts`` with a failure injected at step 6 and
+    checkpoints every 4 steps, against an uninterrupted run; (d) one step
+    of the same 2-layer model with the flash kernels against the same
+    step with the plain attention.  Returns (the backward's kernels-line
+    entry, the forward's launches in (b), summary)."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, _batch_numpy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.specs import opt_config_for
+    from repro_torch.models import init_params
+    from repro_torch.runtime.driver import (RunConfig, TrainDriver,
+                                            run_with_restarts)
+    from repro_torch.train import trainer
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {}
+
+    # (a) the backward kernels against their plain version
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = [flash_backward_check(case, dtype, g, check)
+            for case in FLASH_BWD_CASES
+            for dtype in (torch.bfloat16, torch.float32)]
+    summary["flash_backward"] = rows
+
+    # (b) the full-depth trainer
+    cfg = get_config(TRAIN_MODEL)
+    check(cfg.remat and cfg.dtype == "bfloat16",
+          f"{TRAIN_MODEL}: expected remat and bf16 compute")
+    opt_cfg = dataclasses.replace(opt_config_for(cfg), lr=TRAIN_LR,
+                                  warmup_steps=2, total_steps=TRAIN_STEPS)
+    print(f"train: {cfg.name}, {cfg.n_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}; {opt_cfg}")
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+
+    def batch(i):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in _batch_numpy(data, i).items()}
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                               cfg, opt_cfg)
+    step = trainer.make_train_step(cfg, opt_cfg)
+    grad_norms = {}
+    real_update = trainer.adamw.apply_updates
+
+    def recording_update(params, grads, st, oc):
+        if not grad_norms:          # step 1's gradients, leaf by leaf
+            grad_norms.update({p: x.float().norm().item()
+                               for p, x in _leaves(grads)})
+        return real_update(params, grads, st, oc)
+    trainer.adamw.apply_updates = recording_update
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, step_ms, gnorms = [], [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            b = batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+    finally:
+        trainer.adamw.apply_updates = real_update
+    train_launches = dict(fa.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"train: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
+    zero = sorted(p for p, n in grad_norms.items() if not n > 0)
+    check(len(grad_norms) > 0 and not zero,
+          f"train: leaves without a gradient after step 1: {zero}")
+    for name, count in train_launches.items():
+        check(count > 0, f"the training phase never launched {name}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.swa_window)
+    attn_flops = 3 * 4.0 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH * pairs \
+        * cfg.n_layers
+    model_flops = 6.0 * cfg.param_count() * tokens + attn_flops
+    steady = float(np.median(step_ms[1:]))
+    mfu = model_flops / (steady / 1e3) / 989e12
+    prof = device_breakdown(lambda: step(state, batch(TRAIN_STEPS)), top=12)
+    summary["trainer"] = {
+        "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+        "steady_step_ms": steady,
+        "tokens_per_s": tokens / (steady / 1e3), "mfu": mfu,
+        "model_tflop": model_flops / 1e12, "peak_gb": peak_gb,
+        "launches": train_launches, "grad_leaves": len(grad_norms),
+        "traced_step": prof}
+    print(f"train: losses {[round(x, 4) for x in losses]}; grad norms "
+          f"{[round(x, 3) for x in gnorms]}; step ms "
+          f"{[round(x, 1) for x in step_ms]}; median {steady:.1f} ms, "
+          f"{tokens / (steady / 1e3):.0f} tokens/s, MFU {mfu:.3f} "
+          f"({model_flops / 1e12:.1f} TFLOP a step, 989 TFLOP/s); peak "
+          f"{peak_gb:.1f} GB; launches {train_launches}; "
+          f"{len(grad_norms)} leaves with a gradient")
+    if prof["device_ms"] is None:
+        print("  traced step: no device events")
+    else:
+        print(f"  traced step: call {prof['call_ms']:.1f} ms, device "
+              f"{prof['device_ms']:.1f} ms, busy {prof['busy_share']:.2f}")
+        for kr in prof["kernels"]:
+            print(f"    {kr['ms']:8.3f} ms x{kr['count']:<5d} "
+                  f"{kr['name'][:100]}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the driver: a failure at step 6, checkpoints every 4
+    small = dataclasses.replace(cfg, n_layers=DRIVER_LAYERS)
+    small_opt = dataclasses.replace(opt_cfg, total_steps=8)
+    runs = {}
+    for label, fail in (("uninterrupted", None), ("failure at 6", 6)):
+        root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        made = []
+
+        def make():
+            made.append(1)
+            return TrainDriver(
+                small, small_opt, data,
+                RunConfig(total_steps=8, ckpt_every=4, log_every=1,
+                          ckpt_dir=root, keep_ckpts=1),
+                failure_at=fail if len(made) == 1 else None)
+        t0 = time.perf_counter()
+        try:
+            out = run_with_restarts(make, max_restarts=1)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        out["s"] = time.perf_counter() - t0
+        runs[label] = out
+        gc.collect()
+        torch.cuda.empty_cache()
+    whole, resumed = runs["uninterrupted"], runs["failure at 6"]
+    check(resumed["restarts"] == 1 and resumed["final_step"] == 8,
+          f"driver: restarts {resumed['restarts']}, final step "
+          f"{resumed['final_step']}")
+    lw = {m["step"]: m["loss"] for m in whole["metrics"]}
+    # the restarted driver's log: steps 5..8, from the step-4 checkpoint
+    lr_ = {m["step"]: m["loss"] for m in resumed["metrics"]}
+    check(sorted(lr_) == [5, 6, 7, 8], f"driver: resumed steps {sorted(lr_)}")
+    diffs = {s: abs(lr_[s] - lw[s]) / abs(lw[s]) for s in lr_}
+    check(max(diffs.values()) <= 1e-3,
+          f"driver: resumed losses {lr_} against {lw}")
+    summary["driver"] = {
+        "uninterrupted": lw, "resumed": lr_, "rel_diffs": diffs,
+        "bit_identical": all(lr_[s] == lw[s] for s in lr_),
+        "seconds": {k: r["s"] for k, r in runs.items()}}
+    print(f"train checks: (c) driver at {DRIVER_LAYERS} layers resumed from "
+          f"step 4 after a failure at 6: losses {lr_} against {lw}, "
+          f"largest rel diff {max(diffs.values()):.2e}, bit-identical "
+          f"{summary['driver']['bit_identical']}; "
+          f"{ {k: round(r['s'], 1) for k, r in runs.items()} } s")
+
+    # (d) the flash kernels against the plain attention, one step
+    params = init_params(torch.Generator(device=dev).manual_seed(1), small)
+    b = {k: v[:2] for k, v in batch(0).items()}
+    fa.reset_launches()
+    loss_k, _, grads_k = trainer.value_and_grad(params, b, small)
+    kernel_launches = dict(fa.launches)
+    real_flash = fa.flash_attention
+
+    def plain_attention(q, k, v, *, causal=True, window=None):
+        # the kernels' stated arithmetic (P rounded to bf16 before P V),
+        # differentiated by autograd
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, round_p=True)
+    fa.flash_attention = plain_attention
+    try:
+        fa.reset_launches()
+        loss_p, _, grads_p = trainer.value_and_grad(params, b, small)
+        plain_launches = dict(fa.launches)
+    finally:
+        fa.flash_attention = real_flash
+    check(all(n > 0 for n in kernel_launches.values()) and
+          not any(plain_launches.values()),
+          f"(d): launches {kernel_launches} (kernels), {plain_launches} "
+          f"(plain)")
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(loss_err <= 2e-2, f"(d): loss {float(loss_k)} against "
+          f"{float(loss_p)}")
+    grad_errs = {}
+    for (path, gk), (_, gp) in zip(_leaves(grads_k), _leaves(grads_p)):
+        scale = gp.float().abs().max().item()
+        grad_errs[path] = (gk.float() - gp.float()).abs().max().item() / scale
+        check(grad_errs[path] <= 2e-2, f"(d): gradient {path} rel err "
+              f"{grad_errs[path]} beyond 2e-2")
+    summary["plain_route"] = {"loss": [float(loss_k), float(loss_p)],
+                              "loss_rel_err": loss_err,
+                              "grad_rel_errs": grad_errs}
+    print(f"train checks: (d) {DRIVER_LAYERS} layers, flash kernels "
+          f"against plain attention: loss {float(loss_k):.5f} / "
+          f"{float(loss_p):.5f}, largest gradient rel err "
+          f"{max(grad_errs.values()):.2e} ({max(grad_errs, key=grad_errs.get)})")
+    del params, grads_k, grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    main = next(r for r in rows if r["case"] == "danube training"
+                and r["dtype"] == "bfloat16")
+    entry = {
+        "name": "flash_attention.flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "none: the port's own kernel (the reference "
+                    "differentiates its XLA attention)",
+        "launches": train_launches["flash_attention_backward"],
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "shape")},
+        "other_shapes": [r for r in rows if r is not main]}
+    return entry, train_launches["flash_attention"], summary
 
 
 def main() -> int:
@@ -2058,11 +2450,20 @@ def main() -> int:
         if name == "flash_attention":
             row["family_shapes"] = family_flash
     phase("family serve")
+
+    # -- 14. training ---------------------------------------------------------
+    backward_entry, train_forward, train_summary = train_phase(check)
+    for row in kernels:
+        if row["name"].split(".")[-1] == "flash_attention":
+            row["launches"] += train_forward
+            row["launches_training"] = train_forward
+            row["backward"] = backward_entry
+    phase("training")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
          "ssm_serve": ssm_summary, "family_serve": family_summary,
-         "phase_s": phase_s}, indent=1))
+         "training": train_summary, "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

@@ -16,7 +16,10 @@ reference model's parameters (the nested dict of stacked numpy arrays
 that ``jax.tree.map(np.asarray, split(init_params(key, cfg))[0])``
 gives, for any family: the MoE's router and expert stacks, the encdec
 encoder and cross layers, the vlm cross layers and gates) across to the
-port's models, leaf for leaf.
+port's models, leaf for leaf; ``train_state_from_reference`` carries a
+reference ``TrainState`` (parameters and AdamW state as numpy, 8-bit
+moments included) across to the port's trainer, so that both packages
+can train from one state.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from .core.tiling import ArrayConfig
 from .graph import executor as graph_executor
 from .graph.ir import AlgebraGraph, GraphNode
 from .kernels.ops import resolve_device
+from .optim import adamw
+from .train.trainer import TrainState
 
 def _config(ref_cfg) -> ArrayConfig:
     return ArrayConfig(
@@ -133,3 +138,29 @@ def params_from_reference(tree: Mapping[str, Any], device=None
     return {k: (params_from_reference(v, dev) if isinstance(v, Mapping)
                 else torch.as_tensor(np.array(v), device=dev))
             for k, v in tree.items()}
+
+
+def _moments_from_reference(tree, dev):
+    if isinstance(tree, Mapping):
+        return {k: _moments_from_reference(v, dev) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):      # an 8-bit moment
+        return adamw.Q8(torch.as_tensor(np.array(tree.q), device=dev),
+                        torch.as_tensor(np.array(tree.scale), device=dev),
+                        tuple(tree.shape))
+    return torch.as_tensor(np.array(tree), device=dev)
+
+
+def opt_state_from_reference(ref_opt, device=None) -> adamw.OptState:
+    """A reference ``adamw.OptState`` (``jax.tree.map(np.asarray, ...)``
+    of it: step, fp32 or Q8 moments) -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return adamw.OptState(
+        torch.as_tensor(np.array(ref_opt.step), device=dev),
+        _moments_from_reference(ref_opt.m, dev),
+        _moments_from_reference(ref_opt.v, dev))
+
+
+def train_state_from_reference(ref_state, device=None) -> TrainState:
+    """A reference ``trainer.TrainState`` as numpy -> the port's."""
+    return TrainState(params_from_reference(ref_state.params, device),
+                      opt_state_from_reference(ref_state.opt, device))

@@ -112,6 +112,15 @@ __device__ __forceinline__ bool visible(int row, int col, int lkv,
   return ok;
 }
 
+constexpr float LN2 = 0.6931471805599453f, LOG2E = 1.4426950408889634f;
+
+// a row's log-sum-exp m + log l (natural units), which the backward reads
+// to recompute P = exp(s - lse); a row that sees no column (l = 0) gets
+// +inf, so every probability recomputed from it is 0
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l == 0.0f ? INFINITY : m + logf(l);
+}
+
 // ---------------------------------------------------------------------------
 // fp32: the SIMT kernel
 // ---------------------------------------------------------------------------
@@ -132,7 +141,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(Heads<float> q, Heads<float> k, Heads<float> v, float* out,
                  long long o_sb, long long o_sh, long long o_sr, int lq,
-                 int lkv, int group, float scale, int causal, int window) {
+                 int lkv, int group, float scale, int causal, int window,
+                 float* lse) {
   constexpr int DC = D / COLS;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                   // BQ  x (D + 1)
@@ -237,6 +247,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < ROWS; ++i) {
     const int row = q0 + tr * ROWS + i;
     if (row >= lq) continue;
+    if (lse != nullptr && tc == 0)
+      lse[((long long)b * gridDim.y + h) * lq + row] = row_lse(m[i], l[i]);
     const float inv = l[i] == 0.0f ? 0.0f : 1.0f / l[i];
 #pragma unroll
     for (int j = 0; j < DC; ++j)
@@ -325,7 +337,7 @@ __global__ void __launch_bounds__(THREADS)
                      Heads<__nv_bfloat16> v, __nv_bfloat16* out,
                      long long o_sb, long long o_sh, long long o_sr, int lq,
                      int lkv, int group, float scale, int causal,
-                     int window) {
+                     int window, float* lse) {
   constexpr int LD = D + 8;     // smem row: D bf16 + 16 bytes of padding
   constexpr int KS = D / 16;    // k steps of S = Q K^T
   constexpr int NT = BKV / 8;   // 8-column tiles of S
@@ -508,6 +520,12 @@ __global__ void __launch_bounds__(THREADS)
   cp_async_wait<0>();  // no copy outlives the CTA (kb_lo == kb_hi)
 
   __nv_bfloat16* ob = out + b * o_sb + h * o_sh;
+  if (lse != nullptr && lane % 4 == 0) {
+    // m is in log2 units: the natural log-sum-exp is m ln 2 + log l
+    float* lh = lse + ((long long)b * gridDim.x + h) * lq;
+    if (row0 < lq) lh[row0] = row_lse(m0 * LN2, l0);
+    if (row1 < lq) lh[row1] = row_lse(m1 * LN2, l1);
+  }
   const float inv0 = l0 == 0.0f ? 0.0f : 1.0f / l0;
   const float inv1 = l1 == 0.0f ? 0.0f : 1.0f / l1;
 #pragma unroll
@@ -532,7 +550,7 @@ template <typename T, int D>
 int launch_t(const void* q, const long long* qs, const void* k,
              const long long* ks, const void* v, const long long* vs,
              void* out, const long long* os, int b, int hq, int lq, int lkv,
-             int group, float scale, int causal, int window,
+             int group, float scale, int causal, int window, float* lse,
              cudaStream_t st) {
   static bool attr_set = false;  // one opt-in per instantiation
   constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
@@ -540,7 +558,7 @@ int launch_t(const void* q, const long long* qs, const void* k,
       tc ? (BQ + 4 * BKV) * (D + 8) * (int)sizeof(__nv_bfloat16)
          : ((BQ + 2 * BKV) * (D + 1) + BQ * (BKV + 1)) * (int)sizeof(float);
   void (*kernel)(Heads<T>, Heads<T>, Heads<T>, T*, long long, long long,
-                 long long, int, int, int, float, int, int);
+                 long long, int, int, int, float, int, int, float*);
   if constexpr (tc)
     kernel = flash_mma_kernel<D>;
   else
@@ -560,7 +578,7 @@ int launch_t(const void* q, const long long* qs, const void* k,
       Heads<T>{static_cast<const T*>(k), ks[0], ks[1], ks[2]},
       Heads<T>{static_cast<const T*>(v), vs[0], vs[1], vs[2]},
       static_cast<T*>(out), os[0], os[1], os[2], lq, lkv, group, scale,
-      causal, window);
+      causal, window, lse);
   return (int)cudaGetLastError();
 }
 
@@ -569,11 +587,11 @@ int dispatch_d(int d, const void* q, const long long* qs, const void* k,
                const long long* ks, const void* v, const long long* vs,
                void* out, const long long* os, int b, int hq, int lq,
                int lkv, int group, float scale, int causal, int window,
-               cudaStream_t st) {
+               float* lse, cudaStream_t st) {
 #define FLASH_CASE(DD)                                                     \
   case DD:                                                                 \
     return launch_t<T, DD>(q, qs, k, ks, v, vs, out, os, b, hq, lq, lkv,   \
-                           group, scale, causal, window, st);
+                           group, scale, causal, window, lse, st);
   switch (d) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -586,25 +604,805 @@ int dispatch_d(int d, const void* q, const long long* qs, const void* k,
 #undef FLASH_CASE
 }
 
+// ---------------------------------------------------------------------------
+// the backward (no TPU counterpart: the reference differentiates its XLA
+// attention, and the port's forward on the card is this kernel)
+// ---------------------------------------------------------------------------
+//
+// FA2's backward, recomputing P from q, k and the forward's log-sum-exp
+// instead of storing it:
+//   P = exp(s - lse) on visible pairs (0 elsewhere), s = (q . k) * scale
+//   delta_i = sum_d dO[i, d] O[i, d]                 (flash_bwd_prep_kernel)
+//   dV = P^T dO,  dS = P o (dO V^T - delta),  dK = dS^T Q * scale
+//                                                     (flash_bwd_dkdv_kernel)
+//   dQ = dS K * scale                                 (flash_bwd_dq_kernel)
+// with the forward's masks (visible, kv_range).  The two main kernels each
+// own their outputs: a dK/dV CTA owns one (b, kv head, 64-row kv block)
+// and loops over the q heads of its GQA group and the q blocks that see
+// the block, so the group's sum needs no atomics; a dQ CTA owns one (b, q
+// head, 64-row q block) and loops over kv_range.  Every output is summed in
+// a fixed order: two calls give the same bits.  S and dS are recomputed
+// by both (seven 64 x 64 x D products a visible block pair against the
+// forward's two).
+//
+// What bounds it on the H100: the operations (2.5 x the forward's, counted
+// as 10 D flops a visible pair and q head).  bf16 runs on the tensor cores
+// (flash_bwd_dkdv_mma_kernel, flash_bwd_dq_mma_kernel, below), rounding P
+// and dS to bf16 as the A operands of their products, as the forward
+// rounds P.  fp32 (TF32 off) runs SIMT (flash_bwd_dkdv_kernel,
+// flash_bwd_dq_kernel): 256 threads, thread (tr, tc) owns rows 4 tr .. 4
+// tr + 3 of its block and the columns tc + 16 j, tiles in shared memory as
+// fp32 rows padded by one word (the 16 column addresses of a load fall in
+// distinct banks), every product 2 FMAs a shared-memory load.
+
+constexpr int BWD_THREADS = 256;
+constexpr int BR = 4;   // rows a thread
+constexpr int BC = 16;  // threads sharing a row; columns tc + BC * j
+constexpr int BJ = BQ / BC;
+static_assert(BQ == BKV && BQ == BR * (BWD_THREADS / BC),
+              "the backward's thread map covers 64 x 64 tiles");
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// q blocks [lo, hi) holding a row that sees some column of the kv block
+// [k0, k0 + BKV): the mirror of kv_range
+__device__ __forceinline__ void q_range(int k0, int lq, int causal,
+                                        int window, int& lo, int& hi) {
+  lo = causal ? k0 / BQ : 0;
+  hi = (lq + BQ - 1) / BQ;
+  if (window > 0) hi = min(hi, (k0 + BKV + window - 2) / BQ + 1);
+}
+
+// rows [r0, r0 + 64) of one head -> smem (64 x (D + 1)); rows at or past
+// `len` are zero
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           long long sr, int r0, int len) {
+  for (int idx = threadIdx.x; idx < BQ * D; idx += BWD_THREADS) {
+    const int r = idx / D, c = idx % D;
+    dst[r * (D + 1) + c] =
+        r0 + r < len ? src[(long long)(r0 + r) * sr + c] : 0.0f;
+  }
+}
+
+// delta[b, h, i] = sum_d dO[b, h, i, d] O[b, h, i, d], one thread a row
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+    flash_bwd_prep_kernel(Heads<T> o, Heads<T> g, float* delta, int hq,
+                          int lq, int d, long long rows) {
+  const long long row = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (row >= rows) return;
+  const int i = (int)(row % lq);
+  const long long bh = row / lq;
+  const int h = (int)(bh % hq), b = (int)(bh / hq);
+  const T* op = o.p + b * o.sb + h * o.sh + i * o.sr;
+  const T* gp = g.p + b * g.sb + h * g.sh + i * g.sr;
+  float s = 0.0f;
+  for (int c = 0; c < d; ++c) s = fmaf(widen(gp[c]), widen(op[c]), s);
+  delta[row] = s;
+}
+
+// fp32: dK, dV, SIMT
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+    flash_bwd_dkdv_kernel(Heads<float> q, Heads<float> k, Heads<float> v,
+                          Heads<float> g, const float* lse,
+                          const float* delta, float* dk, float* dv, int hq,
+                          int lq, int lkv, int group, float scale,
+                          int causal, int window) {
+  constexpr int LD = D + 1, LP = BQ + 1, DC = D / BC;
+  extern __shared__ float smem[];
+  float* Ks = smem;             // BKV x LD
+  float* Vs = Ks + BKV * LD;    // BKV x LD
+  float* Qs = Vs + BKV * LD;    // BQ x LD
+  float* Gs = Qs + BQ * LD;     // BQ x LD: dO
+  float* Ps = Gs + BQ * LD;     // BKV x LP: P^T (kv row, q column)
+  float* Ss = Ps + BKV * LP;    // BKV x LP: dS^T
+  float* Ls = Ss + BKV * LP;    // BQ: the q block's lse
+  float* Ds = Ls + BQ;          // BQ: its delta
+
+  // kv blocks in ascending order: under the causal mask the first ones
+  // are seen by the most q blocks, so the long CTAs start first
+  const int kb = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = kb * BKV;
+  const int tr = threadIdx.x / BC, tc = threadIdx.x % BC;
+  stage_rows<D>(Ks, k.p + b * k.sb + hk * k.sh, k.sr, k0, lkv);
+  stage_rows<D>(Vs, v.p + b * v.sb + hk * v.sh, v.sr, k0, lkv);
+
+  float ak[BR][DC], av[BR][DC];
+#pragma unroll
+  for (int i = 0; i < BR; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) ak[i][j] = av[i][j] = 0.0f;
+
+  int qb_lo, qb_hi;
+  q_range(k0, lq, causal, window, qb_lo, qb_hi);
+  for (int hg = 0; hg < group; ++hg) {
+    const int h = hk * group + hg;
+    const float* qh = q.p + b * q.sb + h * q.sh;
+    const float* gh = g.p + b * g.sb + h * g.sh;
+    const float* lh = lse + ((long long)b * hq + h) * lq;
+    const float* dh = delta + ((long long)b * hq + h) * lq;
+    for (int qb = qb_lo; qb < qb_hi; ++qb) {
+      const int q0 = qb * BQ;
+      __syncthreads();  // the previous block's reads of Qs..Ds are done
+      stage_rows<D>(Qs, qh, q.sr, q0, lq);
+      stage_rows<D>(Gs, gh, g.sr, q0, lq);
+      for (int i = threadIdx.x; i < BQ; i += BWD_THREADS) {
+        const bool in = q0 + i < lq;
+        Ls[i] = in ? lh[q0 + i] : 0.0f;
+        Ds[i] = in ? dh[q0 + i] : 0.0f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: kv rows tr * BR + i, q columns
+      // tc + BC * j
+      float s[BR][BJ], dp[BR][BJ];
+#pragma unroll
+      for (int i = 0; i < BR; ++i)
+#pragma unroll
+        for (int j = 0; j < BJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+      for (int c = 0; c < D; ++c) {
+        float kr[BR], vr[BR], qc[BJ], gc[BJ];
+#pragma unroll
+        for (int i = 0; i < BR; ++i) {
+          kr[i] = Ks[(tr * BR + i) * LD + c];
+          vr[i] = Vs[(tr * BR + i) * LD + c];
+        }
+#pragma unroll
+        for (int j = 0; j < BJ; ++j) {
+          qc[j] = Qs[(tc + BC * j) * LD + c];
+          gc[j] = Gs[(tc + BC * j) * LD + c];
+        }
+#pragma unroll
+        for (int i = 0; i < BR; ++i)
+#pragma unroll
+          for (int j = 0; j < BJ; ++j) {
+            s[i][j] = fmaf(kr[i], qc[j], s[i][j]);
+            dp[i][j] = fmaf(vr[i], gc[j], dp[i][j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < BR; ++i)
+#pragma unroll
+        for (int j = 0; j < BJ; ++j) {
+          const int qi = tc + BC * j, row = q0 + qi;
+          const int col = k0 + tr * BR + i;
+          const float p =
+              row < lq && visible(row, col, lkv, causal, window)
+                  ? expf(s[i][j] * scale - Ls[qi])
+                  : 0.0f;
+          Ps[(tr * BR + i) * LP + qi] = p;
+          Ss[(tr * BR + i) * LP + qi] = p * (dp[i][j] - Ds[qi]);
+        }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q: kv rows tr * BR + i, columns tc + BC j
+#pragma unroll 4
+      for (int c = 0; c < BQ; ++c) {
+        float pr[BR], sr[BR];
+#pragma unroll
+        for (int i = 0; i < BR; ++i) {
+          pr[i] = Ps[(tr * BR + i) * LP + c];
+          sr[i] = Ss[(tr * BR + i) * LP + c];
+        }
+#pragma unroll
+        for (int j = 0; j < DC; ++j) {
+          const float gv = Gs[c * LD + tc + BC * j];
+          const float qv = Qs[c * LD + tc + BC * j];
+#pragma unroll
+          for (int i = 0; i < BR; ++i) {
+            av[i][j] = fmaf(pr[i], gv, av[i][j]);
+            ak[i][j] = fmaf(sr[i], qv, ak[i][j]);
+          }
+        }
+      }
+    }
+  }
+
+  const long long base = ((long long)b * gridDim.y + hk) * lkv;
+#pragma unroll
+  for (int i = 0; i < BR; ++i) {
+    const int r = k0 + tr * BR + i;
+    if (r >= lkv) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      dk[(base + r) * D + tc + BC * j] = ak[i][j] * scale;
+      dv[(base + r) * D + tc + BC * j] = av[i][j];
+    }
+  }
+}
+
+// fp32: dQ, SIMT
+template <int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+    flash_bwd_dq_kernel(Heads<float> q, Heads<float> k, Heads<float> v,
+                        Heads<float> g, const float* lse, const float* delta,
+                        float* dq, int lq, int lkv, int group, float scale,
+                        int causal, int window) {
+  constexpr int LD = D + 1, LP = BKV + 1, DC = D / BC;
+  extern __shared__ float smem[];
+  float* Qs = smem;             // BQ x LD
+  float* Gs = Qs + BQ * LD;     // BQ x LD: dO
+  float* Ks = Gs + BQ * LD;     // BKV x LD
+  float* Vs = Ks + BKV * LD;    // BKV x LD
+  float* Ss = Vs + BKV * LD;    // BQ x LP: dS
+  float* Ls = Ss + BQ * LP;     // BQ
+  float* Ds = Ls + BQ;          // BQ
+
+  // q blocks longest first, as in the forward
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int tr = threadIdx.x / BC, tc = threadIdx.x % BC;
+  const long long bh = (long long)b * gridDim.y + h;
+  stage_rows<D>(Qs, q.p + b * q.sb + h * q.sh, q.sr, q0, lq);
+  stage_rows<D>(Gs, g.p + b * g.sb + h * g.sh, g.sr, q0, lq);
+  for (int i = threadIdx.x; i < BQ; i += BWD_THREADS) {
+    const bool in = q0 + i < lq;
+    Ls[i] = in ? lse[bh * lq + q0 + i] : 0.0f;
+    Ds[i] = in ? delta[bh * lq + q0 + i] : 0.0f;
+  }
+  const float* kh = k.p + b * k.sb + hk * k.sh;
+  const float* vh = v.p + b * v.sb + hk * v.sh;
+
+  float aq[BR][DC];
+#pragma unroll
+  for (int i = 0; i < BR; ++i)
+#pragma unroll
+    for (int j = 0; j < DC; ++j) aq[i][j] = 0.0f;
+
+  int kb_lo, kb_hi;
+  kv_range(q0, lq, lkv, causal, window, kb_lo, kb_hi);
+  for (int kb = kb_lo; kb < kb_hi; ++kb) {
+    const int k0 = kb * BKV;
+    __syncthreads();  // the previous block's reads of Ks, Vs, Ss are done
+    stage_rows<D>(Ks, kh, k.sr, k0, lkv);
+    stage_rows<D>(Vs, vh, v.sr, k0, lkv);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: q rows tr * BR + i, kv columns tc + BC j
+    float s[BR][BJ], dp[BR][BJ];
+#pragma unroll
+    for (int i = 0; i < BR; ++i)
+#pragma unroll
+      for (int j = 0; j < BJ; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      float qr[BR], gr[BR], kc[BJ], vc[BJ];
+#pragma unroll
+      for (int i = 0; i < BR; ++i) {
+        qr[i] = Qs[(tr * BR + i) * LD + c];
+        gr[i] = Gs[(tr * BR + i) * LD + c];
+      }
+#pragma unroll
+      for (int j = 0; j < BJ; ++j) {
+        kc[j] = Ks[(tc + BC * j) * LD + c];
+        vc[j] = Vs[(tc + BC * j) * LD + c];
+      }
+#pragma unroll
+      for (int i = 0; i < BR; ++i)
+#pragma unroll
+        for (int j = 0; j < BJ; ++j) {
+          s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
+          dp[i][j] = fmaf(gr[i], vc[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < BR; ++i)
+#pragma unroll
+      for (int j = 0; j < BJ; ++j) {
+        const int qi = tr * BR + i, row = q0 + qi;
+        const int col = k0 + tc + BC * j;
+        const float p = row < lq && visible(row, col, lkv, causal, window)
+                            ? expf(s[i][j] * scale - Ls[qi])
+                            : 0.0f;
+        Ss[qi * LP + tc + BC * j] = p * (dp[i][j] - Ds[qi]);
+      }
+    __syncthreads();
+
+    // dQ += dS K: q rows tr * BR + i, columns tc + BC * j
+#pragma unroll 4
+    for (int c = 0; c < BKV; ++c) {
+      float sr[BR];
+#pragma unroll
+      for (int i = 0; i < BR; ++i) sr[i] = Ss[(tr * BR + i) * LP + c];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        const float kv = Ks[c * LD + tc + BC * j];
+#pragma unroll
+        for (int i = 0; i < BR; ++i) aq[i][j] = fmaf(sr[i], kv, aq[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < BR; ++i) {
+    const int row = q0 + tr * BR + i;
+    if (row >= lq) continue;
+#pragma unroll
+    for (int j = 0; j < DC; ++j)
+      dq[(bh * lq + row) * D + tc + BC * j] = aq[i][j] * scale;
+  }
+}
+
+// bf16: the backward on the tensor cores.  The layout of the forward's
+// flash_mma_kernel (4 warps of 16 rows, mma.sync m16n8k16 with fp32
+// sums, operands read from shared memory by ldmatrix, tiles streamed by
+// cp.async into a 2-stage ring); a warp's S (or S^T) and dP tiles are
+// taken 32 columns at a time, so that P and dS go straight from the
+// accumulator fragments into the A operand of the next product, rounded
+// to bf16 there (as the forward rounds P; fp32 sums throughout).  Scores
+// and the log-sum-exp are in log2 units, every exponential one exp2f.
+
+// dK, dV: a CTA per (kv head, 64-row kv block, b); warp w owns kv rows
+// 16 w .. 16 w + 15 and sums over the group's q heads and the q blocks
+// that see its block, Q and dO blocks streamed, K and V resident
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dkdv_mma_kernel(Heads<__nv_bfloat16> q, Heads<__nv_bfloat16> k,
+                              Heads<__nv_bfloat16> v, Heads<__nv_bfloat16> g,
+                              const float* lse, const float* delta,
+                              __nv_bfloat16* dk, __nv_bfloat16* dv, int hq,
+                              int lq, int lkv, int group, float scale,
+                              int causal, int window) {
+  constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
+  extern __shared__ __align__(16) __nv_bfloat16 sm[];
+  __nv_bfloat16* Ks = sm;                   // BKV x LD
+  __nv_bfloat16* Vs = Ks + BKV * LD;        // BKV x LD
+  __nv_bfloat16* Qs = Vs + BKV * LD;        // 2 stages x BQ x LD
+  __nv_bfloat16* Gs = Qs + 2 * BQ * LD;     // 2 stages x BQ x LD: dO
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // 2 x BQ: lse
+  float* Ds = Ls + 2 * BQ;                  // 2 x BQ: delta
+
+  const int hk = blockIdx.x, kb = blockIdx.y, b = blockIdx.z;
+  const int k0 = kb * BKV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mi = lane / 8, mr = lane % 8, gq = lane / 4, c2 = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;
+  stage_async<D, LD>(Ks, k.p + b * k.sb + hk * k.sh, k.sr, k0, lkv);
+  stage_async<D, LD>(Vs, v.p + b * v.sb + hk * v.sh, v.sr, k0, lkv);
+
+  int qb_lo, qb_hi;
+  q_range(k0, lq, causal, window, qb_lo, qb_hi);
+  const int nq = max(0, qb_hi - qb_lo), n_it = group * nq;
+  // iteration it: q head hk * group + it / nq, q block qb_lo + it % nq
+  auto load = [&](int it, int st) {
+    const int h = hk * group + it / nq, q0 = (qb_lo + it % nq) * BQ;
+    stage_async<D, LD>(Qs + st * BQ * LD, q.p + b * q.sb + h * q.sh, q.sr,
+                       q0, lq);
+    stage_async<D, LD>(Gs + st * BQ * LD, g.p + b * g.sb + h * g.sh, g.sr,
+                       q0, lq);
+    const long long row = ((long long)b * hq + h) * lq + q0;
+    for (int i = threadIdx.x; i < BQ; i += THREADS) {
+      const bool in = q0 + i < lq;
+      Ls[st * BQ + i] = in ? lse[row + i] * LOG2E : 0.0f;
+      Ds[st * BQ + i] = in ? delta[row + i] : 0.0f;
+    }
+  };
+  if (n_it > 0) load(0, 0);
+  cp_async_commit();
+
+  float adk[DT][4], adv[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[t][e] = adv[t][e] = 0.0f;
+  const int kw = k0 + warp * 16;              // the warp's first kv row
+  const int kr0 = kw + gq, kr1 = kr0 + 8;     // this lane's kv rows
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {
+      load(it + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = (qb_lo + it % nq) * BQ;
+    const __nv_bfloat16* Qb = Qs + st * BQ * LD;
+    const __nv_bfloat16* Gb = Gs + st * BQ * LD;
+    const float* Lb = Ls + st * BQ;
+    const float* Db = Ds + st * BQ;
+    // every (q, kv) pair of the warp's tile visible: no mask
+    const bool whole = q0 + BQ <= lq && kw + 16 <= lkv &&
+                       (!causal || q0 >= kw + 15) &&
+                       (window <= 0 || q0 + BQ - 1 - kw < window);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // S^T = K Q^T and dP^T = V dO^T over q columns half * 32 + [0, 32)
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, Ks + (warp * 16 + (mi % 2) * 8 + mr) * LD + ks * 16 +
+                        (mi / 2) * 8);
+        ldsm_x4(va, Vs + (warp * 16 + (mi % 2) * 8 + mr) * LD + ks * 16 +
+                        (mi / 2) * 8);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int qr = half * 32 + np * 16;
+          uint32_t bq[4], bg[4];
+          ldsm_x4(bq, Qb + (qr + (mi / 2) * 8 + mr) * LD + ks * 16 +
+                          (mi % 2) * 8);
+          ldsm_x4(bg, Gb + (qr + (mi / 2) * 8 + mr) * LD + ks * 16 +
+                          (mi % 2) * 8);
+          mma_bf16(s[2 * np], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
+          mma_bf16(dp[2 * np], va, bg[0], bg[1]);
+          mma_bf16(dp[2 * np + 1], va, bg[2], bg[3]);
+        }
+      }
+      // P^T and dS^T = P^T o (dP^T - delta) on the fragments: element e
+      // of tile t is kv row e < 2 ? kr0 : kr1, q column 8 t + c2 + (e & 1)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = half * 32 + 8 * t + c2 + (e & 1);
+          const bool ok =
+              whole || (q0 + qi < lq && visible(q0 + qi, e < 2 ? kr0 : kr1,
+                                                lkv, causal, window));
+          const float p = ok ? exp2f(s[t][e] * sl2 - Lb[qi]) : 0.0f;
+          s[t][e] = p;
+          dp[t][e] = p * (dp[t][e] - Db[qi]);
+        }
+      // dV += P^T dO and dK += dS^T Q over these 32 q rows: S^T tiles
+      // 2j, 2j+1 are the A fragment of k step j (as P in the forward);
+      // dO and Q rows are the k of the product, read transposed
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const uint32_t sa[4] = {pack_bf16(dp[2 * j][0], dp[2 * j][1]),
+                                pack_bf16(dp[2 * j][2], dp[2 * j][3]),
+                                pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
+                                pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
+        const int qr = half * 32 + j * 16;
+#pragma unroll
+        for (int dq2 = 0; dq2 < DT / 2; ++dq2) {
+          uint32_t bg[4], bq[4];
+          ldsm_x4_t(bg, Gb + (qr + (mi % 2) * 8 + mr) * LD + dq2 * 16 +
+                            (mi / 2) * 8);
+          ldsm_x4_t(bq, Qb + (qr + (mi % 2) * 8 + mr) * LD + dq2 * 16 +
+                            (mi / 2) * 8);
+          mma_bf16(adv[2 * dq2], pa, bg[0], bg[1]);
+          mma_bf16(adv[2 * dq2 + 1], pa, bg[2], bg[3]);
+          mma_bf16(adk[2 * dq2], sa, bq[0], bq[1]);
+          mma_bf16(adk[2 * dq2 + 1], sa, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA (n_it == 0)
+
+  const long long base = ((long long)b * gridDim.x + hk) * lkv;
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    const int col = 8 * t + c2;
+    if (kr0 < lkv) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + (base + kr0) * D + col) =
+          __floats2bfloat162_rn(adk[t][0] * scale, adk[t][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + (base + kr0) * D + col) =
+          __floats2bfloat162_rn(adv[t][0], adv[t][1]);
+    }
+    if (kr1 < lkv) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + (base + kr1) * D + col) =
+          __floats2bfloat162_rn(adk[t][2] * scale, adk[t][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + (base + kr1) * D + col) =
+          __floats2bfloat162_rn(adv[t][2], adv[t][3]);
+    }
+  }
+}
+
+// dQ: a CTA per (q head, 64-row q block, b), q blocks longest first;
+// warp w owns q rows 16 w .. 16 w + 15 (Q and dO fragments resident), K
+// and V blocks of kv_range streamed
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    flash_bwd_dq_mma_kernel(Heads<__nv_bfloat16> q, Heads<__nv_bfloat16> k,
+                            Heads<__nv_bfloat16> v, Heads<__nv_bfloat16> g,
+                            const float* lse, const float* delta,
+                            __nv_bfloat16* dq, int lq, int lkv, int group,
+                            float scale, int causal, int window) {
+  constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
+  extern __shared__ __align__(16) __nv_bfloat16 sm[];
+  __nv_bfloat16* Qs = sm;                   // BQ x LD
+  __nv_bfloat16* Gs = Qs + BQ * LD;         // BQ x LD: dO
+  __nv_bfloat16* Ks = Gs + BQ * LD;         // 2 stages x BKV x LD
+  __nv_bfloat16* Vs = Ks + 2 * BKV * LD;    // 2 stages x BKV x LD
+
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / group;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int mi = lane / 8, mr = lane % 8, gq = lane / 4, c2 = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;
+  const __nv_bfloat16* kh = k.p + b * k.sb + hk * k.sh;
+  const __nv_bfloat16* vh = v.p + b * v.sb + hk * v.sh;
+
+  int kb_lo, kb_hi;
+  kv_range(q0, lq, lkv, causal, window, kb_lo, kb_hi);
+  stage_async<D, LD>(Qs, q.p + b * q.sb + h * q.sh, q.sr, q0, lq);
+  stage_async<D, LD>(Gs, g.p + b * g.sb + h * g.sh, g.sr, q0, lq);
+  if (kb_lo < kb_hi) {
+    stage_async<D, LD>(Ks, kh, k.sr, kb_lo * BKV, lkv);
+    stage_async<D, LD>(Vs, vh, v.sr, kb_lo * BKV, lkv);
+  }
+  cp_async_commit();
+
+  const int rw = q0 + warp * 16;               // the warp's first q row
+  const int row0 = rw + gq, row1 = row0 + 8;   // this lane's q rows
+  const long long bh = (long long)b * gridDim.x + h;
+  const float l0 = row0 < lq ? lse[bh * lq + row0] * LOG2E : 0.0f;
+  const float l1 = row1 < lq ? lse[bh * lq + row1] * LOG2E : 0.0f;
+  const float d0 = row0 < lq ? delta[bh * lq + row0] : 0.0f;
+  const float d1 = row1 < lq ? delta[bh * lq + row1] : 0.0f;
+
+  uint32_t qa[KS][4], ga[KS][4];
+  float aq[DT][4];
+#pragma unroll
+  for (int t = 0; t < DT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) aq[t][e] = 0.0f;
+
+  for (int kb = kb_lo; kb < kb_hi; ++kb) {
+    const int st = (kb - kb_lo) & 1;
+    if (kb + 1 < kb_hi) {
+      stage_async<D, LD>(Ks + (st ^ 1) * BKV * LD, kh, k.sr, (kb + 1) * BKV,
+                         lkv);
+      stage_async<D, LD>(Vs + (st ^ 1) * BKV * LD, vh, v.sr, (kb + 1) * BKV,
+                         lkv);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kb == kb_lo) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        ldsm_x4(qa[ks], Qs + (warp * 16 + (mi % 2) * 8 + mr) * LD + ks * 16 +
+                            (mi / 2) * 8);
+        ldsm_x4(ga[ks], Gs + (warp * 16 + (mi % 2) * 8 + mr) * LD + ks * 16 +
+                            (mi / 2) * 8);
+      }
+    }
+    const __nv_bfloat16* Kb = Ks + st * BKV * LD;
+    const __nv_bfloat16* Vb = Vs + st * BKV * LD;
+    const int k0 = kb * BKV;
+    const bool whole = k0 + BKV <= lkv && rw + 16 <= lq &&
+                       (!causal || k0 + BKV - 1 <= rw) &&
+                       (window <= 0 || rw + 15 - k0 < window);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // S = Q K^T and dP = dO V^T over kv columns half * 32 + [0, 32)
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int kr = half * 32 + np * 16;
+          uint32_t bk[4], bv[4];
+          ldsm_x4(bk, Kb + (kr + (mi / 2) * 8 + mr) * LD + ks * 16 +
+                          (mi % 2) * 8);
+          ldsm_x4(bv, Vb + (kr + (mi / 2) * 8 + mr) * LD + ks * 16 +
+                          (mi % 2) * 8);
+          mma_bf16(s[2 * np], qa[ks], bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], qa[ks], bk[2], bk[3]);
+          mma_bf16(dp[2 * np], ga[ks], bv[0], bv[1]);
+          mma_bf16(dp[2 * np + 1], ga[ks], bv[2], bv[3]);
+        }
+      // dS = P o (dP - delta): element e of tile t is q row e < 2 ? row0 :
+      // row1, kv column k0 + half * 32 + 8 t + c2 + (e & 1)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? row0 : row1;
+          const int col = k0 + half * 32 + 8 * t + c2 + (e & 1);
+          const bool ok = whole || (row < lq && visible(row, col, lkv,
+                                                        causal, window));
+          const float p =
+              ok ? exp2f(s[t][e] * sl2 - (e < 2 ? l0 : l1)) : 0.0f;
+          s[t][e] = p * (dp[t][e] - (e < 2 ? d0 : d1));
+        }
+      // dQ += dS K over these 32 kv rows: K rows are the k of the
+      // product, read transposed
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t sa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const int kr = half * 32 + j * 16;
+#pragma unroll
+        for (int dq2 = 0; dq2 < DT / 2; ++dq2) {
+          uint32_t bk[4];
+          ldsm_x4_t(bk, Kb + (kr + (mi % 2) * 8 + mr) * LD + dq2 * 16 +
+                            (mi / 2) * 8);
+          mma_bf16(aq[2 * dq2], sa, bk[0], bk[1]);
+          mma_bf16(aq[2 * dq2 + 1], sa, bk[2], bk[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();  // no copy outlives the CTA (kb_lo == kb_hi)
+
+#pragma unroll
+  for (int t = 0; t < DT; ++t) {
+    const int col = 8 * t + c2;
+    if (row0 < lq)
+      *reinterpret_cast<__nv_bfloat162*>(dq + (bh * lq + row0) * D + col) =
+          __floats2bfloat162_rn(aq[t][0] * scale, aq[t][1] * scale);
+    if (row1 < lq)
+      *reinterpret_cast<__nv_bfloat162*>(dq + (bh * lq + row1) * D + col) =
+          __floats2bfloat162_rn(aq[t][2] * scale, aq[t][3] * scale);
+  }
+}
+
+template <typename T, int D>
+int backward_t(const void* q, const long long* qs, const void* k,
+               const long long* ks, const void* v, const long long* vs,
+               const void* out, const long long* os, const void* dout,
+               const long long* gs, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int b, int hq, int lq, int lkv, int group,
+               float scale, int causal, int window, cudaStream_t st) {
+  static bool attr_set = false;  // one opt-in per instantiation
+  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int LD = D + 1, LP = BQ + 1, LDH = D + 8;
+  constexpr int smem_kv =
+      tc ? 6 * BQ * LDH * (int)sizeof(__nv_bfloat16) +
+               4 * BQ * (int)sizeof(float)
+         : (4 * BQ * LD + 2 * BKV * LP + 2 * BQ) * (int)sizeof(float);
+  constexpr int smem_q =
+      tc ? 6 * BQ * LDH * (int)sizeof(__nv_bfloat16)
+         : (4 * BQ * LD + BQ * LP + 2 * BQ) * (int)sizeof(float);
+  void (*kv_kernel)(Heads<T>, Heads<T>, Heads<T>, Heads<T>, const float*,
+                    const float*, T*, T*, int, int, int, int, float, int,
+                    int);
+  void (*q_kernel)(Heads<T>, Heads<T>, Heads<T>, Heads<T>, const float*,
+                   const float*, T*, int, int, int, float, int, int);
+  if constexpr (tc) {
+    kv_kernel = flash_bwd_dkdv_mma_kernel<D>;
+    q_kernel = flash_bwd_dq_mma_kernel<D>;
+  } else {
+    kv_kernel = flash_bwd_dkdv_kernel<D>;
+    q_kernel = flash_bwd_dq_kernel<D>;
+  }
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(
+        q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int hkv = hq / group;
+  const int nkb = (lkv + BKV - 1) / BKV, nqb = (lq + BQ - 1) / BQ;
+  if (hq > 65535 || b > 65535 || nkb > 65535 || nqb > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const Heads<T> qh{static_cast<const T*>(q), qs[0], qs[1], qs[2]};
+  const Heads<T> kh{static_cast<const T*>(k), ks[0], ks[1], ks[2]};
+  const Heads<T> vh{static_cast<const T*>(v), vs[0], vs[1], vs[2]};
+  const Heads<T> oh{static_cast<const T*>(out), os[0], os[1], os[2]};
+  const Heads<T> gh{static_cast<const T*>(dout), gs[0], gs[1], gs[2]};
+  const long long rows = (long long)b * hq * lq;
+  if (rows > 0) {
+    flash_bwd_prep_kernel<T>
+        <<<(unsigned)((rows + BWD_THREADS - 1) / BWD_THREADS), BWD_THREADS,
+           0, st>>>(oh, gh, delta, hq, lq, D, rows);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  // the tensor-core kernels put heads fastest in the grid, as the
+  // forward does; the SIMT ones blocks
+  if (lkv > 0) {
+    const dim3 grid = tc ? dim3(hkv, nkb, b) : dim3(nkb, hkv, b);
+    kv_kernel<<<grid, tc ? THREADS : BWD_THREADS, smem_kv, st>>>(
+        qh, kh, vh, gh, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        hq, lq, lkv, group, scale, causal, window);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (lq > 0) {
+    const dim3 grid = tc ? dim3(hq, nqb, b) : dim3(nqb, hq, b);
+    q_kernel<<<grid, tc ? THREADS : BWD_THREADS, smem_q, st>>>(
+        qh, kh, vh, gh, lse, delta, static_cast<T*>(dq), lq, lkv, group,
+        scale, causal, window);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward_d(int d, const void* q, const long long* qs, const void* k,
+               const long long* ks, const void* v, const long long* vs,
+               const void* out, const long long* os, const void* dout,
+               const long long* gs, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, int b, int hq, int lq, int lkv, int group,
+               float scale, int causal, int window, cudaStream_t st) {
+#define FLASH_BWD_CASE(DD)                                                  \
+  case DD:                                                                  \
+    return backward_t<T, DD>(q, qs, k, ks, v, vs, out, os, dout, gs, lse,   \
+                             delta, dq, dk, dv, b, hq, lq, lkv, group, scale, \
+                             causal, window, st);
+  switch (d) {
+    FLASH_BWD_CASE(16)
+    FLASH_BWD_CASE(32)
+    FLASH_BWD_CASE(64)
+    FLASH_BWD_CASE(80)
+    FLASH_BWD_CASE(96)
+    FLASH_BWD_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FLASH_BWD_CASE
+}
+
 }  // namespace
 
 // C interface (loaded with ctypes).  dtype: 0 = float32 (the SIMT kernel),
 // 1 = bfloat16 (the tensor-core kernel).  qs/ks/vs/os: (batch, head, row)
 // strides in elements, 3 int64 each, in host memory; the last dimension
-// is contiguous.  window <= 0: no window.
+// is contiguous.  window <= 0: no window.  lse: nullptr, or (B, Hq, Lq)
+// fp32, contiguous, for each row's log-sum-exp (training saves it for the
+// backward).
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const long long* qs, const void* k,
     const long long* ks, const void* v, const long long* vs, void* out,
     const long long* os, int b, int hq, int lq, int lkv, int d, int group,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, void* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (b == 0 || hq == 0 || lq == 0) return 0;
   if (dtype == 0)
     return dispatch_d<float>(d, q, qs, k, ks, v, vs, out, os, b, hq, lq, lkv,
-                             group, scale, causal, window, st);
+                             group, scale, causal, window, l, st);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(d, q, qs, k, ks, v, vs, out, os, b, hq,
-                                     lq, lkv, group, scale, causal, window,
+                                     lq, lkv, group, scale, causal, window, l,
                                      st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: dtype as above; q, k, v, out and dout strided as above
+// (dout's strides in gs); lse (B, Hq, Lq) fp32 from the forward; delta
+// (B, Hq, Lq) fp32 scratch; dq (B, Hq, Lq, D), dk and dv (B, Hkv, Lkv, D),
+// contiguous, in q's dtype.
+extern "C" int flash_attention_backward_launch(
+    int dtype, const void* q, const long long* qs, const void* k,
+    const long long* ks, const void* v, const long long* vs, const void* out,
+    const long long* os, const void* dout, const long long* gs,
+    const void* lse, void* delta, void* dq, void* dk, void* dv, int b, int hq,
+    int lq, int lkv, int d, int group, float scale, int causal, int window,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (b == 0 || hq == 0 || (lq == 0 && lkv == 0)) return 0;
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == 0)
+    return backward_d<float>(d, q, qs, k, ks, v, vs, out, os, dout, gs, l, dl,
+                             dq, dk, dv, b, hq, lq, lkv, group, scale, causal,
+                             window, st);
+  if (dtype == 1)
+    return backward_d<__nv_bfloat16>(d, q, qs, k, ks, v, vs, out, os, dout,
+                                     gs, l, dl, dq, dk, dv, b, hq, lq, lkv,
+                                     group, scale, causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -78,10 +78,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         # dtype, q, q strides, k, k strides, v, v strides, out, out
-        # strides, B, Hq, Lq, Lkv, D, group, scale, causal, window, stream
+        # strides, B, Hq, Lq, Lkv, D, group, scale, causal, window, lse
+        # (or None), stream
         "flash_attention_launch": (_I, _P, _LLS, _P, _LLS, _P, _LLS, _P,
                                    _LLS, _I, _I, _I, _I, _I, _I,
-                                   ctypes.c_float, _I, _I, _P),
+                                   ctypes.c_float, _I, _I, _P, _P),
+        # dtype, q, k, v, out, dout (each with its strides), lse, delta,
+        # dq, dk, dv, B, Hq, Lq, Lkv, D, group, scale, causal, window,
+        # stream
+        "flash_attention_backward_launch": (
+            _I, _P, _LLS, _P, _LLS, _P, _LLS, _P, _LLS, _P, _LLS, _P, _P,
+            _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+            _P),
     },
     "ssd_scan": {
         # x, x strides, dt, dt strides, a, b, c, b/c strides, y, state,

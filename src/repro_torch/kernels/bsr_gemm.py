@@ -33,7 +33,8 @@ import torch
 
 from . import _build
 from ..core.hopper import H100
-from .stt_gemm import _DTYPE_CODES, _fp32_product, _on_cpu, _stream
+from .stt_gemm import (LATER_TRAINING, _DTYPE_CODES, _fp32_product,
+                       _no_backward, _on_cpu, _stream)
 
 #: static block-COO coordinate list: ((block_row, block_col), ...) sorted
 Coords = Tuple[Tuple[int, int], ...]
@@ -234,6 +235,7 @@ def bsr_matmul(sparse: torch.Tensor, dense: torch.Tensor, *,
     if cpu:
         return bsr_matmul_plain(sparse, dense, coords=coords, bm=bm, bk=bk,
                                 out_dtype=out_dtype)
+    _no_backward("the BSR kernel", LATER_TRAINING, sparse, dense)
     if sparse.dtype != dense.dtype or sparse.dtype not in _DTYPE_CODES:
         raise ValueError(f"the BSR kernel takes float32 or bfloat16 "
                          f"operands of one dtype, got {sparse.dtype} x "

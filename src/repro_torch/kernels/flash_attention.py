@@ -21,6 +21,20 @@ kernel on a CUDA tensor, or raises.  :func:`row_error` and
 counts kernel launches.  The kernels read q, k and v through their
 strides (the last dimension must be contiguous), so the models' head
 views reach them without a copy.
+
+Training: the reference differentiates its XLA attention; on the card
+the port's forward is this kernel, so it has a backward of its own
+(no Pallas counterpart).  :class:`FlashAttentionFn` runs the forward
+with each row's log-sum-exp saved and :func:`flash_attention_backward`
+launches the three backward kernels (``delta = rowsum(dO o O)``, then
+dK and dV per kv block, then dQ per q block, each recomputing P from q,
+k and the log-sum-exp; bf16 on the tensor cores, rounding P and dS to
+bf16 as the A operands of their products, fp32 SIMT);
+:func:`flash_attention` routes through the Function whenever autograd
+records and an input requires grad.
+:func:`flash_attention_backward_plain` is FA2's arithmetic in PyTorch,
+the backward kernels' plain version.  On the CPU the plain forward is
+differentiated by autograd instead.
 """
 from __future__ import annotations
 
@@ -44,12 +58,14 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 #: reads both on the card and fails unless the second exceeds the limit).
 BF16_ROW_TOL = 1e-2
 
-#: kernel launches since the last ``reset_launches``
-launches = {"flash_attention": 0}
+#: kernel launches since the last ``reset_launches`` (the backward's
+#: count is one a call of its three kernels)
+launches = {"flash_attention": 0, "flash_attention_backward": 0}
 
 
 def reset_launches() -> None:
-    launches["flash_attention"] = 0
+    for name in launches:
+        launches[name] = 0
 
 
 def _check(q, k, v, window) -> int:
@@ -69,10 +85,23 @@ def _check(q, k, v, window) -> int:
     return hq // hkv
 
 
+def _mask(lq: int, k0: int, kv: int, causal: bool, window: Optional[int],
+          device) -> torch.Tensor:
+    """(lq, kv) visibility of kv columns [k0, k0 + kv) to the q rows."""
+    qpos = torch.arange(lq, device=device)[:, None]
+    kpos = torch.arange(k0, k0 + kv, device=device)[None, :]
+    mask = torch.ones((lq, kv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: Optional[int] = None, bkv: int = 64,
-                          round_p: bool = False) -> torch.Tensor:
+                          round_p: bool = False, return_lse: bool = False):
     """The kernels' arithmetic in PyTorch: scores ``(q . k) * scale`` in
     fp32, masked to ``NEG_INF``, an online softmax over kv blocks of
     ``bkv`` columns (p = 0 where s <= NEG_INF / 2), out = acc / l with
@@ -84,7 +113,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     bf16 operands.  That departure is a relative error of at most 2^-9 a
     probability, inside the reference's bf16 tolerance of 2e-2 x
     max|out|; the kernel is held to this version within
-    ``BF16_ROW_TOL``."""
+    ``BF16_ROW_TOL``.
+
+    With ``return_lse`` it returns ``(out, lse)``: each row's
+    log-sum-exp ``m + log l`` (B, Hq, Lq) fp32, +inf where the row sees
+    no column, as the kernels write it for the backward."""
     group = _check(q, k, v, window)
     torch.backends.cuda.matmul.allow_tf32 = False
     b, hq, lq, d = q.shape
@@ -93,20 +126,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     qf = q.to(torch.float32)
     kf = k.to(torch.float32).repeat_interleave(group, dim=1)
     vf = v.to(torch.float32).repeat_interleave(group, dim=1)
-    qpos = torch.arange(lq, device=q.device)[:, None]
     m = torch.full((b, hq, lq), NEG_INF, device=q.device)
     l = torch.zeros((b, hq, lq), device=q.device)
     acc = torch.zeros((b, hq, lq, d), device=q.device)
     for k0 in range(0, lkv, bkv):
         kb, vb = kf[:, :, k0:k0 + bkv], vf[:, :, k0:k0 + bkv]
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
-        kpos = torch.arange(k0, k0 + kb.shape[2], device=q.device)[None, :]
-        mask = torch.ones((lq, kb.shape[2]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= qpos >= kpos
-        if window is not None:
-            mask &= qpos - kpos < window
+        mask = _mask(lq, k0, kb.shape[2], causal, window, q.device)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
@@ -117,7 +143,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
         acc = acc * alpha[..., None] + torch.matmul(pv, vb)
         m = m_new
     safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / safe[..., None]).to(q.dtype)
+    out = (acc / safe[..., None]).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0.0, torch.full_like(l, float("inf")),
+                      m + torch.log(safe))
+    return out, lse
+
+
+def flash_attention_backward_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+        causal: bool = True, window: Optional[int] = None):
+    """FA2's backward in PyTorch, the backward kernels' arithmetic: P
+    recomputed as ``exp(s - lse)`` on visible pairs (0 elsewhere), ``dV =
+    P^T dO``, ``dP = dO V^T``, ``delta = rowsum(dO o O)``, ``dS = P o (dP
+    - delta)``, ``dQ = dS K * scale``, ``dK = dS^T Q * scale``, dK and dV
+    summed over each kv head's GQA group; everything in fp32, the
+    results in q's dtype.  Returns (dq, dk, dv)."""
+    group = _check(q, k, v, window)
+    b, hq, lq, d = q.shape
+    hkv, lkv = k.shape[1], k.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    f32 = torch.float32
+    qf, of, gf = q.to(f32), out.to(f32), dout.to(f32)
+    kf = k.to(f32).repeat_interleave(group, dim=1)
+    vf = v.to(f32).repeat_interleave(group, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    mask = _mask(lq, 0, lkv, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.to(f32)[..., None]),
+                    torch.zeros_like(s))
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    delta = (gf * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dk = dk.reshape(b, hkv, group, lkv, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, group, lkv, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def row_error(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -149,6 +213,48 @@ def _strides(x: torch.Tensor):
     return (ctypes.c_longlong * 3)(x.stride(0), x.stride(1), x.stride(2))
 
 
+def _check_cuda(q, k, v) -> None:
+    """What every CUDA kernel of this module takes."""
+    if len({q.device, k.device, v.device}) != 1:
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"the attention kernel takes float32 or bfloat16 "
+                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the attention kernel takes head dims "
+                         f"{HEAD_DIMS}, got {q.shape[3]}")
+    if any(x.stride(3) != 1 for x in (q, k, v)):
+        raise ValueError("the attention kernel needs a contiguous last "
+                         "(head) dimension")
+
+
+def _forward(q, k, v, causal: bool, window: Optional[int],
+             with_lse: bool):
+    """The forward kernel on CUDA tensors: (out, lse or None)."""
+    group = _check(q, k, v, window)
+    _check_cuda(q, k, v)
+    b, hq, lq, d = q.shape
+    lkv = k.shape[2]
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v)
+    out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    lib = _build.library("flash_attention")
+    _build.check(lib.flash_attention_launch(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), _strides(q), k.data_ptr(),
+        _strides(k), v.data_ptr(), _strides(v), out.data_ptr(),
+        _strides(out), b, hq, lq, lkv, d, group, 1.0 / (d ** 0.5),
+        int(causal), 0 if window is None else int(window),
+        None if lse is None else lse.data_ptr(), _stream()),
+        "flash_attention_launch")
+    launches["flash_attention"] += 1
+    return out, lse
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None
                     ) -> torch.Tensor:
@@ -156,36 +262,89 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Returns (B, Hq, Lq, D) in q's dtype.  Any Lq and Lkv: the kernel
     masks its ragged edges itself (``ops.attention`` pads first, as the
-    reference does, so padded rows and columns behave as there).
+    reference does, so padded rows and columns behave as there).  On the
+    card, while autograd records and an input requires grad, the call
+    goes through :class:`FlashAttentionFn`, whose backward is a kernel.
     """
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, with_lse=False)[0]
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True,
+                             window: Optional[int] = None):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at (q, k,
+    v), given its output ``out``, the output's gradient ``dout`` and the
+    forward's log-sum-exp ``lse`` (B, Hq, Lq) fp32.  On the card three
+    kernels (``delta``, then dK/dV, then dQ); on the CPU
+    :func:`flash_attention_backward_plain`.  dq, dk and dv come back
+    contiguous, in q's dtype."""
+    if _on_cpu(q, k, v, out, dout, lse):
+        return flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                              causal=causal, window=window)
     group = _check(q, k, v, window)
+    _check_cuda(q, k, v)
     b, hq, lq, d = q.shape
     lkv = k.shape[2]
-    if len({q.device, k.device, v.device}) != 1:
-        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if len({q.dtype, k.dtype, v.dtype}) != 1 or q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the attention kernel takes float32 or bfloat16 "
-                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the attention kernel takes head dims "
-                         f"{HEAD_DIMS}, got {d}")
-    if any(x.stride(3) != 1 for x in (q, k, v)):
-        raise ValueError("the attention kernel needs a contiguous last "
-                         "(head) dimension")
-    if q.dtype == torch.bfloat16:
-        _check_aligned(q=q, k=k, v=v)
-    out = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"out and dout must be {q.dtype}, got {out.dtype}, "
+                         f"{dout.dtype}")
+    if lse.shape != (b, hq, lq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be (B, Hq, Lq) = {(b, hq, lq)} float32, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    # dout arrives from transpose/reshape; the kernels read it through
+    # its strides but need its last dimension contiguous
+    out, dout = (x if x.stride(3) == 1 else x.contiguous()
+                 for x in (out, dout))
+    lse = lse.contiguous()
+    dq = torch.empty((b, hq, lq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    if dq.numel() == 0 and dk.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention")
-    _build.check(lib.flash_attention_launch(
+    _build.check(lib.flash_attention_backward_launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), _strides(q), k.data_ptr(),
         _strides(k), v.data_ptr(), _strides(v), out.data_ptr(),
-        _strides(out), b, hq, lq, lkv, d, group, 1.0 / (d ** 0.5),
-        int(causal), 0 if window is None else int(window), _stream()),
-        "flash_attention_launch")
-    launches["flash_attention"] += 1
-    return out
+        _strides(out), dout.data_ptr(), _strides(dout), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        hq, lq, lkv, d, group, 1.0 / (d ** 0.5), int(causal),
+        0 if window is None else int(window), _stream()),
+        "flash_attention_backward_launch")
+    launches["flash_attention_backward"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a hand-written backward: the forward kernel
+    saves each row's log-sum-exp beside q, k, v and the output, and the
+    backward launches :func:`flash_attention_backward`.  On CPU tensors
+    both halves run their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if _on_cpu(q, k, v):
+            out, lse = flash_attention_plain(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+        else:
+            out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, dout, lse, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

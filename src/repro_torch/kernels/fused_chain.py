@@ -41,7 +41,8 @@ import torch
 
 from . import _build
 from . import epilogue as _ep
-from .stt_gemm import _DTYPE_CODES, _fp32_product, _on_cpu, _stream
+from .stt_gemm import (LATER_TRAINING, _DTYPE_CODES, _fp32_product,
+                       _no_backward, _on_cpu, _stream)
 
 #: valid stage interleave orders (the merged-kernel tuner knob)
 FUSED_INTERLEAVES = ("chain", "stage")
@@ -686,6 +687,8 @@ def fused_chain_matmul(lhs: torch.Tensor,
     if _on_cpu(lhs, *rhss, *bias_rows):
         return chain_reference(lhs, *rhss, *bias_rows, stages=stages,
                                out_dtype=out_dtype)
+    _no_backward("the fused chain kernel", LATER_TRAINING, lhs, *rhss,
+                 *bias_rows)
     _check_cuda_dtype(lhs.dtype, "chain operands")
     if out_dtype != lhs.dtype or any(r.dtype != lhs.dtype for r in rhss):
         raise ValueError(f"the fused chain kernel takes rhs operands and "
@@ -725,6 +728,7 @@ def fused_dag(exts: Sequence[torch.Tensor], *,
     out_dtype = out_dtype or exts[0].dtype
     if _on_cpu(*exts):
         return dag_reference(exts, stages=stages, out_dtype=out_dtype)
+    _no_backward("the fused DAG kernel", LATER_TRAINING, *exts)
     _check_cuda_dtype(out_dtype, "chain dtype")
     dev = exts[0].device
     last = stages[-1]

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .stt_gemm import _on_cpu, _stream
+from .stt_gemm import _no_backward, _on_cpu, _stream
 
 #: kernel launches since the last ``reset_launches``
 launches = {"paged_gather": 0}
@@ -62,6 +62,8 @@ def paged_gather(pool: torch.Tensor, page_table: torch.Tensor
     """
     if _on_cpu(pool, page_table):
         return paged_gather_plain(pool, page_table)
+    _no_backward("the paged gather", "no slice: decoding never trains",
+                 pool)
     _check(pool, page_table)
     if pool.device != page_table.device:
         raise ValueError(f"pool on {pool.device}, table on "

@@ -36,7 +36,7 @@ import torch
 
 from . import _build, ref
 from ..core.hopper import H100
-from .stt_gemm import _on_cpu, _stream
+from .stt_gemm import _no_backward, _on_cpu, _stream
 
 #: the kernels' limits: chunk length and state width
 MAX_CHUNK, MAX_STATE = 64, 128
@@ -111,6 +111,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _check(x, dt, a, b, c, chunk)
     if _on_cpu(x, dt, a, b, c):
         return ref.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk)
+    _no_backward("the SSD scan", "the ssm/hybrid training slice (the SSD "
+                 "backward)", x, dt, a, b, c)
     if len({x.device, dt.device, a.device, b.device, c.device}) != 1:
         raise ValueError(f"operands on {x.device}, {dt.device}, {a.device}, "
                          f"{b.device}, {c.device}")

@@ -189,6 +189,25 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
     return dev == "cpu"
 
 
+#: the slice that brings backward kernels for the generated
+#: accelerators' templates (the GEMMs, BSR and the fused megakernels)
+LATER_TRAINING = ("a later slice (training through the generated "
+                  "accelerators)")
+
+
+def _no_backward(kernel: str, arrives: str, *xs) -> None:
+    """Refuse to launch a kernel that has no backward while autograd
+    records a graph through it: its ctypes launch would hand back an
+    output with no ``grad_fn`` and the gradients of its inputs would be
+    lost without a word.  ``arrives`` names the slice that brings the
+    backward.  Serving runs under ``no_grad`` and never gets here."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
+        raise NotImplementedError(
+            f"{kernel} has no backward kernel: an input requires grad, and "
+            f"training through it arrives with {arrives}")
+
+
 def _cuda_args(a3, b3, nb: int, out_dtype, epilogue):
     """Check the operands for a launch and build the shared arguments:
     (dtype code, A view, B view, n_ops, opcodes, params)."""
@@ -277,6 +296,7 @@ def matmul_output_stationary(a: torch.Tensor, b: torch.Tensor, *,
                                       out_dtype=out_dtype,
                                       epilogue=epilogue, bias=bias)
     else:
+        _no_backward("the STT GEMM templates", LATER_TRAINING, a3, b3, bias)
         dt, *views, n_ops, codes, params = _cuda_args(a3, b3, nb, out_dtype,
                                                       epilogue)
         out = torch.empty((nb, m, n), dtype=out_dtype, device=a.device)
@@ -365,6 +385,7 @@ def matmul_operand_stationary(a: torch.Tensor, b: torch.Tensor, *,
         out = operand_stationary_plain(a3, b3, out_dtype=out_dtype,
                                        epilogue=epilogue, bias=bias)
     else:
+        _no_backward("the STT GEMM templates", LATER_TRAINING, a3, b3, bias)
         dt, *views, n_ops, codes, params = _cuda_args(a3, b3, nb, out_dtype,
                                                       epilogue)
         out = torch.empty((nb, m, n), dtype=out_dtype, device=a.device)
@@ -409,6 +430,7 @@ def matmul_reduction_tree(a: torch.Tensor, b: torch.Tensor, *,
         out = reduction_tree_plain(a3, b3, out_dtype=out_dtype,
                                    epilogue=epilogue, bias=bias)
     else:
+        _no_backward("the STT GEMM templates", LATER_TRAINING, a3, b3, bias)
         dt, *views, n_ops, codes, params = _cuda_args(a3, b3, nb, out_dtype,
                                                       epilogue)
         out = torch.empty((nb, m, n), dtype=out_dtype, device=a.device)

@@ -1,4 +1,4 @@
-"""Shared model machinery: initializers, norms, RoPE.
+"""Shared model machinery: initializers, norms, RoPE, the loss.
 
 The port of the reference's ``models/common.py``.  Parameters are plain
 nested dicts of tensors with the reference's keys and layouts (weights
@@ -78,3 +78,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     xf2 = x[..., half:].to(torch.float32)
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross-entropy in fp32 (the reference's): ``logsumexp``
+    of the logits minus the target's logit; with ``mask``, the masked
+    mean over at least one token."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)

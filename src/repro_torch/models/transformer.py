@@ -27,6 +27,14 @@ torch would not, so the port promotes explicitly.
 ``compute_params`` casts the fp32 master weights to the compute dtype
 once (the reference casts them on every call; the values are the same),
 which the serving engines do when they are built.
+
+Training differentiates :func:`forward` with autograd.  With
+``cfg.remat`` and autograd recording, every block (a layer, the hybrid's
+shared block, a vlm cross block, an encoder layer) runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, as the reference's ``jax.checkpoint`` of
+each scanned layer does.  Serving runs under ``no_grad`` and calls the
+blocks as they are.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
@@ -178,6 +187,26 @@ def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
             for k, v in stacked.items()}
 
 
+def unstack(stacked: Dict[str, Any]) -> list:
+    """Every layer of a stacked parameter tree, as views from one
+    ``unbind`` a leaf.  Under autograd a leaf's gradient is then one
+    ``stack`` of its layers' gradients, where indexing it layer by layer
+    (:func:`layer_params`) would add a zero-filled gradient of the whole
+    stack for every layer."""
+    def split(tree):
+        return {k: (split(v) if isinstance(v, dict) else v.unbind(0))
+                for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: (pick(v, i) if isinstance(v, dict) else v[i])
+                for k, v in tree.items()}
+    parts = split(stacked)
+    leaf = parts
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [pick(parts, i) for i in range(len(leaf))]
+
+
 # ---------------------------------------------------------------------------
 # blocks (params already unstacked)
 # ---------------------------------------------------------------------------
@@ -254,6 +283,14 @@ def shared_after(cfg: ModelConfig, i: int) -> Optional[int]:
     return gi - 1 if r == 0 else None
 
 
+def _run(block, cfg: ModelConfig, *args, **kw):
+    """``block(*args, **kw)``, checkpointed when ``cfg.remat`` and
+    autograd records (the reference's per-layer ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False, **kw)
+    return block(*args, **kw)
+
+
 def _stack(trees):
     """A list of equally keyed dicts of tensors -> one dict of stacks."""
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
@@ -268,9 +305,8 @@ def encode(params: Dict[str, Any], frontend: torch.Tensor,
     """encdec: the bidirectional encoder over the stub frame embeddings
     ``frontend`` (B, F, D), after ``enc_norm``, in the compute dtype."""
     h = frontend.to(torch_dtype(cfg.dtype))
-    for i in range(params["encoder"]["ln1"].shape[0]):
-        h, _, _ = _dense_block(layer_params(params["encoder"], i), h, cfg,
-                               causal=False)
+    for pl_ in unstack(params["encoder"]):
+        h, _, _ = _run(_dense_block, cfg, pl_, h, cfg, causal=False)
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -290,19 +326,18 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     compute = torch_dtype(cfg.dtype)
     x = params["embed"][tokens].to(compute)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    lay = params["layers"]
-    n_layers = lay["ln1"].shape[0]
+    layers = unstack(params["layers"])
     caches: Dict[str, Any] = {}
     if cfg.family in ("dense", "moe", "vlm"):
         img = None if cfg.family != "vlm" else frontend.to(compute)
+        cross = [] if img is None else unstack(params["cross_layers"])
         kvs = []
-        for i in range(n_layers):
+        for i, pl_ in enumerate(layers):
             if img is not None and i % cfg.cross_attn_every == 0:
-                gi = i // cfg.cross_attn_every
-                x = _cross_block(layer_params(params["cross_layers"], gi),
-                                 x, cfg, img=img)
-            x, aux_l, kv = _dense_block(layer_params(lay, i), x, cfg,
-                                        collect_kv=collect_cache)
+                x = _run(_cross_block, cfg, cross[i // cfg.cross_attn_every],
+                         x, cfg, img=img)
+            x, aux_l, kv = _run(_dense_block, cfg, pl_, x, cfg,
+                                collect_kv=collect_cache)
             aux = aux + aux_l
             kvs.append(kv)
         if collect_cache:
@@ -310,22 +345,22 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
     elif cfg.family == "encdec":
         enc = encode(params, frontend, cfg)
         kvs = []
-        for i in range(n_layers):
-            x, kv = _decoder_block(layer_params(lay, i), x, cfg, enc=enc,
-                                   collect_kv=collect_cache)
+        for pl_ in layers:
+            x, kv = _run(_decoder_block, cfg, pl_, x, cfg, enc=enc,
+                         collect_kv=collect_cache)
             kvs.append(kv)
         if collect_cache:
             caches["self"] = _stack(kvs)
             caches["enc_out"] = enc
     else:
         ssm_caches, shared_kv = [], []
-        for i in range(n_layers):
-            x, c = _ssm_block(layer_params(lay, i), x, cfg,
-                              collect_cache=collect_cache)
+        for i, pl_ in enumerate(layers):
+            x, c = _run(_ssm_block, cfg, pl_, x, cfg,
+                        collect_cache=collect_cache)
             ssm_caches.append(c)
             if shared_after(cfg, i) is not None:
-                x, kv = _shared_block(params["shared"], x, cfg,
-                                      collect_kv=collect_cache)
+                x, kv = _run(_shared_block, cfg, params["shared"], x, cfg,
+                             collect_kv=collect_cache)
                 shared_kv.append(kv)
         if collect_cache:
             caches["ssm"] = _stack(ssm_caches)

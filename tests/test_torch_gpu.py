@@ -1112,6 +1112,211 @@ def test_flash_attention_noncausal_ragged_kv(cuda, lkv, form, dtype):
     _attn_compare(got, want, dtype, (q, k, v), causal=False)
 
 
+def _backward_compare(got, want, dtype):
+    """The backward kernels' (dq, dk, dv) against the plain version's:
+    fp32 within 1e-4 x max|.| (other sum order, the card's ``expf``),
+    bf16 within 2e-2 x max|.| (its outputs rounded to bf16)."""
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for x, w in zip(got, want):
+        x, w = x.cpu().float(), w.cpu().float()
+        assert x.shape == w.shape and bool(torch.isfinite(x).all())
+        err = (x - w).abs().max().item()
+        assert err <= tol * w.abs().max().item(), err
+
+
+def _backward_case(cuda, b, hq, hkv, lq, lkv, d, dtype, causal, window,
+                   seed):
+    """The kernel forward's (out, lse) and both backwards on one input."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (t.to(cuda) for t in _attn_inputs(b, hq, hkv, lq, lkv, d,
+                                                  dtype, seed))
+    dout = torch.as_tensor(np.random.default_rng(seed + 1).standard_normal(
+        (b, hq, lq, d)).astype(np.float32)).to(dtype).to(cuda)
+    out, lse = fa._forward(q, k, v, causal, window, with_lse=True)
+    fa.reset_launches()
+    got = fa.flash_attention_backward(q, k, v, out, dout, lse,
+                                      causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention_backward"] == 1
+    want = fa.flash_attention_backward_plain(q, k, v, out, dout, lse,
+                                             causal=causal, window=window)
+    return (q, k, v, out, dout, lse), got, want
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("mask", list(MASKS))
+def test_flash_backward_kernel(cuda, mask, hq, hkv, d, dtype):
+    causal, window = MASKS[mask]
+    _, got, want = _backward_case(cuda, 2, hq, hkv, 96, 96, d, dtype,
+                                  causal, window, seed=d + hq)
+    _backward_compare(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("mask", list(MASKS))
+def test_flash_forward_writes_the_log_sum_exp(cuda, mask, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = MASKS[mask]
+    q, k, v = (t.to(cuda) for t in _attn_inputs(1, 4, 2, 130, 130, 64,
+                                                  dtype, seed=5))
+    out, lse = fa._forward(q, k, v, causal, window, with_lse=True)
+    want_out, want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                              window=window, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (1, 4, 130)
+    # scores in fp32 either way; bf16 products summed on the tensor cores
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    assert (lse - want).abs().max().item() <= tol * want.abs().max().item()
+    # serving (no lse) writes the same output
+    assert torch.equal(fa._forward(q, k, v, causal, window,
+                                   with_lse=False)[0], out)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 96, 128])
+def test_flash_backward_every_head_dim(cuda, d):
+    for dtype in DTYPES:
+        _, got, want = _backward_case(cuda, 1, 4, 2, 150, 150, d, dtype,
+                                      True, 40, seed=d)
+        _backward_compare(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", [(4, 32, 8, 2048, 2048, 80, True, 4096),
+                                   (1, 32, 8, 1024, 1024, 80, True, 256),
+                                   (1, 12, 12, 57, 1500, 64, False, None),
+                                   (1, 4, 2, 45, 37, 16, False, None)])
+def test_flash_backward_training_and_ragged_shapes(cuda, shape, dtype):
+    """danube's training shape, a window that hides whole kv blocks, and
+    ragged non-causal (cross) shapes: no block of 64 divides Lq or Lkv."""
+    b, hq, hkv, lq, lkv, d, causal, window = shape
+    inputs, got, want = _backward_case(cuda, b, hq, hkv, lq, lkv, d, dtype,
+                                       causal, window, seed=lkv)
+    _backward_compare(got, want, dtype)
+    from repro_torch.kernels import flash_attention as fa
+    again = fa.flash_attention_backward(*inputs, causal=causal,
+                                        window=window)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_function_trains_through_the_kernels(cuda):
+    # autograd on the card: the Function's forward and backward kernels
+    # against autograd through the plain version on the CPU (fp32), with
+    # q, k and v strided head views as the models hand them over
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 100, 12, 80)).astype(np.float32)
+    g = rng.standard_normal((2, 8, 100, 80)).astype(np.float32)
+    grads, launched = [], {}
+    for dev in (cuda, torch.device("cpu")):
+        xt = torch.as_tensor(x, device=dev).requires_grad_()
+        q, k, v = (xt[:, :, 0:8].transpose(1, 2),
+                   xt[:, :, 8:10].transpose(1, 2),
+                   xt[:, :, 10:12].transpose(1, 2))
+        fa.reset_launches()
+        out = fa.flash_attention(q, k, v, causal=True, window=30)
+        (gx,) = torch.autograd.grad(out, xt, torch.as_tensor(g, device=dev))
+        torch.cuda.synchronize()
+        grads.append(gx.cpu())
+        launched[dev.type] = dict(fa.launches)
+    assert launched == {
+        "cuda": {"flash_attention": 1, "flash_attention_backward": 1},
+        "cpu": {"flash_attention": 0, "flash_attention_backward": 0}}
+    err = (grads[0] - grads[1]).abs().max().item()
+    assert err <= 1e-4 * grads[1].abs().max().item(), err
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    # the reduced dense model in fp32 (remat on): one step's loss and
+    # gradients on the card (flash forward and backward kernels) against
+    # the CPU's plain path
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _batch_numpy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params
+    from repro_torch.train import trainer
+    cfg = dataclasses.replace(get_config("h2o-danube-1.8b").reduced(),
+                              remat=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    batch = _batch_numpy(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                    global_batch=2), 0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        fa.reset_launches()
+        p = _to(params, dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        out[dev.type] = trainer.value_and_grad(p, b, cfg)
+        if dev.type == "cuda":
+            assert fa.launches["flash_attention"] == 2 * cfg.n_layers
+            assert fa.launches["flash_attention_backward"] == cfg.n_layers
+    (lc, _, gc), (lp, _, gp) = out["cuda"], out["cpu"]
+    assert abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp))
+    for key, g in _flat(gc).items():
+        w = _flat(gp)[key]
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (key, err)
+
+
+def test_bf16_train_step_kernels_against_the_plain_attention(cuda,
+                                                             monkeypatch):
+    # check (d) of chip_smoke.py at a small width: bf16 compute, remat on;
+    # the flash kernels against autograd through the plain version that
+    # rounds P as the forward kernel does, within the bf16 tolerance
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _batch_numpy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params
+    from repro_torch.train import trainer
+    cfg = dataclasses.replace(
+        get_config("h2o-danube-1.8b"), n_layers=2, d_model=512, n_heads=8,
+        n_kv_heads=2, head_dim=64, d_ff=1024, vocab=4000)
+    params = init_params(torch.Generator(device=cuda).manual_seed(1), cfg)
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in _batch_numpy(
+        DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=2), 0).items()}
+    kernel = trainer.value_and_grad(params, batch, cfg)
+    monkeypatch.setattr(fa, "flash_attention",
+                        lambda q, k, v, *, causal=True, window=None:
+                        fa.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window, round_p=True))
+    plain = trainer.value_and_grad(params, batch, cfg)
+    assert abs(float(kernel[0]) - float(plain[0])) <= 2e-2 * abs(
+        float(plain[0]))
+    for key, g in _flat(kernel[2]).items():
+        w = _flat(plain[2])[key].float()
+        err = (g.float() - w).abs().max().item()
+        assert err <= 2e-2 * w.abs().max().item(), (key, err)
+
+
+def test_ssd_under_autograd_raises_on_the_card(cuda):
+    from repro_torch.kernels import ssd_scan
+    x = torch.ones(1, 16, 2, 8, device=cuda, requires_grad=True)
+    dt, a = torch.ones(1, 16, 2, device=cuda), -torch.ones(2, device=cuda)
+    b = torch.ones(1, 16, 1, 4, device=cuda)
+    with pytest.raises(NotImplementedError, match="SSD backward"):
+        ssd_scan.ssd_scan(x, dt, a, b, b, chunk=8)
+    with torch.no_grad():
+        ssd_scan.ssd_scan(x, dt, a, b, b, chunk=8)
+
+
+def _to(tree, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
 @pytest.mark.parametrize("f", [15360, 48, 7])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_paged_gather_kernel_exact(cuda, dtype, f):

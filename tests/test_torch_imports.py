@@ -30,7 +30,14 @@ MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.kernels.ssd_scan", "repro_torch.tune",
            "repro_torch.tune.measure", "repro_torch.tune.cache",
            "repro_torch.tune.calibrate", "repro_torch.tune.report",
-           "repro_torch.tune.tuner")
+           "repro_torch.tune.tuner", "repro_torch.optim",
+           "repro_torch.optim.adamw", "repro_torch.data",
+           "repro_torch.data.pipeline", "repro_torch.train",
+           "repro_torch.train.trainer", "repro_torch.checkpoint",
+           "repro_torch.checkpoint.store", "repro_torch.runtime",
+           "repro_torch.runtime.driver", "repro_torch.launch",
+           "repro_torch.launch.specs", "repro_torch.launch.train",
+           "repro_torch.launch.serve")
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"
@@ -189,6 +196,26 @@ def test_fused_cuda_tensor_raises_not_falls_back(monkeypatch, entry):
                 [x, torch.ones(8, 6)],
                 stages=[fused_chain.DagStage(4, 8, 6, rhs=("ext", 1))])
     assert calls == []
+
+
+def test_training_entry_points_raise_without_cuda_and_device(tmp_path):
+    _require_no_cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import serve, train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import RunConfig, TrainDriver
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    for call in (
+            lambda: TrainDriver(cfg, AdamWConfig(), DataConfig(
+                vocab=cfg.vocab, seq_len=8, global_batch=2),
+                RunConfig(ckpt_dir=str(tmp_path))),
+            lambda: train.main(["--arch", "h2o-danube-1.8b", "--smoke",
+                                "--steps", "1", "--ckpt-dir",
+                                str(tmp_path)]),
+            lambda: serve.main(["--arch", "h2o-danube-1.8b", "--smoke"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_serving_entry_points_raise_without_cuda_and_device():

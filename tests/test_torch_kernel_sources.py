@@ -214,6 +214,32 @@ def test_flash_bf16_runs_on_tensor_cores_for_every_head_dim():
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
 
 
+def test_flash_backward_covers_every_head_dim_without_atomics():
+    # dK/dV CTAs own their kv block and loop over the GQA group, so the
+    # backward sums in a fixed order; both forwards write the log-sum-exp
+    src = (CSRC / "flash_attention.cu").read_text()
+    cases = tuple(int(d) for d in re.findall(r"FLASH_BWD_CASE\((\d+)\)",
+                                             src))
+    assert cases == fa.HEAD_DIMS
+    funcs = _functions("flash_attention.cu")
+    for name in ("flash_bwd_prep_kernel", "flash_bwd_dkdv_kernel",
+                 "flash_bwd_dq_kernel", "flash_bwd_dkdv_mma_kernel",
+                 "flash_bwd_dq_mma_kernel"):
+        header, body = funcs[name]
+        assert "__global__" in header and "atomic" not in body
+    assert "for (int hg = 0; hg < group; ++hg)" in funcs[
+        "flash_bwd_dkdv_kernel"][1]
+    assert "hk * group + it / nq" in funcs["flash_bwd_dkdv_mma_kernel"][1]
+    # bf16 runs the tensor-core pair, fp32 the SIMT pair
+    assert re.search(r"if constexpr \(tc\) \{\s+kv_kernel = "
+                     r"flash_bwd_dkdv_mma_kernel<D>;\s+q_kernel = "
+                     r"flash_bwd_dq_mma_kernel<D>;", src)
+    for name in ("flash_bwd_dkdv_mma_kernel", "flash_bwd_dq_mma_kernel"):
+        assert "mma_bf16(" in funcs[name][1]
+    for name in ("flash_kernel", "flash_mma_kernel"):
+        assert "row_lse(" in funcs[name][1]
+
+
 @pytest.mark.parametrize("layout", ["contiguous", "heads_of_bldh"])
 def test_bf16_alignment_check_accepts_the_models_views(layout):
     x = torch.zeros((2, 70, 12, 80), dtype=torch.bfloat16)
