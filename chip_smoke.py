@@ -177,12 +177,38 @@ each of which fails the run (non-zero exit) when it fails:
    flash kernels against the same step with autograd through the plain
    version that rounds P as the kernel does: loss and every gradient
    within 2e-2 x max|.|.  Row 8 of the kernels line gains the backward's
-   entry and the training forward launches.
+   entry and the training forward launches; ``FLASH_BWD_CASES`` also
+   holds zamba2-1.2b's shared block in training (MHA, D = 64);
+15. training mamba2-370m and zamba2-1.2b (``SSM_TRAIN``) the same way:
+   (a) the SSD backward kernels (``ssd_bwd_dstate_kernel``, the reverse
+   carry ``ssd_bwd_state_pass_kernel``, ``ssd_bwd_chunk_kernel``,
+   ``ssd_bwd_sum_kernel``) against ``ssd_scan_backward_plain`` at
+   ``SSD_BWD_CASES`` (both models' training shapes, 2 groups of 4 heads
+   with a final-state gradient, 2000 steps padded to 2048 as
+   ``apply_ssm`` pads them): every gradient within ``SSD_BWD_TOL`` x
+   max|.|, a second call the same bits, a planted fault (the middle
+   chunk's entering state zeroed in the scratch the kernels read) beyond
+   the limit, times beside the bound and the plain version; (b)
+   ``trainer.make_train_step`` for each at full width and depth (48
+   layers; 38 and the shared block's 6 applications), phase 14's batch,
+   steps and optimizer, the SSD forward, SSD backward and (zamba2) flash
+   launch counts zeroed before and above 0 after, losses finite and
+   falling, every leaf's step-1 gradient norm above 0; step time, tokens
+   per second, MFU ((6 N T + the SSD's forward and backward operations
+   in every layer + 3 x the shared attention's) / step / 989 TFLOP/s),
+   peak memory and one traced step with the SSD's and flash's device
+   time; (c) one step of each (mamba2 at 2 layers, zamba2 at 6: its
+   first group and shared application; full width, 2 x 2048 tokens)
+   with the kernels against the same step with autograd through the
+   plain versions (flash rounding P as the kernel does): loss and every
+   gradient within 2e-2 x max|.|.  Row 9 of the kernels line gains the
+   backward's entry and the training forward launches; row 8 zamba2's
+   flash launches.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
-and flash shapes too, row 8 the training phase's launches and the flash
-backward's entry under ``backward``),
+and flash shapes too, rows 8 and 9 the training phases' launches and the
+flash and SSD backwards' entries under ``backward``),
 and, last, ``{"ok": true, "device": {...}}``.  Per-case times go to
 ``results/chip_smoke/chip_smoke_cases.json`` (gitignored), each with one
 more call traced by ``torch.profiler``: the device time of the port's
@@ -248,6 +274,8 @@ GRAPH_BUDGET = 512 << 20
 #: the port's kernels, by the names the profiler reports
 SSD_KERNELS = ("ssd_chunk_state_kernel<", "ssd_state_pass_kernel",
                "ssd_chunk_scan_kernel<")
+SSD_BWD_KERNELS = ("ssd_bwd_dstate_kernel<", "ssd_bwd_state_pass_kernel",
+                   "ssd_bwd_chunk_kernel<", "ssd_bwd_sum_kernel")
 FLASH_BWD_KERNELS = ("flash_bwd_prep_kernel<", "flash_bwd_dkdv_kernel<",
                      "flash_bwd_dq_kernel<", "flash_bwd_dkdv_mma_kernel<",
                      "flash_bwd_dq_mma_kernel<")
@@ -255,7 +283,7 @@ OUR_KERNELS = ("stt_tile_kernel<", "os_stream_kernel<", "rt_tree_kernel<",
                "os_inplace_kernel<", "ws_kernel<", "ws_tile_kernel<",
                "bsr_tile_kernel<", "stages_kernel<", "gather_kernel<",
                "flash_kernel<", "flash_mma_kernel<") + SSD_KERNELS + \
-    FLASH_BWD_KERNELS
+    FLASH_BWD_KERNELS + SSD_BWD_KERNELS
 #: the serve phase: model, slot engine, traffic
 SERVE_MODEL = "h2o-danube-1.8b"
 SERVE_ENGINE = dict(capacity=8, max_context=2048, page_size=16,
@@ -300,18 +328,42 @@ DRIVER_LAYERS = 2
 #: the flash backward's checks: (label, B, Hq, Hkv, Lq, Lkv, D, causal,
 #: window).  The first is the danube training shape (window 4096 over 2048
 #: tokens: causal only); the second's 256-token window hides whole kv
-#: blocks from later q blocks; the third is whisper's ragged cross shape
+#: blocks from later q blocks; the third is whisper's ragged cross shape;
+#: the fourth zamba2-1.2b's shared block in training (MHA, D = 64)
 FLASH_BWD_CASES = (
     ("danube training", TRAIN_BATCH, 32, 8, TRAIN_SEQ, TRAIN_SEQ, 80, True,
      4096),
     ("window 256", 1, 32, 8, 1024, 1024, 80, True, 256),
     ("ragged cross", 1, 12, 12, 57, 1500, 64, False, None),
+    ("zamba2 training", TRAIN_BATCH, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64, True,
+     None),
 )
 #: the flash backward's tolerance against its plain version, x max|.|:
 #: bf16 the reference's bf16 tolerance (the kernels round P and dS to bf16
 #: for the tensor cores, the plain version keeps them fp32), fp32 other
 #: sum orders and the card's ``exp2f``
 FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: the ssm/hybrid training phase: (model, its depth, check (c)'s depth);
+#: batch, steps, lr and optimizer as in phase 14.  (c) runs mamba2-370m at
+#: 2 layers and zamba2-1.2b at 6: its first group and the shared block's
+#: first application
+SSM_TRAIN = (("mamba2-370m", 48, 2), ("zamba2-1.2b", 38, 6))
+#: the SSD backward's checks: (label, B, L, H, G, N, P, chunk, with a
+#: final-state gradient, the unpadded length).  The first two are the
+#: models' training shapes; the third has 2 groups of 4 heads; the fourth
+#: pads 2000 steps to 2048 as ``apply_ssm`` does (dt and dy 0 past the
+#: end; x, B and C not)
+SSD_BWD_CASES = (
+    ("mamba2 training", TRAIN_BATCH, TRAIN_SEQ, 32, 1, 128, 64, 64, False,
+     None),
+    ("zamba2 training", TRAIN_BATCH, TRAIN_SEQ, 64, 1, 64, 64, 64, False,
+     None),
+    ("2 groups, final state", 2, 640, 8, 2, 96, 48, 64, True, None),
+    ("padded 2000 -> 2048", 1, 2048, 32, 1, 128, 64, 64, False, 2000),
+)
+#: the SSD backward against its plain version, x max|.|: fp32 both, other
+#: sum orders and the card's ``expf``
+SSD_BWD_TOL = 1e-4
 
 
 def check(cond: bool, what: str) -> None:
@@ -390,10 +442,11 @@ def graph_operands(g, gen):
     return ops
 
 
-def device_breakdown(fn, top: int = 8):
+def device_breakdown(fn, top: int = 8, groups=None):
     """One untraced call of ``fn`` on the host clock, then one traced:
     device time by kernel (the ``top`` largest) and in all, and the busy
-    share; ``device_ms`` is None when the trace holds no device events."""
+    share; ``device_ms`` is None when the trace holds no device events.
+    ``groups`` (label -> kernel names) adds each group's device time."""
     import torch
 
     torch.cuda.synchronize()
@@ -406,10 +459,15 @@ def device_breakdown(fn, top: int = 8):
     if total == 0.0:
         return {"call_ms": call_ms, "device_ms": None, "busy_share": None,
                 "kernels": []}
-    return {"call_ms": call_ms, "device_ms": total,
-            "busy_share": total / call_ms,
-            "kernels": [{"name": k[:90], "ms": ms, "count": n}
-                        for k, ms, n in rows[:top]]}
+    out = {"call_ms": call_ms, "device_ms": total,
+           "busy_share": total / call_ms,
+           "kernels": [{"name": k[:90], "ms": ms, "count": n}
+                       for k, ms, n in rows[:top]]}
+    if groups:
+        out["groups"] = {label: sum(ms for k, ms, _ in rows
+                                    if any(n in k for n in names))
+                         for label, names in groups.items()}
+    return out
 
 
 def serve_traffic(n, seed, vocab, prompt_lens=PROMPT_LENS,
@@ -964,10 +1022,10 @@ def ssm_serve_phase(check):
         paged.reset_launches()
         served, serve_s, stats, occupancy = run_server(eng, prompts, news,
                                                        check)
-        launches = {**ssd_scan.launches, **paged.launches,
-                    "flash_attention":
+        launches = {"ssd_scan": ssd_scan.launches["ssd_scan"],
+                    **paged.launches, "flash_attention":
                     flash_attention.launches["flash_attention"]}
-        must = (launches if hybrid else ssd_scan.launches)
+        must = (launches if hybrid else {"ssd_scan": launches["ssd_scan"]})
         for name, count in must.items():
             check(count > 0, f"the {model} serve path never launched {name}")
         ssd_launches += launches["ssd_scan"]
@@ -1525,9 +1583,10 @@ def flash_backward_check(case, dtype, g, check):
     log-sum-exp, with random dO: dQ, dK and dV within ``FLASH_BWD_TOL`` x
     max|.|, a second call the same bits, and a planted fault (dK with its
     first kv block dropped, the block most q rows see) beyond the limit.
-    Times: the backward, its plain version, and at the danube shape SDPA's
-    forward + backward as the library yardstick; the bound counts 2.5x
-    the forward's 4 D flops a visible pair and q head."""
+    Times: the backward, its plain version, and at the training shapes
+    (danube's, zamba2's) SDPA's forward + backward as the library
+    yardstick; the bound counts 2.5x the forward's 4 D flops a visible
+    pair and q head."""
     import torch
     import torch.nn.functional as F
 
@@ -1583,7 +1642,7 @@ def flash_backward_check(case, dtype, g, check):
            "shape": f"q ({b}, {hq}, {lq}, {d}), k/v ({b}, {hkv}, {lkv}, "
                     f"{d}) {name}, {'causal' if causal else 'non-causal'}"
                     f"{'' if window is None else f', window {window}'}"}
-    if label == "danube training":
+    if label.endswith("training"):
         qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
 
         def sdpa():
@@ -1607,6 +1666,54 @@ def _leaves(tree, prefix=""):
             yield from _leaves(tree[k], f"{prefix}/{k}")
     else:
         yield prefix, tree
+
+
+def train_steps(step, init, batch, tag, check):
+    """``TRAIN_STEPS`` calls of ``step`` on ``batch(i)`` from the state
+    ``init()`` makes (made here: a caller holding the first state would
+    keep a second copy of the masters and moments alive over every
+    step), each timed on the host clock between synchronizes, with the
+    peak device memory over them.  Checks every loss finite, the last
+    below the first, and every parameter leaf's step-1 gradient norm
+    above 0.  Returns (state, losses, step ms, grad norms, step 1's
+    gradient norm by leaf, peak GB)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train import trainer
+
+    state = init()
+    grad_norms = {}
+    real_update = trainer.adamw.apply_updates
+
+    def recording_update(params, grads, st, oc):
+        if not grad_norms:          # step 1's gradients, leaf by leaf
+            grad_norms.update({p: x.float().norm().item()
+                               for p, x in _leaves(grads)})
+        return real_update(params, grads, st, oc)
+    trainer.adamw.apply_updates = recording_update
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, gnorms = [], [], []
+    try:
+        for i in range(TRAIN_STEPS):
+            b = batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+    finally:
+        trainer.adamw.apply_updates = real_update
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)), f"{tag}: non-finite losses {losses}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+    zero = sorted(p for p, n in grad_norms.items() if not n > 0)
+    check(len(grad_norms) > 0 and not zero,
+          f"{tag}: leaves without a gradient after step 1: {zero}")
+    return state, losses, step_ms, gnorms, grad_norms, peak_gb
 
 
 def train_phase(check):
@@ -1664,41 +1771,13 @@ def train_phase(check):
     def batch(i):
         return {k: torch.as_tensor(v, device=dev)
                 for k, v in _batch_numpy(data, i).items()}
-    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
-                               cfg, opt_cfg)
     step = trainer.make_train_step(cfg, opt_cfg)
-    grad_norms = {}
-    real_update = trainer.adamw.apply_updates
-
-    def recording_update(params, grads, st, oc):
-        if not grad_norms:          # step 1's gradients, leaf by leaf
-            grad_norms.update({p: x.float().norm().item()
-                               for p, x in _leaves(grads)})
-        return real_update(params, grads, st, oc)
-    trainer.adamw.apply_updates = recording_update
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
-    losses, step_ms, gnorms = [], [], []
-    try:
-        for i in range(TRAIN_STEPS):
-            b = batch(i)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, metrics = step(state, b)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(metrics["loss"]))
-            gnorms.append(float(metrics["grad_norm"]))
-    finally:
-        trainer.adamw.apply_updates = real_update
+    state, losses, step_ms, gnorms, grad_norms, peak_gb = train_steps(
+        step, lambda: trainer.init_state(
+            torch.Generator(device=dev).manual_seed(0), cfg, opt_cfg),
+        batch, "train", check)
     train_launches = dict(fa.launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(all(np.isfinite(losses)), f"train: non-finite losses {losses}")
-    check(losses[-1] < losses[0], f"train: the loss did not fall: {losses}")
-    zero = sorted(p for p, n in grad_norms.items() if not n > 0)
-    check(len(grad_norms) > 0 and not zero,
-          f"train: leaves without a gradient after step 1: {zero}")
     for name, count in train_launches.items():
         check(count > 0, f"the training phase never launched {name}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -1836,6 +1915,303 @@ def train_phase(check):
                                 "bound_by", "library_ms", "shape")},
         "other_shapes": [r for r in rows if r is not main]}
     return entry, train_launches["flash_attention"], summary
+
+
+def ssd_backward_roofline(bsz, length, heads, groups, state, head_dim,
+                          chunk, final):
+    """The SSD backward's least time on the card (fp32 on the CUDA
+    cores), counted as ``csrc/ssd_scan.cu``'s note counts it: per chunk
+    and head the four lower-triangle products with P or N, Q(Q+1)/2 (2P
+    + 2N) multiply-adds, and four Q N P products; C B^T once per group;
+    and an element's dt scaling of dx and ``a`` scaling of ddt.  Bytes:
+    x, dy, dt, B, C, a, the forward's entering states and decays (and
+    the final state's gradient), each once, and dx, ddt, dB, dC, da."""
+    from repro_torch.core import hopper
+    q, nc = chunk, length // chunk
+    tri = q * (q + 1) // 2
+    macs = bsz * nc * (groups * tri * state + heads * (
+        tri * (2 * head_dim + 2 * state) + 4 * q * state * head_dim))
+    elems = bsz * length * heads * (head_dim + 1)
+    nbytes = 4.0 * (bsz * (3 * length * heads * head_dim
+                           + 2 * length * heads + 4 * length * groups * state
+                           + nc * heads * (state * head_dim + 1)
+                           + (heads * state * head_dim if final else 0))
+                    + 2 * heads)
+    return hopper.RooflineTerms("ssd backward", 2.0 * macs + elems, nbytes,
+                                dtype="float32")
+
+
+def ssd_backward_check(case, g, check):
+    """Check (a): the SSD backward kernels against
+    ``ssd_scan_backward_plain`` on random operands in the models' ranges
+    and random dy (and final-state gradient): every gradient within
+    ``SSD_BWD_TOL`` x max|.|, a second call the same bits, and a planted
+    fault (the forward's entering state of the middle chunk zeroed in the
+    scratch the kernels read) beyond the limit.  Times: the kernels (given
+    the forward's scratch), the plain version; no PyTorch call computes
+    the SSD's gradient."""
+    import types
+
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+
+    label, b, length, h, gr, n, p, q, final, unpadded = case
+    dev = torch.device("cuda")
+    dims = types.SimpleNamespace(ssm_heads=h, ssm_head_dim=p,
+                                 ssm_groups=gr, ssm_state=n)
+    x, dt, a, bm, cm = ssd_operands(b, length, dims, g)
+    dy = torch.randn((b, length, h, p), generator=g, device=dev)
+    dh = (torch.randn((b, h, n, p), generator=g, device=dev) if final
+          else None)
+    if unpadded is not None:
+        dt[:, unpadded:] = 0.0
+        dy[:, unpadded:] = 0.0
+    _, _, scratch, _ = ssd_scan._forward(x, dt, a, bm, cm, q)
+
+    def run(scr=scratch):
+        return ssd_scan.ssd_scan_backward(x, dt, a, bm, cm, dy, dh, chunk=q,
+                                          scratch=scr)
+
+    def plain():
+        return ssd_scan.ssd_scan_backward_plain(x, dt, a, bm, cm, dy, dh,
+                                                chunk=q)
+    got, want = run(), plain()
+    errs = {}
+    for what, u, w in zip(("dx", "ddt", "da", "db", "dc"), got, want):
+        scale = w.abs().max().item()
+        err = (u - w).abs().max().item()
+        check(bool(torch.isfinite(u).all()) and err <= SSD_BWD_TOL * scale,
+              f"ssd backward {label}: {what} max err {err} beyond "
+              f"{SSD_BWD_TOL} x {scale}")
+        errs[what] = err / scale
+    again = run()
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          f"ssd backward {label}: two calls differ")
+    nc = length // q
+    bad = scratch.clone()
+    bad[:b * nc * h * n * p].view(b, nc, h, n, p)[:, nc // 2] = 0.0
+    fault_err = max(((u - w).abs().max() / w.abs().max()).item()
+                    for u, w in zip(run(bad), want))
+    check(fault_err > SSD_BWD_TOL, f"ssd backward {label}: a dropped "
+          f"entering state reads {fault_err}, inside {SSD_BWD_TOL}")
+    roof = ssd_backward_roofline(b, length, h, gr, n, p, q, final)
+    row = {"case": label, "rel_err": errs,
+           "max_abs_err": max((u - w).abs().max().item()
+                              for u, w in zip(got, want)),
+           "fault_rel_err": fault_err, "ms": event_ms(run, 10),
+           "plain_ms": event_ms(plain, 2), "bound_ms": roof.bound_s * 1e3,
+           "bound_by": roof.bound_by, "library_ms": None,
+           "gflop": roof.flops / 1e9, "mbytes": roof.bytes / 1e6,
+           "shape": f"x ({b}, {length}, {h}, {p}), B/C ({b}, {length}, {gr}"
+                    f", {n}) fp32, chunk {q}"
+                    f"{', with dh_final' if final else ''}"
+                    f"{'' if unpadded is None else f', {unpadded} steps'}"}
+    del x, dt, a, bm, cm, dy, dh, scratch, bad, got, want, again
+    torch.cuda.empty_cache()
+    print(f"ssm train checks: (a) ssd backward {row['shape']}: rel errors "
+          f"{ {k: f'{e:.2e}' for k, e in errs.items()} }, fault "
+          f"{fault_err:.3f}, {row['ms']:.3f} ms (bound {row['bound_ms']:.4f}"
+          f" {row['bound_by']}, {row['gflop']:.1f} GFLOP; plain "
+          f"{row['plain_ms']:.3f})")
+    return row
+
+
+def ssm_train_phase(check):
+    """Phase 15: training mamba2-370m and zamba2-1.2b on the card.  (a)
+    the SSD backward kernels at ``SSD_BWD_CASES``; (b)
+    ``make_train_step`` for each model of ``SSM_TRAIN`` at full width and
+    depth, phase 14's batch, steps and optimizer, with the SSD forward,
+    SSD backward and flash launch counts zeroed before and read after;
+    (c) one step of each at check (c)'s depth with the kernels against
+    the same step with autograd through the plain versions.  Returns
+    (the SSD backward's kernels-line entry, the SSD forward launches in
+    (b), the flash forward and backward launches in (b), summary)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, _batch_numpy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, ssd_scan
+    from repro_torch.launch.specs import opt_config_for
+    from repro_torch.models import init_params
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.train import trainer
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = {}
+
+    # (a) the backward kernels against their plain version
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = [ssd_backward_check(case, g, check) for case in SSD_BWD_CASES]
+    summary["ssd_backward"] = rows
+
+    # (b) the full-depth trainers
+    totals = {"ssd_scan": 0, "ssd_scan_backward": 0, "flash_attention": 0,
+              "flash_attention_backward": 0}
+    for model, depth, _ in SSM_TRAIN:
+        cfg = get_config(model)
+        check(cfg.n_layers == depth and cfg.remat
+              and cfg.dtype == "bfloat16",
+              f"{model}: expected {depth} layers, remat and bf16 compute")
+        hybrid = cfg.family == "hybrid"
+        opt_cfg = dataclasses.replace(opt_config_for(cfg), lr=TRAIN_LR,
+                                      warmup_steps=2,
+                                      total_steps=TRAIN_STEPS)
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0)
+
+        def batch(i, data=data):
+            return {k: torch.as_tensor(v, device=dev)
+                    for k, v in _batch_numpy(data, i).items()}
+        print(f"ssm train: {cfg.name}, {cfg.n_layers} layers, "
+              f"{cfg.param_count() / 1e9:.3f} B parameters, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}")
+        step = trainer.make_train_step(cfg, opt_cfg)
+        ssd_scan.reset_launches()
+        fa.reset_launches()
+        state, losses, step_ms, gnorms, grad_norms, peak_gb = train_steps(
+            step, lambda cfg=cfg, opt_cfg=opt_cfg: trainer.init_state(
+                torch.Generator(device=dev).manual_seed(0), cfg, opt_cfg),
+            batch, f"ssm train {model}", check)
+        launches = {**ssd_scan.launches, **fa.launches}
+        must = launches if hybrid else ssd_scan.launches
+        for name, count in must.items():
+            check(count > 0, f"the {model} training never launched {name}")
+        for name in totals:
+            totals[name] += launches[name]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        # model FLOPs: 6 N T, the SSD's forward and backward operations in
+        # every layer, and the shared block's attention (3x its forward)
+        # in each of its applications
+        ssd_ops = cfg.n_layers * (
+            ssd_roofline(TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_chunk, cfg).flops
+            + ssd_backward_roofline(
+                TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_heads, cfg.ssm_groups,
+                cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk,
+                False).flops)
+        attn_ops = 0.0
+        if hybrid:
+            pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.swa_window)
+            attn_ops = 3 * 4.0 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH \
+                * pairs * (cfg.n_layers // cfg.attn_every)
+        model_flops = 6.0 * cfg.param_count() * tokens + ssd_ops + attn_ops
+        steady = float(np.median(step_ms[1:]))
+        mfu = model_flops / (steady / 1e3) / 989e12
+        prof = device_breakdown(
+            lambda: step(state, batch(TRAIN_STEPS)), top=12,
+            groups={"ssd forward": SSD_KERNELS,
+                    "ssd backward": SSD_BWD_KERNELS,
+                    "flash forward": ("flash_kernel<", "flash_mma_kernel<"),
+                    "flash backward": FLASH_BWD_KERNELS})
+        summary[model] = {
+            "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+            "steady_step_ms": steady, "tokens_per_s": tokens / (steady / 1e3),
+            "mfu": mfu, "model_tflop": model_flops / 1e12,
+            "ssd_tflop": ssd_ops / 1e12, "attention_tflop": attn_ops / 1e12,
+            "peak_gb": peak_gb, "launches": launches,
+            "grad_leaves": len(grad_norms), "traced_step": prof}
+        print(f"ssm train {model}: losses {[round(x, 4) for x in losses]}; "
+              f"grad norms {[round(x, 3) for x in gnorms]}; step ms "
+              f"{[round(x, 1) for x in step_ms]}; median {steady:.1f} ms, "
+              f"{tokens / (steady / 1e3):.0f} tokens/s, MFU {mfu:.3f} "
+              f"({model_flops / 1e12:.1f} TFLOP a step, of which SSD "
+              f"{ssd_ops / 1e12:.2f} and attention {attn_ops / 1e12:.2f}; "
+              f"989 TFLOP/s); peak {peak_gb:.1f} GB; launches {launches}; "
+              f"{len(grad_norms)} leaves with a gradient")
+        if prof["device_ms"] is None:
+            print("  traced step: no device events")
+        else:
+            print(f"  traced step: call {prof['call_ms']:.1f} ms, device "
+                  f"{prof['device_ms']:.1f} ms, busy "
+                  f"{prof['busy_share']:.2f}; "
+                  f"{ {k: round(v, 2) for k, v in prof['groups'].items()} }")
+            for kr in prof["kernels"]:
+                print(f"    {kr['ms']:8.3f} ms x{kr['count']:<5d} "
+                      f"{kr['name'][:100]}")
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the kernels against the plain versions, one step
+    real_ssd, real_flash = ssm_mod.ssd_scan, fa.flash_attention
+
+    def plain_ssd(x, dt, a, b, c, *, chunk=64):
+        return ref.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk)
+
+    def plain_attention(q, k, v, *, causal=True, window=None):
+        # the kernels' stated arithmetic (P rounded to bf16 before P V)
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, round_p=True)
+    summary["plain_route"] = {}
+    for model, _, small_depth in SSM_TRAIN:
+        small = dataclasses.replace(get_config(model), n_layers=small_depth)
+        data = DataConfig(vocab=small.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=0)
+        b = {k: torch.as_tensor(v[:2], device=dev)
+             for k, v in _batch_numpy(data, 0).items()}
+        params = init_params(torch.Generator(device=dev).manual_seed(1),
+                             small)
+        ssd_scan.reset_launches()
+        fa.reset_launches()
+        loss_k, _, grads_k = trainer.value_and_grad(params, b, small)
+        kernel_launches = {**ssd_scan.launches, **fa.launches}
+        ssm_mod.ssd_scan, fa.flash_attention = plain_ssd, plain_attention
+        try:
+            ssd_scan.reset_launches()
+            fa.reset_launches()
+            loss_p, _, grads_p = trainer.value_and_grad(params, b, small)
+            plain_launches = {**ssd_scan.launches, **fa.launches}
+        finally:
+            ssm_mod.ssd_scan, fa.flash_attention = real_ssd, real_flash
+        must = (kernel_launches if small.family == "hybrid"
+                else {k: kernel_launches[k] for k in ssd_scan.launches})
+        check(all(n > 0 for n in must.values())
+              and not any(plain_launches.values()),
+              f"(c) {model}: launches {kernel_launches} (kernels), "
+              f"{plain_launches} (plain)")
+        loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        check(loss_err <= 2e-2, f"(c) {model}: loss {float(loss_k)} against "
+              f"{float(loss_p)}")
+        grad_errs = {}
+        for (path, gk), (_, gp) in zip(_leaves(grads_k), _leaves(grads_p)):
+            scale = gp.float().abs().max().item()
+            grad_errs[path] = ((gk.float() - gp.float()).abs().max().item()
+                               / scale)
+            check(grad_errs[path] <= 2e-2, f"(c) {model}: gradient {path} "
+                  f"rel err {grad_errs[path]} beyond 2e-2")
+        worst = max(grad_errs, key=grad_errs.get)
+        summary["plain_route"][model] = {
+            "layers": small_depth, "loss": [float(loss_k), float(loss_p)],
+            "loss_rel_err": loss_err, "grad_rel_errs": grad_errs,
+            "launches": kernel_launches}
+        print(f"ssm train checks: (c) {model} at {small_depth} layers, "
+              f"kernels against plain versions: loss {float(loss_k):.5f} / "
+              f"{float(loss_p):.5f}, largest gradient rel err "
+              f"{grad_errs[worst]:.2e} ({worst}); launches {kernel_launches}")
+        del params, grads_k, grads_p
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    main = rows[0]
+    entry = {
+        "name": "ssd_scan.ssd_scan_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "none: the port's own kernel (the reference "
+                    "differentiates its XLA ssd_chunked_ref)",
+        "launches": totals["ssd_scan_backward"],
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "shape")},
+        "other_shapes": rows[1:]}
+    flash = {k: totals[k] for k in ("flash_attention",
+                                    "flash_attention_backward")}
+    return entry, totals["ssd_scan"], flash, summary
 
 
 def main() -> int:
@@ -2459,11 +2835,28 @@ def main() -> int:
             row["launches_training"] = train_forward
             row["backward"] = backward_entry
     phase("training")
+
+    # -- 15. ssm and hybrid training ----------------------------------------
+    ssd_entry, ssd_train, flash_train, ssm_train_summary = \
+        ssm_train_phase(check)
+    for row in kernels:
+        name = row["name"].split(".")[-1]
+        if name == "ssd_scan":
+            row["launches"] += ssd_train
+            row["launches_training"] = ssd_train
+            row["backward"] = ssd_entry
+        if name == "flash_attention":
+            row["launches"] += flash_train["flash_attention"]
+            row["launches_training"] += flash_train["flash_attention"]
+            row["backward"]["launches"] += \
+                flash_train["flash_attention_backward"]
+    phase("ssm training")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
          "ssm_serve": ssm_summary, "family_serve": family_summary,
-         "training": train_summary, "phase_s": phase_s}, indent=1))
+         "training": train_summary, "ssm_training": ssm_train_summary,
+         "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

@@ -157,18 +157,20 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Chunked (quadratic-within-chunk) SSD — the algorithm the SSD
     kernel implements, vectorized over chunks, with the inter-chunk
     state carried by a loop.  Mathematically identical to ``ssd_ref``;
-    the models' prefill path on the CPU.  Returns (y, h_final)."""
+    the models' prefill path on the CPU.  Computes in the wider of fp32
+    and x's dtype (float64 stays float64).  Returns (y, h_final)."""
     bsz, l, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     rep = h // g
     if l % chunk:
         raise ValueError(f"L={l} not divisible by chunk={chunk}")
     nc = l // chunk
+    f = torch.promote_types(x.dtype, torch.float32)
 
-    xf = x.to(torch.float32) * dt.to(torch.float32)[..., None]  # dt folded
-    bf = b.to(torch.float32).repeat_interleave(rep, dim=2)
-    cf = c.to(torch.float32).repeat_interleave(rep, dim=2)
-    da = dt.to(torch.float32) * a.to(torch.float32)              # (B, L, H)
+    xf = x.to(f) * dt.to(f)[..., None]  # dt folded
+    bf = b.to(f).repeat_interleave(rep, dim=2)
+    cf = c.to(f).repeat_interleave(rep, dim=2)
+    da = dt.to(f) * a.to(f)              # (B, L, H)
 
     # reshape to chunks: (B, nc, Q, ...)
     xc = xf.reshape(bsz, nc, chunk, h, p)
@@ -193,9 +195,9 @@ def ssd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     chunk_decay = torch.exp(lc[:, :, -1, :])                     # (B,nc,H)
 
     # carry the state over chunks: the state entering each chunk
-    hcur = (torch.zeros((bsz, h, n, p), dtype=torch.float32,
+    hcur = (torch.zeros((bsz, h, n, p), dtype=f,
                         device=x.device)
-            if h0 is None else h0.to(torch.float32))
+            if h0 is None else h0.to(f))
     h_in = []
     for ci in range(nc):
         h_in.append(hcur)

@@ -6,8 +6,10 @@
 Runs the fault-tolerant driver on one device: the card unless
 ``--device`` names another.  ``--smoke`` scales the config down (batch
 8, sequence 64) for the CPU.  The defaults (batch 4 x 2048 tokens) fit
-h2o-danube-1.8b's fp32 masters, gradients and AdamW moments on one
-80 GB card.  ``--multi-pod`` needs the mesh slice and raises.
+the fp32 masters, gradients and AdamW moments of h2o-danube-1.8b,
+mamba2-370m and zamba2-1.2b on one 80 GB card (the ssm and hybrid
+families train through the SSD kernels' backward).  ``--multi-pod``
+needs the mesh slice and raises.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@ The port of the reference's ``models/ssm.py``.  Prefill runs the chunked
 SSD through ``kernels/ssd_scan.py``, which also hands back the final
 state: on a CUDA tensor the hand-written scan kernels
 (``csrc/ssd_scan.cu``), on a CPU tensor the plain
-``ref.ssd_chunked_ref``, as the reference's models run it.  Decode keeps
+``ref.ssd_chunked_ref``, as the reference's models run it; under
+autograd on the card the kernels' own backward (``SSDScanFn``), in
+training the final state's gradient being zero.  Decode keeps
 an O(1) recurrent state (B, H, N, P) plus a rolling conv window and
 advances them in plain PyTorch on every device (the reference has no
 kernel for it either).  Decode returns **new** conv and state tensors and

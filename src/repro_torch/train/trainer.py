@@ -3,12 +3,13 @@
 The port of the reference's ``train/trainer.py``.  The reference
 differentiates ``transformer.forward`` with ``jax.value_and_grad``; the
 port runs the same forward under autograd.  On the card its attention is
-the flash kernel, whose backward is a kernel too
-(``kernels.flash_attention.FlashAttentionFn``); every other kernel
-wrapper raises under autograd rather than drop gradients, so a family
-whose forward reaches one (the SSD scan of ssm and hybrid models) fails
-in its first step.  With ``cfg.remat`` each layer is recomputed in the
-backward (``models.transformer``).
+the flash kernel and the ssm and hybrid families' scan the SSD kernels,
+each with a backward that is a kernel too
+(``kernels.flash_attention.FlashAttentionFn``,
+``kernels.ssd_scan.SSDScanFn``); every other kernel wrapper raises under
+autograd rather than drop gradients (no model's training reaches one).
+With ``cfg.remat`` each layer is recomputed in the backward
+(``models.transformer``).
 
 The step takes parameter leaves as they are, makes leaf tensors that
 require grad of them (``detach``: no copy), and returns new parameters

@@ -19,7 +19,8 @@ max|out| in fp32 (other sum order, the card's ``expf``); in bf16 within
 the plain version that rounds P to bf16 as the kernel does; the paged
 gather, a copy, exactly; the SSD scan's y and final state within 1e-4 x
 max|.| of its plain version in fp32 (other sum order and scan
-association, the card's ``expf``).  A model's prefill and decode step on
+association, the card's ``expf``), and its backward's gradients the
+same.  A model's prefill and decode step on
 the card are held to the same calls on the CPU within 1e-4 x
 max|logit| (reduced configs, fp32).
 """
@@ -1291,15 +1292,131 @@ def test_bf16_train_step_kernels_against_the_plain_attention(cuda,
         assert err <= 2e-2 * w.abs().max().item(), (key, err)
 
 
-def test_ssd_under_autograd_raises_on_the_card(cuda):
-    from repro_torch.kernels import ssd_scan
-    x = torch.ones(1, 16, 2, 8, device=cuda, requires_grad=True)
-    dt, a = torch.ones(1, 16, 2, device=cuda), -torch.ones(2, device=cuda)
-    b = torch.ones(1, 16, 1, 4, device=cuda)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
-        ssd_scan.ssd_scan(x, dt, a, b, b, chunk=8)
+def test_ssd_under_autograd_runs_the_backward_kernels(cuda):
+    # under grad the call goes through SSDScanFn: one forward and, on
+    # backward, one backward launch; its gradients equal autograd through
+    # the plain version; without grad no Function is recorded
+    from repro_torch.kernels import ref, ssd_scan
+    ops_ = [t.to(cuda) for t in _ssd_operands(2, 48, 4, 8, 2, 16, seed=7)]
+    ins = [t.clone().requires_grad_() for t in ops_]
+    dy = torch.randn(2, 48, 4, 8, device=cuda)
+    ssd_scan.reset_launches()
+    y, _ = ssd_scan.ssd_scan(*ins, chunk=16)
+    assert "SSDScanFn" in type(y.grad_fn).__name__
+    got = torch.autograd.grad((y * dy).sum(), ins)
+    assert ssd_scan.launches == {"ssd_scan": 1, "ssd_scan_backward": 1}
+    ins2 = [t.clone().requires_grad_() for t in ops_]
+    y2, _ = ref.ssd_chunked_ref(*ins2, chunk=16)
+    _ssd_compare(got, torch.autograd.grad((y2 * dy).sum(), ins2))
     with torch.no_grad():
-        ssd_scan.ssd_scan(x, dt, a, b, b, chunk=8)
+        y, _ = ssd_scan.ssd_scan(*ins, chunk=16)
+    assert y.grad_fn is None and ssd_scan.launches["ssd_scan"] == 2
+
+
+def _ssd_backward_inputs(b, L, h, p, g, n, seed, final):
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.as_tensor(rng.standard_normal((b, L, h, p)).astype(np.float32))
+    dh = torch.as_tensor(rng.standard_normal((b, h, n, p)).astype(
+        np.float32)) if final else None
+    return _ssd_operands(b, L, h, p, g, n, seed), dy, dh
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("p", [16, 24, 64, 80])
+@pytest.mark.parametrize("n", [16, 64, 128])
+@pytest.mark.parametrize("q", [8, 37, 64])
+def test_ssd_backward_kernel(cuda, q, n, p, g, final):
+    # every gradient within 1e-4 x max|.| of the plain version, ragged
+    # chunks, both state widths, more than one column tile (P = 80), a
+    # group of two heads, with and without a final-state gradient; a
+    # second call gives the same bits
+    from repro_torch.kernels import ssd_scan
+    ops_, dy, dh = _ssd_backward_inputs(2, 3 * q, 4, p, g, n,
+                                        seed=q + n + p + g, final=final)
+    want = ssd_scan.ssd_scan_backward_plain(*ops_, dy, dh, chunk=q)
+    dev = [t.to(cuda) for t in ops_]
+    dyc, dhc = dy.to(cuda), None if dh is None else dh.to(cuda)
+    ssd_scan.reset_launches()
+    got = ssd_scan.ssd_scan_backward(*dev, dyc, dhc, chunk=q)
+    assert ssd_scan.launches == {"ssd_scan": 1, "ssd_scan_backward": 1}
+    _ssd_compare(got, want)
+    again = ssd_scan.ssd_scan_backward(*dev, dyc, dhc, chunk=q)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.parametrize("model", ["mamba2-370m", "zamba2-1.2b"])
+def test_ssd_backward_at_the_training_shape(cuda, model):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan
+    lm = get_config(model)
+    ops_, dy, _ = _ssd_backward_inputs(
+        4, 2048, lm.ssm_heads, lm.ssm_head_dim, lm.ssm_groups, lm.ssm_state,
+        seed=3, final=False)
+    dev = [t.to(cuda) for t in ops_]
+    got = ssd_scan.ssd_scan_backward(*dev, dy.to(cuda), chunk=lm.ssm_chunk)
+    want = ssd_scan.ssd_scan_backward_plain(*dev, dy.to(cuda),
+                                            chunk=lm.ssm_chunk)
+    _ssd_compare(got, want)
+
+
+def test_ssd_backward_reads_the_models_strided_views(cuda):
+    # x, B and C as views of one conv output, dt of another tensor, bf16
+    # dy: the Function's gradients against autograd through the plain
+    # version, each in its input's dtype
+    from repro_torch.kernels import ref, ssd_scan
+    rng = np.random.default_rng(11)
+    h, p, g, n, L = 4, 16, 1, 32, 74
+    conv = torch.as_tensor(rng.standard_normal(
+        (2, L, h * p + 2 * g * n)).astype(np.float32), device=cuda)
+    dt = torch.as_tensor((0.1 + 0.9 * rng.random((2, L, h))).astype(
+        np.float32), device=cuda)
+    a = torch.as_tensor((-0.5 - rng.random(h)).astype(np.float32),
+                        device=cuda)
+    dy = torch.as_tensor(rng.standard_normal((2, L, h, p)).astype(
+        np.float32), device=cuda)
+    grads = []
+    for fn in (ssd_scan.ssd_scan, ref.ssd_chunked_ref):
+        cv, dtv, av = (t.clone().requires_grad_() for t in (conv, dt, a))
+        x = cv[..., :h * p].reshape(2, L, h, p)
+        b = cv[..., h * p:h * p + g * n].reshape(2, L, g, n)
+        c = cv[..., h * p + g * n:].reshape(2, L, g, n)
+        y, _ = fn(x, dtv, av, b, c, chunk=37)
+        grads.append(torch.autograd.grad((y * dy).sum(), (cv, dtv, av)))
+    _ssd_compare(*grads)
+
+
+@pytest.mark.parametrize("model", ["mamba2-370m", "zamba2-1.2b"])
+def test_ssm_train_step_on_the_card_matches_the_cpu(cuda, model):
+    # the reduced model in fp32 (remat on, a padded length): one step's
+    # loss and gradients on the card (SSD forward and backward kernels,
+    # zamba2's flash kernels) against the CPU's plain path
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, _batch_numpy
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import init_params
+    from repro_torch.train import trainer
+    cfg = dataclasses.replace(get_config(model).reduced(), remat=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    batch = _batch_numpy(DataConfig(vocab=cfg.vocab, seq_len=60,
+                                    global_batch=2), 0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        ssd_scan.reset_launches()
+        p = _to(params, dev)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        out[dev.type] = trainer.value_and_grad(p, b, cfg)
+        if dev.type == "cuda":
+            assert ssd_scan.launches == {"ssd_scan": 2 * cfg.n_layers,
+                                         "ssd_scan_backward": cfg.n_layers}
+    (lc, _, gc), (lp, _, gp) = out["cuda"], out["cpu"]
+    assert abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp))
+    for key, g in _flat(gc).items():
+        w = _flat(gp)[key]
+        err = (g.cpu() - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (key, err)
 
 
 def _to(tree, dev):

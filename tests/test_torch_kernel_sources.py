@@ -328,17 +328,58 @@ def test_ssd_forms_cb_once_per_block_of_heads():
     assert "ssd_kernel" not in funcs
     kernels = {n for n, (h, _) in funcs.items() if "__global__" in h}
     assert kernels == {"ssd_chunk_state_kernel", "ssd_state_pass_kernel",
-                       "ssd_chunk_scan_kernel"}
+                       "ssd_chunk_scan_kernel"} | set(SSD_BACKWARD)
 
 
 def test_ssd_only_the_state_pass_walks_the_chunks():
-    # every other kernel works on the chunk of its blockIdx.x
+    # every other kernel works on the chunk of its blockIdx.x; the
+    # backward walks them once, in reverse
     funcs = _functions("ssd_scan.cu")
     walkers = {n for n, (_, body) in funcs.items()
                if re.search(r"for \(int \w+ = 0; \w+ < s\.nc", body)}
-    assert walkers == {"ssd_state_pass_kernel"}
-    for name in ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel"):
+    assert walkers == {"ssd_state_pass_kernel", "ssd_bwd_state_pass_kernel"}
+    assert "s.nc - 1 - k0 - k" in funcs["ssd_bwd_state_pass_kernel"][1]
+    for name in ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel",
+                 "ssd_bwd_dstate_kernel", "ssd_bwd_chunk_kernel"):
         assert "ci = blockIdx.x" in funcs[name][1]
+
+
+#: the SSD backward's kernels, in launch order
+SSD_BACKWARD = ("ssd_bwd_dstate_kernel", "ssd_bwd_state_pass_kernel",
+                "ssd_bwd_chunk_kernel", "ssd_bwd_sum_kernel")
+
+
+def test_ssd_backward_sums_without_atomics_in_launch_order():
+    # determinism: no kernel of the file uses an atomic, the group and
+    # chunk sums are fixed-order loops, and the entry point launches the
+    # four backward kernels in order (the sum kernel always: it writes da)
+    funcs = _functions("ssd_scan.cu")
+    for name, (header, body) in funcs.items():
+        assert "atomic" not in body, name
+    entry = funcs["ssd_scan_backward_launch"][1]
+    launched = [m.group(1) for m in re.finditer(r"(\w+)(?:<\d+>)?<<<",
+                                                entry)]
+    assert list(dict.fromkeys(launched)) == list(SSD_BACKWARD)
+    sums = funcs["ssd_bwd_sum_kernel"][1]
+    assert "for (int r = 0; r < R; ++r)" in sums
+    assert "k < (long long)batch * s.nc" in sums
+
+
+def test_ssd_backward_shared_memory_fits_one_block():
+    # bwd_smem / dstate_smem in floats, as the source defines them, for
+    # the two state widths: within the H100's 227 KB a block
+    src = (CSRC / "ssd_scan.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+    qmax, threads = consts["QMAX"], consts["THREADS"]
+    bq = qmax + 1
+    for nr in (1, 2):
+        npad = 64 * nr + 1
+        bwd = 2 * qmax * npad + 3 * qmax * bq + 2 * 64 * nr * bq + \
+            7 * qmax + threads // 32
+        dstate = qmax * npad + qmax * bq + qmax
+        assert 4 * bwd <= 232_448 and 4 * dstate <= 232_448
+    assert "constexpr int BQ = QMAX + 1;" in src
 
 
 def test_paged_gather_is_one_launch():

@@ -275,6 +275,17 @@ def test_launch_train_smoke_on_the_cpu(tmp_path, capsys):
     assert store.latest_step(str(tmp_path)) == 30
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_launch_train_smoke_trains_the_ssm_families(tmp_path, capsys,
+                                                    arch):
+    out = launch_train.main(["--arch", arch, "--steps", "30", "--smoke",
+                             "--device", "cpu", "--lr", "1e-2",
+                             "--ckpt-dir", str(tmp_path)])
+    losses = [m["loss"] for m in out["metrics"]]
+    assert out["final_step"] == 30 and losses[-1] < losses[0]
+    assert "finished at step 30 on cpu" in capsys.readouterr().out
+
+
 def test_launch_train_multi_pod_raises(tmp_path):
     with pytest.raises(NotImplementedError, match="mesh slice"):
         launch_train.main(["--arch", "h2o-danube-1.8b", "--multi-pod",

@@ -1,14 +1,19 @@
 """The port's training slice against the reference, on the CPU: AdamW
-(fp32 and 8-bit state), the data pipeline, cross-entropy, the flash
-backward's plain version and autograd ``Function``, the train step on
-reduced h2o-danube-1.8b and granite-8b started from one state, remat,
-gradient coverage, and the kernel wrappers without a backward, which
-raise under autograd.
+(fp32 and 8-bit state), the data pipeline, cross-entropy, the flash and
+SSD backwards' plain versions and autograd ``Function``s (and their
+routing on the card), the train step on a reduced model of every family
+the reference trains (dense h2o-danube-1.8b and granite-8b, ssm
+mamba2-370m, hybrid zamba2-1.2b, moe mixtral-8x22b, encdec whisper-small
+and vlm llama-3.2-vision-11b, the last two with ``TrainDriver``'s frontend
+stub) started from one state, remat, gradient coverage, and the kernel
+wrappers without a backward, which raise under autograd.
 
 Tolerances: the pipeline's batches and the 8-bit codes exactly (pure
 numpy / the same fp32 ops on the same numbers, ``round`` half to even in
 both); AdamW on the same parameters and gradients within 1e-6 x max|.|;
-the flash backward within 1e-5 x max|.| (fp32; sum orders differ);
+the flash backward within 1e-5 x max|.| (fp32; sum orders differ); the
+SSD backward's plain version within 1e-10 x max|.| of autograd in
+float64 and 1e-4 x max|.| of ``jax.grad`` in fp32;
 losses within 1e-5 x |loss|, gradients within 1e-4 x max|g| and
 parameters after 3 steps within 1e-5 x max|p| per leaf (XLA and PyTorch
 sum in other orders).  The train-step parity runs AdamW's default lr
@@ -16,7 +21,15 @@ sum in other orders).  The train-step parity runs AdamW's default lr
 turns a last-bit gradient difference into an update difference of about
 ``lr * |dg| / eps``, which grows with lr (at lr 1e-2 the same two
 packages differ by 6e-5 x max|p| after 3 steps).  The test checks that
-the parameters moved by far more than the tolerance.
+the parameters moved by far more than the tolerance.  For the families
+after the dense ones the parameters are held to the larger of 1e-5 x
+max|p| and ``UPDATE_TOL`` x the summed lr of the 3 steps: Adam moves an
+element by at most about lr a step, so the bound allows 2% of the
+largest move (the five families read at most 0.7% of it, zamba2-1.2b's
+1.17e-5 x max|p| the largest).  Fed the reference's gradients, the two
+AdamWs agree within 1e-6 x max|p| on zamba2-1.2b
+(``test_adamw_fed_the_references_gradients_matches_it``): the drift is
+last-bit gradient differences amplified by eps, not a fault.
 """
 import numpy as np
 import pytest
@@ -41,7 +54,13 @@ from repro_torch.models import common  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import trainer  # noqa: E402
 
+#: the dense cases, held to 1e-5 x max|p| after 3 steps
 ARCHS = ["h2o-danube-1.8b", "granite-8b"]
+#: every other family the reference trains, held to the update-scaled
+#: bound (module docstring)
+FAMILY_ARCHS = ["mamba2-370m", "zamba2-1.2b", "mixtral-8x22b",
+                "whisper-small", "llama-3.2-vision-11b"]
+UPDATE_TOL = 2e-2
 
 
 def randn(*shape, seed=0, scale=1.0):
@@ -323,6 +342,156 @@ def test_flash_routes_through_the_function_only_on_the_card(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the SSD backward's plain version and Function
+# ---------------------------------------------------------------------------
+
+#: (B, L, H, G, N, P, chunk): several chunks, groups of 2 heads, a ragged
+#: chunk, one chunk, and G = H
+SSD_CASES = [
+    (2, 24, 4, 1, 6, 8, 8),
+    (2, 32, 4, 2, 16, 5, 16),
+    (1, 74, 3, 1, 4, 5, 37),
+    (1, 16, 2, 2, 5, 3, 16),
+]
+
+
+def _ssd_inputs(case, seed=0, dtype=np.float32):
+    b, l, h, g, n, p, _ = case
+    rng = np.random.default_rng(seed)
+    return [v.astype(dtype) for v in (
+        rng.standard_normal((b, l, h, p)), 0.1 + 0.9 * rng.random((b, l, h)),
+        -0.5 - rng.random(h), rng.standard_normal((b, l, g, n)),
+        rng.standard_normal((b, l, g, n)), rng.standard_normal((b, l, h, p)),
+        rng.standard_normal((b, h, n, p)))]
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_backward_plain_matches_autograd_in_float64(case, final):
+    from repro_torch.kernels import ref, ssd_scan
+    x, dt, a, b, c, dy, dh = (torch.as_tensor(v) for v in _ssd_inputs(
+        case, seed=sum(case), dtype=np.float64))
+    ins = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    y, h_fin = ref.ssd_chunked_ref(*ins, chunk=case[-1])
+    loss = (y * dy).sum() + ((h_fin * dh).sum() if final else 0.0)
+    want = torch.autograd.grad(loss, ins)
+    got = ssd_scan.ssd_scan_backward_plain(x, dt, a, b, c, dy,
+                                           dh if final else None,
+                                           chunk=case[-1])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float64 and g.shape == w.shape
+        assert rel(g, w) <= 1e-10
+
+
+@pytest.mark.parametrize("final", [False, True])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_backward_plain_matches_jax_grad(case, final):
+    from repro_torch.kernels import ssd_scan
+    x, dt, a, b, c, dy, dh = _ssd_inputs(case, seed=2 * sum(case))
+
+    def f(*ins):
+        y, h_fin = ref_kernels.ssd_chunked_ref(*ins, chunk=case[-1])
+        return jnp.sum(y * dy) + (jnp.sum(h_fin * dh) if final else 0.0)
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(v) for v in (x, dt, a, b, c)))
+    got = ssd_scan.ssd_scan_backward_plain(
+        *(torch.as_tensor(v) for v in (x, dt, a, b, c, dy)),
+        torch.as_tensor(dh) if final else None, chunk=case[-1])
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == tuple(w.shape)
+        assert rel(g, w) <= 1e-4
+
+
+@pytest.mark.parametrize("case", SSD_CASES[:3])
+def test_ssd_function_gradients_on_the_cpu_route(case):
+    from repro_torch.kernels import ref, ssd_scan
+    x, dt, a, b, c, dy, dh = (torch.as_tensor(v) for v in _ssd_inputs(
+        case, seed=5))
+    ins = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    y, h_fin = ssd_scan.SSDScanFn.apply(*ins, case[-1])
+    got = torch.autograd.grad((y * dy).sum() + (h_fin * dh).sum(), ins)
+    ins2 = [t.clone().requires_grad_() for t in (x, dt, a, b, c)]
+    y2, h2 = ref.ssd_chunked_ref(*ins2, chunk=case[-1])
+    want = torch.autograd.grad((y2 * dy).sum() + (h2 * dh).sum(), ins2)
+    torch.testing.assert_close(y, y2, rtol=0, atol=0)
+    torch.testing.assert_close(h_fin, h2, rtol=0, atol=0)
+    for g, w in zip(got, want):
+        assert rel(g, w) <= 1e-5
+    # only y, or only the final state, reaches the loss: the other's
+    # gradient is None (zero)
+    for pick in (lambda y_, h_: (y_ * dy).sum(),
+                 lambda y_, h_: (h_ * dh).sum()):
+        got = torch.autograd.grad(
+            pick(*ssd_scan.SSDScanFn.apply(*ins, case[-1])), ins)
+        want = torch.autograd.grad(
+            pick(*ref.ssd_chunked_ref(*ins2, chunk=case[-1])), ins2,
+            allow_unused=True)     # C does not reach the final state
+        for g, w in zip(got, want):
+            if w is None:
+                assert not g.abs().max() > 0
+            else:
+                assert rel(g, w) <= 1e-5
+
+
+def test_ssd_routes_through_the_function_only_on_the_card(monkeypatch):
+    # a CPU tensor is differentiated by autograd through the plain
+    # version; a CUDA tensor under grad goes through the Function, and
+    # without grad (or with no input requiring it) straight to the kernels
+    from repro_torch.kernels import ssd_scan
+    x, dt, a, b, c, _, _ = (torch.as_tensor(v) for v in _ssd_inputs(
+        SSD_CASES[0]))
+    xg = x.clone().requires_grad_()
+    y, _ = ssd_scan.ssd_scan(xg, dt, a, b, c, chunk=8)
+    assert "SSDScanFn" not in type(y.grad_fn).__name__
+    calls = []
+    monkeypatch.setattr(ssd_scan, "_on_cpu", lambda *xs: False)
+    monkeypatch.setattr(ssd_scan.SSDScanFn, "apply",
+                        lambda *args: calls.append(args) or (args[0], None))
+    monkeypatch.setattr(ssd_scan, "_forward", lambda *args: calls.append(
+        "forward") or (args[0], None, None, None))
+    ssd_scan.ssd_scan(xg, dt, a, b, c, chunk=8)
+    with torch.no_grad():
+        ssd_scan.ssd_scan(xg, dt, a, b, c, chunk=8)
+    ssd_scan.ssd_scan(x, dt, a, b, c, chunk=8)
+    assert len(calls) == 3 and calls[1:] == ["forward", "forward"]
+    assert calls[0][0] is xg and calls[0][5] == 8
+
+
+def test_ssm_training_on_the_card_runs_the_ssd_function(monkeypatch):
+    # a reduced mamba2 trains through SSDScanFn on a card whose kernels
+    # are stood in for by the plain versions: one forward per layer and
+    # step, one backward per layer, and the step equals the CPU's
+    from repro_torch.kernels import ref, ssd_scan
+    from repro_torch.models import transformer
+    cfg = get_config("mamba2-370m").reduced()
+    params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = {k: torch.as_tensor(v) for k, v in pipeline._batch_numpy(
+        pipeline.DataConfig(vocab=cfg.vocab, seq_len=20, global_batch=2),
+        0).items()}
+    want = trainer.value_and_grad(params, batch, cfg)
+    calls = []
+
+    def forward(x, dt, a, b, c, chunk):
+        calls.append("forward")
+        y, state = ref.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk)
+        return y, state, torch.zeros(1), ssd_scan._operands(x, dt, a, b, c)
+
+    def backward(x, dt, a, b, c, dy, dh_final, scratch, chunk):
+        calls.append("backward")
+        assert dh_final is None and scratch.shape == (1,)
+        return ssd_scan.ssd_scan_backward_plain(x, dt, a, b, c, dy, None,
+                                                chunk=chunk)
+    monkeypatch.setattr(ssd_scan, "_on_cpu", lambda *xs: False)
+    monkeypatch.setattr(ssd_scan, "_forward", forward)
+    monkeypatch.setattr(ssd_scan, "_backward", backward)
+    got = trainer.value_and_grad(params, batch, cfg)
+    assert calls == ["forward"] * cfg.n_layers + ["backward"] * cfg.n_layers
+    assert abs(float(got[0]) - float(want[0])) <= 1e-6 * abs(float(want[0]))
+    for (path, g), (_, w) in zip(leaves(got[2]), leaves(want[2])):
+        assert rel(g, w) <= 1e-5, path
+
+
+# ---------------------------------------------------------------------------
 # kernels without a backward refuse autograd on the card
 # ---------------------------------------------------------------------------
 
@@ -337,14 +506,9 @@ def _card(monkeypatch, module):
 
 
 def _guard_cases():
-    from repro_torch.kernels import (bsr_gemm, fused_chain, paged, ssd_scan,
-                                     stt_gemm)
+    from repro_torch.kernels import bsr_gemm, fused_chain, paged, stt_gemm
     a = torch.ones(16, 16)
     return {
-        "ssd_scan": (ssd_scan, lambda x: ssd_scan.ssd_scan(
-            x.reshape(1, 16, 2, 8), torch.ones(1, 16, 2), -torch.ones(2),
-            torch.ones(1, 16, 1, 4), torch.ones(1, 16, 1, 4), chunk=8),
-            torch.ones(1, 16, 2, 8)),
         "paged_gather": (paged, lambda x: paged.paged_gather(
             x, torch.zeros(2, 2, dtype=torch.int32)), torch.ones(3, 2, 4)),
         "output_stationary": (stt_gemm, lambda x: (
@@ -366,7 +530,7 @@ def _guard_cases():
     }
 
 
-@pytest.mark.parametrize("name", ["ssd_scan", "paged_gather",
+@pytest.mark.parametrize("name", ["paged_gather",
                                   "output_stationary", "operand_stationary",
                                   "reduction_tree", "bsr", "fused_chain",
                                   "fused_dag"])
@@ -377,41 +541,42 @@ def test_kernels_without_a_backward_raise_under_autograd(monkeypatch, name):
         call(x.clone().requires_grad_())
 
 
-def test_ssm_training_on_the_card_fails_in_its_first_forward(monkeypatch):
-    from repro_torch.kernels import ssd_scan
-    from repro_torch.models import transformer
-    cfg = get_config("mamba2-370m").reduced()
-    _card(monkeypatch, ssd_scan)
-    params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
-    state = trainer.TrainState(params, adamw.init(params,
-                                                  adamw.AdamWConfig()))
-    batch = {k: torch.as_tensor(v) for k, v in pipeline._batch_numpy(
-        pipeline.DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2),
-        0).items()}
-    step = trainer.make_train_step(cfg, adamw.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="SSD backward"):
-        step(state, batch)
-
-
 # ---------------------------------------------------------------------------
 # the train step against the reference
 # ---------------------------------------------------------------------------
+
+def _open_gates(params):
+    """The vlm's cross gates at 0.5: they start at 0, where the image
+    changes no logit and the cross layers get no gradient."""
+    if "cross_layers" in params:
+        cross = dict(params["cross_layers"])
+        cross["gate"] = cross["gate"] * 0 + 0.5
+        params = {**params, "cross_layers": cross}
+    return params
+
 
 def _states(name, opt_kw):
     rcfg, cfg = ref_config(name).reduced(), get_config(name).reduced()
     rstate, _ = ref_trainer.init_state(
         jax.random.PRNGKey(0), rcfg, ref_adamw.AdamWConfig(**opt_kw))
+    rstate = rstate._replace(params=_open_gates(rstate.params))
     pstate = convert.train_state_from_reference(
         jax.tree.map(np.asarray, rstate), device="cpu")
     return rcfg, cfg, rstate, pstate
 
 
 def _batch(cfg, step, seq=32, batch=4):
-    return pipeline._batch_numpy(pipeline.DataConfig(
+    """The synthetic batch of ``step``; encdec and vlm also get the
+    ``TrainDriver``'s frontend stub (audio frames / image patches)."""
+    out = pipeline._batch_numpy(pipeline.DataConfig(
         vocab=cfg.vocab, seq_len=seq, global_batch=batch), step)
+    if cfg.family in ("encdec", "vlm"):
+        out["frontend"] = pipeline.frontend_stub(
+            batch, cfg.frontend_tokens, cfg.d_model, step=0, seed=0)
+    return out
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + FAMILY_ARCHS)
 def test_train_step_matches_reference_over_three_steps(name):
     opt_kw = dict(warmup_steps=2, total_steps=10)
     rcfg, cfg, rstate, pstate = _states(name, opt_kw)
@@ -419,12 +584,14 @@ def test_train_step_matches_reference_over_three_steps(name):
     rstep = jax.jit(ref_trainer.make_train_step(
         rcfg, ref_adamw.AdamWConfig(**opt_kw)))
     pstep = trainer.make_train_step(cfg, adamw.AdamWConfig(**opt_kw))
+    rgrad = jax.jit(jax.value_and_grad(ref_trainer.loss_fn, has_aux=True),
+                    static_argnums=2)
+    lr_sum = 0.0
     for i in range(3):
         b = _batch(cfg, i)
         rb = {k: jnp.asarray(v) for k, v in b.items()}
         pb = {k: torch.as_tensor(v) for k, v in b.items()}
-        (rloss, _), rgrads = jax.value_and_grad(
-            ref_trainer.loss_fn, has_aux=True)(rstate.params, rb, rcfg)
+        (rloss, _), rgrads = rgrad(rstate.params, rb, rcfg)
         ploss, _, pgrads = trainer.value_and_grad(pstate.params, pb, cfg)
         assert abs(float(ploss) - float(rloss)) <= 1e-5 * abs(float(rloss))
         for (path, g), (_, w) in zip(leaves(pgrads), leaves(
@@ -435,21 +602,46 @@ def test_train_step_matches_reference_over_three_steps(name):
         assert abs(float(pm["loss"]) - float(rm["loss"])) <= 1e-5 * abs(
             float(rm["loss"]))
         assert rel(pm["grad_norm"], rm["grad_norm"]) <= 1e-5
+        lr_sum += float(pm["lr"])
     for (path, p), (_, w) in zip(leaves(pstate.params), leaves(
             jax.tree.map(np.asarray, rstate.params))):
-        assert rel(p, w) <= 1e-5, path
+        scale = np.abs(w).max()
+        tol = 1e-5 * scale if name in ARCHS else max(1e-5 * scale,
+                                                      UPDATE_TOL * lr_sum)
+        assert np.abs(p.numpy() - w).max() <= tol, path
         moved = (p - start[path]).abs().max().item()
-        assert moved > 10 * 1e-5 * np.abs(w).max(), path
+        assert moved > 10 * 1e-5 * scale, path
 
 
-@pytest.mark.parametrize("name", ARCHS)
+def test_adamw_fed_the_references_gradients_matches_it():
+    # the zamba2 drift is Adam's eps at work, not a gradient fault: the
+    # same gradients through both optimizers give the same parameters
+    opt_kw = dict(warmup_steps=2, total_steps=10)
+    rcfg, cfg, rstate, pstate = _states("zamba2-1.2b", opt_kw)
+    rparams, ropt = rstate.params, rstate.opt
+    params, opt = pstate.params, pstate.opt
+    for i in range(3):
+        rb = {k: jnp.asarray(v) for k, v in _batch(cfg, i).items()}
+        (_, _), rgrads = jax.value_and_grad(
+            ref_trainer.loss_fn, has_aux=True)(rparams, rb, rcfg)
+        rparams, ropt, _ = ref_adamw.apply_updates(
+            rparams, rgrads, ropt, ref_adamw.AdamWConfig(**opt_kw))
+        params, opt, _ = adamw.apply_updates(
+            params, jax.tree.map(lambda g: torch.as_tensor(np.asarray(g)),
+                                 rgrads), opt, adamw.AdamWConfig(**opt_kw))
+    for (path, p), (_, w) in zip(leaves(params), leaves(
+            jax.tree.map(np.asarray, rparams))):
+        assert rel(p, w) <= 1e-6, path
+
+
+@pytest.mark.parametrize("name", ARCHS + FAMILY_ARCHS)
 def test_remat_gives_the_same_loss_and_gradients(name):
     import dataclasses
     cfg = get_config(name).reduced()
     params = convert.params_from_reference(jax.tree.map(
-        np.asarray, ref_trainer.init_state(
+        np.asarray, _open_gates(ref_trainer.init_state(
             jax.random.PRNGKey(1), ref_config(name).reduced(),
-            ref_adamw.AdamWConfig())[0].params), device="cpu")
+            ref_adamw.AdamWConfig())[0].params)), device="cpu")
     b = {k: torch.as_tensor(v) for k, v in _batch(cfg, 0).items()}
     off = trainer.value_and_grad(params, b, cfg)
     on = trainer.value_and_grad(params, b,
@@ -458,6 +650,35 @@ def test_remat_gives_the_same_loss_and_gradients(name):
     for (path, g), (_, w) in zip(leaves(on[2]), leaves(off[2])):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * max(
             w.abs().max().item(), 1e-30), msg=path)
+
+
+def test_hybrid_shared_block_gradient_sums_its_six_applications():
+    # zamba2-1.2b applies its one shared attention+MLP block 6 times (38
+    # layers, one after every 6th): at reduced width with 6 layers and a
+    # block after each, the shared leaves' gradients (summed over the 6
+    # applications by autograd) equal jax.grad's
+    import dataclasses
+    over = dict(n_layers=6, attn_every=1)
+    rcfg = dataclasses.replace(ref_config("zamba2-1.2b").reduced(), **over)
+    cfg = dataclasses.replace(get_config("zamba2-1.2b").reduced(), **over)
+    assert cfg.n_layers // cfg.attn_every == 6
+    rparams = ref_trainer.init_state(jax.random.PRNGKey(3), rcfg,
+                                     ref_adamw.AdamWConfig())[0].params
+    params = convert.params_from_reference(
+        jax.tree.map(np.asarray, rparams), device="cpu")
+    b = _batch(cfg, 0)
+    (rloss, _), rgrads = jax.jit(jax.value_and_grad(
+        ref_trainer.loss_fn, has_aux=True), static_argnums=2)(
+        rparams, {k: jnp.asarray(v) for k, v in b.items()}, rcfg)
+    loss, _, grads = trainer.value_and_grad(
+        params, {k: torch.as_tensor(v) for k, v in b.items()}, cfg)
+    assert abs(float(loss) - float(rloss)) <= 1e-5 * abs(float(rloss))
+    shared = 0
+    for (path, g), (_, w) in zip(leaves(grads), leaves(
+            jax.tree.map(np.asarray, rgrads))):
+        assert rel(g, w) <= 1e-4, path
+        shared += path.startswith("/shared/")
+    assert shared > 0
 
 
 def test_remat_checkpoints_each_layer_only_under_autograd(monkeypatch):
@@ -480,11 +701,12 @@ def test_remat_checkpoints_each_layer_only_under_autograd(monkeypatch):
     assert all(k["use_reentrant"] is False for k in calls)
 
 
-@pytest.mark.parametrize("name", ARCHS + ["mixtral-8x22b"])
+@pytest.mark.parametrize("name", ARCHS + FAMILY_ARCHS)
 def test_every_parameter_leaf_gets_a_gradient(name):
     cfg = get_config(name).reduced()
     from repro_torch.models import transformer
-    params = transformer.init_params(torch.Generator().manual_seed(2), cfg)
+    params = _open_gates(transformer.init_params(
+        torch.Generator().manual_seed(2), cfg))
     b = {k: torch.as_tensor(v) for k, v in _batch(cfg, 0).items()}
     _, _, grads = trainer.value_and_grad(params, b, cfg)
     flat_p, flat_g = dict(leaves(params)), dict(leaves(grads))
