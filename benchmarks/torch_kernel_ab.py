@@ -1,7 +1,8 @@
 """Time the port's redesigned kernels of one source tree on the card.
 
     python benchmarks/torch_kernel_ab.py [--src SRC] [--tag TAG]
-        [--cases flash,ws,os,rt,ssd,gather,fused,fused-tiles,bsr,bsr-order]
+        [--cases flash,ws,os,rt,ssd,ssd-bwd,gather,fused,fused-tiles,bsr,
+                 bsr-order]
         [--match TEXT]
         [--ssd-head-blocks 1,2,4,8]
 
@@ -35,6 +36,12 @@ the card's ``nvidia-smi`` name and power limit:
   kernels and of everything on the device (the earlier wrapper's prep
   passes included); ``--ssd-head-blocks`` adds the same at other head
   blocks of the chunk-output kernel than the launch plan's;
+* ``ssd-bwd``: the SSD backward at ``chip_smoke.SSD_BWD_CASES`` (both
+  models' training shapes and phase 15's smaller cases), on its operands
+  and dy, given the forward's scratch: the CUDA-event mean of 10 calls,
+  the traced device time of each backward kernel, and the tree's
+  ``backward_plan`` where it has one (``--ssd-head-blocks`` adds the same
+  at other head blocks of the plan);
 * ``gather``: the paged gather at h2o-danube-1.8b's serve pool (513, 16,
   15360) and zamba2-1.2b's shared pool (513, 16, 12288), bf16, with the
   serve phase's table (8 slots of 128 pages holding the first 8
@@ -75,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import pathlib
 import subprocess
@@ -139,10 +147,12 @@ def main() -> int:
     ap.add_argument("--tag", default="change")
     ap.add_argument("--cases", default="flash,ws,os,rt,ssd,gather,fused",
                     help="comma-separated groups: flash, ws, os, rt, ssd, "
-                         "gather, fused, fused-tiles, bsr, bsr-order")
+                         "ssd-bwd, gather, fused, fused-tiles, bsr, "
+                         "bsr-order")
     ap.add_argument("--ssd-head-blocks", default="",
                     help="comma-separated head blocks to time the SSD "
-                         "cases at besides the launch plan's")
+                         "forward and backward cases at besides their "
+                         "launch plan's")
     ap.add_argument("--match", default="",
                     help="time only the cases whose label holds one of "
                          "these comma-separated strings")
@@ -230,6 +240,53 @@ def main() -> int:
                 if plan:
                     ssd_scan.launch_plan = plan
             del ops
+
+    if "ssd-bwd" in groups:
+        import types
+
+        from chip_smoke import SSD_BWD_CASES
+        plan = getattr(ssd_scan, "backward_plan", None)   # None: earlier
+        for label, b, length, h, g, n, p, q, final, unpadded in \
+                SSD_BWD_CASES:
+            if not any(m in label for m in args.match.split(",")):
+                continue
+            dims = types.SimpleNamespace(ssm_heads=h, ssm_head_dim=p,
+                                         ssm_groups=g, ssm_state=n)
+            x, dt, a, bm, cm = ssd_operands(b, length, dims, gen)
+            dy = torch.randn((b, length, h, p), generator=gen, device=dev)
+            dh = (torch.randn((b, h, n, p), generator=gen, device=dev)
+                  if final else None)
+            if unpadded is not None:
+                dt[:, unpadded:] = 0.0
+                dy[:, unpadded:] = 0.0
+            _, _, scratch, _ = ssd_scan._forward(x, dt, a, bm, cm, q)
+
+            def bwd():
+                return ssd_scan.ssd_scan_backward(x, dt, a, bm, cm, dy, dh,
+                                                  chunk=q, scratch=scratch)
+            blocks = [None] + [int(v) for v in args.ssd_head_blocks.split(",")
+                               if v and plan]
+            for hb in blocks:
+                if plan:
+                    ssd_scan.backward_plan = functools.partial(
+                        plan, head_block=hb)
+                try:
+                    bwd()
+                    rows = kernel_times(bwd)
+                    emit(case=f"ssd-bwd {label} x ({b}, {length}, {h}, {p}) "
+                              f"B/C ({b}, {length}, {g}, {n})",
+                         ms=event_ms(bwd, 10),
+                         kernels={k[:60]: t for k, t, _ in rows
+                                  if any(x_ in k for x_ in names)},
+                         traced_device_ms=sum(t for _, t, _ in rows) or None,
+                         plan=ssd_scan.backward_plan(
+                             b, length, h, g, n, p, q)._asdict() if plan
+                         else None)
+                finally:
+                    if plan:
+                        ssd_scan.backward_plan = plan
+            del x, dt, a, bm, cm, dy, dh, scratch
+            torch.cuda.empty_cache()
 
     if "gather" in groups:
         table_np = gather_table(SERVE_ENGINE)

@@ -182,13 +182,17 @@ each of which fails the run (non-zero exit) when it fails:
 15. training mamba2-370m and zamba2-1.2b (``SSM_TRAIN``) the same way:
    (a) the SSD backward kernels (``ssd_bwd_dstate_kernel``, the reverse
    carry ``ssd_bwd_state_pass_kernel``, ``ssd_bwd_chunk_kernel``,
-   ``ssd_bwd_sum_kernel``) against ``ssd_scan_backward_plain`` at
+   ``ssd_bwd_sum_kernel``) as built (each chunk kernel's CTAs an SM by
+   the runtime's occupancy, at least 2, registers and no local memory, at
+   N = 64 and 128), then against ``ssd_scan_backward_plain`` at
    ``SSD_BWD_CASES`` (both models' training shapes, 2 groups of 4 heads
    with a final-state gradient, 2000 steps padded to 2048 as
-   ``apply_ssm`` pads them): every gradient within ``SSD_BWD_TOL`` x
-   max|.|, a second call the same bits, a planted fault (the middle
-   chunk's entering state zeroed in the scratch the kernels read) beyond
-   the limit, times beside the bound and the plain version; (b)
+   ``apply_ssm`` pads them, one head a group, 2 groups of 6 heads), each
+   with its ``backward_plan`` (heads a CTA, CTAs, shared bytes): every
+   gradient within ``SSD_BWD_TOL`` x max|.|, a second call the same bits,
+   a planted fault (the middle chunk's entering state zeroed in the
+   scratch the kernels read) beyond the limit, times beside the bound and
+   the plain version; (b)
    ``trainer.make_train_step`` for each at full width and depth (48
    layers; 38 and the shared block's 6 applications), phase 14's batch,
    steps and optimizer, the SSD forward, SSD backward and (zamba2) flash
@@ -352,7 +356,9 @@ SSM_TRAIN = (("mamba2-370m", 48, 2), ("zamba2-1.2b", 38, 6))
 #: final-state gradient, the unpadded length).  The first two are the
 #: models' training shapes; the third has 2 groups of 4 heads; the fourth
 #: pads 2000 steps to 2048 as ``apply_ssm`` does (dt and dy 0 past the
-#: end; x, B and C not)
+#: end; x, B and C not); the fifth has one head a group; the sixth 2
+#: groups of 6 heads, where the plan's block of 4 heads leaves a last
+#: block of 2
 SSD_BWD_CASES = (
     ("mamba2 training", TRAIN_BATCH, TRAIN_SEQ, 32, 1, 128, 64, 64, False,
      None),
@@ -360,6 +366,8 @@ SSD_BWD_CASES = (
      None),
     ("2 groups, final state", 2, 640, 8, 2, 96, 48, 64, True, None),
     ("padded 2000 -> 2048", 1, 2048, 32, 1, 128, 64, 64, False, 2000),
+    ("one head a group", 2, 1024, 8, 8, 64, 64, 64, True, None),
+    ("2 groups of 6 heads", 2, 2048, 12, 2, 128, 64, 64, False, None),
 )
 #: the SSD backward against its plain version, x max|.|: fp32 both, other
 #: sum orders and the card's ``expf``
@@ -1921,16 +1929,20 @@ def ssd_backward_roofline(bsz, length, heads, groups, state, head_dim,
                           chunk, final):
     """The SSD backward's least time on the card (fp32 on the CUDA
     cores), counted as ``csrc/ssd_scan.cu``'s note counts it: per chunk
-    and head the four lower-triangle products with P or N, Q(Q+1)/2 (2P
-    + 2N) multiply-adds, and four Q N P products; C B^T once per group;
-    and an element's dt scaling of dx and ``a`` scaling of ddt.  Bytes:
+    and head the two lower-triangle products with P, Q(Q+1)/2 2P
+    multiply-adds, and four Q N P products; per chunk and group the
+    three with N (C B^T, and dC's and dB's terms of the heads' summed
+    dCB); and an element's dt scaling of dx and ``a`` scaling of ddt.
+    (Until the head-block design the count held the two triangles with N
+    per head: 23.8 GFLOP, 0.355 ms, at mamba2-370m's training shape, for
+    19.6 GFLOP, 0.292 ms, now.)  Bytes:
     x, dy, dt, B, C, a, the forward's entering states and decays (and
     the final state's gradient), each once, and dx, ddt, dB, dC, da."""
     from repro_torch.core import hopper
     q, nc = chunk, length // chunk
     tri = q * (q + 1) // 2
-    macs = bsz * nc * (groups * tri * state + heads * (
-        tri * (2 * head_dim + 2 * state) + 4 * q * state * head_dim))
+    macs = bsz * nc * (3 * groups * tri * state + heads * (
+        2 * tri * head_dim + 4 * q * state * head_dim))
     elems = bsz * length * heads * (head_dim + 1)
     nbytes = 4.0 * (bsz * (3 * length * heads * head_dim
                            + 2 * length * heads + 4 * length * groups * state
@@ -1939,6 +1951,46 @@ def ssd_backward_roofline(bsz, length, heads, groups, state, head_dim,
                     + 2 * heads)
     return hopper.RooflineTerms("ssd backward", 2.0 * macs + elems, nbytes,
                                 dtype="float32")
+
+
+def ssd_backward_built(check):
+    """The SSD backward's chunk kernels as built, at both state widths
+    (the library's ``ssd_scan_backward_info``): shared bytes equal to
+    ``backward_plan``'s, CTAs an SM by the runtime's occupancy (at least
+    2: 16 warps), registers a thread, and no local (spilled) memory."""
+    import ctypes
+
+    from repro_torch.kernels import _build, ssd_scan
+
+    built = {}
+    for n in (64, 128):
+        out = (ctypes.c_int * 8)()
+        code = _build.library("ssd_scan").ssd_scan_backward_info(n, out)
+        check(code == 0, f"ssd_scan_backward_info({n}): CUDA error {code}")
+        plan = ssd_scan.backward_plan(TRAIN_BATCH, TRAIN_SEQ, 32, 1, n, 64,
+                                      64)
+        info = {kernel: {"shared_bytes": out[k], "ctas_per_sm": out[k + 1],
+                         "registers": out[k + 2], "local_bytes": out[k + 3]}
+                for kernel, k in (("ssd_bwd_chunk_kernel", 0),
+                                  ("ssd_bwd_dstate_kernel", 4))}
+        chunk = info["ssd_bwd_chunk_kernel"]
+        check(chunk["shared_bytes"] == plan.chunk_smem
+              and info["ssd_bwd_dstate_kernel"]["shared_bytes"]
+              == plan.dstate_smem, f"ssd backward N={n}: shared bytes "
+              f"{out[0]}, {out[4]} against the plan's {plan.chunk_smem}, "
+              f"{plan.dstate_smem}")
+        check(chunk["ctas_per_sm"] >= 2, f"ssd backward N={n}: "
+              f"{chunk['ctas_per_sm']} chunk-kernel CTAs an SM, not 2")
+        check(all(v["local_bytes"] == 0 for v in info.values()),
+              f"ssd backward N={n}: local memory {info}")
+        built[f"N={n}"] = info
+        print(f"ssm train checks: (a) ssd backward kernels at N={n}: "
+              + "; ".join(f"{k} {v['shared_bytes']} shared bytes, "
+                          f"{v['ctas_per_sm']} CTAs an SM, "
+                          f"{v['registers']} registers, "
+                          f"{v['local_bytes']} local bytes"
+                          for k, v in info.items()))
+    return built
 
 
 def ssd_backward_check(case, g, check):
@@ -1996,7 +2048,12 @@ def ssd_backward_check(case, g, check):
     check(fault_err > SSD_BWD_TOL, f"ssd backward {label}: a dropped "
           f"entering state reads {fault_err}, inside {SSD_BWD_TOL}")
     roof = ssd_backward_roofline(b, length, h, gr, n, p, q, final)
+    plan = ssd_scan.backward_plan(b, length, h, gr, n, p, q)
     row = {"case": label, "rel_err": errs,
+           "plan": {"head_block": plan.head_block, "blocks": plan.blocks,
+                    "ctas": plan.grid[0] * plan.grid[1] * plan.grid[2],
+                    "chunk_smem": plan.chunk_smem,
+                    "dstate_smem": plan.dstate_smem},
            "max_abs_err": max((u - w).abs().max().item()
                               for u, w in zip(got, want)),
            "fault_rel_err": fault_err, "ms": event_ms(run, 10),
@@ -2009,6 +2066,10 @@ def ssd_backward_check(case, g, check):
                     f"{'' if unpadded is None else f', {unpadded} steps'}"}
     del x, dt, a, bm, cm, dy, dh, scratch, bad, got, want, again
     torch.cuda.empty_cache()
+    print(f"ssm train checks: (a) ssd backward {row['shape']}: plan "
+          f"{plan.head_block} heads a CTA ({plan.blocks} blocks a group), "
+          f"{row['plan']['ctas']} CTAs, {plan.chunk_smem} / "
+          f"{plan.dstate_smem} shared bytes (chunk / S_c kernel)")
     print(f"ssm train checks: (a) ssd backward {row['shape']}: rel errors "
           f"{ {k: f'{e:.2e}' for k, e in errs.items()} }, fault "
           f"{fault_err:.3f}, {row['ms']:.3f} ms (bound {row['bound_ms']:.4f}"
@@ -2047,7 +2108,9 @@ def ssm_train_phase(check):
     torch.cuda.empty_cache()
     summary = {}
 
-    # (a) the backward kernels against their plain version
+    # (a) the backward kernels as built, then against their plain version
+    built = ssd_backward_built(check)
+    summary["ssd_backward_built"] = built
     g = torch.Generator(device=dev).manual_seed(15)
     rows = [ssd_backward_check(case, g, check) for case in SSD_BWD_CASES]
     summary["ssd_backward"] = rows
@@ -2208,7 +2271,7 @@ def ssm_train_phase(check):
         "launches": totals["ssd_scan_backward"],
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms", "shape")},
-        "other_shapes": rows[1:]}
+        "other_shapes": rows[1:], "built": built}
     flash = {k: totals[k] for k in ("flash_attention",
                                     "flash_attention_backward")}
     return entry, totals["ssd_scan"], flash, summary

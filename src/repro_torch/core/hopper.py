@@ -7,6 +7,8 @@ sparsity, at the full 700 W power limit):
 
     streaming multiprocessors : 132
     shared memory per block   : 227 KB (232,448 bytes)
+    shared memory per SM      : 228 KB (233,472 bytes), 1 KB of it
+                                reserved for each resident block
     L2 cache                  : 50 MB
     device memory             : 80 GB at 3.35 TB/s
     bf16 tensor-core peak     : 989 TFLOP/s
@@ -27,6 +29,8 @@ class HopperSpec:
     name: str = "H100 SXM"
     sms: int = 132
     smem_per_block_bytes: int = 232_448
+    smem_per_sm_bytes: int = 233_472
+    smem_reserved_per_block: int = 1_024
     l2_bytes: float = 50e6
     hbm_bytes: float = 80e9
     hbm_bw: float = 3.35e12                 # bytes/s

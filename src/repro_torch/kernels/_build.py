@@ -98,10 +98,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                             _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         # x, x strides, dt, dt strides, a, b, c, b/c strides, dy,
         # dh_final (or None), the forward's scratch, dx, ddt, da, db, dc,
-        # scratch, batch, L, H, G, N, P, chunk, stream
+        # scratch, batch, L, H, G, N, P, chunk, head block, stream
         "ssd_scan_backward_launch": (
             _P, _LLS, _P, _LLS, _P, _P, _P, _LLS, _P, _P, _P, _P, _P, _P,
-            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # state width, 8 ints out (the chunk kernels' shared bytes, CTAs
+        # an SM, registers, local bytes)
+        "ssd_scan_backward_info": (_I, _INTS),
     },
 }
 

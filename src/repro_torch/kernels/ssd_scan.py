@@ -27,8 +27,9 @@ records and an input requires grad, a call on the card goes through
 :class:`SSDScanFn`, whose backward is a kernel too
 (:func:`ssd_scan_backward`, four launches: the chunks' state gradients,
 the reverse carry over chunks, the chunks' gradients, and the fixed-order
-sums over a group's heads and over chunks; the reference differentiates
-its XLA scan instead).  The forward's scratch, which ends holding every
+sums over a group's blocks of heads and over chunks, laid out by
+:func:`backward_plan`; the reference differentiates its XLA scan
+instead).  The forward's scratch, which ends holding every
 chunk's entering state, is what the backward reads: the Function saves
 it, so remat (``torch.utils.checkpoint``) recomputes it with the layer.
 ``ssd_scan_backward_plain`` writes the same chunked formulas in PyTorch.
@@ -50,8 +51,14 @@ from .stt_gemm import _on_cpu, _stream
 
 #: the kernels' limits: chunk length and state width
 MAX_CHUNK, MAX_STATE = 64, 128
-#: the most heads that share one C B^T in the chunk-output kernel
+#: the most heads that share one C B^T in the chunk-output kernel, and
+#: one CTA of the backward's chunk kernels
 HEAD_BLOCK = 4
+#: the backward chunk kernels' shared-memory layout, as
+#: ``csrc/ssd_scan.cu`` defines it: the longest chunk, the row stride of
+#: its 64-wide tiles, the per-head vectors of the chunk kernel, the warps
+#: of a CTA
+_QMAX, _TS, _VEC, _WARPS = 64, 68, 8, 8
 
 #: calls that launched the kernels since the last ``reset_launches``
 launches = {"ssd_scan": 0, "ssd_scan_backward": 0}
@@ -81,6 +88,65 @@ def launch_plan(bsz: int, length: int, heads: int, groups: int, state: int,
     while hb > 1 and nc * groups * bsz * -(-per_group // hb) < H100.sms:
         hb //= 2
     return Plan(nc, hb, bsz * nc * heads * (state * head_dim + 1))
+
+
+class BackwardPlan(NamedTuple):
+    """The backward's launch plan.  ``head_block`` heads of a group share
+    a CTA of the two chunk kernels (S_c and the chunk's gradients), whose
+    grid is ``grid`` (chunks, groups x ``blocks``, batch); shared bytes
+    of each a CTA, and CTAs an SM by shared memory (the launch bounds
+    let registers hold 2); ``work`` floats of scratch: the chunks' state
+    gradients (B, nc, H, N, P), their da terms (B, nc, H) rounded up to a
+    multiple of 4, and where a group has more than one block the blocks'
+    dB and dC (B, L, G x blocks, N) each."""
+    n_chunks: int
+    head_block: int
+    blocks: int
+    grid: Tuple[int, int, int]
+    dstate_smem: int
+    chunk_smem: int
+    ctas_per_sm: int
+    work: int
+
+
+def _bwd_smem(state: int) -> Tuple[int, int]:
+    """Shared bytes of the S_c kernel and of the chunk kernel at state
+    width ``state`` (``dstate_smem``/``bwd_smem`` of the source)."""
+    nr = 1 if state <= 64 else 2
+    ns = 64 * nr + 4
+    wide = max(64 * nr * _TS, _QMAX * ns)
+    dstate = _QMAX * ns + _QMAX * _TS + HEAD_BLOCK * _QMAX
+    chunk = 2 * wide + 2 * _QMAX * _TS + HEAD_BLOCK * (_VEC * _QMAX
+                                                         + _WARPS)
+    return 4 * dstate, 4 * chunk
+
+
+def backward_plan(bsz: int, length: int, heads: int, groups: int,
+                  state: int, head_dim: int, chunk: int,
+                  head_block: Optional[int] = None) -> BackwardPlan:
+    """The largest head block of ``HEAD_BLOCK``, halved, whose chunk
+    grid, ``n_chunks x groups x ceil(heads per group / block) x batch``,
+    still gives every SM a CTA, or 1 (the forward's rule);
+    ``head_block`` (1..``HEAD_BLOCK``) overrides it."""
+    nc = length // chunk
+    per_group = heads // groups
+    hb = HEAD_BLOCK if head_block is None else head_block
+    if not 1 <= hb <= HEAD_BLOCK:
+        raise ValueError(f"head_block {hb} outside 1..{HEAD_BLOCK}")
+    while head_block is None and hb > 1 and \
+            nc * groups * bsz * -(-per_group // hb) < H100.sms:
+        hb //= 2
+    blocks = -(-per_group // hb)
+    dstate, chunk_bytes = _bwd_smem(state)
+    ctas = min(8, H100.smem_per_sm_bytes // (
+        chunk_bytes + H100.smem_reserved_per_block))
+    terms = -(-bsz * nc * heads // 4) * 4
+    partials = 2 * bsz * length * groups * blocks * state if blocks > 1 \
+        else 0
+    return BackwardPlan(nc, hb, blocks, (nc, groups * blocks, bsz), dstate,
+                        chunk_bytes, ctas,
+                        bsz * nc * heads * state * head_dim + terms
+                        + partials)
 
 
 def _check(x, dt, a, b, c, chunk) -> None:
@@ -183,7 +249,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 def _backward(xf, dtf, af, bf, cf, dy, dh_final, scratch, chunk):
     """The backward kernels on the fp32 operands the forward read and its
-    scratch: (dx, ddt, da, db, dc) fp32, contiguous."""
+    scratch, laid out by :func:`backward_plan`: (dx, ddt, da, db, dc)
+    fp32, contiguous."""
     bsz, l, h, p = xf.shape
     g, n = bf.shape[2], bf.shape[3]
     if tuple(dy.shape) != (bsz, l, h, p):
@@ -208,12 +275,8 @@ def _backward(xf, dtf, af, bf, cf, dy, dh_final, scratch, chunk):
     if bsz == 0 or h == 0 or p == 0:
         # y is empty: nothing depends on the inputs
         return dx, ddt.zero_(), da, db.zero_(), dc.zero_()
-    # every chunk's state gradient (B, nc, H, N, P) and da term (B, nc,
-    # H), and where a group has more than one head the per-head dB and dC
-    # (B, L, H, N) each
-    per_head = 2 * bsz * l * h * n if h > g else 0
-    work = torch.empty(bsz * plan.n_chunks * h * (n * p + 1) + per_head,
-                       dtype=f32, device=dev)
+    bplan = backward_plan(bsz, l, h, g, n, p, chunk)
+    work = torch.empty(bplan.work, dtype=f32, device=dev)
     lib = _build.library("ssd_scan")
     _build.check(lib.ssd_scan_backward_launch(
         xf.data_ptr(), _strides(xf), dtf.data_ptr(), _strides(dtf),
@@ -221,7 +284,7 @@ def _backward(xf, dtf, af, bf, cf, dy, dh_final, scratch, chunk):
         dy.data_ptr(), None if dh_final is None else dh_final.data_ptr(),
         scratch.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
         db.data_ptr(), dc.data_ptr(), work.data_ptr(), bsz, l, h, g, n, p,
-        chunk, _stream()), "ssd_scan_backward_launch")
+        chunk, bplan.head_block, _stream()), "ssd_scan_backward_launch")
     launches["ssd_scan_backward"] += 1
     return dx, ddt, da, db, dc
 
@@ -240,8 +303,8 @@ def ssd_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (B, H, N, P), that of the final state (None: zero).  Each comes back
     in its input's dtype.  On the card four kernel launches, reading
     ``scratch``, the forward's scratch of these operands (None: the
-    forward kernels run first to make it); on the CPU
-    :func:`ssd_scan_backward_plain`."""
+    forward kernels run first to make it), laid out by
+    :func:`backward_plan`; on the CPU :func:`ssd_scan_backward_plain`."""
     _check(x, dt, a, b, c, chunk)
     if _on_cpu(x, dt, a, b, c, dy):
         return ssd_scan_backward_plain(x, dt, a, b, c, dy, dh_final,

@@ -1322,18 +1322,26 @@ def _ssd_backward_inputs(b, L, h, p, g, n, seed, final):
 
 
 @pytest.mark.parametrize("final", [False, True])
-@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("g,r,hb", [(1, 4, None), (2, 2, None), (4, 1, 4),
+                                    (1, 3, 4), (2, 6, 4)])
 @pytest.mark.parametrize("p", [16, 24, 64, 80])
 @pytest.mark.parametrize("n", [16, 64, 128])
 @pytest.mark.parametrize("q", [8, 37, 64])
-def test_ssd_backward_kernel(cuda, q, n, p, g, final):
+def test_ssd_backward_kernel(cuda, monkeypatch, q, n, p, g, r, hb, final):
     # every gradient within 1e-4 x max|.| of the plain version, ragged
-    # chunks, both state widths, more than one column tile (P = 80), a
-    # group of two heads, with and without a final-state gradient; a
-    # second call gives the same bits
+    # chunks, both state widths, more than one column tile (P = 80); r
+    # heads a group: the plan's block (one head a CTA at these sizes, the
+    # blocks' dB and dC summed by the sum kernel) and 4 heads a CTA (one
+    # head a group, a partial block of 3, blocks of 4 and 2); with and
+    # without a final-state gradient; a second call gives the same bits
+    import functools
+
     from repro_torch.kernels import ssd_scan
-    ops_, dy, dh = _ssd_backward_inputs(2, 3 * q, 4, p, g, n,
-                                        seed=q + n + p + g, final=final)
+    if hb is not None:
+        monkeypatch.setattr(ssd_scan, "backward_plan", functools.partial(
+            ssd_scan.backward_plan, head_block=hb))
+    ops_, dy, dh = _ssd_backward_inputs(2, 3 * q, g * r, p, g, n,
+                                        seed=q + n + p + g + r, final=final)
     want = ssd_scan.ssd_scan_backward_plain(*ops_, dy, dh, chunk=q)
     dev = [t.to(cuda) for t in ops_]
     dyc, dhc = dy.to(cuda), None if dh is None else dh.to(cuda)
@@ -1343,6 +1351,22 @@ def test_ssd_backward_kernel(cuda, q, n, p, g, final):
     _ssd_compare(got, want)
     again = ssd_scan.ssd_scan_backward(*dev, dyc, dhc, chunk=q)
     assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_ssd_backward_kernels_as_built(cuda, n):
+    # the chunk kernels' shared bytes are the plan's; the runtime keeps two
+    # chunk-kernel CTAs (16 warps) an SM, registers included, and neither
+    # kernel spills to local memory
+    import ctypes
+
+    from repro_torch.kernels import _build, ssd_scan
+    out = (ctypes.c_int * 8)()
+    assert _build.library("ssd_scan").ssd_scan_backward_info(n, out) == 0
+    plan = ssd_scan.backward_plan(4, 2048, 32, 1, n, 64, 64)
+    assert (out[0], out[4]) == (plan.chunk_smem, plan.dstate_smem)
+    assert out[1] >= 2 and out[5] >= 2
+    assert out[2] <= 128 and out[3] == 0 and out[7] == 0
 
 
 @pytest.mark.parametrize("model", ["mamba2-370m", "zamba2-1.2b"])

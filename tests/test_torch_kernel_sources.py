@@ -11,7 +11,8 @@ tensor-core kernel for every head dim, the
 plain version of the bf16 kernel's one numeric departure (P rounded to
 bf16 before P V) stays inside the reference's stated tolerance, and the
 row error that holds the kernel to it catches a dropped kv block, the
-SSD scan forms C B^T once per CTA and walks the chunks in one kernel only,
+SSD scan and its backward form C B^T once per CTA and walk the chunks in
+one kernel each, and the backward's chunk kernel fits two CTAs an SM,
 and the paged gather stays one launch.  CPU only: nothing here compiles
 or launches a kernel."""
 import pathlib
@@ -331,9 +332,27 @@ def test_ssd_forms_cb_once_per_block_of_heads():
                        "ssd_chunk_scan_kernel"} | set(SSD_BACKWARD)
 
 
+def test_ssd_backward_forms_cb_once_per_block_of_heads():
+    # the backward's chunk kernel sums C B^T once, before the first of its
+    # walks over the block's heads, and inside none of them
+    body = _functions("ssd_scan.cu")["ssd_bwd_chunk_kernel"][1]
+    walk = "for (int it = 0; it < items; ++it)"
+    assert body.count(walk) == 3                  # passes A, B and C
+    cb_sum = "cb[r][u] = fmaf(cv[r], bv[u], cb[r][u])"
+    assert body.count(cb_sum) == 1
+    assert body.index(cb_sum) < body.index(walk)
+    i = 0
+    for _ in range(3):
+        i = body.index(walk, i)
+        assert cb_sum not in _block_after(body[i:], walk)
+        i += len(walk)
+
+
 def test_ssd_only_the_state_pass_walks_the_chunks():
     # every other kernel works on the chunk of its blockIdx.x; the
-    # backward walks them once, in reverse
+    # backward walks them once, in reverse; both backward chunk kernels
+    # take a (group, block of heads) from blockIdx.y and walk the block's
+    # heads
     funcs = _functions("ssd_scan.cu")
     walkers = {n for n, (_, body) in funcs.items()
                if re.search(r"for \(int \w+ = 0; \w+ < s\.nc", body)}
@@ -342,6 +361,11 @@ def test_ssd_only_the_state_pass_walks_the_chunks():
     for name in ("ssd_chunk_state_kernel", "ssd_chunk_scan_kernel",
                  "ssd_bwd_dstate_kernel", "ssd_bwd_chunk_kernel"):
         assert "ci = blockIdx.x" in funcs[name][1]
+    assert "blockIdx.y / nblk" in funcs["head_block"][1]
+    for name in ("ssd_bwd_dstate_kernel", "ssd_bwd_chunk_kernel"):
+        body = funcs[name][1]
+        assert "head_block(s)" in body and "it < items" in body
+        assert "blockIdx.y" not in body
 
 
 #: the SSD backward's kernels, in launch order
@@ -350,36 +374,54 @@ SSD_BACKWARD = ("ssd_bwd_dstate_kernel", "ssd_bwd_state_pass_kernel",
 
 
 def test_ssd_backward_sums_without_atomics_in_launch_order():
-    # determinism: no kernel of the file uses an atomic, the group and
-    # chunk sums are fixed-order loops, and the entry point launches the
-    # four backward kernels in order (the sum kernel always: it writes da)
+    # determinism: no kernel of the file uses an atomic, the sums over a
+    # group's blocks of heads and over chunks are fixed-order loops, and
+    # the entry point launches the chunk kernels (launch_backward) and
+    # then the sum kernel (always: it writes da)
     funcs = _functions("ssd_scan.cu")
     for name, (header, body) in funcs.items():
         assert "atomic" not in body, name
+
+    def launched(body):
+        return [m.group(1)
+                for m in re.finditer(r"(\w+)(?:<\w+>)?\s*<<<", body)]
     entry = funcs["ssd_scan_backward_launch"][1]
-    launched = [m.group(1) for m in re.finditer(r"(\w+)(?:<\d+>)?<<<",
-                                                entry)]
-    assert list(dict.fromkeys(launched)) == list(SSD_BACKWARD)
+    assert launched(entry) == ["ssd_bwd_sum_kernel"]
+    assert entry.index("launch_backward") < entry.index("<<<")
+    order = launched(funcs["launch_backward"][1]) + launched(entry)
+    assert order == list(SSD_BACKWARD)
     sums = funcs["ssd_bwd_sum_kernel"][1]
-    assert "for (int r = 0; r < R; ++r)" in sums
+    assert "for (int k = 0; k < nblk; ++k)" in sums
     assert "k < (long long)batch * s.nc" in sums
 
 
 def test_ssd_backward_shared_memory_fits_one_block():
     # bwd_smem / dstate_smem in floats, as the source defines them, for
-    # the two state widths: within the H100's 227 KB a block
+    # the two state widths: equal to the launch plan's bytes, within the
+    # H100's 227 KB a block, and two chunk-kernel CTAs (16 warps) an SM
+    # (228 KB, 1 KB reserved a block), as the kernel's launch bounds ask
+    from repro_torch.kernels import ssd_scan
     src = (CSRC / "ssd_scan.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(
         r"constexpr int (\w+) = (\d+);", src)}
     qmax, threads = consts["QMAX"], consts["THREADS"]
-    bq = qmax + 1
-    for nr in (1, 2):
-        npad = 64 * nr + 1
-        bwd = 2 * qmax * npad + 3 * qmax * bq + 2 * 64 * nr * bq + \
-            7 * qmax + threads // 32
-        dstate = qmax * npad + qmax * bq + qmax
+    hbmax, vec = consts["HBMAX"], consts["VEC"]
+    assert "constexpr int TS = QMAX + 4;" in src
+    assert "return 64 * nr + 4;" in src
+    ts = qmax + 4
+    assert (qmax, ts, vec, threads // 32, hbmax) == (
+        ssd_scan._QMAX, ssd_scan._TS, ssd_scan._VEC, ssd_scan._WARPS,
+        ssd_scan.HEAD_BLOCK)
+    for n, nr in ((64, 1), (128, 2)):
+        ns = 64 * nr + 4
+        wide = max(64 * nr * ts, qmax * ns)
+        bwd = 2 * wide + 2 * qmax * ts + hbmax * (vec * qmax + threads // 32)
+        dstate = qmax * ns + qmax * ts + hbmax * qmax
+        assert ssd_scan._bwd_smem(n) == (4 * dstate, 4 * bwd)
         assert 4 * bwd <= 232_448 and 4 * dstate <= 232_448
-    assert "constexpr int BQ = QMAX + 1;" in src
+        assert 2 * (4 * bwd + 1024) <= 233_472
+    header = _functions("ssd_scan.cu")["ssd_bwd_chunk_kernel"][0]
+    assert "__launch_bounds__(THREADS, 2)" in header
 
 
 def test_paged_gather_is_one_launch():

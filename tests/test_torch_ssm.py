@@ -177,6 +177,101 @@ def test_ssd_launch_plan_small_and_empty():
     assert ssd_scan.launch_plan(1, 0, 4, 1, 16, 24, 16) == (0, 1, 0)
 
 
+@pytest.mark.parametrize("arch,blocks,smem", [("mamba2-370m", 8, 112_768),
+                                               ("zamba2-1.2b", 16, 77_952)])
+def test_ssd_backward_plan_at_the_training_shape(arch, blocks, smem):
+    # batch 4 x 2048: 4 heads a CTA of the backward's chunk kernels (1024
+    # CTAs for mamba2-370m's 32 heads, 2048 for zamba2-1.2b's 64), two
+    # CTAs an SM; the work buffer holds the state gradients, the da terms
+    # and the blocks' dB and dC
+    cfg = get_config(arch)
+    h, g = cfg.ssm_heads, cfg.ssm_groups
+    n, p, q = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_chunk
+    plan = ssd_scan.backward_plan(4, 2048, h, g, n, p, q)
+    nc = 2048 // q
+    assert (plan.n_chunks, plan.head_block, plan.blocks) == (nc, 4, blocks)
+    assert plan.grid == (nc, g * blocks, 4)
+    assert nc * g * blocks * 4 == {8: 1024, 16: 2048}[blocks]
+    assert plan.chunk_smem == smem and plan.ctas_per_sm == 2
+    assert plan.dstate_smem == {8: 52_224, 16: 35_840}[blocks]
+    assert plan.work == (4 * nc * h * n * p + 4 * nc * h
+                         + 2 * 4 * 2048 * g * blocks * n)
+
+
+@pytest.mark.parametrize("bsz,length,h,g,hb,blocks", [
+    (2, 2048, 12, 2, 4, 2),      # 6 heads a group: blocks of 4 and 2
+    (2, 1024, 8, 8, 4, 1),       # one head a group
+    (2, 640, 8, 2, 1, 4),        # 40 CTAs at 4 heads: halves down to 1
+    (2, 768, 12, 2, 2, 3),       # 144 CTAs at 2 heads, 96 at 4
+    (2, 3 * 37, 4, 2, 1, 2)])
+def test_ssd_backward_plan_ragged_heads(bsz, length, h, g, hb, blocks):
+    # the forward's rule: the largest of 4, 2, 1 heads a CTA that gives the
+    # 132 SMs a CTA each; a group's last block may hold fewer heads
+    q = 37 if length % 64 else 64
+    plan = ssd_scan.backward_plan(bsz, length, h, g, 64, 64, q)
+    assert (plan.head_block, plan.blocks) == (hb, blocks)
+    ctas = plan.grid[0] * plan.grid[1] * plan.grid[2]
+    assert plan.grid[1] == g * blocks
+    assert ctas >= 132 or hb == 1
+    if hb < 4:
+        assert plan.grid[0] * g * -(-(h // g) // (2 * hb)) * bsz < 132
+    partials = 2 * bsz * length * g * blocks * 64 if blocks > 1 else 0
+    assert plan.work == (bsz * plan.n_chunks * h * 64 * 64
+                         + -(-bsz * plan.n_chunks * h // 4) * 4 + partials)
+
+
+def test_ssd_backward_plan_takes_a_head_block():
+    plan = ssd_scan.backward_plan(2, 3 * 37, 12, 2, 16, 24, 37, head_block=4)
+    assert (plan.head_block, plan.blocks, plan.grid) == (4, 2, (3, 4, 2))
+    assert ssd_scan.backward_plan(2, 3 * 37, 6, 1, 16, 24, 37,
+                                  head_block=3).blocks == 2
+    for bad in (0, 5):
+        with pytest.raises(ValueError, match="head_block"):
+            ssd_scan.backward_plan(1, 64, 4, 1, 16, 16, 64, head_block=bad)
+    assert ssd_scan.backward_plan(1, 0, 4, 1, 16, 24, 16).work == 0
+
+
+@pytest.mark.parametrize("n", [16, 64, 96, 128])
+def test_ssd_backward_shared_memory_fits_the_sm(n):
+    # both chunk kernels fit a CTA's 227 KB, and the chunk kernel two
+    # CTAs (16 warps) an SM at both state widths
+    plan = ssd_scan.backward_plan(4, 2048, 32, 1, n, 64, 64)
+    assert plan.dstate_smem <= 232_448 and plan.chunk_smem <= 232_448
+    assert plan.ctas_per_sm >= 2
+    assert plan.ctas_per_sm * (plan.chunk_smem + 1024) <= 233_472
+    assert plan.ctas_per_sm * 256 // 32 >= 16
+
+
+@pytest.mark.parametrize("h,g", [(12, 2), (4, 1)])
+def test_ssd_backward_work_buffer_is_the_plans(monkeypatch, h, g):
+    # _backward allocates the plan's work buffer and hands the kernel the
+    # plan's head block (the library is a stand-in that launches nothing)
+    calls, sizes = [], []
+
+    class Lib:
+        def ssd_scan_backward_launch(self, *args):
+            calls.append(args)
+            return 0
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        sizes.append(t.numel())
+        return t
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(ssd_scan._build, "library", lambda stem: Lib())
+    monkeypatch.setattr(ssd_scan, "_stream", lambda: 0)
+    x, dt, a, b, c = (torch.as_tensor(v) for v in ssd_inputs(
+        B=2, L=111, H=h, P=24, G=g, N=16))
+    ops_ = ssd_scan._operands(x, dt, a, b, c)
+    scratch = torch.zeros(ssd_scan.launch_plan(2, 111, h, g, 16, 24,
+                                               37).scratch)
+    ssd_scan._backward(*ops_, torch.ones_like(x), None, scratch, 37)
+    plan = ssd_scan.backward_plan(2, 111, h, g, 16, 24, 37)
+    assert len(calls) == 1 and plan.work in sizes
+    assert calls[0][-2] == plan.head_block          # before the stream
+
+
 def test_ssd_runs_the_plain_version_on_the_cpu():
     ssd_scan.reset_launches()
     ops.ssd(*both(ssd_inputs(L=16))[1], chunk=8)
