@@ -207,7 +207,25 @@ each of which fails the run (non-zero exit) when it fails:
    plain versions (flash rounding P as the kernel does): loss and every
    gradient within 2e-2 x max|.|.  Row 9 of the kernels line gains the
    backward's entry and the training forward launches; row 8 zamba2's
-   flash launches.
+   flash launches;
+16. the generator's mesh (``mesh_phase``; the CommPlan interpreter over
+   ``torch.distributed``, whose per-shard products are ``torch.matmul``
+   as the reference's are einsums, so it adds no kernel row): (a) a
+   one-rank NCCL mesh (1x1, this process) running every registry algebra
+   at ``SIZES`` under output-stationary through ``generate(...,
+   mesh=m)``; (b) four gloo ranks sharing the card on a 2x2 mesh
+   (``dist.spawn``; NCCL allows one rank a device) running
+   ``mesh_cases``: gemm 4096^3 under identity (SUMMA),
+   output-stationary (Cannon), weight-stationary (the stagger) and the
+   K-spatial STT, batched_gemv and depthwise_conv at ``SIZES``, sparse
+   gemm A (128 x 128 blocks, density 0.25) compressed and masked-dense.
+   Every output, on every rank, is a CUDA tensor equal to the
+   single-card accelerator's (the templates and the BSR kernel)
+   exactly; compressed footprints fall below the dense ones; the Cannon
+   case run once more without its last rotation must differ.  Each
+   case's strategy, specs, stored bytes a device and host seconds a
+   rank are printed (ranks sharing one card over host-staged gloo: not
+   a mesh's speed).
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
@@ -221,6 +239,7 @@ masks), and the device's busy share of the untraced call time.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -2277,6 +2296,153 @@ def ssm_train_phase(check):
     return entry, totals["ssd_scan"], flash, summary
 
 
+#: phase 16: the generator's mesh.  (a)'s algebras run at ``SIZES`` on a
+#: one-rank NCCL mesh; (b) four gloo ranks share the card on a 2x2 mesh
+MESH_RANKS = 4
+MESH_SPARSE_BLOCK = (128, 128)
+
+
+def mesh_cases(sizes, block):
+    """Phase 16 (b)'s cases on the 2x2 mesh: gemm under the four STT
+    families (SUMMA, Cannon, the stagger, ring-reduce), the two batched
+    forms, and sparse gemm A compressed and masked-dense."""
+    from repro_torch.dist.cases import K_SPATIAL_T, case
+
+    g = sizes["gemm"]
+    sp = (("random", "A", (g["m"], g["k"]), block, 0.25, 0),)
+    out = [case(f"gemm x {df}", "gemm", g, df, (2, 2))
+           for df in ("identity", "output_stationary", "weight_stationary")]
+    out += [case("gemm x K-spatial", "gemm", g, K_SPATIAL_T, (2, 2))]
+    out += [case(f"{name} x output_stationary", name, sizes[name],
+                 "output_stationary", (2, 2))
+            for name in ("batched_gemv", "depthwise_conv")]
+    out += [case(f"gemm A d=0.25 sparse={mode}", "gemm", g,
+                 "output_stationary", (2, 2), sparsity=sp, sparse=mode)
+            for mode in ("auto", "dense")]
+    return out
+
+
+def mesh_ranks(case_list, fault, device):
+    """Phase 16 (b) in each of the four ranks: the cases, then the planted
+    fault — the Cannon case once more with its last rotation dropped
+    (``RankMesh.ppermute`` patched here, in this rank only, to hand back
+    its input on the last rotation step: Cannon rotates both sides
+    ``S - 1`` times, two calls a step).  Rank 0's records."""
+    from repro_torch.dist import cases, comm_engine
+
+    recs = cases.run_cases(case_list, device, "gloo", keep_out=False,
+                           single=True)
+    real = comm_engine.RankMesh.ppermute
+    calls = [0]
+    last_step = 2 * (fault.mesh[0] - 2)
+
+    def dropping(self, x, axis, perm):
+        calls[0] += 1
+        return x if calls[0] > last_step else real(self, x, axis, perm)
+
+    comm_engine.RankMesh.ppermute = dropping
+    try:
+        bad = cases.run_cases([fault], device, "gloo", keep_out=False,
+                              single=True)
+    finally:
+        comm_engine.RankMesh.ppermute = real
+    return recs, bad.get(fault.label), calls[0]
+
+
+def _mesh_line(label, rec):
+    secs = [max(s) for s in rec["seconds"]]
+    foot = " ".join(f"{k}={v:.0f}B" for k, v in rec["footprint"].items())
+    return (f"  {label:34s} {rec['strategy']:17s} "
+            f"in={rec['in_specs'][0]}/{rec['in_specs'][1]} "
+            f"out={rec['out_spec']} stored/dev {foot}; host s/rank "
+            + ",".join(f"{s:.3f}" for s in secs))
+
+
+def mesh_phase(check, device="cuda", sizes=None, block=MESH_SPARSE_BLOCK):
+    """Phase 16: the generator's mesh on the card.
+
+    (a) a one-rank NCCL mesh (1x1, this process): every registry
+    algebra at ``SIZES`` through ``generate(name, "output_stationary",
+    bounds=..., mesh=m)`` on integer operands in [-4, 4]; each output
+    equals the single-card accelerator's exactly.  (b) four gloo ranks
+    sharing the card on a 2x2 mesh (``dist.spawn``): ``mesh_cases``;
+    every rank's output is a CUDA tensor equal to its single-card
+    accelerator's (the OS/WS/RT templates and the BSR kernel) exactly,
+    compressed footprints fall below the dense ones, and the planted
+    fault (Cannon without its last rotation) is caught.  Times are host
+    seconds of ranks sharing one card over host-staged gloo, not a
+    mesh's speed.  Returns the phase's summary."""
+    from repro_torch.dist import cases, spawn
+
+    sizes = SIZES if sizes is None else sizes
+    t0 = time.perf_counter()
+    one = [cases.case(name, name, b, "output_stationary", (1, 1))
+           for name, b in sizes.items()]
+    with spawn.single_rank(device=device):
+        recs_a = cases.run_cases(one, device, keep_out=False, single=True)
+    for c in one:
+        rec = recs_a[c.label]
+        check(rec["equal_single"] and rec["on_mesh_device"],
+              f"1x1 mesh {c.label}: output differs from the single-card "
+              f"accelerator or left the card ({rec['devices']})")
+    a_s = time.perf_counter() - t0
+    print(f"mesh (a) 1x1 {'NCCL' if device == 'cuda' else 'gloo'}: "
+          f"{len(one)} algebras at full width equal the single-card "
+          f"accelerator ({a_s:.1f} s)")
+    for c in one:
+        print(_mesh_line(c.label, recs_a[c.label]))
+
+    t0 = time.perf_counter()
+    case_list = mesh_cases(sizes, block)
+    fault = dataclasses.replace(case_list[1], label="fault: Cannon "
+                                "without its last rotation")
+    recs_b, bad, calls = spawn.run_ranks(
+        mesh_ranks, MESH_RANKS, device=device, backend="gloo",
+        args=(case_list, fault, device), timeout=600)
+    b_s = time.perf_counter() - t0
+    for c in case_list:
+        rec = recs_b[c.label]
+        check(rec["equal_single"] and rec["agree"],
+              f"2x2 mesh {c.label}: a rank's output differs from the "
+              f"single-card accelerator")
+        check(rec["on_mesh_device"] and all(
+            d.startswith(device) for d in rec["devices"]),
+            f"2x2 mesh {c.label}: outputs on {rec['devices']}")
+    check(recs_b[case_list[1].label]["strategy"] == "cannon",
+          "gemm x output_stationary did not run Cannon")
+    check(recs_b[case_list[2].label]["strategy"] == "k_spatial_stagger",
+          "gemm x weight_stationary did not run the stagger")
+    comp, dense = (recs_b[c.label] for c in case_list[-2:])
+    check(comp["lhs_compressed"] and not dense["lhs_compressed"],
+          "sparse gemm A: the compressed/dense modes did not take")
+    check(comp["footprint"]["lhs"] < dense["footprint"]["lhs"],
+          f"sparse gemm A: compressed footprint {comp['footprint']} not "
+          f"below the dense one {dense['footprint']}")
+    check(not bad["equal_single"],
+          "the planted fault (Cannon without its last rotation) was not "
+          "caught")
+    print(f"mesh (b) 2x2, {MESH_RANKS} gloo ranks sharing one card "
+          f"(host-staged collectives; host seconds, not a mesh's speed): "
+          f"{len(case_list)} cases equal the single-card accelerator on "
+          f"every rank; planted fault caught ({calls} ring calls); "
+          f"{b_s:.1f} s with spawning")
+    for c in case_list:
+        print(_mesh_line(c.label, recs_b[c.label]))
+    return {"one_rank_nccl": {k: _mesh_summary(v) for k, v in
+                              recs_a.items()},
+            "gloo_2x2": {k: _mesh_summary(v) for k, v in recs_b.items()},
+            "fault_caught": not bad["equal_single"],
+            "seconds": {"a": a_s, "b": b_s},
+            "note": "host seconds of ranks sharing one card over "
+                    "host-staged gloo, not a mesh's speed"}
+
+
+def _mesh_summary(rec):
+    return {k: rec[k] for k in ("strategy", "in_specs", "out_spec",
+                                "footprint", "seconds", "devices",
+                                "equal_single")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2914,12 +3080,16 @@ def main() -> int:
             row["backward"]["launches"] += \
                 flash_train["flash_attention_backward"]
     phase("ssm training")
+
+    # -- 16. the generator's mesh --------------------------------------------
+    mesh_summary = mesh_phase(check)
+    phase("mesh")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
          "ssm_serve": ssm_summary, "family_serve": family_summary,
          "training": train_summary, "ssm_training": ssm_train_summary,
-         "phase_s": phase_s}, indent=1))
+         "mesh": mesh_summary, "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

@@ -16,16 +16,27 @@ CUDA kernel:
     acc = repro_torch.generate("gemm", sparsity={"A": sp})    # BSR kernel
     gacc = repro_torch.generate(graph)                        # megakernels
 
+    from repro_torch.dist.engine import square_submesh
+    multi = acc.sharded(square_submesh(2))                    # on a mesh
+    c = multi({"A": a, "B": b})                               # every rank
+
 Entry points run on the card unless the caller passes ``device="cpu"``
 (the kernels' plain versions); with no card and no device given they
-raise.  Not here yet, raising ``NotImplementedError`` that names its
-slice: ``mesh=`` / ``Accelerator.sharded`` (mesh).
+raise.  On a mesh (``generate(mesh=...)`` / :meth:`Accelerator.sharded`)
+every rank of the mesh — one process a position, see
+``repro_torch.dist.spawn`` — calls the accelerator with the same
+operands, and the generated CommPlan runs through
+``dist/comm_engine.py``; the dataflow classification drives both levels
+from the same plan.  SUMMA / Cannon / ring-reduce are not modes a user
+selects — they fall out of ``gemm`` x the MMT / SST / K-spatial
+dataflows.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from .compile import lower as _lower
@@ -66,7 +77,13 @@ def _resolve_dataflow(alg: TensorAlgebra, dataflow: DataflowLike) -> Dataflow:
 
 @dataclasses.dataclass
 class Accelerator:
-    """A generated accelerator on one device."""
+    """A generated accelerator: one handle over both pipeline levels.
+
+    ``__call__`` executes on one device (the lowered template's kernel)
+    or, when bound to a mesh via :meth:`sharded` / ``generate(mesh=...)``,
+    across the mesh's ranks with every transfer prescribed by the
+    generated CommPlan.
+    """
 
     kernel: CompiledKernel
     #: DSE candidates considered when built via ``generate(search=...)``,
@@ -76,6 +93,15 @@ class Accelerator:
     #: (:class:`repro_torch.tune.TuneResult`): winning variant, measured
     #: medians, whether the on-disk tuning cache answered
     tune_result: Optional[object] = None
+    #: the 2-D ``DeviceMesh`` this accelerator runs on (None: one device)
+    mesh: Optional[object] = None
+    #: mesh-execution options forwarded to the CommPlan interpreter:
+    #: sparse shipping mode ("auto" | "bsr" | "dense") and batch sharding
+    #: (False = replicating baseline, for footprint A/B comparisons)
+    sparse_mode_mesh: str = "auto"
+    shard_batch: bool = True
+    _mesh_prog: Optional[object] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     # -- introspection ----------------------------------------------------
     @property
@@ -103,6 +129,16 @@ class Accelerator:
         """Paper cost model's view of this exact (algebra, dataflow,
         config) — same tile chooser the executed blocks come from."""
         return self.kernel.cost_report()
+
+    @property
+    def partition(self):
+        """The solved per-tensor mesh partition
+        (:class:`~repro_torch.core.plan.PartitionSolution`); requires a
+        bound mesh."""
+        if self.mesh is None:
+            raise ValueError("partition requires a mesh-bound accelerator; "
+                             "call .sharded(mesh) first")
+        return self._program().solution
 
     def describe(self) -> str:
         df = self.dataflow
@@ -153,21 +189,103 @@ class Accelerator:
             + (f"[{','.join(t.mesh_axes)}]" if t.mesh_axes else "")
             for t in self.plan.comm.tensors)
         lines.append(f"  comm:   {kinds}")
+        if self.mesh is not None:
+            sol = self.partition
+            shape = dict(zip(self.mesh.mesh_dim_names,
+                             tuple(self.mesh.shape)))
+            lines.append(
+                f"  mesh:   {shape} strategy={sol.strategy}"
+                + (f" batch_axis={sol.batch_axis}" if sol.batch_axis
+                   else ""))
+            eb = self.kernel.dtype.itemsize
+            stored = sol.per_device_bytes(form, eb)
+            moved = sol.comm_bytes(form, eb)
+            for tp in sol.sides:
+                names = "+".join(tp.tensors)
+                lines.append(
+                    f"    {tp.side} ({names}): {tp.describe()} "
+                    f"stored={stored[tp.side]:.0f}B/dev "
+                    f"comm={moved[tp.side]:.0f}B/dev")
         return "\n".join(lines)
 
     # -- execution --------------------------------------------------------
-    def __call__(self, operands: Dict[str, object]) -> torch.Tensor:
-        return self.kernel(operands)
+    def _program(self):
+        if self._mesh_prog is None:
+            from .dist import comm_engine
+            self._mesh_prog = comm_engine.compile_comm_plan(
+                self.plan.comm, self.kernel.form, self.mesh,
+                dtype=self.kernel.dtype, shard_batch=self.shard_batch,
+                sparse=self.sparse_mode_mesh, device=self.device)
+        return self._mesh_prog
 
-    def sharded(self, mesh, **kwargs) -> "Accelerator":
-        raise NotImplementedError(
-            "multi-device execution (Accelerator.sharded) arrives with the "
-            "mesh slice")
+    def __call__(self, operands: Dict[str, object]) -> torch.Tensor:
+        if self.mesh is None:
+            return self.kernel(operands)
+        k = self.kernel
+        # same dtype cast + sparsity-pattern enforcement as the
+        # single-device path, so both levels compute the same function of
+        # the operands
+        cast = k.cast_operands(operands)
+        lhs, rhs = k.form.prepare(cast)
+        out2d = self._program()(lhs, rhs)
+        return k.form.finish(out2d)
+
+    def sharded(self, mesh, *, sparse: str = "auto",
+                shard_batch: bool = True) -> "Accelerator":
+        """Bind this accelerator to a 2-D ``DeviceMesh``: execution becomes
+        the CommPlan interpreter's mesh program (chip-level wires), with
+        the same :class:`~repro_torch.core.plan.PartitionSolution` driving
+        both levels.  Every rank of the mesh then calls it with the same
+        operands.
+
+        Structured block-sparse operands ship **compressed** by default
+        (``sparse='auto'``/``'bsr'``): each rank holds only its shard's
+        nonzero blocks plus their block-COO coordinates, and the CommPlan
+        collectives move that payload — no rank materializes the dense
+        operand.  ``sparse='dense'`` requests the masked-dense shipping
+        baseline (exact, but every transfer moves zero blocks too), kept
+        for footprint comparisons.  ``shard_batch=False`` likewise keeps
+        the replicating-batch baseline.
+        """
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"sharded() takes a torch.distributed "
+                            f"DeviceMesh, got {type(mesh).__name__}")
+        if sparse not in ("auto", "bsr", "dense"):
+            raise ValueError(f"sparse must be 'auto', 'bsr' or 'dense', "
+                             f"got {sparse!r}")
+        form = self.kernel.form
+        if sparse == "bsr" and (form.sparse is None or form.batch):
+            # an explicit compressed request must not silently densify:
+            # masked-mode and batched sparse forms have no structured 2-D
+            # operand the collectives could ship as BSR payload
+            raise ValueError(
+                "sparse='bsr' requested but this form has no structured "
+                "2-D sparse operand (masked-dense / batched patterns); "
+                "use sparse='auto' (compresses whenever possible) or "
+                "'dense'")
+        return dataclasses.replace(self, mesh=mesh, sparse_mode_mesh=sparse,
+                                   shard_batch=shard_batch, _mesh_prog=None)
 
     def validate(self, seed: int = 0, atol: float = 1e-3) -> float:
         """Run on random operands and compare against ``alg.reference``.
-        Returns the max abs error; raises on mismatch."""
-        return self.kernel.validate(seed=seed, atol=atol)
+
+        Validates the *bound* execution path: the single-device kernel
+        when no mesh is attached, the CommPlan-driven mesh program when
+        one is (every rank of the mesh must call it).  Returns the max abs
+        error; raises on mismatch."""
+        if self.mesh is None:
+            return self.kernel.validate(seed=seed, atol=atol)
+        operands = self.algebra.random_operands(seed)
+        got = self(operands).to(torch.float64).cpu().numpy()
+        want = self.algebra.reference(operands).astype(np.float64)
+        err = float(np.abs(got - want).max()) if got.size else 0.0
+        if got.shape != want.shape or err > atol:
+            raise AssertionError(
+                f"sharded {self.algebra.name} x {self.dataflow.name} "
+                f"diverged from reference: shape {got.shape} vs "
+                f"{want.shape}, max err {err:.3e}")
+        return err
 
 
 def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
@@ -212,7 +330,9 @@ def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
       dtype: ``torch.float32`` (default) or ``torch.bfloat16``.
       device: where the accelerator runs: the card by default (raises
         without one), ``"cpu"`` for the plain versions.
-      mesh: not in this slice; raises ``NotImplementedError``.
+      mesh: bind the result to a 2-D ``DeviceMesh`` (of ``device``'s
+        type) — ``__call__`` then runs the generated CommPlan through
+        ``dist/comm_engine.py`` on every rank of the mesh.
 
     Returns an :class:`Accelerator` — or, when ``alg`` is an
     :class:`~repro_torch.graph.ir.AlgebraGraph`, a
@@ -249,10 +369,6 @@ def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
         raise TypeError(f"generate() takes a TensorAlgebra, a registry "
                         f"name or an AlgebraGraph, got "
                         f"{type(alg).__name__}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "generate(mesh=...) (multi-device execution) arrives with the "
-            "mesh slice")
     device = resolve_device(device)
     algebra = _resolve_algebra(alg, bounds)
     if sparsity:
@@ -268,7 +384,8 @@ def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
                  and not isinstance(tune, bool) else 4)
         result = _tuner.tune(algebra, search=width, cfg=cfg, dtype=dtype,
                              device=device, validate=validate)
-        return Accelerator(result.kernel, tune_result=result)
+        acc = Accelerator(result.kernel, tune_result=result)
+        return acc.sharded(mesh) if mesh is not None else acc
     if search is not None:
         if dataflow is not None:
             raise ValueError("pass either dataflow= or search=, not both")
@@ -298,4 +415,5 @@ def generate(alg: Union[TensorAlgebra, str, AlgebraGraph],
         df = _resolve_dataflow(algebra, dataflow)
         kernel = _lower(algebra, df, cfg=cfg, dtype=dtype, device=device,
                         validate=validate)
-    return Accelerator(kernel, candidates=candidates)
+    acc = Accelerator(kernel, candidates=candidates)
+    return acc.sharded(mesh) if mesh is not None else acc

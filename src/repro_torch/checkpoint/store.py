@@ -16,7 +16,7 @@ The port of the reference's ``checkpoint/store.py``:
     then keeps the newest ``keep`` checkpoints.
 
 The reference's elastic restore onto another mesh (``shardings=``)
-arrives with the mesh slice and raises here.
+arrives with the model-mesh slice and raises here.
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ import torch
 
 from ..optim.adamw import Q8
 
-MESH_SLICE = "restoring onto a mesh (shardings=) arrives with the mesh slice"
+MESH_SLICE = ("restoring onto a mesh (shardings=) arrives with the "
+              "model-mesh slice")
 
 
 def _children(node) -> Optional[list]:

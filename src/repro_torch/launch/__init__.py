@@ -1,3 +1,4 @@
 """Launch: the train and serve command lines (``python -m
-repro_torch.launch.train`` / ``.serve``) and the optimizer spec.  The
-mesh, dry-run and HLO-analysis tools arrive with the mesh slice."""
+repro_torch.launch.train`` / ``.serve``), the optimizer spec and mesh
+construction (``launch.mesh``).  The dry-run and HLO-analysis tools
+arrive with the model-mesh slice."""

@@ -1,0 +1,86 @@
+"""Mesh construction over the default process group.
+
+The port of the reference's ``launch/mesh.py``: the same shapes and axis
+names, as a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks
+of the default process group (row-major: position ``(i, j)`` is rank
+``i * cols + j``).  Functions, not module-level constants: importing
+this module touches no process group.
+
+Every rank of the world must build every mesh, including the sub-meshes
+it is not part of (DeviceMesh creates one process group per mesh row and
+column, and group creation is collective over the world).
+
+The device defaults to the card and the backend to NCCL; ``device="cpu"``
+takes gloo, and a caller that wants gloo ranks on a card (several ranks
+sharing one) passes ``backend="gloo"``.  A missing card or a default
+group that runs another backend raises; nothing switches on its own.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..kernels.ops import resolve_device
+
+
+def resolve_backend(device: torch.device, backend: Optional[str]) -> str:
+    """``backend`` checked against ``device``; by default NCCL for the
+    card, gloo for the CPU."""
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("NCCL moves CUDA tensors only: a CPU rank needs "
+                         "backend='gloo'")
+    return backend
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None,
+              backend: Optional[str] = None) -> DeviceMesh:
+    """A ``shape`` mesh named ``axes`` over the first ``prod(shape)``
+    ranks of the default process group."""
+    device = resolve_device(device)
+    backend = resolve_backend(device, backend)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {tuple(shape)} and axes "
+                         f"{tuple(axes)} differ in length")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "no default process group: start the ranks with "
+            "repro_torch.dist.spawn.run_ranks (or single_rank), or call "
+            "torch.distributed.init_process_group first")
+    have = dist.get_backend()
+    if have != backend:
+        raise RuntimeError(f"the default process group runs {have!r}; this "
+                           f"mesh asks for {backend!r}")
+    n = math.prod(shape)
+    if n > dist.get_world_size():
+        raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks, the "
+                         f"world has {dist.get_world_size()}")
+    return DeviceMesh(device.type, torch.arange(n).reshape(tuple(shape)),
+                      mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         backend: Optional[str] = None) -> DeviceMesh:
+    """16x16 positions per pod; 2 pods when ``multi_pod``.
+
+    Axes: ('data', 'model') single-pod; ('pod', 'data', 'model')
+    multi-pod.  DP runs over (pod, data); FSDP over data; TP/SP/EP over
+    model.
+    """
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device=device, backend=backend)
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *, device=None,
+                   backend: Optional[str] = None) -> DeviceMesh:
+    """A small ('data', 'model') mesh over the first ``data * model``
+    ranks — what tests and the examples use."""
+    return make_mesh((data, model), ("data", "model"), device=device,
+                     backend=backend)

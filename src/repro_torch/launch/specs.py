@@ -2,7 +2,7 @@
 
 Of the reference's ``launch/specs.py`` the port has only
 :func:`opt_config_for`; the cells' input structs and shardings are mesh
-machinery and arrive with the mesh slice.
+machinery and arrive with the model-mesh slice.
 """
 from __future__ import annotations
 

@@ -9,7 +9,7 @@ Runs the fault-tolerant driver on one device: the card unless
 the fp32 masters, gradients and AdamW moments of h2o-danube-1.8b,
 mamba2-370m and zamba2-1.2b on one 80 GB card (the ssm and hybrid
 families train through the SSD kernels' backward).  ``--multi-pod``
-needs the mesh slice and raises.
+needs the model-mesh slice and raises.
 """
 from __future__ import annotations
 

@@ -176,7 +176,8 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """
     if cfg.explicit_collectives:
         raise NotImplementedError(
-            "explicit_collectives (explicit_tp) arrives with the mesh slice")
+            "explicit_collectives (explicit_tp) arrives with the model-mesh "
+            "slice")
     b, lq, _ = x.shape
     is_self = kv_x is None
     static_cross = cache is not None and not is_self

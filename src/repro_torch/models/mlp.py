@@ -49,7 +49,8 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     fp32, the down projection accumulated in fp32 and cast to x's dtype."""
     if cfg.explicit_collectives:
         raise NotImplementedError(
-            "explicit_collectives (explicit_tp) arrives with the mesh slice")
+            "explicit_collectives (explicit_tp) arrives with the model-mesh "
+            "slice")
     compute = torch_dtype(cfg.dtype)
     xc = x.to(compute)
     g = xc @ p["wg"].to(compute)
@@ -139,7 +140,8 @@ def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     nothing."""
     if cfg.explicit_collectives:
         raise NotImplementedError(
-            "explicit_collectives (explicit_tp) arrives with the mesh slice")
+            "explicit_collectives (explicit_tp) arrives with the model-mesh "
+            "slice")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     compute = torch_dtype(cfg.dtype)

@@ -90,7 +90,8 @@ def apply_ssm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     new_cache)."""
     if cfg.explicit_collectives:
         raise NotImplementedError(
-            "explicit_collectives (explicit_tp) arrives with the mesh slice")
+            "explicit_collectives (explicit_tp) arrives with the model-mesh "
+            "slice")
     b, l, _ = x.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     ph = cfg.ssm_head_dim

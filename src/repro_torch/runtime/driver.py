@@ -13,7 +13,7 @@ on the host clock up to ``torch.cuda.synchronize()`` (the reference
 blocks on the loss).  Parameters are drawn from a ``torch.Generator``
 seeded with the data seed, so they are not the reference's numbers; a
 run that starts from a reference checkpoint restores them.  Re-meshing
-on restore arrives with the mesh slice.
+on restore arrives with the model-mesh slice.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ Layered like a real inference stack (the port of the reference's
   a service);
 * ``pages``   — paged decode cache (fixed-size pages, slot→page-table
   indirection, shared pool) gathered by the paged-gather kernel; mesh
-  placement arrives with the mesh slice;
+  placement arrives with the model-mesh slice;
 * ``slots``   — fixed-capacity continuous-batching slot engine over the
   paged cache (insert/evict without draining or rebuilding);
 * ``server``  — thread-safe async dispatch loop with per-request futures;

@@ -15,7 +15,8 @@ door: requests name a registry algebra (plus optional bounds / dataflow)
 and the engine answers with the generated accelerator's output.  Repeat
 shapes are free — ``repro_torch.generate`` rides the bounded, locked
 compile cache, and the engine keeps the accelerator handle per request
-signature.
+signature — and a mesh-bound engine executes every request through the
+CommPlan interpreter (every rank of the mesh submits the same requests).
 """
 from __future__ import annotations
 
@@ -129,10 +130,13 @@ class DecodeEngine:
 
 class AcceleratorEngine:
     """Serve generated tensor-algebra accelerators (the front door, as a
-    service) on one device: the card unless ``device="cpu"``.
+    service) on one device — the card unless ``device="cpu"`` — or, with
+    ``mesh=`` (a 2-D ``DeviceMesh`` of the device's type), across the
+    mesh's ranks.
 
     ``submit("gemm", {"A": a, "B": b})`` generates (or cache-hits) the
-    accelerator for the request's algebra/bounds/dataflow and executes it.
+    accelerator for the request's algebra/bounds/dataflow and executes it;
+    with ``mesh=`` every request runs through the CommPlan interpreter.
     Request threads are safe: generation goes through the locked compile
     cache and the per-engine stats lock is local.
     """
@@ -140,14 +144,20 @@ class AcceleratorEngine:
     def __init__(self, mesh=None, dtype: torch.dtype = torch.float32,
                  device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-bound AcceleratorEngine arrives with the mesh slice")
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch.distributed "
+                                f"DeviceMesh, got {type(mesh).__name__}")
+        self.mesh = mesh
         self.dtype = dtype
         self.device = resolve_device(device)
         self._lock = threading.Lock()
-        #: request signature -> Accelerator
+        #: request signature -> Accelerator.  The compile cache already
+        #: dedupes CompiledKernels, but a mesh-bound Accelerator also
+        #: carries the compiled MeshProgram — reusing the handle is what
+        #: makes repeat shapes free on the mesh too.
         self._accs: Dict = {}
-        self._stats = {"requests": 0, "algebras": set()}
+        self._stats = {"requests": 0, "algebras": set(), "partitions": {}}
 
     def _accelerator(self, algebra, dataflow, bounds):
         # algebra (str or frozen TensorAlgebra) and dataflow (None, str or
@@ -158,8 +168,8 @@ class AcceleratorEngine:
         if acc is None:
             from .. import api
             acc = api.generate(algebra, dataflow, bounds=bounds,
-                               dtype=self.dtype, device=self.device,
-                               validate=False)
+                               mesh=self.mesh, dtype=self.dtype,
+                               device=self.device, validate=False)
             with self._lock:
                 acc = self._accs.setdefault(key, acc)
         return acc
@@ -172,11 +182,20 @@ class AcceleratorEngine:
         with self._lock:
             self._stats["requests"] += 1
             self._stats["algebras"].add(acc.algebra.name)
+            if acc.mesh is not None:
+                # the solved partition this request executed (the proof no
+                # algebra silently replicates)
+                sol = acc.partition
+                self._stats["partitions"][acc.algebra.name] = {
+                    "strategy": sol.strategy,
+                    "batch_axis": sol.batch_axis,
+                    "replicated_inputs": sol.replicated_inputs()}
         return out
 
     def describe(self, algebra, *, dataflow=None,
                  bounds: Optional[Dict[str, int]] = None) -> str:
-        """The served accelerator's ``describe()``."""
+        """The served accelerator's ``describe()`` — per-tensor partition
+        and comm bytes included when the engine is mesh-bound."""
         return self._accelerator(algebra, dataflow, bounds).describe()
 
     def stats(self) -> Dict:
@@ -184,4 +203,5 @@ class AcceleratorEngine:
         with self._lock:
             return {"requests": self._stats["requests"],
                     "algebras": sorted(self._stats["algebras"]),
+                    "partitions": dict(self._stats["partitions"]),
                     "compile_cache": cache_info()}

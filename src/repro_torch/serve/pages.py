@@ -310,10 +310,10 @@ class PagedKVCache:
 def solve_page_placement(cfg, layout: PageLayout,
                          axes: Tuple[str, str] = ("x", "y"),
                          shape: Tuple[int, int] = (2, 2)):
-    raise NotImplementedError("page placement over a mesh arrives with the "
-                              "mesh slice")
+    raise NotImplementedError("page placement over a mesh arrives with "
+                              "the model-mesh slice")
 
 
 def place_pools(cache: PagedKVCache, mesh, spec) -> None:
-    raise NotImplementedError("page placement over a mesh arrives with the "
-                              "mesh slice")
+    raise NotImplementedError("page placement over a mesh arrives with "
+                              "the model-mesh slice")

@@ -15,7 +15,7 @@ The step takes parameter leaves as they are, makes leaf tensors that
 require grad of them (``detach``: no copy), and returns new parameters
 (``optim.adamw.apply_updates``); the state never holds autograd flags.
 The sharded step and its shardings are mesh machinery and raise until
-the mesh slice.
+the model-mesh slice.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from ..optim import adamw
 
 #: the message of every mesh entry point here
 MESH_SLICE = ("sharded training (state and batch shardings over a mesh) "
-              "arrives with the mesh slice")
+              "arrives with the model-mesh slice")
 
 
 class TrainState(NamedTuple):
@@ -98,7 +98,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
 
 
 # ---------------------------------------------------------------------------
-# sharded compilation (the mesh slice)
+# sharded compilation (the model-mesh slice)
 # ---------------------------------------------------------------------------
 
 def state_shardings(*args, **kwargs):

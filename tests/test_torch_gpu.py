@@ -22,8 +22,13 @@ max|.| of its plain version in fp32 (other sum order and scan
 association, the card's ``expf``), and its backward's gradients the
 same.  A model's prefill and decode step on
 the card are held to the same calls on the CPU within 1e-4 x
-max|logit| (reduced configs, fp32).
+max|logit| (reduced configs, fp32).  The generator's mesh runs on a
+one-rank NCCL mesh and on two gloo ranks sharing the card (NCCL allows
+one rank a device), each output equal to the reference loop nest and to
+the rank's single-card accelerator exactly (integer operands).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -1846,3 +1851,56 @@ def test_tune_propagates_a_launch_error(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA error 9"):
         tuner.tune(alg, pipeline.default_dataflow(alg), validate=False,
                    force=True)
+
+
+# -- the generator's mesh on the card ------------------------------------
+
+MESH_GPU_CASES = ("gemm", "batched_gemv", "depthwise_conv")
+
+
+def _mesh_cases(shape):
+    from repro_torch.dist.cases import case
+    from repro_torch.dist.comm_selftest import SMALL_BOUNDS
+    out = [case(f"{name}-{df}", name, SMALL_BOUNDS[name], df, shape)
+           for name in MESH_GPU_CASES
+           for df in ("identity", "output_stationary", "weight_stationary")]
+    sp = (("random", "A", (16, 16), (4, 4), 0.5, 7),)
+    out += [case(f"gemm-A-{mode}", "gemm", SMALL_BOUNDS["gemm"],
+                 "output_stationary", shape, sparsity=sp, sparse=mode)
+            for mode in ("auto", "dense")]
+    return out
+
+
+def _check_mesh_records(recs, cases, device_prefix):
+    assert set(recs) == {c.label for c in cases}
+    for c in cases:
+        rec = recs[c.label]
+        alg = c.build_algebra()
+        want = alg.reference(c.build_operands(alg))
+        np.testing.assert_array_equal(rec["out"], want, err_msg=c.label)
+        assert rec["equal_single"] and rec["agree"], c.label
+        assert all(d.startswith(device_prefix) for d in rec["devices"])
+
+
+def test_one_rank_nccl_mesh_on_card(cuda):
+    from repro_torch.dist import cases as cases_mod
+    from repro_torch.dist import spawn
+    cases = _mesh_cases((1, 1))
+    with spawn.single_rank(device="cuda"):
+        recs = cases_mod.run_cases(cases, "cuda", single=True, repeat=2)
+    _check_mesh_records(recs, cases, "cuda")
+    assert all(r["repeat_same"] for r in recs.values())
+
+
+def test_two_gloo_ranks_share_the_card(cuda):
+    from repro_torch.dist import cases as cases_mod
+    from repro_torch.dist import spawn
+    cases = _mesh_cases((1, 2)) + _mesh_cases((2, 1))
+    cases = [dataclasses.replace(c, label=f"{c.label}-{c.mesh}")
+             for c in cases]
+    # run_cases(cases, device, backend, keep_out, repeat, single)
+    recs = spawn.run_ranks(cases_mod.run_cases, 2, device="cuda",
+                           backend="gloo",
+                           args=(cases, "cuda", "gloo", True, 1, True),
+                           timeout=300)
+    _check_mesh_records(recs, cases, "cuda")

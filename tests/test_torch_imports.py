@@ -37,7 +37,13 @@ MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.checkpoint.store", "repro_torch.runtime",
            "repro_torch.runtime.driver", "repro_torch.launch",
            "repro_torch.launch.specs", "repro_torch.launch.train",
-           "repro_torch.launch.serve")
+           "repro_torch.launch.serve", "repro_torch.launch.mesh",
+           "repro_torch.dist", "repro_torch.dist.comm_engine",
+           "repro_torch.dist.engine", "repro_torch.dist.schedules",
+           "repro_torch.dist.spawn", "repro_torch.dist.cases",
+           "repro_torch.dist.selftest", "repro_torch.dist.comm_selftest",
+           "repro_torch.dist.partition_selftest",
+           "repro_torch.dist.sparse_selftest")
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"

@@ -233,9 +233,9 @@ def _chain_graph():
 @pytest.mark.parametrize("call", ["tune", "mesh", "tuned", "graph",
                                   "sharded", "lower_group"])
 def test_later_slices_raise_not_implemented(call):
-    # the graph and tuning slices have arrived: graph inputs,
-    # lower_group, generate(tune=...) and lower(tuned=True) now run; the
-    # mesh still raises, naming its slice
+    # the graph, tuning and mesh slices have arrived: graph inputs,
+    # lower_group, generate(tune=...) and lower(tuned=True) now run, and
+    # mesh= / sharded() take a DeviceMesh
     if call == "tune":
         from repro_torch.tune import TuneResult
         acc = repro_torch.generate("gemm", bounds=dict(m=16, n=16, k=16),
@@ -277,7 +277,9 @@ def test_later_slices_raise_not_implemented(call):
         gk = pipeline.lower_group(plan, plan.groups[0], device="cpu")
         assert gk.kind == "chain" and gk.validated
         return
-    with pytest.raises(NotImplementedError):
+    # the mesh path runs now (tests/test_torch_dist.py); a mesh that is
+    # not a torch.distributed DeviceMesh is refused
+    with pytest.raises(TypeError, match="DeviceMesh"):
         if call == "mesh":
             repro_torch.generate("gemm", mesh=(2, 2), device="cpu")
         else:
@@ -315,5 +317,5 @@ def test_accelerator_engine_serves_and_reuses():
     assert len(engine._accs) == 2
     assert "Accelerator(gemm" in engine.describe(
         "gemm", bounds=dict(m=8, n=12, k=16))
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         AcceleratorEngine(mesh=(2, 2), device="cpu")
