@@ -225,7 +225,30 @@ each of which fails the run (non-zero exit) when it fails:
    case run once more without its last rotation must differ.  Each
    case's strategy, specs, stored bytes a device and host seconds a
    rank are printed (ranks sharing one card over host-staged gloo: not
-   a mesh's speed).
+   a mesh's speed);
+17. serving on a model mesh (``model_mesh_phase``): (a) the flash
+   forward's ``q_offset`` at danube's heads (a rank's 256 query rows
+   over 1024 keys at ``Q_OFFSETS``, bf16 and fp32) against
+   ``flash_attention_plain(q_offset=...)``, with a planted fault (the
+   offset ignored); then four gloo ranks sharing the card
+   (``model_mesh_ranks``): (b) h2o-danube-1.8b at full width and depth,
+   fp32, ``explicit_collectives`` on a 2x2 ("data", "model") mesh,
+   batch 2 x 512: logits within 2e-3 x max|logit| of the one-card
+   forward with the flag off, 8 greedy ``DecodeEngine`` tokens equal to
+   one card's, flash launched on every rank; the same at 2 layers with
+   ``FULL_SCORES_MAX_LEN`` at 256, through ``chunked_attn_manual`` and
+   the kernel's ``q_offset``; (c) mixtral-8x22b at full width, one
+   layer, bf16, capacity factor 8, on a 1x2 mesh through ``moe_manual``:
+   held token by token (``moe_agreement``: a routing flip moves a token
+   by a whole expert output), tokens routed alike within 5e-2 x
+   max|logit|, tokens routed apart near ties on one card; (d) the danube
+   slot engine (bf16, capacity 4, page 16) over pools placed by
+   ``solve_page_placement`` on a 2x2 ("x", "y") mesh: insert/evict churn
+   over 16 steps bit-identical to the unsharded engine, the gather
+   launched on every rank, one decode build.  The phase prints its
+   seconds and each rank's peak memory; its launches join rows 7–8
+   (NCCL refuses two ranks on one device and gloo stages through the
+   host: no time here is a mesh's speed).
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
@@ -1894,11 +1917,12 @@ def train_phase(check):
     kernel_launches = dict(fa.launches)
     real_flash = fa.flash_attention
 
-    def plain_attention(q, k, v, *, causal=True, window=None):
+    def plain_attention(q, k, v, *, causal=True, window=None, q_offset=0):
         # the kernels' stated arithmetic (P rounded to bf16 before P V),
         # differentiated by autograd
         return fa.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, round_p=True)
+                                        window=window, round_p=True,
+                                        q_offset=q_offset)
     fa.flash_attention = plain_attention
     try:
         fa.reset_launches()
@@ -2227,10 +2251,11 @@ def ssm_train_phase(check):
     def plain_ssd(x, dt, a, b, c, *, chunk=64):
         return ref.ssd_chunked_ref(x, dt, a, b, c, chunk=chunk)
 
-    def plain_attention(q, k, v, *, causal=True, window=None):
+    def plain_attention(q, k, v, *, causal=True, window=None, q_offset=0):
         # the kernels' stated arithmetic (P rounded to bf16 before P V)
         return fa.flash_attention_plain(q, k, v, causal=causal,
-                                        window=window, round_p=True)
+                                        window=window, round_p=True,
+                                        q_offset=q_offset)
     summary["plain_route"] = {}
     for model, _, small_depth in SSM_TRAIN:
         small = dataclasses.replace(get_config(model), n_layers=small_depth)
@@ -2441,6 +2466,420 @@ def _mesh_summary(rec):
     return {k: rec[k] for k in ("strategy", "in_specs", "out_spec",
                                 "footprint", "seconds", "devices",
                                 "equal_single")}
+
+
+#: phase 17: serving on a model mesh.  (a) the flash kernel's q_offset at
+#: danube's heads; (b)-(d) four gloo ranks sharing the card
+TP_MODEL = "h2o-danube-1.8b"
+TP_BATCH, TP_PROMPT, TP_TOKENS = 2, 512, 8
+TP_CHUNKED_LAYERS, TP_FULL_MAX = 2, 256
+Q_OFFSETS = (0, 256, 768)
+Q_OFFSET_SHAPE = (32, 8, 80, 256, 1024)      # hq, hkv, d, rows, kv length
+MOE_MODEL, MOE_PROMPT = "mixtral-8x22b", 256
+PLACED = dict(capacity=4, max_context=256, page_size=16)
+PLACED_LENS, PLACED_STEPS = (100, 180), 16
+TP_LOGIT_TOL, MOE_LOGIT_TOL = 2e-3, 5e-2
+
+
+def q_offset_check(g, check):
+    """Phase 17 (a): the flash forward at danube's heads on a rank's 256
+    query rows against 1024 keys, causal, at ``Q_OFFSETS``, bf16 (against
+    the P-rounding plain version within ``BF16_ROW_TOL``) and fp32
+    (within 1e-4 x max|out|), each against ``flash_attention_plain(
+    q_offset=...)``; a planted fault — the offset ignored — must fail
+    the same limit at every offset above 0.  Times at each offset."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    hq, hkv, d, rows, lkv = Q_OFFSET_SHAPE
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((1, hq, rows, d), generator=g,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((1, hkv, lkv, d), generator=g,
+                            device="cuda").to(dtype) for _ in range(2))
+        bf16 = dtype == torch.bfloat16
+        for off in Q_OFFSETS:
+            got = fa.flash_attention(q, k, v, causal=True, q_offset=off)
+            want = fa.flash_attention_plain(q, k, v, causal=True,
+                                            round_p=bf16, q_offset=off)
+            fault = fa.flash_attention(q, k, v, causal=True)
+            if bf16:
+                err = fa.row_error(got, want)
+                bad = fa.row_error(fault, want)
+                tol = fa.BF16_ROW_TOL
+            else:
+                scale = want.abs().max().item()
+                err = (got - want).abs().max().item() / scale
+                bad = (fault - want).abs().max().item() / scale
+                tol = 1e-4
+            tag = f"q_offset {off} {str(dtype)[6:]}"
+            check(bool(torch.isfinite(got.float()).all()) and err <= tol,
+                  f"flash {tag}: error {err} beyond {tol}")
+            if off:
+                check(bad > tol, f"flash {tag}: the planted fault (offset "
+                      f"ignored) reads {bad}, inside {tol}")
+            ms = event_ms(lambda: fa.flash_attention(
+                q, k, v, causal=True, q_offset=off), 10)
+            out[tag] = {"err": err, "fault_err": bad if off else None,
+                        "ms": ms}
+            print(f"  (a) {tag}: err {err:.3e} (limit {tol}), offset "
+                  f"ignored {bad:.3e}, {ms:.4f} ms")
+    return out
+
+
+class routes:
+    """Record the MoE router's choices (``mlp.route``'s top-k experts and
+    probabilities) for the ``with`` block: ``moe_manual`` and the
+    one-device MoE both route through it."""
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+        self.mlp, self.real, self.seen = mlp, mlp.route, []
+
+        def route(*a, **k):
+            out = self.real(*a, **k)
+            self.seen.append((out[3].cpu(), out[1].cpu()))
+            return out
+        mlp.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mlp.route = self.real
+
+
+def moe_agreement(got, want, got_top, want_top, want_probs):
+    """Phase 17 (c): a routing flip moves one token's output by the whole
+    expert output, so the logits are held token by token: tokens routed
+    alike and every token routed otherwise a near tie on one card (its
+    k-th and (k+1)-th router probabilities close).  Returns (the largest
+    error of the tokens routed alike over max|logit|, the tokens routed
+    apart, the widest one-card gap among them)."""
+    import torch
+
+    same = (torch.sort(got_top, -1).values
+            == torch.sort(want_top, -1).values).all(-1)     # (B, S)
+    scale = want.float().abs().max().item()
+    err = ((got.float() - want.float()).abs().amax(-1)[same].max().item()
+           / scale if bool(same.any()) else float("inf"))
+    k = got_top.shape[-1]
+    top = torch.sort(want_probs, -1, descending=True).values
+    gaps = (top[..., k - 1] - top[..., k])[~same]
+    return err, int((~same).sum()), (gaps.max().item() if gaps.numel()
+                                     else 0.0)
+
+
+def _tp_cfg(name, **kw):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(name), **kw)
+
+
+def model_mesh_ranks(spec, paths):
+    """Phase 17 (b)-(d) in each of four gloo ranks sharing the card;
+    every rank's record on rank 0 (logits go to ``paths``' files)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist import serve_selftest
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models import attention, explicit_tp, init_params
+    from repro_torch.models.transformer import compute_params, forward
+    from repro_torch.serve import (DecodeEngine, ServeConfig, SlotEngine,
+                                   place_pools, solve_page_placement)
+
+    dev = torch.device("cuda")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "seconds": {}}
+    tp = make_mesh((2, 2), ("data", "model"), device="cuda", backend="gloo")
+    moe = make_mesh((1, 2), ("data", "model"), device="cuda",
+                    backend="gloo")
+    xy = make_mesh((2, 2), ("x", "y"), device="cuda", backend="gloo")
+    tokens = torch.as_tensor(spec["tokens"], device=dev)
+
+    # (b) explicit TP on danube, fp32, 24 layers
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _tp_cfg(TP_MODEL, dtype="float32", explicit_collectives=True)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    fa.reset_launches()
+    with torch.no_grad(), set_mesh(tp):
+        logits = forward(params, tokens, cfg)[0]
+        rec["flash_b"] = fa.launches["flash_attention"]
+        eng = DecodeEngine(params, cfg, ServeConfig(
+            max_new_tokens=TP_TOKENS))
+        rec["tokens"] = eng.generate(np.asarray(spec["tokens"]))[0].tolist()
+    if rank == 0:
+        torch.save(logits.cpu(), paths["b"])
+    del logits, eng
+    # the same model at 2 layers with FULL_SCORES_MAX_LEN lowered: the
+    # rows go through chunked_attn_manual and the kernel's q_offset
+    short = {k: v[:TP_CHUNKED_LAYERS] for k, v in params["layers"].items()
+             if not isinstance(v, dict)}
+    short.update({k: {n: t[:TP_CHUNKED_LAYERS] for n, t in v.items()}
+                  for k, v in params["layers"].items() if isinstance(v, dict)})
+    cfg2 = _tp_cfg(TP_MODEL, dtype="float32", explicit_collectives=True,
+                   n_layers=TP_CHUNKED_LAYERS)
+    calls = []
+    real = explicit_tp.chunked_attn_manual
+
+    def counted(*a, **k):
+        out = real(*a, **k)
+        calls.append(out is not None)
+        return out
+    keep = attention.FULL_SCORES_MAX_LEN
+    attention.FULL_SCORES_MAX_LEN = TP_FULL_MAX
+    explicit_tp.chunked_attn_manual = counted
+    try:
+        with torch.no_grad(), set_mesh(tp):
+            logits = forward({**params, "layers": short}, tokens, cfg2)[0]
+    finally:
+        attention.FULL_SCORES_MAX_LEN = keep
+        explicit_tp.chunked_attn_manual = real
+    rec["chunked_calls"] = sum(calls)
+    rec["flash_b_chunked"] = fa.launches["flash_attention"] - rec["flash_b"]
+    if rank == 0:
+        torch.save(logits.cpu(), paths["b2"])
+    rec["peak_gb_b"] = torch.cuda.max_memory_allocated() / 1e9
+    del logits, params, short
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"]["b"] = time.perf_counter() - t0
+
+    # (c) the MoE on a 1x2 mesh (ranks 0 and 1), bf16, one layer
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    moe_calls = []
+    if rank < 2:
+        mcfg = _tp_cfg(MOE_MODEL, n_layers=1, capacity_factor=8.0,
+                       explicit_collectives=True)
+        mp = compute_params(init_params(
+            torch.Generator(device=dev).manual_seed(0), mcfg), mcfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        real_moe = explicit_tp.moe_manual
+
+        def moe_counted(*a, **k):
+            out = real_moe(*a, **k)
+            moe_calls.append(out is not None)
+            return out
+        explicit_tp.moe_manual = moe_counted
+        try:
+            with torch.no_grad(), set_mesh(moe), routes() as seen:
+                logits = forward(mp, torch.as_tensor(spec["moe_tokens"],
+                                                     device=dev), mcfg)[0]
+        finally:
+            explicit_tp.moe_manual = real_moe
+        if rank == 0:
+            torch.save((logits.cpu(), seen.seen[0][0]), paths["c"])
+        del mp, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["moe_manual"] = sum(moe_calls)
+    rec["peak_gb_c"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"]["c"] = time.perf_counter() - t0
+
+    # (d) pools placed over the 2x2 ("x", "y") mesh, danube bf16
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    lcfg = _tp_cfg(TP_MODEL)
+    eng = SlotEngine(init_params(torch.Generator(device=dev).manual_seed(0),
+                                 lcfg), lcfg, **PLACED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sol, pspec = solve_page_placement(lcfg, eng.cache.layout,
+                                      axes=("x", "y"), shape=(2, 2))
+    place_pools(eng.cache, xy, pspec)
+    paged.reset_launches()
+    prompts = [np.asarray(p, np.int32) for p in spec["placed_prompts"]]
+    got = serve_selftest._drive(eng, prompts, PLACED_STEPS)
+    rec["placed"] = [g.tolist() for g in got]
+    rec["placed_churn_compiles"] = serve_selftest.churn(
+        eng, prompts, got, PLACED_STEPS)
+    rec["gather_d"] = paged.launches["paged_gather"]
+    rec["placement"] = {"strategy": sol.strategy, "spec": str(pspec),
+                        "pages": eng.cache.placement.pages,
+                        "shards": eng.cache.placement.shards}
+    rec["peak_gb_d"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"]["d"] = time.perf_counter() - t0
+    del eng
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, rec)
+    return out
+
+
+def model_mesh_phase(check):
+    """Phase 17: serving on a model mesh.  (a) ``q_offset_check``; then
+    the one-card references (flag off): danube's fp32 forward of
+    ``TP_BATCH`` x ``TP_PROMPT`` tokens at 24 layers and at 2 layers with
+    ``FULL_SCORES_MAX_LEN`` lowered, its ``DecodeEngine`` tokens,
+    mixtral's bf16 one-layer forward, and the unsharded ``SlotEngine``'s
+    drive; then four gloo ranks sharing the card (``model_mesh_ranks``):
+    (b) the same danube runs flag on over a 2x2 ("data", "model") mesh,
+    logits within ``TP_LOGIT_TOL`` x max|logit|, the tokens equal, flash
+    launched on every rank, the 2-layer run through
+    ``chunked_attn_manual``; (c) mixtral on a 1x2 mesh through
+    ``moe_manual``, within ``MOE_LOGIT_TOL``; (d) the danube slot engine
+    over pools placed by ``solve_page_placement`` on a 2x2 ("x", "y")
+    mesh, insert/evict churn over ``PLACED_STEPS`` steps bit-identical to
+    the unsharded engine, the gather launched on every rank, the decode
+    step built once.  One card: ranks share it over host-staged gloo, so
+    no time here is a mesh's speed.  Returns (the launches of the gather
+    and flash kernels over the ranks, summary)."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import serve_selftest, spawn
+    from repro_torch.models import attention, init_params
+    from repro_torch.models.transformer import compute_params, forward
+    from repro_torch.serve import DecodeEngine, ServeConfig, SlotEngine
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    summary = {"q_offset": q_offset_check(g, check)}
+    rng = np.random.default_rng(17)
+    cfg = _tp_cfg(TP_MODEL, dtype="float32")
+    spec = {"tokens": rng.integers(0, cfg.vocab,
+                                   (TP_BATCH, TP_PROMPT)).tolist(),
+            "moe_tokens": rng.integers(0, _tp_cfg(MOE_MODEL).vocab,
+                                       (TP_BATCH, MOE_PROMPT)).tolist(),
+            "placed_prompts": [rng.integers(0, cfg.vocab, (n,)).tolist()
+                               for n in PLACED_LENS]}
+    t0 = time.perf_counter()
+    tokens = torch.as_tensor(spec["tokens"], device=dev)
+    with torch.no_grad():
+        params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        want_b = forward(params, tokens, cfg)[0].cpu()
+        want_tokens = DecodeEngine(params, cfg, ServeConfig(
+            max_new_tokens=TP_TOKENS)).generate(np.asarray(
+                spec["tokens"]))[0]
+        keep = attention.FULL_SCORES_MAX_LEN
+        attention.FULL_SCORES_MAX_LEN = TP_FULL_MAX
+        try:
+            cfg2 = _tp_cfg(TP_MODEL, dtype="float32",
+                           n_layers=TP_CHUNKED_LAYERS)
+            short = {k: ({n: t[:TP_CHUNKED_LAYERS] for n, t in v.items()}
+                         if isinstance(v, dict) else v[:TP_CHUNKED_LAYERS])
+                     for k, v in params["layers"].items()}
+            want_b2 = forward({**params, "layers": short}, tokens,
+                              cfg2)[0].cpu()
+        finally:
+            attention.FULL_SCORES_MAX_LEN = keep
+        del params, short
+        gc.collect()
+        torch.cuda.empty_cache()
+        mcfg = _tp_cfg(MOE_MODEL, n_layers=1, capacity_factor=8.0)
+        mp = compute_params(init_params(
+            torch.Generator(device=dev).manual_seed(0), mcfg), mcfg)
+        gc.collect()
+        with routes() as seen:
+            want_c = forward(mp, torch.as_tensor(spec["moe_tokens"],
+                                                 device=dev),
+                             mcfg)[0].float().cpu()
+        want_top, want_probs = seen.seen[0]
+        del mp
+        gc.collect()
+        torch.cuda.empty_cache()
+        lcfg = _tp_cfg(TP_MODEL)
+        eng = SlotEngine(init_params(torch.Generator(device=dev).manual_seed(
+            0), lcfg), lcfg, **PLACED)
+        want_d = serve_selftest._drive(
+            eng, [np.asarray(p, np.int32) for p in spec["placed_prompts"]],
+            PLACED_STEPS)
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        paths = {k: f"{tmp}/{k}.pt" for k in ("b", "b2", "c")}
+        recs = spawn.run_ranks(model_mesh_ranks, MESH_RANKS, device="cuda",
+                               backend="gloo", args=(spec, paths),
+                               timeout=900)
+        got_b, got_b2 = (torch.load(paths[k]) for k in ("b", "b2"))
+        got_c, got_top = torch.load(paths["c"])
+    ranks_s = time.perf_counter() - t0
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    err_b, err_b2 = rel(got_b, want_b), rel(got_b2, want_b2)
+    err_c, flips, flip_gap = moe_agreement(got_c, want_c, got_top, want_top,
+                                           want_probs)
+    check(got_b.shape == want_b.shape and err_b <= TP_LOGIT_TOL,
+          f"(b) danube on the 2x2 mesh: logits {tuple(got_b.shape)} off by "
+          f"{err_b} x max|logit| (limit {TP_LOGIT_TOL})")
+    check(err_b2 <= TP_LOGIT_TOL, f"(b) 2 layers through "
+          f"chunked_attn_manual: off by {err_b2} (limit {TP_LOGIT_TOL})")
+    check(err_c <= MOE_LOGIT_TOL, f"(c) mixtral through moe_manual: the "
+          f"tokens routed alike off by {err_c} (limit {MOE_LOGIT_TOL})")
+    check(flip_gap <= 1e-2 and flips <= got_top[..., 0].numel() // 20,
+          f"(c) {flips} tokens routed apart, the widest one-card gap "
+          f"{flip_gap} (a flip must be a near tie, at most 5% of tokens)")
+    for r in recs:
+        tag = f"rank {r['rank']}"
+        check(np.array_equal(np.asarray(r["tokens"]), want_tokens),
+              f"(b) {tag}: the mesh's greedy tokens differ from one card's")
+        check(r["flash_b"] > 0 and r["flash_b_chunked"] > 0,
+              f"(b) {tag}: flash launches {r['flash_b']} / "
+              f"{r['flash_b_chunked']}")
+        check(r["chunked_calls"] == TP_CHUNKED_LAYERS,
+              f"(b) {tag}: chunked_attn_manual ran {r['chunked_calls']} "
+              f"times, not once a layer")
+        check(r["rank"] >= 2 or r["moe_manual"] == 1,
+              f"(c) {tag}: moe_manual ran {r['moe_manual']} times")
+        check(all(np.array_equal(np.asarray(a), b)
+                  for a, b in zip(r["placed"], want_d)),
+              f"(d) {tag}: decode over placed pools differs from the "
+              f"unsharded engine")
+        check(r["gather_d"] > 0, f"(d) {tag}: the gather never launched")
+        check(r["placed_churn_compiles"] == 1,
+              f"(d) {tag}: {r['placed_churn_compiles']} decode builds")
+    secs = time.perf_counter() - t_phase
+    launches = {"paged_gather": sum(r["gather_d"] for r in recs),
+                "flash_attention": sum(r["flash_b"] + r["flash_b_chunked"]
+                                       for r in recs)}
+    peaks = {r["rank"]: max(r[f"peak_gb_{p}"] for p in "bcd") for r in recs}
+    print(f"model mesh (b) danube fp32 24 layers on 2x2: logits err "
+          f"{err_b:.3e} x max, {TP_TOKENS} tokens equal on every rank; 2 "
+          f"layers via chunked_attn_manual err {err_b2:.3e}; (c) mixtral "
+          f"1 layer bf16 on 1x2 via moe_manual err {err_c:.3e} on the tokens "
+          f"routed alike, {flips} of {got_top[..., 0].numel()} routed "
+          f"apart (gaps <= {flip_gap:.2e}); (d) placed "
+          f"pools {recs[0]['placement']}, {PLACED_STEPS} steps + churn "
+          f"bit-identical; launches {launches}")
+    print(f"model mesh seconds: phase {secs:.1f} (one-card references "
+          f"{ref_s:.1f}, four ranks {ranks_s:.1f} with spawning; per rank "
+          + "; ".join(f"{r['rank']}: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in r["seconds"].items())
+              for r in recs)
+          + "); peak GB a rank " + ", ".join(f"{k}: {v:.1f}" for k, v in
+                                           peaks.items())
+          + " (ranks share one card over host-staged gloo: not a mesh's "
+          "speed)")
+    summary.update({
+        "err_b": err_b, "err_b_chunked": err_b2, "err_c": err_c,
+        "moe_flips": flips, "moe_flip_gap": flip_gap,
+        "placement": recs[0]["placement"], "launches": launches,
+        "seconds": {"phase": secs, "references": ref_s, "ranks": ranks_s,
+                    "per_rank": {r["rank"]: r["seconds"] for r in recs}},
+        "peak_gb": peaks,
+        "note": "four ranks share one card over host-staged gloo: times "
+                "are not a mesh's speed"})
+    return launches, summary
 
 
 def main() -> int:
@@ -3084,12 +3523,22 @@ def main() -> int:
     # -- 16. the generator's mesh --------------------------------------------
     mesh_summary = mesh_phase(check)
     phase("mesh")
+
+    # -- 17. serving on a model mesh -------------------------------------------
+    tp_launches, tp_summary = model_mesh_phase(check)
+    for row in kernels:
+        name = row["name"].split(".")[-1]
+        if name in tp_launches:
+            row["launches"] += tp_launches[name]
+            row["launches_model_mesh"] = tp_launches[name]
+    phase("model mesh")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
          "ssm_serve": ssm_summary, "family_serve": family_summary,
          "training": train_summary, "ssm_training": ssm_train_summary,
-         "mesh": mesh_summary, "phase_s": phase_s}, indent=1))
+         "mesh": mesh_summary, "model_mesh": tp_summary,
+         "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

@@ -8,7 +8,10 @@
 // strided views whose last dimension is contiguous; Hq = group * Hkv
 // (GQA: q head h reads kv head h / group).  The mask is causal (i >= j)
 // and/or a sliding window (i - j < window) on absolute row and column
-// positions, or none (cross-attention).
+// positions, or none (cross-attention).  The forward takes q_offset, the
+// absolute position of q row 0 (a block of query rows cut from a longer
+// sequence, as a model-mesh rank's query rows are): row i sits at
+// q_offset + i.  The backward's masks start at row 0.
 //
 // The TPU kernel runs the kv blocks as the sequential innermost grid axis
 // with the running max m, denominator l and accumulator in VMEM scratch.
@@ -94,14 +97,19 @@ struct Heads {
   long long sb, sh, sr;
 };
 
-// kv blocks [lo, hi) that some row of the q block [q0, q0 + BQ) can see
+// kv blocks [lo, hi) that some row of the q block [q0, q0 + BQ) can see;
+// the masks place q row r at position qoff + r (the forward's q_offset:
+// a block of query rows cut from a longer sequence), the backward's
+// callers pass 0
 __device__ __forceinline__ void kv_range(int q0, int lq, int lkv, int causal,
-                                         int window, int& lo, int& hi) {
-  const int q_last = min(q0 + BQ, lq) - 1;
+                                         int window, int qoff, int& lo,
+                                         int& hi) {
+  const int q_last = qoff + min(q0 + BQ, lq) - 1;
   lo = 0;
   hi = (lkv + BKV - 1) / BKV;
   if (causal) hi = min(hi, q_last / BKV + 1);
-  if (window > 0 && q0 - window + 1 > 0) lo = (q0 - window + 1) / BKV;
+  if (window > 0 && qoff + q0 - window + 1 > 0)
+    lo = (qoff + q0 - window + 1) / BKV;
 }
 
 __device__ __forceinline__ bool visible(int row, int col, int lkv,
@@ -142,7 +150,7 @@ __global__ void __launch_bounds__(THREADS)
     flash_kernel(Heads<float> q, Heads<float> k, Heads<float> v, float* out,
                  long long o_sb, long long o_sh, long long o_sr, int lq,
                  int lkv, int group, float scale, int causal, int window,
-                 float* lse) {
+                 int qoff, float* lse) {
   constexpr int DC = D / COLS;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;                   // BQ  x (D + 1)
@@ -159,7 +167,7 @@ __global__ void __launch_bounds__(THREADS)
 
   stage<D>(Qs, qh, q.sr, q0, BQ, lq);
   int kb_lo, kb_hi;
-  kv_range(q0, lq, lkv, causal, window, kb_lo, kb_hi);
+  kv_range(q0, lq, lkv, causal, window, qoff, kb_lo, kb_hi);
 
   float m[ROWS], l[ROWS], acc[ROWS][DC];
 #pragma unroll
@@ -202,8 +210,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < COLS; ++j) {
         const int col = k0 + tc + COLS * j;
-        s[i][j] = visible(row, col, lkv, causal, window) ? s[i][j] * scale
-                                                         : NEG_INF;
+        s[i][j] = visible(qoff + row, col, lkv, causal, window)
+                      ? s[i][j] * scale
+                      : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -337,7 +346,7 @@ __global__ void __launch_bounds__(THREADS)
                      Heads<__nv_bfloat16> v, __nv_bfloat16* out,
                      long long o_sb, long long o_sh, long long o_sr, int lq,
                      int lkv, int group, float scale, int causal,
-                     int window, float* lse) {
+                     int window, int qoff, float* lse) {
   constexpr int LD = D + 8;     // smem row: D bf16 + 16 bytes of padding
   constexpr int KS = D / 16;    // k steps of S = Q K^T
   constexpr int NT = BKV / 8;   // 8-column tiles of S
@@ -357,7 +366,7 @@ __global__ void __launch_bounds__(THREADS)
   const __nv_bfloat16* vh = v.p + b * v.sb + hk * v.sh;
 
   int kb_lo, kb_hi;
-  kv_range(q0, lq, lkv, causal, window, kb_lo, kb_hi);
+  kv_range(q0, lq, lkv, causal, window, qoff, kb_lo, kb_hi);
 
   stage_async<D, LD>(Qs, qh, q.sr, q0, lq);
   if (kb_lo < kb_hi) {
@@ -369,13 +378,14 @@ __global__ void __launch_bounds__(THREADS)
   // this lane's ldmatrix row: matrix lane / 8, row lane % 8 of it
   const int mi = lane / 8, mr = lane % 8;
   // this lane's accumulator rows and first column; each row sees the
-  // columns [lo, hi) of the mask
+  // columns [lo, hi) of the mask, which places row r at position qoff + r
   const int g = lane / 4, c2 = 2 * (lane % 4);
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const int hi0 = causal ? min(lkv, row0 + 1) : lkv;
-  const int hi1 = causal ? min(lkv, row1 + 1) : lkv;
-  const int lo0 = window > 0 ? row0 - window + 1 : 0;
-  const int lo1 = window > 0 ? row1 - window + 1 : 0;
+  const int pos0 = qoff + row0, pos1 = qoff + row1;
+  const int hi0 = causal ? min(lkv, pos0 + 1) : lkv;
+  const int hi1 = causal ? min(lkv, pos1 + 1) : lkv;
+  const int lo0 = window > 0 ? pos0 - window + 1 : 0;
+  const int lo1 = window > 0 ? pos1 - window + 1 : 0;
   // scores are kept in log2 units, s * scale * log2(e), so that every
   // exponential is one exp2f
   const float sl2 = scale * 1.4426950408889634f;
@@ -434,7 +444,7 @@ __global__ void __launch_bounds__(THREADS)
     // online softmax on the fragments: s[t][0..1] in row0, s[t][2..3] in
     // row1, columns k0 + 8 t + c2 + {0, 1}.  A block that every row of
     // the stripe sees whole skips the mask.
-    const int k0 = kb * BKV, rs = q0 + warp * 16;
+    const int k0 = kb * BKV, rs = qoff + q0 + warp * 16;
     const bool whole = k0 + BKV <= lkv && (!causal || k0 + BKV - 1 <= rs) &&
                        (window <= 0 || rs + 15 - k0 < window);
     float mx0 = NEG_INF, mx1 = NEG_INF;
@@ -550,15 +560,15 @@ template <typename T, int D>
 int launch_t(const void* q, const long long* qs, const void* k,
              const long long* ks, const void* v, const long long* vs,
              void* out, const long long* os, int b, int hq, int lq, int lkv,
-             int group, float scale, int causal, int window, float* lse,
-             cudaStream_t st) {
+             int group, float scale, int causal, int window, int qoff,
+             float* lse, cudaStream_t st) {
   static bool attr_set = false;  // one opt-in per instantiation
   constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   constexpr int smem =
       tc ? (BQ + 4 * BKV) * (D + 8) * (int)sizeof(__nv_bfloat16)
          : ((BQ + 2 * BKV) * (D + 1) + BQ * (BKV + 1)) * (int)sizeof(float);
   void (*kernel)(Heads<T>, Heads<T>, Heads<T>, T*, long long, long long,
-                 long long, int, int, int, float, int, int, float*);
+                 long long, int, int, int, float, int, int, int, float*);
   if constexpr (tc)
     kernel = flash_mma_kernel<D>;
   else
@@ -578,7 +588,7 @@ int launch_t(const void* q, const long long* qs, const void* k,
       Heads<T>{static_cast<const T*>(k), ks[0], ks[1], ks[2]},
       Heads<T>{static_cast<const T*>(v), vs[0], vs[1], vs[2]},
       static_cast<T*>(out), os[0], os[1], os[2], lq, lkv, group, scale,
-      causal, window, lse);
+      causal, window, qoff, lse);
   return (int)cudaGetLastError();
 }
 
@@ -587,11 +597,11 @@ int dispatch_d(int d, const void* q, const long long* qs, const void* k,
                const long long* ks, const void* v, const long long* vs,
                void* out, const long long* os, int b, int hq, int lq,
                int lkv, int group, float scale, int causal, int window,
-               float* lse, cudaStream_t st) {
+               int qoff, float* lse, cudaStream_t st) {
 #define FLASH_CASE(DD)                                                     \
   case DD:                                                                 \
     return launch_t<T, DD>(q, qs, k, ks, v, vs, out, os, b, hq, lq, lkv,   \
-                           group, scale, causal, window, lse, st);
+                           group, scale, causal, window, qoff, lse, st);
   switch (d) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -856,7 +866,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     for (int j = 0; j < DC; ++j) aq[i][j] = 0.0f;
 
   int kb_lo, kb_hi;
-  kv_range(q0, lq, lkv, causal, window, kb_lo, kb_hi);
+  kv_range(q0, lq, lkv, causal, window, 0, kb_lo, kb_hi);
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
     const int k0 = kb * BKV;
     __syncthreads();  // the previous block's reads of Ks, Vs, Ss are done
@@ -1133,7 +1143,7 @@ __global__ void __launch_bounds__(THREADS)
   const __nv_bfloat16* vh = v.p + b * v.sb + hk * v.sh;
 
   int kb_lo, kb_hi;
-  kv_range(q0, lq, lkv, causal, window, kb_lo, kb_hi);
+  kv_range(q0, lq, lkv, causal, window, 0, kb_lo, kb_hi);
   stage_async<D, LD>(Qs, q.p + b * q.sb + h * q.sh, q.sr, q0, lq);
   stage_async<D, LD>(Gs, g.p + b * g.sb + h * g.sh, g.sr, q0, lq);
   if (kb_lo < kb_hi) {
@@ -1360,24 +1370,27 @@ int backward_d(int d, const void* q, const long long* qs, const void* k,
 // C interface (loaded with ctypes).  dtype: 0 = float32 (the SIMT kernel),
 // 1 = bfloat16 (the tensor-core kernel).  qs/ks/vs/os: (batch, head, row)
 // strides in elements, 3 int64 each, in host memory; the last dimension
-// is contiguous.  window <= 0: no window.  lse: nullptr, or (B, Hq, Lq)
+// is contiguous.  window <= 0: no window.  q_offset >= 0: the absolute
+// position of q row 0 in the masks.  lse: nullptr, or (B, Hq, Lq)
 // fp32, contiguous, for each row's log-sum-exp (training saves it for the
 // backward).
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const long long* qs, const void* k,
     const long long* ks, const void* v, const long long* vs, void* out,
     const long long* os, int b, int hq, int lq, int lkv, int d, int group,
-    float scale, int causal, int window, void* lse, void* stream) {
+    float scale, int causal, int window, int q_offset, void* lse,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (b == 0 || hq == 0 || lq == 0) return 0;
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_d<float>(d, q, qs, k, ks, v, vs, out, os, b, hq, lq, lkv,
-                             group, scale, causal, window, l, st);
+                             group, scale, causal, window, q_offset, l, st);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(d, q, qs, k, ks, v, vs, out, os, b, hq,
-                                     lq, lkv, group, scale, causal, window, l,
-                                     st);
+                                     lq, lkv, group, scale, causal, window,
+                                     q_offset, l, st);
   return (int)cudaErrorInvalidValue;
 }
 

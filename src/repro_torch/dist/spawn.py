@@ -33,6 +33,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
+import pickle
 import queue
 import tempfile
 import time
@@ -61,9 +62,10 @@ def _init_group(rank: int, world: int, store: str, device: torch.device,
 
 
 def _rank_main(rank: int, world: int, store: str, device: torch.device,
-               backend: str, timeout: float, fn: Callable, args: Sequence,
-               results) -> None:
+               backend: str, timeout: float, call: str, results) -> None:
     try:
+        with open(call, "rb") as f:
+            fn, args = pickle.load(f)
         _init_group(rank, world, store, device, backend, timeout)
         try:
             out = fn(*args)
@@ -94,10 +96,16 @@ def run_ranks(fn: Callable, world: int, *, device=None,
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro-ranks-") as tmp:
         store = os.path.join(tmp, "store")
+        # the function and its arguments travel in a file: a spawned
+        # child reads its start-up data only once its interpreter is up,
+        # so data in the start-up pipe would start the ranks one by one
+        call = os.path.join(tmp, "call.pkl")
+        with open(call, "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(r, world, store, device, backend, timeout,
-                                   fn, tuple(args), results))
+                                   call, results))
                  for r in range(world)]
         for p in procs:
             p.start()

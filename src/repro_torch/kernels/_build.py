@@ -78,11 +78,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention": {
         # dtype, q, q strides, k, k strides, v, v strides, out, out
-        # strides, B, Hq, Lq, Lkv, D, group, scale, causal, window, lse
-        # (or None), stream
+        # strides, B, Hq, Lq, Lkv, D, group, scale, causal, window,
+        # q_offset, lse (or None), stream
         "flash_attention_launch": (_I, _P, _LLS, _P, _LLS, _P, _LLS, _P,
                                    _LLS, _I, _I, _I, _I, _I, _I,
-                                   ctypes.c_float, _I, _I, _P, _P),
+                                   ctypes.c_float, _I, _I, _I, _P, _P),
         # dtype, q, k, v, out, dout (each with its strides), lse, delta,
         # dq, dk, dv, B, Hq, Lq, Lkv, D, group, scale, causal, window,
         # stream

@@ -86,9 +86,10 @@ def _check(q, k, v, window) -> int:
 
 
 def _mask(lq: int, k0: int, kv: int, causal: bool, window: Optional[int],
-          device) -> torch.Tensor:
-    """(lq, kv) visibility of kv columns [k0, k0 + kv) to the q rows."""
-    qpos = torch.arange(lq, device=device)[:, None]
+          device, q_offset: int = 0) -> torch.Tensor:
+    """(lq, kv) visibility of kv columns [k0, k0 + kv) to the q rows, q
+    row i at position ``q_offset + i``."""
+    qpos = q_offset + torch.arange(lq, device=device)[:, None]
     kpos = torch.arange(k0, k0 + kv, device=device)[None, :]
     mask = torch.ones((lq, kv), dtype=torch.bool, device=device)
     if causal:
@@ -101,7 +102,8 @@ def _mask(lq: int, k0: int, kv: int, causal: bool, window: Optional[int],
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: Optional[int] = None, bkv: int = 64,
-                          round_p: bool = False, return_lse: bool = False):
+                          round_p: bool = False, return_lse: bool = False,
+                          q_offset: int = 0):
     """The kernels' arithmetic in PyTorch: scores ``(q . k) * scale`` in
     fp32, masked to ``NEG_INF``, an online softmax over kv blocks of
     ``bkv`` columns (p = 0 where s <= NEG_INF / 2), out = acc / l with
@@ -114,6 +116,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     probability, inside the reference's bf16 tolerance of 2e-2 x
     max|out|; the kernel is held to this version within
     ``BF16_ROW_TOL``.
+
+    ``q_offset`` is the absolute position of q row 0 in the masks (a
+    block of query rows cut from a longer sequence: q row i sits at
+    ``q_offset + i``), as the reference's ``_chunked_attn`` places its
+    rows.
 
     With ``return_lse`` it returns ``(out, lse)``: each row's
     log-sum-exp ``m + log l`` (B, Hq, Lq) fp32, +inf where the row sees
@@ -132,7 +139,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     for k0 in range(0, lkv, bkv):
         kb, vb = kf[:, :, k0:k0 + bkv], vf[:, :, k0:k0 + bkv]
         s = torch.matmul(qf, kb.transpose(-1, -2)) * scale
-        mask = _mask(lq, k0, kb.shape[2], causal, window, q.device)
+        mask = _mask(lq, k0, kb.shape[2], causal, window, q.device,
+                     q_offset)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
         alpha = torch.exp(m - m_new)
@@ -154,13 +162,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_backward_plain(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
-        causal: bool = True, window: Optional[int] = None):
+        causal: bool = True, window: Optional[int] = None,
+        q_offset: int = 0):
     """FA2's backward in PyTorch, the backward kernels' arithmetic: P
     recomputed as ``exp(s - lse)`` on visible pairs (0 elsewhere), ``dV =
     P^T dO``, ``dP = dO V^T``, ``delta = rowsum(dO o O)``, ``dS = P o (dP
     - delta)``, ``dQ = dS K * scale``, ``dK = dS^T Q * scale``, dK and dV
     summed over each kv head's GQA group; everything in fp32, the
-    results in q's dtype.  Returns (dq, dk, dv)."""
+    results in q's dtype; q row i at position ``q_offset + i`` in the
+    masks.  Returns (dq, dk, dv)."""
     group = _check(q, k, v, window)
     b, hq, lq, d = q.shape
     hkv, lkv = k.shape[1], k.shape[2]
@@ -170,7 +180,7 @@ def flash_attention_backward_plain(
     kf = k.to(f32).repeat_interleave(group, dim=1)
     vf = v.to(f32).repeat_interleave(group, dim=1)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    mask = _mask(lq, 0, lkv, causal, window, q.device)
+    mask = _mask(lq, 0, lkv, causal, window, q.device, q_offset)
     p = torch.where(mask, torch.exp(s - lse.to(f32)[..., None]),
                     torch.zeros_like(s))
     dv = torch.matmul(p.transpose(-1, -2), gf)
@@ -230,9 +240,11 @@ def _check_cuda(q, k, v) -> None:
 
 
 def _forward(q, k, v, causal: bool, window: Optional[int],
-             with_lse: bool):
+             with_lse: bool, q_offset: int = 0):
     """The forward kernel on CUDA tensors: (out, lse or None)."""
     group = _check(q, k, v, window)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     _check_cuda(q, k, v)
     b, hq, lq, d = q.shape
     lkv = k.shape[2]
@@ -248,7 +260,7 @@ def _forward(q, k, v, causal: bool, window: Optional[int],
         _DTYPE_CODES[q.dtype], q.data_ptr(), _strides(q), k.data_ptr(),
         _strides(k), v.data_ptr(), _strides(v), out.data_ptr(),
         _strides(out), b, hq, lq, lkv, d, group, 1.0 / (d ** 0.5),
-        int(causal), 0 if window is None else int(window),
+        int(causal), 0 if window is None else int(window), int(q_offset),
         None if lse is None else lse.data_ptr(), _stream()),
         "flash_attention_launch")
     launches["flash_attention"] += 1
@@ -256,37 +268,51 @@ def _forward(q, k, v, causal: bool, window: Optional[int],
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: (B, Hq, Lq, D);  k, v: (B, Hkv, Lkv, D);  Hq % Hkv == 0.
 
     Returns (B, Hq, Lq, D) in q's dtype.  Any Lq and Lkv: the kernel
     masks its ragged edges itself (``ops.attention`` pads first, as the
-    reference does, so padded rows and columns behave as there).  On the
-    card, while autograd records and an input requires grad, the call
-    goes through :class:`FlashAttentionFn`, whose backward is a kernel.
+    reference does, so padded rows and columns behave as there).
+    ``q_offset`` places q row i at position ``q_offset + i`` in the
+    masks (a model-mesh rank's block of query rows).  On the card, while
+    autograd records and an input requires grad, the call goes through
+    :class:`FlashAttentionFn`, whose backward is a kernel.
     """
     if _on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return FlashAttentionFn.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, with_lse=False)[0]
+        extra = (q_offset,) if q_offset else ()
+        return FlashAttentionFn.apply(q, k, v, causal, window, *extra)
+    return _forward(q, k, v, causal, window, with_lse=False,
+                    q_offset=q_offset)[0]
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, lse: torch.Tensor, *,
                              causal: bool = True,
-                             window: Optional[int] = None):
+                             window: Optional[int] = None,
+                             q_offset: int = 0):
     """The gradients (dq, dk, dv) of :func:`flash_attention` at (q, k,
     v), given its output ``out``, the output's gradient ``dout`` and the
     forward's log-sum-exp ``lse`` (B, Hq, Lq) fp32.  On the card three
     kernels (``delta``, then dK/dV, then dQ); on the CPU
     :func:`flash_attention_backward_plain`.  dq, dk and dv come back
-    contiguous, in q's dtype."""
+    contiguous, in q's dtype.  The backward kernels mask from q row 0: a
+    ``q_offset`` other than 0 runs on the CPU only, and raises on the card
+    until the sharded-training slice gives the kernels the offset."""
     if _on_cpu(q, k, v, out, dout, lse):
         return flash_attention_backward_plain(q, k, v, out, dout, lse,
-                                              causal=causal, window=window)
+                                              causal=causal, window=window,
+                                              q_offset=q_offset)
+    if q_offset:
+        raise NotImplementedError(
+            "the flash backward kernels take q_offset with the sharded "
+            "training slice (model-mesh training); q_offset="
+            f"{q_offset} has no backward on the card yet")
     group = _check(q, k, v, window)
     _check_cuda(q, k, v)
     b, hq, lq, d = q.shape
@@ -332,19 +358,28 @@ class FlashAttentionFn(torch.autograd.Function):
     both halves run their plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset=0):
         if _on_cpu(q, k, v):
             out, lse = flash_attention_plain(q, k, v, causal=causal,
-                                             window=window, return_lse=True)
+                                             window=window, return_lse=True,
+                                             q_offset=q_offset)
+        elif q_offset:
+            # never the plain version in its place: raise before the
+            # forward launches, so no graph is left without a backward
+            raise NotImplementedError(
+                "FlashAttentionFn with q_offset != 0 on the card needs the "
+                "backward kernels' q_offset, which arrives with the sharded "
+                "training slice (model-mesh training)")
         else:
             out, lse = _forward(q, k, v, causal, window, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
-            q, k, v, out, dout, lse, causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+            q, k, v, out, dout, lse, causal=ctx.causal, window=ctx.window,
+            q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None

@@ -196,8 +196,8 @@ def matmul_from_plan(plan: KernelPlan, a: torch.Tensor, b: torch.Tensor,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              bq: int = 128, bkv: int = 128, backend: str = "kernel"
-              ) -> torch.Tensor:
+              bq: int = 128, bkv: int = 128, backend: str = "kernel",
+              q_offset: int = 0) -> torch.Tensor:
     """GQA attention (B, Hq, Lq, D) x (B, Hkv, Lkv, D) -> (B, Hq, Lq, D).
 
     ``backend="kernel"`` pads Lq and Lkv to block multiples as the
@@ -206,9 +206,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``backend="xla"`` is the reference's name for the plain oracle
     :func:`ref.attention_ref`.  Padded kv columns are masked only by the
     causal mask, so cross-attention needs ``Lkv % bkv == 0``.
+    ``q_offset`` places q row i at position ``q_offset + i`` in the masks.
     """
     if backend == "xla":
-        return _ref.attention_ref(q, k, v, causal=causal, window=window)
+        return _ref.attention_ref(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
     if backend != "kernel":
         raise ValueError(f"backend must be 'kernel' or 'xla', got "
                          f"{backend!r}")
@@ -219,7 +221,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vp = _pad_to(v, (1, 1, bkv, 1))
     if not causal and kp.shape[2] != lkv:
         raise ValueError("cross-attention requires Lkv % bkv == 0")
-    out = _fa.flash_attention(qp, kp, vp, causal=causal, window=window)
+    out = _fa.flash_attention(qp, kp, vp, causal=causal, window=window,
+                              q_offset=q_offset)
     return out[:, :, :lq]
 
 

@@ -1,4 +1,4 @@
 """Launch: the train and serve command lines (``python -m
-repro_torch.launch.train`` / ``.serve``), the optimizer spec and mesh
-construction (``launch.mesh``).  The dry-run and HLO-analysis tools
-arrive with the model-mesh slice."""
+repro_torch.launch.train`` / ``.serve``), the optimizer spec, mesh
+construction and the models' ambient mesh (``launch.mesh``).  The
+dry-run and HLO-analysis tools are still to port."""

@@ -14,11 +14,17 @@ The device defaults to the card and the backend to NCCL; ``device="cpu"``
 takes gloo, and a caller that wants gloo ranks on a card (several ranks
 sharing one) passes ``backend="gloo"``.  A missing card or a default
 group that runs another backend raises; nothing switches on its own.
+
+:func:`set_mesh` / :func:`current_mesh` are the models' ambient mesh,
+the counterparts of the reference's ``jax_compat.set_mesh`` /
+``get_abstract_mesh``: ``models.explicit_tp`` and the model entry points
+read it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -84,3 +90,39 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device=None,
     ranks — what tests and the examples use."""
     return make_mesh((data, model), ("data", "model"), device=device,
                      backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# the ambient mesh of the models (``jax_compat.set_mesh`` /
+# ``get_abstract_mesh``)
+# ---------------------------------------------------------------------------
+
+#: the meshes entered with :func:`set_mesh`, innermost last.  One process
+#: is one rank, so the ambient mesh is the process's, not a thread's: a
+#: serving thread started inside the block sees it too.
+_MESHES: list = []
+
+
+@contextlib.contextmanager
+def set_mesh(mesh) -> Iterator:
+    """Run the models on ``mesh`` for the ``with`` block: the counterpart
+    of ``jax.sharding.set_mesh``.  ``mesh`` is a ``DeviceMesh`` (from
+    :func:`make_mesh`) or this rank's ``dist.comm_engine.RankMesh`` of
+    one; its axis names are the reference's (``pod``, ``data``,
+    ``model``: the batch shards over ``pod`` x ``data``, the model's
+    tensor-parallel collectives run over ``model``; other names split
+    nothing).  Yields the rank's ``RankMesh``.  Only the mesh's own ranks
+    may enter it."""
+    from ..dist.comm_engine import RankMesh
+    rank_mesh = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
+    _MESHES.append(rank_mesh)
+    try:
+        yield rank_mesh
+    finally:
+        _MESHES.pop()
+
+
+def current_mesh():
+    """The ``RankMesh`` of the innermost :func:`set_mesh` block, or None
+    outside every block (``get_abstract_mesh`` with no axes)."""
+    return _MESHES[-1] if _MESHES else None

@@ -2,7 +2,8 @@
 
 Of the reference's ``launch/specs.py`` the port has only
 :func:`opt_config_for`; the cells' input structs and shardings are mesh
-machinery and arrive with the model-mesh slice.
+machinery and arrive with sharded training (the models' own mesh is
+``launch.mesh.set_mesh`` and ``models.explicit_tp``).
 """
 from __future__ import annotations
 

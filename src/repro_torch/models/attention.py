@@ -23,8 +23,14 @@ Decode writes the new K/V row into the given cache tensors **in place**
 same tensors.  Cross-attention (``kv_x``) takes its K/V from the
 frontend's tokens with no rope and no mask; in decode a **static** cross
 cache (``precompute_cross_cache``, bf16 whatever the compute dtype) is
-read whole and never written.  The explicit-collective branches (the
-mesh) raise ``NotImplementedError`` naming their slice.
+read whole and never written.
+
+With ``cfg.explicit_collectives`` the reference's manual branches run
+first (``explicit_tp.qkv_manual``, ``gather_seq``, ``project_scatter``,
+``chunked_attn_manual``); with no mesh each returns None and the block
+is the one-device one, bit for bit.  On a mesh (``launch.mesh.set_mesh``)
+x and the result are in the stream's layout and a prefill attends on
+the rank's q heads or query rows (``explicit_tp``'s rank model).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from ..configs.base import ModelConfig
 from ..kernels import flash_attention as fa
 from ..kernels import ops, ref
 from . import common
+from . import explicit_tp as etp
 from .common import stacked_dense_init
 
 #: a K/V cache or collected K/V: {"k": ..., "v": ...}
@@ -77,11 +84,11 @@ def _full_scores_attn(q, k, v, *, causal, window, q_offset=0):
                              q_offset=q_offset)
 
 
-def _chunked_attn(q, k, v, *, causal, window, bkv: int = 1024):
+def _chunked_attn(q, k, v, *, causal, window, q_offset=0, bkv: int = 1024):
     """Online softmax over kv chunks of ``bkv`` — O(Lq * bkv) memory: the
     flash kernel's plain version, which is this computation."""
     return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
-                                    bkv=bkv)
+                                    bkv=bkv, q_offset=q_offset)
 
 
 def _decode_attn(q, k_cache, v_cache, *, pos, window, cache_len):
@@ -174,43 +181,78 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
     the rotated K / V come back as ``(B, Lq, kv_dim)``.  Returns (out,
     cache_or_None).
     """
-    if cfg.explicit_collectives:
-        raise NotImplementedError(
-            "explicit_collectives (explicit_tp) arrives with the model-mesh "
-            "slice")
     b, lq, _ = x.shape
     is_self = kv_x is None
     static_cross = cache is not None and not is_self
     compute = torch_dtype(cfg.dtype)
+    lay = etp.current_layout()
 
     def heads(t, n):
         return t.reshape(b, -1, n, cfg.head_dim).transpose(1, 2)
 
-    xq = x.to(compute)
-    q = xq @ p["wq"].to(compute)
+    q = k = v = None
+    cols = False            # q, k, v are the rank's column blocks
+    if cfg.explicit_collectives and is_self and not static_cross:
+        # fully-manual SP -> TP dataflow: gather + q/k/v dots in one
+        res = etp.qkv_manual(x, p["wq"], p["wk"], p["wv"], compute, lay)
+        if res is not None:
+            (q, k, v), cols = res, True
+    if q is None:
+        # SP -> TP boundary: gather the compute-dtype sequence shards
+        xq = x.to(compute)
+        gathered = (etp.gather_seq(xq, lay) if cfg.explicit_collectives
+                    else None)
+        xq = gathered if gathered is not None else etp.full_seq(xq, lay)
+        q = xq @ p["wq"].to(compute)
+        if not static_cross:
+            xkv = xq if is_self else kv_x.to(compute)
+            k = xkv @ p["wk"].to(compute)
+            v = xkv @ p["wv"].to(compute)
+
+    def bias(name, t):
+        bb = p[name].to(compute)
+        return t + (etp.model_block(bb, 0) if cols else bb)
+
     if cfg.qkv_bias:
-        q = q + p["bq"].to(compute)
-    qh = heads(q, cfg.n_heads)                    # (B, Hq, Lq, dh)
+        q = bias("bq", q)
+        if not static_cross:
+            k, v = bias("bk", k), bias("bv", v)
+    if cols:
+        # the small K/V go back to every rank (the reference's shard(k,
+        # ..., None, None)): a rank may hold part of a kv head's columns
+        k, v = etp.gather_model(k, 2), etp.gather_model(v, 2)
     if not static_cross:
-        xkv = xq if is_self else kv_x.to(compute)
-        k = xkv @ p["wk"].to(compute)
-        v = xkv @ p["wv"].to(compute)
-        if cfg.qkv_bias:
-            k = k + p["bk"].to(compute)
-            v = v + p["bv"].to(compute)
         kh = heads(k, cfg.n_kv_heads)
         vh = heads(v, cfg.n_kv_heads)
+    lq = q.shape[1]
     if is_self:
         if positions is None:
             positions = _positions(pos, b, lq, x.device)
-        qh = common.rope(qh, positions, cfg.rope_theta)
         kh = common.rope(kh, positions, cfg.rope_theta)
 
     def from_cache(c):
         return c.reshape(b, c.shape[1], cfg.n_kv_heads, cfg.head_dim
                          ).transpose(1, 2).to(compute)
 
+    def collected():
+        # prefill: hand rotated K / V back for the decode cache
+        lkv = kh.shape[2]
+        return {"k": kh.transpose(1, 2).reshape(b, lkv, cfg.kv_dim),
+                "v": vh.transpose(1, 2).reshape(b, lkv, cfg.kv_dim)}
+
     new_cache = None
+    if cache is None and etp.model_size() > 1 and lay is not None:
+        # prefill on a model axis: this rank's heads or query rows
+        blk, full = _mesh_prefill(q, kh, vh, cols, cfg, positions, lay,
+                                  causal=causal and is_self,
+                                  window=cfg.swa_window if is_self else None,
+                                  rope=is_self)
+        return (_project_out(p, blk, full, cfg, compute, lay, x.dtype),
+                collected() if collect_kv else None)
+
+    qh = heads(q, cfg.n_heads)                    # (B, Hq, Lq, dh)
+    if is_self:
+        qh = common.rope(qh, positions, cfg.rope_theta)
     if static_cross:
         # read-only precomputed cross K/V (e.g. whisper's encoder
         # output): non-causal attention over the whole cache
@@ -243,29 +285,105 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
         out = _decode_attn(qh, from_cache(ck), from_cache(cv), pos=pos,
                            window=cfg.swa_window, cache_len=s_cache)
     else:
-        lkv = kh.shape[2]
-        window = cfg.swa_window if is_self else None
-        use_causal = causal and is_self
-        if qh.is_cuda and use_causal:
-            out = ops.attention(qh, kh, vh, causal=True, window=window)
-        elif qh.is_cuda:
-            out = fa.flash_attention(qh, kh, vh, causal=False,
-                                     window=window)
-        elif lkv <= FULL_SCORES_MAX_LEN:
-            out = _full_scores_attn(qh, kh, vh, causal=use_causal,
-                                    window=window)
-        else:
-            out = _chunked_attn(qh, kh, vh, causal=use_causal,
-                                window=window)
+        out = _attend(qh, kh, vh, causal=causal and is_self,
+                      window=cfg.swa_window if is_self else None)
         if collect_kv:
-            # prefill: hand rotated K / V back for the decode cache
-            new_cache = {
-                "k": kh.transpose(1, 2).reshape(b, lkv, cfg.kv_dim),
-                "v": vh.transpose(1, 2).reshape(b, lkv, cfg.kv_dim),
-            }
+            new_cache = collected()
 
     out = out.transpose(1, 2).reshape(b, lq, cfg.q_dim)
-    return (out @ p["wo"].to(compute)).to(x.dtype), new_cache
+    return _project_out(p, None, out, cfg, compute, lay, x.dtype), new_cache
+
+
+def _attend(qh, kh, vh, *, causal, window, q_offset=0):
+    """Prefill attention on the device's path: the flash kernel on a CUDA
+    tensor (causal through ``ops.attention``, which pads to whole
+    blocks), the plain full-scores path on a CPU one up to
+    ``FULL_SCORES_MAX_LEN`` and the chunked one above it.  q row i sits
+    at ``q_offset + i``."""
+    if qh.is_cuda and causal:
+        return ops.attention(qh, kh, vh, causal=True, window=window,
+                             q_offset=q_offset)
+    if qh.is_cuda:
+        return fa.flash_attention(qh, kh, vh, causal=False, window=window,
+                                  q_offset=q_offset)
+    if kh.shape[2] <= FULL_SCORES_MAX_LEN:
+        return _full_scores_attn(qh, kh, vh, causal=causal, window=window,
+                                 q_offset=q_offset)
+    return _chunked_attn(qh, kh, vh, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+def _mesh_prefill(q, kh, vh, cols: bool, cfg: ModelConfig, positions,
+                  lay, *, causal: bool, window, rope: bool):
+    """Attention of one prefill on a ``model`` axis of ``m`` ranks, K/V
+    whole (``kh``/``vh`` rotated).  ``q`` is (B, S, q_dim) or, with
+    ``cols``, the rank's column block.  Above ``FULL_SCORES_MAX_LEN``
+    (explicit collectives) the rank takes its query rows through
+    ``chunked_attn_manual``; else its q heads where ``n_heads % m == 0``
+    (with their kv heads), its query rows where ``m`` divides the
+    sequence, or everything.  Returns (the rank's column block of the
+    (B, S, q_dim) output or None, a callable giving the whole output)."""
+    b, s = q.shape[0], q.shape[1]
+    m, idx = etp.model_size(), etp.model_index()
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def whole_q():
+        return etp.gather_model(q, 2) if cols else q
+
+    def qheads(t, n, pos):
+        t = t.reshape(b, -1, n, dh).transpose(1, 2)
+        return common.rope(t, pos, cfg.rope_theta) if rope else t
+
+    rows = None
+    if kh.shape[2] > FULL_SCORES_MAX_LEN and cfg.explicit_collectives:
+        out = etp.chunked_attn_manual(qheads(whole_q(), hq, positions), kh,
+                                      vh, causal=causal, window=window,
+                                      lay=lay)
+        if out is not None:
+            rows = out
+    if rows is None and hq % m == 0:
+        hl = hq // m
+        h0, group = idx * hl, hq // hkv
+        qh = qheads(q if cols else etp.model_block(q, 2), hl, positions)
+        if hl % group == 0:
+            ks = kh[:, h0 // group:(h0 + hl) // group]
+            vs = vh[:, h0 // group:(h0 + hl) // group]
+        else:
+            # the rank's q heads split a GQA group: give each its kv head
+            ks = kh.repeat_interleave(group, dim=1)[:, h0:h0 + hl]
+            vs = vh.repeat_interleave(group, dim=1)[:, h0:h0 + hl]
+        out = _attend(qh, ks, vs, causal=causal, window=window)
+        blk = out.transpose(1, 2).reshape(b, s, hl * dh)
+        return blk, lambda: etp.gather_model(blk, 2)
+    if rows is None and s % m == 0:
+        n = s // m
+        pos = (None if positions is None
+               else positions[..., idx * n:(idx + 1) * n])
+        rows = _attend(qheads(etp.model_block(whole_q(), 1), hq, pos), kh,
+                       vh, causal=causal, window=window, q_offset=idx * n)
+    if rows is not None:
+        rows = rows.transpose(1, 2).reshape(b, -1, cfg.q_dim)
+        return None, lambda: etp.gather_model(rows, 1)
+    out = _attend(qheads(whole_q(), hq, positions), kh, vh, causal=causal,
+                  window=window)
+    return None, lambda: out.transpose(1, 2).reshape(b, s, cfg.q_dim)
+
+
+def _project_out(p, blk, full, cfg: ModelConfig, compute, lay, dtype):
+    """The output projection: ``project_scatter`` of the rank's column
+    block (explicit collectives and sequence parallelism), else the whole
+    product in the stream's layout.  ``full`` is the (B, S, q_dim) output
+    or a callable giving it."""
+    wo = p["wo"].to(compute)
+    if cfg.explicit_collectives and cfg.sequence_parallel:
+        if blk is None:
+            full = full() if callable(full) else full
+            blk = etp.model_block(full, 2)
+        res = etp.project_scatter(blk, wo, lay)
+        if res is not None:
+            return res.to(dtype)
+    full = full() if callable(full) else full
+    return etp.to_layout((full @ wo).to(dtype), lay)
 
 
 def precompute_cross_cache(p: Dict[str, torch.Tensor], enc_out: torch.Tensor,

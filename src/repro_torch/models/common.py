@@ -5,8 +5,8 @@ nested dicts of tensors with the reference's keys and layouts (weights
 ``(in, out)``, per-layer leaves stacked ``(L, ...)``), so a reference
 parameter tree carries across leaf for leaf (``convert.params_from_
 reference``).  The reference's logical-axis leaves and its ``shard`` /
-``shard_pinned`` constraints are mesh machinery: the port runs on one
-device and has no counterpart for them.
+``shard_pinned`` constraints are GSPMD's: the port has no counterpart
+for them; on a mesh its layout is explicit (``explicit_tp``).
 
 Initializers draw from a ``torch.Generator`` on the generator's device,
 with the reference's scales; the numbers differ from ``jax.random``'s

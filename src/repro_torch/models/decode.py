@@ -21,7 +21,9 @@ layer's new K/V row into the cache tensors in place and returns a cache
 dict that holds the same K/V tensors with ``pos`` advanced (the
 reference returns new arrays); the SSM conv windows and states come back
 as new tensors, the given ones untouched; the static cross K/V come back
-as they were given.
+as they were given.  On a mesh (``launch.mesh.set_mesh``) prefill and
+decode take global inputs and return global logits, and every cache
+holds the rank's batch rows (``explicit_tp``'s rank model).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import explicit_tp as etp
 from . import ssm as ssm_mod
 from .common import rmsnorm
 from .transformer import (_cross_block, _decoder_block, _dense_block,
@@ -103,7 +106,8 @@ def prefill(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     max_len = max_len or s
     x, _, caches = forward_hidden(params, tokens, cfg, frontend=frontend,
                                   collect_cache=True)
-    logits = logits_from_hidden(params, x[:, -1], cfg)
+    lay = etp.layout_for(b, s, cfg)
+    logits = etp.gather_rows(logits_from_hidden(params, x[:, -1], cfg), lay)
     cache: Dict[str, Any] = {"pos": s}
     if "self" in caches:
         cache["self"] = _fit_cache(caches["self"], cfg.swa_window, max_len, s)
@@ -116,7 +120,8 @@ def prefill(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
         cache["cross"] = _cross_cache(params, cfg, enc=caches["enc_out"])
     if cfg.family == "vlm":
         cache["cross"] = _cross_cache(
-            params, cfg, img=frontend.to(torch_dtype(cfg.dtype)))
+            params, cfg, img=etp.local_rows(frontend, lay).to(
+                torch_dtype(cfg.dtype)))
     return logits, cache
 
 
@@ -181,12 +186,26 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
 
     Returns (logits (B, vocab) fp32, cache with pos + 1; its K/V tensors
     are the given ones, updated in place; its SSM leaves are new
-    tensors; its cross K/V are the given ones, unchanged)."""
+    tensors; its cross K/V are the given ones, unchanged).  On a mesh
+    the tokens and positions are global, the cache is the rank's batch
+    rows (as prefill on the mesh made it) and the logits are global."""
     require_family(cfg)
     compute = torch_dtype(cfg.dtype)
+    new_cache: Dict[str, Any] = {"pos": cache["pos"] + 1}
+    rows = etp.layout_for(tokens.shape[0], 1, cfg)
     pos = cache["pos"]
-    x = params["embed"][tokens].to(compute)
-    new_cache: Dict[str, Any] = {"pos": pos + 1}
+    if isinstance(pos, torch.Tensor):
+        pos = etp.local_rows(pos, rows)
+    x = params["embed"][etp.local_rows(tokens, rows)].to(compute)
+    with etp.activation(rows):
+        x, new_cache = _decode_blocks(params, x, pos, cache, new_cache, cfg)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = etp.gather_rows(logits_from_hidden(params, x, cfg), rows)
+    return logits[:, 0], new_cache
+
+
+def _decode_blocks(params, x, pos, cache, new_cache, cfg):
+    """Every block of one decode step: (x, the new cache)."""
     lay = params["layers"]
     if cfg.family in ("dense", "moe", "encdec", "vlm"):
         ck, cv = cache["self"]["k"], cache["self"]["v"]
@@ -224,6 +243,4 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
         new_cache["ssm"] = _stack(lanes)
         if cfg.family == "hybrid":
             new_cache["shared"] = cache["shared"]
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_from_hidden(params, x, cfg)
-    return logits[:, 0], new_cache
+    return x, new_cache

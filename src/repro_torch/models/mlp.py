@@ -18,8 +18,9 @@ expert products; here each product is one batched product over all
 groups, ``(E, G * C, D) @ (E, D, F)``, so the expert weights are read
 once a call.  The combine gathers each token's kept contributions and
 sums them in slot order, so a token's output does not depend on the
-other groups.  The reference's explicit-collective (mesh) branches have
-no counterpart on one device.
+other groups.  The reference's explicit-collective (mesh) branches call
+``explicit_tp``'s helpers, which return None with no mesh; on a mesh
+they run the rank model that module describes.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
+from . import explicit_tp as etp
 from .common import normal, stacked_dense_init
 
 
@@ -46,17 +48,33 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, n_layers: int
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """SwiGLU: ``(silu(x Wg) * (x Wu)) Wd`` in the compute dtype, silu in
-    fp32, the down projection accumulated in fp32 and cast to x's dtype."""
-    if cfg.explicit_collectives:
-        raise NotImplementedError(
-            "explicit_collectives (explicit_tp) arrives with the model-mesh "
-            "slice")
+    fp32, the down projection accumulated in fp32 and cast to x's dtype.
+
+    With ``cfg.explicit_collectives`` the reference's manual branches run
+    first (``explicit_tp.mlp_manual``, the gather, ``project_scatter``);
+    with no mesh they return None and this is the one-device MLP, bit
+    for bit.  On a mesh x and the result are in the stream's layout."""
     compute = torch_dtype(cfg.dtype)
+    lay = etp.current_layout()
+    manual = cfg.explicit_collectives and cfg.sequence_parallel
+    if manual:
+        # fully-manual dataflow: gather + dots + reduce-scatter in one
+        res = etp.mlp_manual(x, p["wg"], p["wu"], p["wd"], compute, lay)
+        if res is not None:
+            return res.to(x.dtype)
+    # SP -> TP boundary: gather the compute-dtype sequence shards here
     xc = x.to(compute)
+    xg = etp.gather_seq(xc, lay) if cfg.explicit_collectives else None
+    xc = xg if xg is not None else etp.full_seq(xc, lay)
     g = xc @ p["wg"].to(compute)
     u = xc @ p["wu"].to(compute)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(compute) * u
-    return (h @ p["wd"].to(compute)).to(x.dtype)
+    wd = p["wd"].to(compute)
+    if manual:
+        res = etp.project_scatter(etp.model_block(h, 2), wd, lay)
+        if res is not None:
+            return res.to(x.dtype)
+    return etp.to_layout((h @ wd).to(x.dtype), lay)
 
 
 # ---------------------------------------------------------------------------
@@ -131,31 +149,34 @@ def route(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     return logits, probs, gates, top_idx
 
 
-def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out in x's dtype, aux_loss fp32 0-d).
+def _aux_terms(logits, probs, top_idx, cfg):
+    """The Switch-style load-balance loss's ``me`` (mean router
+    probability an expert), ``ce`` (share of choices an expert) and the
+    router z-loss's mean ``logsumexp^2``."""
+    e = cfg.n_experts
+    me = probs.mean(dim=(0, 1))
+    n = top_idx.numel()
+    ce = torch.zeros((e,), dtype=torch.float32,
+                     device=logits.device).index_add_(
+        0, top_idx.reshape(-1),
+        torch.full((n,), 1.0 / n, device=logits.device))
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return me, ce, z
 
-    Tokens are grouped by batch row (G = B groups of S tokens), with the
-    capacity per group; a choice that lost the capacity race contributes
-    nothing."""
-    if cfg.explicit_collectives:
-        raise NotImplementedError(
-            "explicit_collectives (explicit_tp) arrives with the model-mesh "
-            "slice")
+
+def router_aux(logits, probs, top_idx, cfg) -> torch.Tensor:
+    """aux load-balance loss (Switch-style) + router z-loss, fp32 0-d."""
+    me, ce, z = _aux_terms(logits, probs, top_idx, cfg)
+    return cfg.n_experts * torch.sum(me * ce) + 1e-3 * z
+
+
+def expert_inputs(x: torch.Tensor, top_idx: torch.Tensor, cfg: ModelConfig,
+                  compute: torch.dtype):
+    """Dispatch each batch row's choices to its experts' queues: (xin (E,
+    B*C, D) in ``compute``, keep (B, S, K), my_pos (B, S, K), C)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    compute = torch_dtype(cfg.dtype)
     cap = capacity(cfg, s)
-    logits, probs, gates, top_idx = route(p, x, cfg)
-
-    # aux load-balance loss (Switch-style) + router z-loss
-    me = probs.mean(dim=(0, 1))
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
-        0, top_idx.reshape(-1),
-        torch.full((b * s * k,), 1.0 / (b * s * k), device=x.device))
-    aux = e * torch.sum(me * ce) + 1e-3 * torch.mean(
-        torch.logsumexp(logits, dim=-1) ** 2)
-
     slots, keep, my_pos = _dispatch(top_idx, e, cap)      # (B, E, C)
     valid = slots < s * k
     token_of = torch.clamp(slots.long() // k, max=s - 1)
@@ -164,17 +185,57 @@ def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
                       torch.zeros((), dtype=x.dtype, device=x.device))
     # one batched product per weight over every group: (E, B*C, D)
     xin = xin.to(compute).transpose(0, 1).reshape(e, b * cap, d)
-    h = F.silu((xin @ p["wg"].to(compute)).to(torch.float32)).to(compute)
-    h = h * (xin @ p["wu"].to(compute))
-    out_e = (h @ p["wd"].to(compute)).reshape(e, b, cap, d)
-    # combine: each token gathers its kept choices' outputs, weighted by
-    # their gates, summed in slot order
+    return xin, keep, my_pos, cap
+
+
+def combine(out_e: torch.Tensor, top_idx: torch.Tensor, gates: torch.Tensor,
+            keep: torch.Tensor, my_pos: torch.Tensor, cap: int
+            ) -> torch.Tensor:
+    """Each token gathers its kept choices' expert outputs ``out_e`` (E, B,
+    C, D), weighted by their gates, summed in slot order: (B, S, D)
+    fp32."""
+    b = top_idx.shape[0]
+    rows = torch.arange(b, device=out_e.device)[:, None, None]
     c_idx = torch.clamp(my_pos, max=cap - 1)
     contrib = (out_e[top_idx, rows, c_idx].to(torch.float32)
                * gates[..., None])
     contrib = torch.where(keep[..., None], contrib,
-                          torch.zeros((), device=x.device))
+                          torch.zeros((), device=out_e.device))
     out = contrib[:, :, 0]
-    for j in range(1, k):
+    for j in range(1, top_idx.shape[-1]):
         out = out + contrib[:, :, j]
-    return out.to(x.dtype), aux
+    return out
+
+
+def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out in x's dtype, aux_loss fp32 0-d).
+
+    Tokens are grouped by batch row (G = B groups of S tokens), with the
+    capacity per group; a choice that lost the capacity race contributes
+    nothing.  With ``cfg.explicit_collectives`` and sequence parallelism
+    ``explicit_tp.moe_manual`` runs first (None with no mesh).  On a mesh
+    the fallback runs the rank's batch rows on the whole sequence and
+    averages each aux term over the batch axes (the global loss)."""
+    compute = torch_dtype(cfg.dtype)
+    lay = etp.current_layout()
+    if cfg.explicit_collectives and cfg.sequence_parallel:
+        res = etp.moe_manual(x, p, cfg, compute, lay)
+        if res is not None:
+            return res[0].to(x.dtype), res[1]
+    x = etp.full_seq(x, lay)                          # SP -> TP gather
+    b, s, d = x.shape
+    e = cfg.n_experts
+    logits, probs, gates, top_idx = route(p, x, cfg)
+    me, ce, z = _aux_terms(logits, probs, top_idx, cfg)
+    n = etp.batch_shards() if lay is not None else 1
+    if n > 1 and lay.batch % n == 0:
+        me, ce, z = (etp.psum_batch(t) / n for t in (me, ce, z))
+    aux = e * torch.sum(me * ce) + 1e-3 * z
+
+    xin, keep, my_pos, cap = expert_inputs(x, top_idx, cfg, compute)
+    h = F.silu((xin @ p["wg"].to(compute)).to(torch.float32)).to(compute)
+    h = h * (xin @ p["wu"].to(compute))
+    out_e = (h @ p["wd"].to(compute)).reshape(e, b, cap, d)
+    out = combine(out_e, top_idx, gates, keep, my_pos, cap)
+    return etp.to_layout(out.to(x.dtype), lay), aux

@@ -15,8 +15,10 @@ selecting between the old and the new tensors.
 
 The projections run in the compute dtype; everything after ``in_proj``
 (conv, SSD, gate) in fp32, with the block's scalar parameters kept fp32.
-The explicit-collective (mesh) branch raises ``NotImplementedError``
-naming its slice.
+With ``cfg.explicit_collectives`` the input's sequence shards are
+gathered by ``explicit_tp.gather_seq`` (None with no mesh: the
+one-device block, bit for bit); on a mesh the block runs on the whole
+sequence of the rank's batch rows and hands back the stream's layout.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ssd_scan
+from . import explicit_tp as etp
 from .common import normal, stacked_dense_init
 
 
@@ -88,17 +91,17 @@ def apply_ssm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     ``collect_cache`` (prefill) returns the decode cache (rolling conv
     window of the unpadded prompt + final SSD state).  Returns (out,
     new_cache)."""
-    if cfg.explicit_collectives:
-        raise NotImplementedError(
-            "explicit_collectives (explicit_tp) arrives with the model-mesh "
-            "slice")
-    b, l, _ = x.shape
+    compute = torch_dtype(cfg.dtype)
+    lay = etp.current_layout()
+    xg = x.to(compute)
+    gathered = etp.gather_seq(xg, lay) if cfg.explicit_collectives else None
+    xg = gathered if gathered is not None else etp.full_seq(xg, lay)
+    b, l, _ = xg.shape
     di, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
     ph = cfg.ssm_head_dim
-    compute = torch_dtype(cfg.dtype)
     f32 = torch.float32
 
-    proj = (x.to(compute) @ p["in_proj"].to(compute)).to(f32)
+    proj = (xg @ p["in_proj"].to(compute)).to(f32)
     z, xbc, dt = _split_proj(proj, cfg)
     dt = _softplus(dt + p["dt_bias"])                          # (B, L, H)
     a = -torch.exp(p["a_log"])                                 # (H,)
@@ -148,7 +151,7 @@ def apply_ssm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(b, l, di)
     y = _gated_norm(y, z, p["norm_g"], cfg.norm_eps).to(compute)
     out = (y @ p["out_proj"].to(compute)).to(x.dtype)
-    return out, new_cache
+    return etp.to_layout(out, lay), new_cache
 
 
 def make_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,

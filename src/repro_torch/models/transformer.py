@@ -50,6 +50,7 @@ from ..kernels import epilogue as epilogue_mod
 from ..kernels.ops import resolve_device
 from ..kernels.stt_gemm import _fp32_product
 from . import attention as attn
+from . import explicit_tp as etp
 from . import mlp as mlp_mod
 from . import ssm as ssm_mod
 from .common import normal, ones_init, rmsnorm, zeros_init
@@ -285,9 +286,15 @@ def shared_after(cfg: ModelConfig, i: int) -> Optional[int]:
 
 def _run(block, cfg: ModelConfig, *args, **kw):
     """``block(*args, **kw)``, checkpointed when ``cfg.remat`` and
-    autograd records (the reference's per-layer ``jax.checkpoint``)."""
+    autograd records (the reference's per-layer ``jax.checkpoint``); the
+    recomputation sees the stream's layout of the forward."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(block, *args, use_reentrant=False, **kw)
+        lay = etp.current_layout()
+
+        def body(*a, **k):
+            with etp.activation(lay):
+                return block(*a, **k)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
     return block(*args, **kw)
 
 
@@ -303,11 +310,16 @@ def _stack(trees):
 def encode(params: Dict[str, Any], frontend: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """encdec: the bidirectional encoder over the stub frame embeddings
-    ``frontend`` (B, F, D), after ``enc_norm``, in the compute dtype."""
-    h = frontend.to(torch_dtype(cfg.dtype))
-    for pl_ in unstack(params["encoder"]):
-        h, _, _ = _run(_dense_block, cfg, pl_, h, cfg, causal=False)
-    return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+    ``frontend`` (B, F, D), after ``enc_norm``, in the compute dtype.  On
+    a mesh the frames are a stream of their own: the result is the
+    rank's batch rows, every frame."""
+    lay = etp.layout_for(frontend.shape[0], frontend.shape[1], cfg)
+    h = etp.to_layout(etp.local_rows(frontend, lay).to(
+        torch_dtype(cfg.dtype)), lay)
+    with etp.activation(lay):
+        for pl_ in unstack(params["encoder"]):
+            h, _, _ = _run(_dense_block, cfg, pl_, h, cfg, causal=False)
+    return etp.full_seq(rmsnorm(h, params["enc_norm"], cfg.norm_eps), lay)
 
 
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
@@ -317,19 +329,35 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor,
                               Optional[Dict[str, Any]]]:
     """:func:`forward` up to the final norm: (hidden (B, S, D), aux_loss,
-    caches|None)."""
+    caches|None).  On a mesh (``launch.mesh.set_mesh``) every rank takes
+    the global inputs, keeps its batch rows (``explicit_tp``'s rank
+    model), runs the blocks in the residual layout and hands back its
+    rows' hidden states over the whole sequence, and their caches."""
     require_family(cfg)
     if frontend is None and cfg.family in ("encdec", "vlm"):
         raise ValueError(f"the {cfg.family} family needs frontend "
                          f"embeddings (B, {cfg.frontend_tokens}, "
                          f"{cfg.d_model})")
     compute = torch_dtype(cfg.dtype)
-    x = params["embed"][tokens].to(compute)
+    lay = etp.layout_for(tokens.shape[0], tokens.shape[1], cfg)
+    x = params["embed"][etp.local_rows(tokens, lay)].to(compute)
+    x = etp.to_layout(x, lay)
+    with etp.activation(lay):
+        x, aux, caches = _blocks(params, x, cfg, frontend, collect_cache)
+    x = etp.full_seq(rmsnorm(x, params["final_norm"], cfg.norm_eps), lay)
+    return x, aux, caches if collect_cache else None
+
+
+def _blocks(params, x, cfg, frontend, collect_cache):
+    """Every block of the stack on the embedded stream x: (x, aux,
+    caches)."""
+    compute = torch_dtype(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = unstack(params["layers"])
     caches: Dict[str, Any] = {}
     if cfg.family in ("dense", "moe", "vlm"):
-        img = None if cfg.family != "vlm" else frontend.to(compute)
+        img = None if cfg.family != "vlm" else etp.local_rows(
+            frontend, etp.current_layout()).to(compute)
         cross = [] if img is None else unstack(params["cross_layers"])
         kvs = []
         for i, pl_ in enumerate(layers):
@@ -366,8 +394,7 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
             caches["ssm"] = _stack(ssm_caches)
             if shared_kv:
                 caches["shared"] = _stack(shared_kv)
-    return (rmsnorm(x, params["final_norm"], cfg.norm_eps), aux,
-            caches if collect_cache else None)
+    return x, aux, caches
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
@@ -383,10 +410,14 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     B, S, kv_dim)`` each, and for encdec also ``{"enc_out": (B, F, D)}``;
     for ssm/hybrid ``{"ssm": {"conv" (L, B, k-1, conv_dim), "state" (L,
     B, H, N, P)}}`` in fp32, and for the hybrid also ``{"shared": {"k",
-    "v"}}`` ``(n_groups, B, S, kv_dim)``."""
+    "v"}}`` ``(n_groups, B, S, kv_dim)``.  On a mesh every rank returns
+    the global logits (gathered over the batch axes) and its own rows'
+    caches."""
     x, aux, caches = forward_hidden(params, tokens, cfg, frontend=frontend,
                                     collect_cache=collect_cache)
-    return logits_from_hidden(params, x, cfg), aux, caches
+    lay = etp.layout_for(tokens.shape[0], tokens.shape[1], cfg)
+    return (etp.gather_rows(logits_from_hidden(params, x, cfg), lay), aux,
+            caches)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ Layered like a real inference stack (the port of the reference's
   sequential parity oracle) and ``AcceleratorEngine`` (STT front door as
   a service);
 * ``pages``   — paged decode cache (fixed-size pages, slot→page-table
-  indirection, shared pool) gathered by the paged-gather kernel; mesh
-  placement arrives with the model-mesh slice;
+  indirection, shared pool) gathered by the paged-gather kernel, and its
+  placement over a mesh by the partition solver;
 * ``slots``   — fixed-capacity continuous-batching slot engine over the
   paged cache (insert/evict without draining or rebuilding);
 * ``server``  — thread-safe async dispatch loop with per-request futures;

@@ -32,6 +32,15 @@ stay out of that selection, which would otherwise copy them every step.
 A cache with no paged leaf at all (the ssm family) keeps a 1-page
 geometry, so the table and the step stay uniform.
 
+Mesh placement (``solve_page_placement``, ``place_pools``): the
+partition solver picks the mesh axis that carries the decode attention's
+batch, and every pool's page axis is split over it; each rank keeps its
+contiguous block of pages.  A decode step gathers each rank's own pages
+through the kernel (pages owned elsewhere read a zero page) and one sum
+over the axis assembles the views; token writes and ``insert`` land on
+the owning rank only.  Every rank runs the same decode on the assembled
+views, so placed decode is bit-identical to the unsharded engine.
+
 Bit-exactness contract: gathering a slot's pages yields exactly the
 dense cache the per-call path would hold (unmapped positions read the
 scratch page, whose garbage is masked to an exact zero contribution by
@@ -109,14 +118,22 @@ class PageLayout:
 
     # -- device-side ops (run by the decode step) --------------------------
     def gather_views(self, pools: Dict[Tuple[str, ...], torch.Tensor],
-                     table: torch.Tensor
+                     table: torch.Tensor,
+                     placement: Optional["PagePlacement"] = None
                      ) -> Dict[Tuple[str, ...], torch.Tensor]:
         """pools + page table -> per-slot contiguous cache views
         ``(stack, capacity, seq_len, feat)`` (what decode_step expects).
-        Each view is a transposed view of the gathered buffer, no copy."""
+        Each view is a transposed view of the gathered buffer, no copy.
+        With a ``placement`` the pools are this rank's blocks: the rank
+        gathers its own pages (others read its zero page) and one sum
+        over the placement's axis assembles the views."""
+        if placement is not None:
+            table = placement.local_reads(table)
         views = {}
         for path, (stack, feat, _) in self.paged:
             v = paged_kernels.paged_gather(pools[path], table)
+            if placement is not None:
+                v = placement.assemble(v)
             v = v.reshape(self.capacity, self.seq_len, stack, feat)
             views[path] = v.permute(2, 0, 1, 3)
         return views
@@ -124,7 +141,8 @@ class PageLayout:
     def scatter_written(self, pools: Dict[Tuple[str, ...], torch.Tensor],
                         table: torch.Tensor,
                         new_views: Dict[Tuple[str, ...], torch.Tensor],
-                        pos: torch.Tensor, active: torch.Tensor
+                        pos: torch.Tensor, active: torch.Tensor,
+                        placement: Optional["PagePlacement"] = None
                         ) -> Dict[Tuple[str, ...], torch.Tensor]:
         """Write back, in place, the single token position each slot just
         produced.
@@ -132,8 +150,9 @@ class PageLayout:
         ``new_views`` are decode_step's updated caches (the gathered view
         with one write at ``pos % seq_len`` per slot); only that position
         flows back to the pool — inactive slots are pointed at the
-        scratch page so the write is an exact no-op for live data.
-        Returns ``pools``."""
+        scratch page so the write is an exact no-op for live data.  With a
+        ``placement`` only the page's owner writes it; the other ranks
+        write their sink page.  Returns ``pools``."""
         slot_pos = pos.long() % self.seq_len
         lpage = slot_pos // self.page_size
         off = slot_pos % self.page_size
@@ -141,6 +160,8 @@ class PageLayout:
         pid = table[rows, lpage].long()
         pid = torch.where(active, pid, torch.full_like(pid,
                                                        self.scratch_page))
+        if placement is not None:
+            pid = placement.local_writes(pid)
         for path, (stack, feat, _) in self.paged:
             v = new_views[path]                      # (stack, C, S, feat)
             written = v[:, rows, slot_pos]           # (stack, C, feat)
@@ -228,6 +249,9 @@ class PagedKVCache:
         self.lanes = {path: torch.zeros(shape, dtype=torch_dtype(dt),
                                         device=self.device)
                       for path, (shape, dt) in lay.lanes}
+        #: this rank's share of the pools after ``place_pools`` (None: the
+        #: pools are whole)
+        self.placement: Optional[PagePlacement] = None
         self._lock = threading.Lock()
         self._free: List[int] = list(range(total_pages))
         self._slot_pages: Dict[int, List[int]] = {}
@@ -278,23 +302,43 @@ class PagedKVCache:
     # -- insert (device) --------------------------------------------------
     def insert(self, slot: int, cache: Dict[str, Any]) -> None:
         """Copy one freshly-prefilled sequence (batch==1 cache dict) into
-        the slot's reserved pages and lane rows, in place."""
+        the slot's reserved pages and lane rows, in place (placed pools:
+        the pages this rank owns)."""
         lay = self.layout
         flat = _flatten_cache(cache)
         with self._lock:
             ids = list(self._slot_pages.get(slot, ()))
         if not ids:
             raise ValueError(f"slot {slot} has no pages allocated")
-        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        pl = self.placement
+        keep = [j for j, i in enumerate(ids) if pl is None or pl.owns(i)]
+        idx = torch.tensor([ids[j] - (0 if pl is None else pl.lo)
+                            for j in keep], dtype=torch.long,
+                           device=self.device)
+        sel = torch.tensor(keep, dtype=torch.long, device=self.device)
         for path, (stack, feat, _) in lay.paged:
             leaf = flat[path]                       # (stack, 1, S, feat)
             rows = leaf[:, 0].transpose(0, 1).reshape(
                 lay.pages_per_slot, lay.page_size, stack * feat)
             pool = self.pools[path]
-            pool.index_copy_(0, idx, rows[:len(ids)].to(pool.dtype))
+            pool.index_copy_(0, idx, rows[sel].to(pool.dtype))
         for path, _ in lay.lanes:
             lane = self.lanes[path]
             lane[:, slot] = flat[path][:, 0].to(lane.dtype)
+
+    def gather_views(self, table: torch.Tensor
+                     ) -> Dict[Tuple[str, ...], torch.Tensor]:
+        """Every slot's cache view through the page table (placed or
+        not)."""
+        return self.layout.gather_views(self.pools, table, self.placement)
+
+    def scatter_written(self, table: torch.Tensor,
+                        new_views: Dict[Tuple[str, ...], torch.Tensor],
+                        pos: torch.Tensor, active: torch.Tensor) -> None:
+        """Write each slot's new token row back (the owner only, when
+        placed)."""
+        self.layout.scatter_written(self.pools, table, new_views, pos,
+                                    active, self.placement)
 
     def device_table(self) -> torch.Tensor:
         """The page table as an int32 tensor on the pools' device (a
@@ -304,16 +348,100 @@ class PagedKVCache:
 
 
 # ---------------------------------------------------------------------------
-# mesh placement
+# mesh placement: pages through the partition solver
 # ---------------------------------------------------------------------------
 
 def solve_page_placement(cfg, layout: PageLayout,
                          axes: Tuple[str, str] = ("x", "y"),
-                         shape: Tuple[int, int] = (2, 2)):
-    raise NotImplementedError("page placement over a mesh arrives with "
-                              "the model-mesh slice")
+                         shape: Tuple[int, int] = (2, 2), *, device=None):
+    """Solve the mesh partition for the decode-attention algebra and map
+    it onto the page pools.
+
+    Decode attention over a paged cache is a ``batched_gemv``:
+    ``scores[b, s] = sum_d q[b, d] * K[b, s, d]`` with the slot x kv-head
+    product as the batch dim.  The same front door that serves that
+    algebra (``repro_torch.generate``, on ``device``: the card unless
+    ``"cpu"``; the accelerator is generated for its plan and never
+    called) yields the CommPlan whose ``plan.solve_partition`` decides
+    which mesh axis shards the batch — and pages belong to slots, so the
+    page axis of every pool shards over that axis.  Returns
+    ``(PartitionSolution, Spec)``."""
+    from .. import api
+    from ..dist.comm_engine import Spec
+    kv_heads = max(getattr(cfg, "n_kv_heads", 1), 1)
+    acc = api.generate(
+        "batched_gemv",
+        bounds={"m": max(layout.capacity * kv_heads, 2),
+                "k": max(getattr(cfg, "head_dim", 16), 2),
+                "n": max(layout.seq_len, 2)},
+        device=device, validate=False)
+    sol = acc.kernel.partition_for(shape, axes)
+    batch_axis = sol.batch_axis or sol.grid.get("m")
+    if isinstance(batch_axis, tuple):
+        batch_axis = batch_axis[0]
+    return sol, Spec(batch_axis, None, None)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagePlacement:
+    """This rank's share of pools placed over one mesh axis: global pages
+    ``[lo, lo + pages)`` of the padded page axis.  Its local pools hold
+    those pages, then a zero page (read for pages owned elsewhere) and a
+    sink page (written for them)."""
+
+    mesh: Any            # dist.comm_engine.RankMesh
+    axis: Optional[str]
+    shards: int
+    lo: int
+    pages: int
+
+    def owns(self, page: int) -> bool:
+        return self.lo <= page < self.lo + self.pages
+
+    def _local(self, ids: torch.Tensor, other: int) -> torch.Tensor:
+        own = (ids >= self.lo) & (ids < self.lo + self.pages)
+        return torch.where(own, ids - self.lo,
+                           torch.full_like(ids, other)).to(ids.dtype)
+
+    def local_reads(self, table: torch.Tensor) -> torch.Tensor:
+        """The page table in this rank's pool: pages owned elsewhere read
+        the zero page."""
+        return self._local(table, self.pages)
+
+    def local_writes(self, pid: torch.Tensor) -> torch.Tensor:
+        """Write targets in this rank's pool: pages owned elsewhere go to
+        the sink page."""
+        return self._local(pid, self.pages + 1)
+
+    def assemble(self, view: torch.Tensor) -> torch.Tensor:
+        """The whole view from every rank's share along the axis: one sum
+        of the views' bytes as integers.  Exactly one rank holds each
+        page's bytes and the others hold zeros, so the sum is a copy,
+        bit for bit whatever the values."""
+        if self.shards == 1:
+            return view
+        bits = view.contiguous().view(torch.uint8)
+        return self.mesh.psum(bits, (self.axis,)).view(view.dtype)
 
 
 def place_pools(cache: PagedKVCache, mesh, spec) -> None:
-    raise NotImplementedError("page placement over a mesh arrives with "
-                              "the model-mesh slice")
+    """Place every page pool over the mesh with the solved spec: the page
+    axis split over the batch-carrying mesh axis ``spec[0]``, each rank
+    keeping its contiguous block (the reference's ``NamedSharding`` of
+    the pool).  The pool keeps its scratch page, so the page axis is
+    padded up to a multiple of the axis size first.  ``mesh`` is a
+    ``DeviceMesh`` or this rank's ``RankMesh``; every rank of it calls
+    this.  Lane pools stay whole on every rank."""
+    from ..dist.comm_engine import RankMesh
+    rm = mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
+    axis = spec[0]
+    n = rm.sizes.get(axis, 1) if axis else 1
+    pages = cache.layout.total_pages + 1
+    per = -(-pages // n)
+    lo = (rm.coord[axis] if n > 1 else 0) * per
+    for path, pool in cache.pools.items():
+        block = pool[lo:lo + per]
+        extra = torch.zeros((per + 2 - block.shape[0],) + block.shape[1:],
+                            dtype=pool.dtype, device=pool.device)
+        cache.pools[path] = torch.cat([block, extra])
+    cache.placement = PagePlacement(rm, axis if n > 1 else None, n, lo, per)

@@ -26,7 +26,9 @@ per slot, fp32), frozen for idle slots after each step; the encdec/vlm
 cross K/V are static lane pools (one row per slot, bf16), written by
 insert from the request's ``frontend`` and only read by the step.  The
 MoE groups its tokens by batch row, so each slot routes within its own
-expert capacity and idle slots take none of it.
+expert capacity and idle slots take none of it.  Pools placed over a
+mesh (``pages.place_pools``) are gathered and written through their
+placement; the step is the same.
 """
 from __future__ import annotations
 
@@ -145,18 +147,17 @@ class SlotEngine:
 
     # -- the decode step ---------------------------------------------------
     def _build_step(self) -> Callable:
-        cfg, lay, pools = self.cfg, self.cache.layout, self.cache.pools
+        cfg, lay = self.cfg, self.cache.layout
         scfg, params, gen = self.serve_cfg, self.params, self._gen
 
         def step(tokens, pos, active, table):
-            views = lay.gather_views(pools, table)
+            views = self.cache.gather_views(table)
             cache: Dict[str, Any] = _nest({**views, **self.cache.lanes})
             cache["pos"] = pos
             logits, new_cache = dec.decode_step(params, tokens, cache, cfg)
             flat_new = _flatten_cache(new_cache)
-            lay.scatter_written(pools, table,
-                                {p: flat_new[p] for p, _ in lay.paged},
-                                pos, active)
+            self.cache.scatter_written(
+                table, {p: flat_new[p] for p, _ in lay.paged}, pos, active)
             self.cache.lanes = lay.freeze_inactive(
                 self.cache.lanes, {p: flat_new[p] for p in self.cache.lanes},
                 active)

@@ -999,6 +999,32 @@ def test_flash_attention_kernel(cuda, mask, hq, hkv, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("off", [0, 40, 128, 200])
+@pytest.mark.parametrize("mask", ["causal", "swa16"])
+def test_flash_attention_q_offset(cuda, mask, off, dtype):
+    # a block of 72 query rows placed at position ``off`` of 272 keys,
+    # against the plain version with the same offset (bf16: the one that
+    # rounds P, row by row), and ops.attention's padded path
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    causal, window = MASKS[mask]
+    q, k, v = _attn_inputs(2, 8, 2, 72, 272, 80, dtype, seed=off)
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal, window=window, q_offset=off)
+    bf16 = dtype == torch.bfloat16
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    q_offset=off, round_p=bf16)
+    if bf16:
+        assert fa.row_error(got.cpu(), want) <= fa.BF16_ROW_TOL
+    else:
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= 1e-4 * want.abs().max().item(), err
+    padded = ops.attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                           causal=causal, window=window, q_offset=off)
+    assert torch.equal(padded[:, :, :72], got)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_attention_ragged_q_and_masked_rows_on_card(cuda, dtype):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
@@ -1285,9 +1311,11 @@ def test_bf16_train_step_kernels_against_the_plain_attention(cuda,
         DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=2), 0).items()}
     kernel = trainer.value_and_grad(params, batch, cfg)
     monkeypatch.setattr(fa, "flash_attention",
-                        lambda q, k, v, *, causal=True, window=None:
+                        lambda q, k, v, *, causal=True, window=None,
+                        q_offset=0:
                         fa.flash_attention_plain(q, k, v, causal=causal,
-                                                 window=window, round_p=True))
+                                                 window=window, round_p=True,
+                                                 q_offset=q_offset))
     plain = trainer.value_and_grad(params, batch, cfg)
     assert abs(float(kernel[0]) - float(plain[0])) <= 2e-2 * abs(
         float(plain[0]))

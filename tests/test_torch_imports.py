@@ -43,7 +43,10 @@ MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.dist.spawn", "repro_torch.dist.cases",
            "repro_torch.dist.selftest", "repro_torch.dist.comm_selftest",
            "repro_torch.dist.partition_selftest",
-           "repro_torch.dist.sparse_selftest")
+           "repro_torch.dist.sparse_selftest",
+           "repro_torch.dist.serve_selftest",
+           "repro_torch.dist.model_cases",
+           "repro_torch.models.explicit_tp")
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"

@@ -363,21 +363,48 @@ def test_make_kv_cache_rolling_and_linear():
         assert c["k"].shape == (2, s, 32) and c["v"].dtype == torch.float32
 
 
-def test_cross_attention_and_mesh_branches_raise():
-    """Cross-attention runs (``tests/test_torch_cross.py``); its
-    explicit-collective (mesh) branch raises with the others."""
-    cfg, tcfg, pj, pt = _layer_attn("granite-8b")
-    x = t(randn(1, 4, cfg.d_model))
+def test_cross_attention_and_mesh_branches_fall_back():
+    """With ``explicit_collectives`` and no mesh every helper of
+    ``explicit_tp`` returns None (the reference's ``_mesh_info`` sees no
+    axes), so self- and cross-attention, the MLP and the MoE equal the
+    flag-off blocks bit for bit, and the reference's flag-on blocks within
+    the file's tolerance."""
     import dataclasses
-    etp = dataclasses.replace(tcfg, explicit_collectives=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        attention.apply_attention(pt, x, etp, kv_x=x)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        attention.apply_attention(pt, x, etp)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        mlp.apply_mlp({}, x, etp)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        mlp.apply_moe({}, x, etp)
+    cfg, tcfg, pj, pt = _layer_attn("granite-8b")
+    x = randn(1, 4, cfg.d_model, seed=21)
+    kv = randn(1, 6, cfg.d_model, seed=22)
+    etp, ertp = (dataclasses.replace(c, explicit_collectives=True,
+                                     sequence_parallel=True)
+                 for c in (tcfg, cfg))
+    for kv_x in (None, kv):
+        off = attention.apply_attention(
+            pt, t(x), tcfg, kv_x=None if kv_x is None else t(kv_x))[0]
+        on = attention.apply_attention(
+            pt, t(x), etp, kv_x=None if kv_x is None else t(kv_x))[0]
+        assert torch.equal(on, off)
+        want = ref_attn.apply_attention(
+            pj, jnp.asarray(x), ertp,
+            kv_x=None if kv_x is None else jnp.asarray(kv_x))[0]
+        close(on, want)
+    _, _, jp, tp = setup_arch("granite-8b")
+    fj = jax.tree.map(lambda a: a[0], jp["layers"]["ffn"])
+    ft = {k: v[0] for k, v in tp["layers"]["ffn"].items()}
+    on = mlp.apply_mlp(ft, t(x), etp)
+    assert torch.equal(on, mlp.apply_mlp(ft, t(x), tcfg))
+    close(on, ref_mlp.apply_mlp(fj, jnp.asarray(x), ertp))
+    mcfg, mtcfg, mjp, mtp = setup_arch("mixtral-8x22b")
+    mj = jax.tree.map(lambda a: a[0], mjp["layers"]["ffn"])
+    mt = {k: v[0] for k, v in mtp["layers"]["ffn"].items()}
+    xm = randn(2, 8, mcfg.d_model, seed=23)
+    m_on, m_etp = (dataclasses.replace(c, explicit_collectives=True,
+                                       sequence_parallel=True)
+                   for c in (mtcfg, mcfg))
+    got, aux = mlp.apply_moe(mt, t(xm), m_on)
+    off, aux_off = mlp.apply_moe(mt, t(xm), mtcfg)
+    assert torch.equal(got, off) and torch.equal(aux, aux_off)
+    want, waux = ref_mlp.apply_moe(mj, jnp.asarray(xm), m_etp)
+    close(got, want)
+    close(aux, waux)
 
 
 # ---------------------------------------------------------------------------

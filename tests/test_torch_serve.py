@@ -184,11 +184,27 @@ def test_insert_without_pages_raises():
 
 
 def test_mesh_placement_arrives_with_the_mesh_slice():
+    # the model-mesh slice has arrived: placement solves through the
+    # partition solver, and pools placed on a one-rank mesh gather what
+    # they gathered whole (``tests/test_torch_serve_mesh.py`` runs 8 ranks)
+    from repro_torch.dist import spawn
+    from repro_torch.launch.mesh import make_mesh
     cache = _tiny_cache()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        solve_page_placement(None, cache.layout)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        place_pools(cache, None, None)
+    assert cache.alloc(0, 20) and cache.alloc(2, 9)
+    gen = torch.Generator().manual_seed(5)
+    for pool in cache.pools.values():
+        pool.copy_(torch.randn(pool.shape, generator=gen))
+    _, spec = solve_page_placement(get_config("granite-8b").reduced(),
+                                   cache.layout, device="cpu")
+    assert spec[0] in ("x", "y") and spec[1] is None and spec[2] is None
+    table = cache.device_table()
+    want = cache.gather_views(table)
+    with spawn.single_rank(device="cpu"):
+        place_pools(cache, make_mesh((1, 1), ("x", "y"), device="cpu"),
+                    spec)
+        got = cache.gather_views(table)
+    assert cache.placement.shards == 1
+    assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 # ---------------------------------------------------------------------------

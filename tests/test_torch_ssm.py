@@ -358,11 +358,27 @@ def test_make_ssm_cache_matches_reference():
     assert ssm.conv_dim(tcfg) == ref_ssm.conv_dim(cfg)
 
 
-def test_ssm_mesh_branch_raises():
-    cfg, tcfg, _, pt = _layer("mamba2-370m")
+def test_ssm_mesh_branch_falls_back():
+    """With ``explicit_collectives`` and no mesh ``gather_seq`` returns
+    None, so the block equals the flag-off one bit for bit (prefill and
+    decode), and the reference's flag-on block within 1e-4."""
+    cfg, tcfg, pj, pt = _layer("mamba2-370m")
     etp = dataclasses.replace(tcfg, explicit_collectives=True)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ssm.apply_ssm(pt, torch.zeros((1, 4, cfg.d_model)), etp)
+    x = np.random.default_rng(31).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32)
+    on, con = ssm.apply_ssm(pt, torch.as_tensor(x), etp, collect_cache=True)
+    off, coff = ssm.apply_ssm(pt, torch.as_tensor(x), tcfg,
+                              collect_cache=True)
+    assert torch.equal(on, off)
+    assert all(torch.equal(con[k], coff[k]) for k in coff)
+    want, _ = jax.jit(ref_ssm.apply_ssm, static_argnums=2)(
+        pj, jnp.asarray(x), dataclasses.replace(cfg,
+                                                explicit_collectives=True))
+    close(on, want, 1e-4)
+    step = torch.as_tensor(x[:, :1])
+    d_on, _ = ssm.apply_ssm(pt, step, etp, cache=con)
+    d_off, _ = ssm.apply_ssm(pt, step, tcfg, cache=coff)
+    assert torch.equal(d_on, d_off)
 
 
 # ---------------------------------------------------------------------------
