@@ -248,12 +248,32 @@ each of which fails the run (non-zero exit) when it fails:
    launched on every rank, one decode build.  The phase prints its
    seconds and each rank's peak memory; its launches join rows 7–8
    (NCCL refuses two ranks on one device and gloo stages through the
-   host: no time here is a mesh's speed).
+   host: no time here is a mesh's speed);
+18. a sharded train step on a model mesh (``train_mesh_phase``): (a)
+   the flash backward kernels' ``q_offset`` at phase 17's shapes and
+   offsets, bf16 and fp32, against ``flash_attention_backward_plain(
+   q_offset=...)`` within ``FLASH_BWD_TOL``, with a planted fault (the
+   backward without the offset), times beside the bound, the plain
+   version and SDPA's forward + backward under the same mask; then four
+   gloo ranks sharing the card (``train_mesh_ranks``) on a 2x2 ("data",
+   "model") mesh: (b) h2o-danube-1.8b at full width, ``TM_LAYERS``
+   layers (depth cut for memory, printed), bf16 compute over fp32
+   masters, ``explicit_collectives`` on, the state placed by
+   ``trainer.place_state``: the first gradient's blocks within 2e-2 x
+   max|g| of the one-card gradient's, ``TM_STEPS`` steps of ``TM_BATCH``
+   x ``TM_SEQ`` tokens with losses finite and within 1e-3 x |loss| of
+   one card's, flash's forward and backward launched on every rank; (c)
+   the same at 2 layers with ``FULL_SCORES_MAX_LEN`` at 256: every
+   layer's query rows through ``chunked_attn_manual`` and the backward
+   kernels' ``q_offset``.  The phase prints its seconds and each rank's
+   peak memory; its launches join row 8 and its backward entry, which
+   also gains the offset rows (no time here is a mesh's speed).
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
 and flash shapes too, rows 8 and 9 the training phases' launches and the
-flash and SSD backwards' entries under ``backward``),
+flash and SSD backwards' entries under ``backward``, the flash
+backward's with its ``q_offset`` rows),
 and, last, ``{"ok": true, "device": {...}}``.  Per-case times go to
 ``results/chip_smoke/chip_smoke_cases.json`` (gitignored), each with one
 more call traced by ``torch.profiler``: the device time of the port's
@@ -2882,6 +2902,344 @@ def model_mesh_phase(check):
     return launches, summary
 
 
+#: phase 18: a sharded train step on a model mesh.  (a) the flash
+#: backward's q_offset at danube's heads; (b)-(c) four gloo ranks sharing
+#: the card on a 2x2 ("data", "model") mesh
+TM_MODEL = "h2o-danube-1.8b"
+#: (b)'s depth, cut for memory: each of the four ranks holds whole
+#: gathered weights and whole partial gradients on the one card
+TM_LAYERS = 4
+TM_BATCH, TM_SEQ, TM_STEPS = 4, 512, 3
+TM_CHUNKED_LAYERS = 2
+TM_LOSS_TOL, TM_GRAD_TOL = 1e-3, 2e-2
+
+
+def q_offset_backward_check(g, check):
+    """Phase 18 (a): the flash backward kernels at danube's heads on a
+    rank's 256 query rows over 1024 keys, causal, at ``Q_OFFSETS``, bf16
+    and fp32, given the kernel forward's output and log-sum-exp at the
+    same offset: dQ, dK and dV against ``flash_attention_backward_plain(
+    q_offset=...)`` within ``FLASH_BWD_TOL`` x max|.|; a planted fault —
+    the backward called without the offset — must fail that limit at every
+    offset above 0.  Times: the backward, its plain version and SDPA's
+    forward + backward under the same mask; the bound counts 2.5x the
+    forward's 4 D flops a visible pair and q head."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import hopper
+    from repro_torch.kernels import flash_attention as fa
+
+    hq, hkv, d, rows, lkv = Q_OFFSET_SHAPE
+    out_rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        tol = FLASH_BWD_TOL[name]
+        q, dout = (torch.randn((1, hq, rows, d), generator=g,
+                               device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((1, hkv, lkv, d), generator=g,
+                            device="cuda").to(dtype) for _ in range(2))
+        for off in Q_OFFSETS:
+            out, lse = fa._forward(q, k, v, True, None, with_lse=True,
+                                   q_offset=off)
+
+            def run(o=off):
+                return fa.flash_attention_backward(
+                    q, k, v, out, dout, lse, causal=True, q_offset=o)
+
+            def plain():
+                return fa.flash_attention_backward_plain(
+                    q, k, v, out, dout, lse, causal=True, q_offset=off)
+            got, want, fault = run(), plain(), run(0)
+            errs, bad = {}, 0.0
+            for what, x, w, f in zip(("dq", "dk", "dv"), got, want, fault):
+                scale = w.float().abs().max().item()
+                errs[what] = (x.float() - w.float()).abs().max().item() / scale
+                bad = max(bad, (f.float() - w.float()).abs().max().item()
+                          / scale)
+                check(bool(torch.isfinite(x.float()).all())
+                      and errs[what] <= tol,
+                      f"flash backward q_offset {off} {name}: {what} off by "
+                      f"{errs[what]} x max (limit {tol})")
+            if off:
+                check(bad > tol, f"flash backward q_offset {off} {name}: the "
+                      f"planted fault (offset ignored) reads {bad}, inside "
+                      f"{tol}")
+            qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
+            mask = fa._mask(rows, 0, lkv, True, None, q.device, off)
+
+            def sdpa():
+                o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                   enable_gqa=True)
+                torch.autograd.grad(o, (qs, ks, vs), dout)
+            pairs = visible_pairs(off + rows, lkv, True, None) - \
+                visible_pairs(off, lkv, True, None)
+            nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+                      + 4.0 * lse.numel())
+            roof = hopper.RooflineTerms(
+                f"flash backward q_offset {off}", 2.5 * 4.0 * d * hq * pairs,
+                nbytes, dtype=name)
+            row = {"case": f"q_offset {off}", "dtype": name,
+                   "rel_err": errs, "fault_rel_err": bad if off else None,
+                   "max_abs_err": max((x.float() - w.float()).abs().max()
+                                      .item() for x, w in zip(got, want)),
+                   "ms": event_ms(run, 5), "plain_ms": event_ms(plain, 1),
+                   "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
+                   "library_ms": event_ms(sdpa, 3),
+                   "shape": f"q (1, {hq}, {rows}, {d}) at rows {off}.."
+                            f"{off + rows - 1}, k/v (1, {hkv}, {lkv}, {d}) "
+                            f"{name}, causal"}
+            out_rows.append(row)
+            print(f"  (a) flash backward q_offset {off} {name}: rel errors "
+                  f"{ {k: f'{e:.2e}' for k, e in errs.items()} }, offset "
+                  f"ignored {bad:.3e}, {row['ms']:.4f} ms (bound "
+                  f"{row['bound_ms']:.4f} {row['bound_by']}, plain "
+                  f"{row['plain_ms']:.3f}, SDPA fwd+bwd "
+                  f"{row['library_ms']:.3f})")
+            del out, lse, got, want, fault
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def _tm_cfg(n_layers):
+    return _tp_cfg(TM_MODEL, n_layers=n_layers, explicit_collectives=True)
+
+
+def _tm_opt():
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                             total_steps=TM_STEPS)
+
+
+def _tm_batch(cfg, i, dev):
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, _batch_numpy
+    data = DataConfig(vocab=cfg.vocab, seq_len=TM_SEQ,
+                      global_batch=TM_BATCH, seed=0)
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in _batch_numpy(data, i).items()}
+
+
+def train_mesh_ranks(paths):
+    """Phase 18 (b)-(c) in each of four gloo ranks sharing the card; every
+    rank's record on rank 0.  Each rank holds its blocks of the gradient
+    to its blocks of the one-card gradient (``paths``' files,
+    memory-mapped)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models import attention, explicit_tp, transformer
+    from repro_torch.train import trainer
+
+    dev = torch.device("cuda")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "seconds": {}, "peak_gb": {}}
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda",
+                     backend="gloo")
+
+    def run(tag, n_layers, steps):
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, opt = _tm_cfg(n_layers), _tm_opt()
+        state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                                   cfg, opt)
+        step, st_sh, _ = trainer.make_sharded_train_step(
+            cfg, opt, mesh, state, transformer.param_axes(cfg))
+        placed = trainer.place_state(state, st_sh, mesh)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        want = torch.load(paths[tag], mmap=True)
+        fa.reset_launches()
+        with set_mesh(mesh) as rm:
+            loss, _, grads = trainer.sharded_value_and_grad(
+                placed.params, _tm_batch(cfg, 0, dev), cfg, st_sh.params, rm)
+            mine = trainer.place_tree(want["grads"], st_sh.params, rm)
+            errs = {path: (gb.float() - w).abs().max().item()
+                    / want["scale"][path]
+                    for (path, gb), (_, w) in zip(_leaves(grads),
+                                                  _leaves(mine))}
+        del grads, mine
+        losses = [float(loss)]
+        for i in range(steps):
+            placed, m = step(placed, _tm_batch(cfg, i, dev))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        rec[tag] = {"grad_errs": errs, "losses": losses,
+                    "launches": dict(fa.launches)}
+        rec["peak_gb"][tag] = torch.cuda.max_memory_allocated() / 1e9
+        del placed, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["seconds"][tag] = time.perf_counter() - t0
+
+    # (b) TM_LAYERS layers, the heads split over "model"
+    run("b", TM_LAYERS, TM_STEPS)
+    # (c) 2 layers above FULL_SCORES_MAX_LEN: the query rows through
+    # chunked_attn_manual and the kernels' q_offset
+    calls = []
+    real = explicit_tp.chunked_attn_manual
+
+    def counted(*a, **k):
+        out = real(*a, **k)
+        calls.append(out is not None)
+        return out
+    keep = attention.FULL_SCORES_MAX_LEN
+    attention.FULL_SCORES_MAX_LEN = TP_FULL_MAX
+    explicit_tp.chunked_attn_manual = counted
+    try:
+        run("c", TM_CHUNKED_LAYERS, 1)
+    finally:
+        attention.FULL_SCORES_MAX_LEN = keep
+        explicit_tp.chunked_attn_manual = real
+    rec["chunked_calls"] = [len(calls), sum(calls)]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, rec)
+    return out
+
+
+def train_mesh_phase(check):
+    """Phase 18: a sharded train step on a model mesh.  (a)
+    ``q_offset_backward_check``; then the one-card references (no mesh,
+    the same seeded weights and batches): h2o-danube-1.8b at full width
+    and ``TM_LAYERS`` layers, bf16 compute over fp32 masters (remat on),
+    the first batch's loss and gradient and ``TM_STEPS`` steps' losses of
+    ``TM_BATCH`` x ``TM_SEQ`` tokens, and the same at ``TM_CHUNKED_LAYERS``
+    layers (one step); then four gloo ranks sharing the card
+    (``train_mesh_ranks``) on a 2x2 ("data", "model") mesh,
+    ``explicit_collectives`` and sequence parallelism on: (b)
+    ``make_sharded_train_step`` on the placed state, each rank's blocks of
+    the first gradient (``sharded_value_and_grad``) within ``TM_GRAD_TOL``
+    x max|g| of the one-card gradient's, the losses finite and within
+    ``TM_LOSS_TOL`` x |loss| of one card's, the flash forward and backward
+    launched on every rank; (c) the 2-layer model with
+    ``FULL_SCORES_MAX_LEN`` at 256: the query rows through
+    ``chunked_attn_manual`` on every layer and the backward kernels'
+    ``q_offset``, held the same way.  One card: ranks share it over
+    host-staged gloo, so no time here is a mesh's speed.  Returns (the
+    flash forward's and backward's launches over the ranks in (b)-(c),
+    the backward's rows at the offsets, summary)."""
+    import gc
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.dist import spawn
+    from repro_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(18)
+    offset_rows = q_offset_backward_check(g, check)
+    summary = {"q_offset_backward": offset_rows}
+    t0 = time.perf_counter()
+    cfg = _tm_cfg(TM_LAYERS)
+    print(f"train mesh: {cfg.name} at full width, {TM_LAYERS} of 24 layers "
+          f"(depth cut for memory: each of 4 ranks on one card holds whole "
+          f"gathered weights and whole partial gradients), "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, batch {TM_BATCH} x "
+          f"{TM_SEQ}, {TM_STEPS} steps, bf16 compute over fp32 masters")
+    ref = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tm_") as tmp:
+        paths = {"b": f"{tmp}/b.pt", "c": f"{tmp}/c.pt"}
+        for tag, n_layers, steps in (("b", TM_LAYERS, TM_STEPS),
+                                     ("c", TM_CHUNKED_LAYERS, 1)):
+            c, opt = _tm_cfg(n_layers), _tm_opt()
+            state = trainer.init_state(
+                torch.Generator(device=dev).manual_seed(0), c, opt)
+            loss, _, grads = trainer.value_and_grad(
+                state.params, _tm_batch(c, 0, dev), c)
+            flat = {}
+            for p, x in _leaves(grads):
+                node = flat
+                for key in p.strip("/").split("/")[:-1]:
+                    node = node.setdefault(key, {})
+                node[p.rsplit("/", 1)[1]] = x.float().cpu()
+            torch.save({"grads": flat, "scale": {
+                p: x.abs().max().item() for p, x in _leaves(flat)}},
+                paths[tag])
+            del grads, flat
+            losses = [float(loss)]
+            step = trainer.make_train_step(c, opt)
+            for i in range(steps):
+                state, m = step(state, _tm_batch(c, i, dev))
+                losses.append(float(m["loss"]))
+            ref[tag] = losses
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recs = spawn.run_ranks(train_mesh_ranks, MESH_RANKS, device="cuda",
+                               backend="gloo", args=(paths,), timeout=900)
+        ranks_s = time.perf_counter() - t0
+    launches = {"flash_attention": 0, "flash_attention_backward": 0}
+    worst = {}
+    for r in recs:
+        tag = f"rank {r['rank']}"
+        for part in ("b", "c"):
+            got, want = r[part]["losses"], ref[part]
+            errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+            check(all(math.isfinite(x) for x in got)
+                  and max(errs) <= TM_LOSS_TOL,
+                  f"({part}) {tag}: losses {got} against one card's {want}")
+            path = max(r[part]["grad_errs"], key=r[part]["grad_errs"].get)
+            gerr = r[part]["grad_errs"][path]
+            check(gerr <= TM_GRAD_TOL, f"({part}) {tag}: gradient {path} "
+                  f"off by {gerr} x max|g| (limit {TM_GRAD_TOL})")
+            la = r[part]["launches"]
+            check(la["flash_attention"] > 0
+                  and la["flash_attention_backward"] > 0,
+                  f"({part}) {tag}: flash launches {la}")
+            for k in launches:
+                launches[k] += la[k]
+            worst[part] = max(worst.get(part, (0.0, "", 0.0)),
+                              (gerr, path, max(errs)))
+        # a layer's forward in the gradient and in the step, each run
+        # again in the backward under remat
+        calls = TM_CHUNKED_LAYERS * 2 * (2 if cfg.remat else 1)
+        check(r["chunked_calls"] == [calls, calls],
+              f"(c) {tag}: chunked_attn_manual [calls, applied] "
+              f"{r['chunked_calls']}, expected {calls} applied")
+    secs = time.perf_counter() - t_phase
+    for part, (gerr, path, lerr) in worst.items():
+        print(f"train mesh ({part}): the worst rank's gradient {path} off "
+              f"by {gerr:.3e} x max|g|, losses {recs[0][part]['losses']} "
+              f"against one card's {ref[part]} (largest rel diff "
+              f"{lerr:.2e})")
+    print(f"train mesh launches over the 4 ranks: {launches}")
+    print(f"train mesh seconds: phase {secs:.1f} (one-card references "
+          f"{ref_s:.1f}, four ranks {ranks_s:.1f} with spawning; per rank "
+          + "; ".join(f"{r['rank']}: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in r["seconds"].items())
+              for r in recs)
+          + "); peak GB a rank " + ", ".join(
+              f"{r['rank']}: " + "/".join(f"{v:.1f}"
+                                          for v in r["peak_gb"].values())
+              for r in recs)
+          + " ((b)/(c); ranks share one card over host-staged gloo: not a "
+          "mesh's speed)")
+    summary.update({
+        "layers": TM_LAYERS, "references": ref,
+        "ranks": [{k: r[k] for k in ("rank", "seconds", "peak_gb",
+                                     "chunked_calls")}
+                  | {p: {"losses": r[p]["losses"],
+                         "launches": r[p]["launches"],
+                         "worst_grad_err": max(r[p]["grad_errs"].values())}
+                     for p in ("b", "c")} for r in recs],
+        "launches": launches,
+        "seconds": {"phase": secs, "references": ref_s, "ranks": ranks_s},
+        "note": "four ranks share one card over host-staged gloo: times "
+                "are not a mesh's speed"})
+    return launches, offset_rows, summary
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3532,12 +3890,26 @@ def main() -> int:
             row["launches"] += tp_launches[name]
             row["launches_model_mesh"] = tp_launches[name]
     phase("model mesh")
+
+    # -- 18. a sharded train step on a model mesh ----------------------------
+    tm_launches, tm_offset_rows, tm_summary = train_mesh_phase(check)
+    for row in kernels:
+        if row["name"].split(".")[-1] == "flash_attention":
+            row["launches"] += tm_launches["flash_attention"]
+            row["launches_train_mesh"] = tm_launches["flash_attention"]
+            row["backward"]["launches"] += \
+                tm_launches["flash_attention_backward"]
+            row["backward"]["launches_train_mesh"] = \
+                tm_launches["flash_attention_backward"]
+            row["backward"]["q_offset_shapes"] = tm_offset_rows
+    phase("train mesh")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
          "ssm_serve": ssm_summary, "family_serve": family_summary,
          "training": train_summary, "ssm_training": ssm_train_summary,
          "mesh": mesh_summary, "model_mesh": tp_summary,
+         "train_mesh": tm_summary,
          "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else

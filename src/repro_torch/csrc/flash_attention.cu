@@ -11,7 +11,7 @@
 // positions, or none (cross-attention).  The forward takes q_offset, the
 // absolute position of q row 0 (a block of query rows cut from a longer
 // sequence, as a model-mesh rank's query rows are): row i sits at
-// q_offset + i.  The backward's masks start at row 0.
+// q_offset + i.  The backward takes the same q_offset.
 //
 // The TPU kernel runs the kv blocks as the sequential innermost grid axis
 // with the running max m, denominator l and accumulator in VMEM scratch.
@@ -98,9 +98,8 @@ struct Heads {
 };
 
 // kv blocks [lo, hi) that some row of the q block [q0, q0 + BQ) can see;
-// the masks place q row r at position qoff + r (the forward's q_offset:
-// a block of query rows cut from a longer sequence), the backward's
-// callers pass 0
+// the masks place q row r at position qoff + r (q_offset: a block of
+// query rows cut from a longer sequence)
 __device__ __forceinline__ void kv_range(int q0, int lq, int lkv, int causal,
                                          int window, int qoff, int& lo,
                                          int& hi) {
@@ -658,12 +657,17 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
 }
 
 // q blocks [lo, hi) holding a row that sees some column of the kv block
-// [k0, k0 + BKV): the mirror of kv_range
+// [k0, k0 + BKV), q row r at position qoff + r: the mirror of kv_range
 __device__ __forceinline__ void q_range(int k0, int lq, int causal,
-                                        int window, int& lo, int& hi) {
-  lo = causal ? k0 / BQ : 0;
+                                        int window, int qoff, int& lo,
+                                        int& hi) {
+  lo = causal ? max(0, k0 - qoff) / BQ : 0;
   hi = (lq + BQ - 1) / BQ;
-  if (window > 0) hi = min(hi, (k0 + BKV + window - 2) / BQ + 1);
+  if (window > 0) {
+    // the last row that can see the block's last column
+    const int last = k0 + BKV + window - 2 - qoff;
+    hi = last < 0 ? 0 : min(hi, last / BQ + 1);
+  }
 }
 
 // rows [r0, r0 + 64) of one head -> smem (64 x (D + 1)); rows at or past
@@ -702,7 +706,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
                           Heads<float> g, const float* lse,
                           const float* delta, float* dk, float* dv, int hq,
                           int lq, int lkv, int group, float scale,
-                          int causal, int window) {
+                          int causal, int window, int qoff) {
   constexpr int LD = D + 1, LP = BQ + 1, DC = D / BC;
   extern __shared__ float smem[];
   float* Ks = smem;             // BKV x LD
@@ -729,7 +733,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     for (int j = 0; j < DC; ++j) ak[i][j] = av[i][j] = 0.0f;
 
   int qb_lo, qb_hi;
-  q_range(k0, lq, causal, window, qb_lo, qb_hi);
+  q_range(k0, lq, causal, window, qoff, qb_lo, qb_hi);
   for (int hg = 0; hg < group; ++hg) {
     const int h = hk * group + hg;
     const float* qh = q.p + b * q.sb + h * q.sh;
@@ -783,7 +787,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
           const int qi = tc + BC * j, row = q0 + qi;
           const int col = k0 + tr * BR + i;
           const float p =
-              row < lq && visible(row, col, lkv, causal, window)
+              row < lq && visible(qoff + row, col, lkv, causal, window)
                   ? expf(s[i][j] * scale - Ls[qi])
                   : 0.0f;
           Ps[(tr * BR + i) * LP + qi] = p;
@@ -833,7 +837,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     flash_bwd_dq_kernel(Heads<float> q, Heads<float> k, Heads<float> v,
                         Heads<float> g, const float* lse, const float* delta,
                         float* dq, int lq, int lkv, int group, float scale,
-                        int causal, int window) {
+                        int causal, int window, int qoff) {
   constexpr int LD = D + 1, LP = BKV + 1, DC = D / BC;
   extern __shared__ float smem[];
   float* Qs = smem;             // BQ x LD
@@ -866,7 +870,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     for (int j = 0; j < DC; ++j) aq[i][j] = 0.0f;
 
   int kb_lo, kb_hi;
-  kv_range(q0, lq, lkv, causal, window, 0, kb_lo, kb_hi);
+  kv_range(q0, lq, lkv, causal, window, qoff, kb_lo, kb_hi);
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
     const int k0 = kb * BKV;
     __syncthreads();  // the previous block's reads of Ks, Vs, Ss are done
@@ -907,9 +911,10 @@ __global__ void __launch_bounds__(BWD_THREADS)
       for (int j = 0; j < BJ; ++j) {
         const int qi = tr * BR + i, row = q0 + qi;
         const int col = k0 + tc + BC * j;
-        const float p = row < lq && visible(row, col, lkv, causal, window)
-                            ? expf(s[i][j] * scale - Ls[qi])
-                            : 0.0f;
+        const float p =
+            row < lq && visible(qoff + row, col, lkv, causal, window)
+                ? expf(s[i][j] * scale - Ls[qi])
+                : 0.0f;
         Ss[qi * LP + tc + BC * j] = p * (dp[i][j] - Ds[qi]);
       }
     __syncthreads();
@@ -958,7 +963,7 @@ __global__ void __launch_bounds__(THREADS)
                               const float* lse, const float* delta,
                               __nv_bfloat16* dk, __nv_bfloat16* dv, int hq,
                               int lq, int lkv, int group, float scale,
-                              int causal, int window) {
+                              int causal, int window, int qoff) {
   constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
   extern __shared__ __align__(16) __nv_bfloat16 sm[];
   __nv_bfloat16* Ks = sm;                   // BKV x LD
@@ -977,7 +982,7 @@ __global__ void __launch_bounds__(THREADS)
   stage_async<D, LD>(Vs, v.p + b * v.sb + hk * v.sh, v.sr, k0, lkv);
 
   int qb_lo, qb_hi;
-  q_range(k0, lq, causal, window, qb_lo, qb_hi);
+  q_range(k0, lq, causal, window, qoff, qb_lo, qb_hi);
   const int nq = max(0, qb_hi - qb_lo), n_it = group * nq;
   // iteration it: q head hk * group + it / nq, q block qb_lo + it % nq
   auto load = [&](int it, int st) {
@@ -1019,10 +1024,12 @@ __global__ void __launch_bounds__(THREADS)
     const __nv_bfloat16* Gb = Gs + st * BQ * LD;
     const float* Lb = Ls + st * BQ;
     const float* Db = Ds + st * BQ;
-    // every (q, kv) pair of the warp's tile visible: no mask
+    // every (q, kv) pair of the warp's tile visible: no mask (q rows at
+    // positions qoff + q0 ..)
+    const int qp = qoff + q0;
     const bool whole = q0 + BQ <= lq && kw + 16 <= lkv &&
-                       (!causal || q0 >= kw + 15) &&
-                       (window <= 0 || q0 + BQ - 1 - kw < window);
+                       (!causal || qp >= kw + 15) &&
+                       (window <= 0 || qp + BQ - 1 - kw < window);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       // S^T = K Q^T and dP^T = V dO^T over q columns half * 32 + [0, 32)
@@ -1060,7 +1067,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int e = 0; e < 4; ++e) {
           const int qi = half * 32 + 8 * t + c2 + (e & 1);
           const bool ok =
-              whole || (q0 + qi < lq && visible(q0 + qi, e < 2 ? kr0 : kr1,
+              whole || (q0 + qi < lq && visible(qp + qi, e < 2 ? kr0 : kr1,
                                                 lkv, causal, window));
           const float p = ok ? exp2f(s[t][e] * sl2 - Lb[qi]) : 0.0f;
           s[t][e] = p;
@@ -1126,7 +1133,7 @@ __global__ void __launch_bounds__(THREADS)
                             Heads<__nv_bfloat16> v, Heads<__nv_bfloat16> g,
                             const float* lse, const float* delta,
                             __nv_bfloat16* dq, int lq, int lkv, int group,
-                            float scale, int causal, int window) {
+                            float scale, int causal, int window, int qoff) {
   constexpr int LD = D + 8, KS = D / 16, DT = D / 8;
   extern __shared__ __align__(16) __nv_bfloat16 sm[];
   __nv_bfloat16* Qs = sm;                   // BQ x LD
@@ -1143,7 +1150,7 @@ __global__ void __launch_bounds__(THREADS)
   const __nv_bfloat16* vh = v.p + b * v.sb + hk * v.sh;
 
   int kb_lo, kb_hi;
-  kv_range(q0, lq, lkv, causal, window, 0, kb_lo, kb_hi);
+  kv_range(q0, lq, lkv, causal, window, qoff, kb_lo, kb_hi);
   stage_async<D, LD>(Qs, q.p + b * q.sb + h * q.sh, q.sr, q0, lq);
   stage_async<D, LD>(Gs, g.p + b * g.sb + h * g.sh, g.sr, q0, lq);
   if (kb_lo < kb_hi) {
@@ -1193,8 +1200,8 @@ __global__ void __launch_bounds__(THREADS)
     const __nv_bfloat16* Vb = Vs + st * BKV * LD;
     const int k0 = kb * BKV;
     const bool whole = k0 + BKV <= lkv && rw + 16 <= lq &&
-                       (!causal || k0 + BKV - 1 <= rw) &&
-                       (window <= 0 || rw + 15 - k0 < window);
+                       (!causal || k0 + BKV - 1 <= qoff + rw) &&
+                       (window <= 0 || qoff + rw + 15 - k0 < window);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       // S = Q K^T and dP = dO V^T over kv columns half * 32 + [0, 32)
@@ -1226,8 +1233,8 @@ __global__ void __launch_bounds__(THREADS)
         for (int e = 0; e < 4; ++e) {
           const int row = e < 2 ? row0 : row1;
           const int col = k0 + half * 32 + 8 * t + c2 + (e & 1);
-          const bool ok = whole || (row < lq && visible(row, col, lkv,
-                                                        causal, window));
+          const bool ok = whole || (row < lq && visible(qoff + row, col,
+                                                        lkv, causal, window));
           const float p =
               ok ? exp2f(s[t][e] * sl2 - (e < 2 ? l0 : l1)) : 0.0f;
           s[t][e] = p * (dp[t][e] - (e < 2 ? d0 : d1));
@@ -1273,7 +1280,8 @@ int backward_t(const void* q, const long long* qs, const void* k,
                const void* out, const long long* os, const void* dout,
                const long long* gs, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int b, int hq, int lq, int lkv, int group,
-               float scale, int causal, int window, cudaStream_t st) {
+               float scale, int causal, int window, int qoff,
+               cudaStream_t st) {
   static bool attr_set = false;  // one opt-in per instantiation
   constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
   constexpr int LD = D + 1, LP = BQ + 1, LDH = D + 8;
@@ -1286,9 +1294,9 @@ int backward_t(const void* q, const long long* qs, const void* k,
          : (4 * BQ * LD + BQ * LP + 2 * BQ) * (int)sizeof(float);
   void (*kv_kernel)(Heads<T>, Heads<T>, Heads<T>, Heads<T>, const float*,
                     const float*, T*, T*, int, int, int, int, float, int,
-                    int);
+                    int, int);
   void (*q_kernel)(Heads<T>, Heads<T>, Heads<T>, Heads<T>, const float*,
-                   const float*, T*, int, int, int, float, int, int);
+                   const float*, T*, int, int, int, float, int, int, int);
   if constexpr (tc) {
     kv_kernel = flash_bwd_dkdv_mma_kernel<D>;
     q_kernel = flash_bwd_dq_mma_kernel<D>;
@@ -1328,7 +1336,7 @@ int backward_t(const void* q, const long long* qs, const void* k,
     const dim3 grid = tc ? dim3(hkv, nkb, b) : dim3(nkb, hkv, b);
     kv_kernel<<<grid, tc ? THREADS : BWD_THREADS, smem_kv, st>>>(
         qh, kh, vh, gh, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        hq, lq, lkv, group, scale, causal, window);
+        hq, lq, lkv, group, scale, causal, window, qoff);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -1336,7 +1344,7 @@ int backward_t(const void* q, const long long* qs, const void* k,
     const dim3 grid = tc ? dim3(hq, nqb, b) : dim3(nqb, hq, b);
     q_kernel<<<grid, tc ? THREADS : BWD_THREADS, smem_q, st>>>(
         qh, kh, vh, gh, lse, delta, static_cast<T*>(dq), lq, lkv, group,
-        scale, causal, window);
+        scale, causal, window, qoff);
   }
   return (int)cudaGetLastError();
 }
@@ -1347,12 +1355,13 @@ int backward_d(int d, const void* q, const long long* qs, const void* k,
                const void* out, const long long* os, const void* dout,
                const long long* gs, const float* lse, float* delta, void* dq,
                void* dk, void* dv, int b, int hq, int lq, int lkv, int group,
-               float scale, int causal, int window, cudaStream_t st) {
+               float scale, int causal, int window, int qoff,
+               cudaStream_t st) {
 #define FLASH_BWD_CASE(DD)                                                  \
   case DD:                                                                  \
     return backward_t<T, DD>(q, qs, k, ks, v, vs, out, os, dout, gs, lse,   \
                              delta, dq, dk, dv, b, hq, lq, lkv, group, scale, \
-                             causal, window, st);
+                             causal, window, qoff, st);
   switch (d) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(32)
@@ -1397,25 +1406,27 @@ extern "C" int flash_attention_launch(
 // The backward: dtype as above; q, k, v, out and dout strided as above
 // (dout's strides in gs); lse (B, Hq, Lq) fp32 from the forward; delta
 // (B, Hq, Lq) fp32 scratch; dq (B, Hq, Lq, D), dk and dv (B, Hkv, Lkv, D),
-// contiguous, in q's dtype.
+// contiguous, in q's dtype; q_offset >= 0 as the forward's.
 extern "C" int flash_attention_backward_launch(
     int dtype, const void* q, const long long* qs, const void* k,
     const long long* ks, const void* v, const long long* vs, const void* out,
     const long long* os, const void* dout, const long long* gs,
     const void* lse, void* delta, void* dq, void* dk, void* dv, int b, int hq,
     int lq, int lkv, int d, int group, float scale, int causal, int window,
-    void* stream) {
+    int q_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || hq == 0 || (lq == 0 && lkv == 0)) return 0;
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 0)
     return backward_d<float>(d, q, qs, k, ks, v, vs, out, os, dout, gs, l, dl,
                              dq, dk, dv, b, hq, lq, lkv, group, scale, causal,
-                             window, st);
+                             window, q_offset, st);
   if (dtype == 1)
     return backward_d<__nv_bfloat16>(d, q, qs, k, ks, v, vs, out, os, dout,
                                      gs, l, dl, dq, dk, dv, b, hq, lq, lkv,
-                                     group, scale, causal, window, st);
+                                     group, scale, causal, window, q_offset,
+                                     st);
   return (int)cudaErrorInvalidValue;
 }

@@ -85,11 +85,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                    ctypes.c_float, _I, _I, _I, _P, _P),
         # dtype, q, k, v, out, dout (each with its strides), lse, delta,
         # dq, dk, dv, B, Hq, Lq, Lkv, D, group, scale, causal, window,
-        # stream
+        # q_offset, stream
         "flash_attention_backward_launch": (
             _I, _P, _LLS, _P, _LLS, _P, _LLS, _P, _LLS, _P, _LLS, _P, _P,
             _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
-            _P),
+            _I, _P),
     },
     "ssd_scan": {
         # x, x strides, dt, dt strides, a, b, c, b/c strides, y, state,

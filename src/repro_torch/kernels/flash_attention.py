@@ -301,18 +301,14 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     forward's log-sum-exp ``lse`` (B, Hq, Lq) fp32.  On the card three
     kernels (``delta``, then dK/dV, then dQ); on the CPU
     :func:`flash_attention_backward_plain`.  dq, dk and dv come back
-    contiguous, in q's dtype.  The backward kernels mask from q row 0: a
-    ``q_offset`` other than 0 runs on the CPU only, and raises on the card
-    until the sharded-training slice gives the kernels the offset."""
+    contiguous, in q's dtype.  ``q_offset`` places q row i at position
+    ``q_offset + i`` in the masks, as in the forward."""
     if _on_cpu(q, k, v, out, dout, lse):
         return flash_attention_backward_plain(q, k, v, out, dout, lse,
                                               causal=causal, window=window,
                                               q_offset=q_offset)
-    if q_offset:
-        raise NotImplementedError(
-            "the flash backward kernels take q_offset with the sharded "
-            "training slice (model-mesh training); q_offset="
-            f"{q_offset} has no backward on the card yet")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     group = _check(q, k, v, window)
     _check_cuda(q, k, v)
     b, hq, lq, d = q.shape
@@ -345,7 +341,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         _strides(out), dout.data_ptr(), _strides(dout), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
         hq, lq, lkv, d, group, 1.0 / (d ** 0.5), int(causal),
-        0 if window is None else int(window), _stream()),
+        0 if window is None else int(window), int(q_offset), _stream()),
         "flash_attention_backward_launch")
     launches["flash_attention_backward"] += 1
     return dq, dk, dv
@@ -363,15 +359,9 @@ class FlashAttentionFn(torch.autograd.Function):
             out, lse = flash_attention_plain(q, k, v, causal=causal,
                                              window=window, return_lse=True,
                                              q_offset=q_offset)
-        elif q_offset:
-            # never the plain version in its place: raise before the
-            # forward launches, so no graph is left without a backward
-            raise NotImplementedError(
-                "FlashAttentionFn with q_offset != 0 on the card needs the "
-                "backward kernels' q_offset, which arrives with the sharded "
-                "training slice (model-mesh training)")
         else:
-            out, lse = _forward(q, k, v, causal, window, with_lse=True)
+            out, lse = _forward(q, k, v, causal, window, with_lse=True,
+                                q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out

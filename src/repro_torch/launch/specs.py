@@ -2,8 +2,9 @@
 
 Of the reference's ``launch/specs.py`` the port has only
 :func:`opt_config_for`; the cells' input structs and shardings are mesh
-machinery and arrive with sharded training (the models' own mesh is
-``launch.mesh.set_mesh`` and ``models.explicit_tp``).
+machinery and arrive with the next model-mesh slice (the models' own
+mesh is ``launch.mesh.set_mesh`` and ``models.explicit_tp``; the train
+state's specs are ``train.trainer.state_shardings``).
 """
 from __future__ import annotations
 

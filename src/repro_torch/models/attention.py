@@ -74,6 +74,21 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, n_layers: int
     return p
 
 
+def attention_axes(cfg: ModelConfig, n_layers: Optional[int]
+                   ) -> Dict[str, common.Logical]:
+    """The logical axes of :func:`init_attention`'s leaves (one layer's
+    when ``n_layers`` is None), the reference's."""
+    st = common.stacked
+    p = {"wq": st(n_layers, "embed", "heads"),
+         "wk": st(n_layers, "embed", "kv"),
+         "wv": st(n_layers, "embed", "kv"),
+         "wo": st(n_layers, "heads", "embed")}
+    if cfg.qkv_bias:
+        p.update(bq=st(n_layers, "heads"), bk=st(n_layers, "kv"),
+                 bv=st(n_layers, "kv"))
+    return p
+
+
 # ---------------------------------------------------------------------------
 # Score paths
 # ---------------------------------------------------------------------------

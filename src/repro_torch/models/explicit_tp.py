@@ -37,9 +37,10 @@ reference, all declared:
   them to the ``shard_map`` body** — the rank's sequence shard of ``x``
   (whole where the layout keeps it whole: the gather is then the rank's
   own data), the column block of ``h`` — and **whole weights**, whose
-  block they take as a view (parameters are not placed yet: every rank
-  holds all of them, and parameter gradients are the rank's partials,
-  not summed across ranks; both arrive with sharded training);
+  block they take as a view (a parameter's gradient on a rank is that
+  rank's partial: ``train.trainer``'s sharded step keeps the weights
+  placed, gathers them whole for the forward and sums the partials
+  over the ranks);
   ``chunked_attn_manual`` takes every query row and keeps its block;
 * where a helper returns None under a mesh the model gathers the
   sequence, runs the op on the whole sequence and takes its shard back;

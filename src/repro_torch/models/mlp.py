@@ -24,7 +24,7 @@ they run the rank model that module describes.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from . import explicit_tp as etp
-from .common import normal, stacked_dense_init
+from .common import Logical, normal, stacked, stacked_dense_init
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, n_layers: int
@@ -43,6 +43,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, n_layers: int
         "wu": stacked_dense_init(gen, n_layers, d, f),
         "wd": stacked_dense_init(gen, n_layers, f, d),
     }
+
+
+def mlp_axes(n_layers: Optional[int]) -> Dict[str, Logical]:
+    """The logical axes of :func:`init_mlp`'s leaves (one layer's when
+    ``n_layers`` is None), the reference's."""
+    return {"wg": stacked(n_layers, "embed", "mlp"),
+            "wu": stacked(n_layers, "embed", "mlp"),
+            "wd": stacked(n_layers, "mlp", "embed")}
 
 
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -96,6 +104,15 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, n_layers: int
         "wu": expert_w(d, f),
         "wd": expert_w(f, d),
     }
+
+
+def moe_axes() -> Dict[str, Logical]:
+    """The logical axes of :func:`init_moe`'s leaves, the reference's:
+    experts replicated, tensor-parallel inside each over ``mlp``."""
+    return {"router": Logical(("layers", "embed", None)),
+            "wg": Logical(("layers", "expert", "embed", "mlp")),
+            "wu": Logical(("layers", "expert", "embed", "mlp")),
+            "wd": Logical(("layers", "expert", "mlp", "embed"))}
 
 
 def capacity(cfg: ModelConfig, s: int) -> int:

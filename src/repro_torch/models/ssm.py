@@ -31,7 +31,7 @@ from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ssd_scan
 from . import explicit_tp as etp
-from .common import normal, stacked_dense_init
+from .common import Logical, normal, stacked_dense_init
 
 
 def conv_dim(cfg: ModelConfig) -> int:
@@ -59,6 +59,18 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, n_layers: int
         "norm_g": torch.ones((n_layers, di), device=dev),
         "out_proj": stacked_dense_init(gen, n_layers, di, d),
     }
+
+
+def ssm_axes() -> Dict[str, Logical]:
+    """The logical axes of :func:`init_ssm`'s leaves, the reference's."""
+    return {"in_proj": Logical(("layers", "embed", "ssm_inner")),
+            "conv_w": Logical(("layers", None, "ssm_inner")),
+            "conv_b": Logical(("layers", "ssm_inner")),
+            "a_log": Logical(("layers", None)),
+            "d_skip": Logical(("layers", None)),
+            "dt_bias": Logical(("layers", None)),
+            "norm_g": Logical(("layers", "ssm_inner")),
+            "out_proj": Logical(("layers", "ssm_inner", "embed"))}
 
 
 def _split_proj(proj: torch.Tensor, cfg: ModelConfig):

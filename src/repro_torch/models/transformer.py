@@ -53,7 +53,7 @@ from . import attention as attn
 from . import explicit_tp as etp
 from . import mlp as mlp_mod
 from . import ssm as ssm_mod
-from .common import normal, ones_init, rmsnorm, zeros_init
+from .common import Logical, normal, ones_init, rmsnorm, zeros_init
 
 #: the families the port runs
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -132,6 +132,46 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
             "attn": layer_params(attn.init_attention(gen, cfg, 1), 0),
             "mlp": layer_params(mlp_mod.init_mlp(gen, cfg, 1), 0),
         }
+    return p
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`init_params`'s leaves: the same keys,
+    a ``common.Logical`` each — the reference's ``common.split(
+    init_params(key, cfg))[1]``.  ``train.trainer`` places a train state
+    on a mesh from them."""
+    require_family(cfg)
+    L = cfg.n_layers
+    ln = Logical(("layers", "embed"))
+    p: Dict[str, Any] = {"embed": Logical(("vocab", "embed")),
+                         "final_norm": Logical(("embed",))}
+    if not cfg.tie_embeddings:
+        p["unembed"] = Logical(("embed", "vocab"))
+    if cfg.family in ("dense", "moe", "vlm"):
+        p["layers"] = {"ln1": ln, "ln2": ln,
+                       "attn": attn.attention_axes(cfg, L),
+                       "ffn": (mlp_mod.moe_axes() if cfg.family == "moe"
+                               else mlp_mod.mlp_axes(L))}
+        if cfg.family == "vlm":
+            p["cross_layers"] = {"ln": ln,
+                                 "attn": attn.attention_axes(cfg, L),
+                                 "gate": Logical(("layers",))}
+    elif cfg.family == "encdec":
+        p["encoder"] = {"ln1": ln, "ln2": ln,
+                        "attn": attn.attention_axes(cfg, L),
+                        "ffn": mlp_mod.mlp_axes(L)}
+        p["enc_norm"] = Logical(("embed",))
+        p["layers"] = {"ln1": ln, "ln2": ln, "ln3": ln,
+                       "attn": attn.attention_axes(cfg, L),
+                       "cross": attn.attention_axes(cfg, L),
+                       "ffn": mlp_mod.mlp_axes(L)}
+    else:
+        p["layers"] = {"ln1": ln, "ssm": ssm_mod.ssm_axes()}
+        if cfg.family == "hybrid":
+            p["shared"] = {"ln1": Logical(("embed",)),
+                           "ln2": Logical(("embed",)),
+                           "attn": attn.attention_axes(cfg, None),
+                           "mlp": mlp_mod.mlp_axes(None)}
     return p
 
 

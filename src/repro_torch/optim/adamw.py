@@ -134,6 +134,49 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+class StepScalars(NamedTuple):
+    """What one AdamW step shares across its leaves: the new step count,
+    the learning rate, the bias corrections and the clip factor (None
+    without clipping)."""
+    step: torch.Tensor
+    lr: torch.Tensor
+    bc1: torch.Tensor
+    bc2: torch.Tensor
+    clip: Optional[torch.Tensor]
+
+
+def step_scalars(step: torch.Tensor, gnorm: torch.Tensor, cfg: AdamWConfig
+                 ) -> StepScalars:
+    """The scalars of the step after ``step`` for a gradient of global
+    norm ``gnorm``."""
+    clip = (None if cfg.clip_norm is None else
+            torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0))
+    new = step + 1
+    return StepScalars(new, schedule(cfg, step),
+                       1 - cfg.beta1 ** new.to(torch.float32),
+                       1 - cfg.beta2 ** new.to(torch.float32), clip)
+
+
+@torch.no_grad()
+def update_leaf(p: torch.Tensor, g: torch.Tensor, m, v, sc: StepScalars,
+                cfg: AdamWConfig):
+    """One leaf's AdamW update: (new parameter, new m, new v).  The
+    update is elementwise, so a block of a leaf updates alone (with
+    fp32 moments; a Q8 moment's blocks run over the flattened leaf)."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    # the clip is applied leaf by leaf: no second copy of every grad
+    if sc.clip is not None:
+        g = g * sc.clip
+    g = g.to(torch.float32)
+    mf = b1 * _dec(m, cfg.state_bits) + (1 - b1) * g
+    vf = b2 * _dec(v, cfg.state_bits) + (1 - b2) * g * g
+    mhat = mf / sc.bc1
+    vhat = vf / sc.bc2
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p
+    pnew = (p - sc.lr * delta).to(p.dtype)
+    return pnew, _enc(mf, cfg.state_bits), _enc(vf, cfg.state_bits)
+
+
 @torch.no_grad()
 def apply_updates(params: Dict[str, Any], grads: Dict[str, Any],
                   state: OptState, cfg: AdamWConfig
@@ -141,29 +184,9 @@ def apply_updates(params: Dict[str, Any], grads: Dict[str, Any],
     """One AdamW step.  Returns (new_params, new_state, metrics), the
     metrics ``grad_norm`` and ``lr`` as 0-d tensors."""
     gnorm = global_norm(grads)
-    scale = (None if cfg.clip_norm is None else
-             torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0))
-
-    step = state.step + 1
-    lr = schedule(cfg, state.step)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1 - b1 ** step.to(torch.float32)
-    bc2 = 1 - b2 ** step.to(torch.float32)
-
-    def upd(p, g, m, v):
-        # the clip is applied leaf by leaf: no second copy of every grad
-        if scale is not None:
-            g = g * scale
-        g = g.to(torch.float32)
-        mf = b1 * _dec(m, cfg.state_bits) + (1 - b1) * g
-        vf = b2 * _dec(v, cfg.state_bits) + (1 - b2) * g * g
-        mhat = mf / bc1
-        vhat = vf / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p
-        pnew = (p - lr * delta).to(p.dtype)
-        return pnew, _enc(mf, cfg.state_bits), _enc(vf, cfg.state_bits)
-
-    out = tree_map(upd, params, grads, state.m, state.v)
+    sc = step_scalars(state.step, gnorm, cfg)
+    out = tree_map(lambda p, g, m, v: update_leaf(p, g, m, v, sc, cfg),
+                   params, grads, state.m, state.v)
     new_p, new_m, new_v = (tree_map(lambda o: o[i], out) for i in range(3))
-    return new_p, OptState(step, new_m, new_v), {"grad_norm": gnorm,
-                                                 "lr": lr}
+    return new_p, OptState(sc.step, new_m, new_v), {"grad_norm": gnorm,
+                                                    "lr": sc.lr}

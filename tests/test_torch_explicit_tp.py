@@ -20,8 +20,8 @@ Tolerances: helper outputs and gradients within 1e-5 x max|.| (the
 partial sums of a reduce-scatter add in another order); logits within
 2e-3 x max|logit| (the reference test's); the gradient of an input a rank
 holds whole (a weight, the K/V of the chunked attention) is the sum of
-the ranks' partials, as the reference's is (parameters are not placed
-yet: ``models/explicit_tp.py``).
+the ranks' partials, as the reference's is (``models/explicit_tp.py``;
+the sharded train step sums them so: ``tests/test_torch_train_mesh.py``).
 """
 import json
 import os
@@ -443,21 +443,41 @@ def test_flash_plain_q_offset_matches_the_reference(causal, window, off):
 
 
 def test_flash_q_offset_on_the_card_has_no_backward_yet(monkeypatch):
-    # a CUDA tensor under autograd with q_offset raises, naming the slice,
-    # and never falls back to the plain version
+    # the backward kernels take q_offset now: a CUDA tensor under
+    # autograd with q_offset goes through FlashAttentionFn to the forward
+    # and backward launches, each handed the offset, and never to the
+    # plain version (the library is a recording stand-in)
     calls = []
+
+    class Lib:
+        def flash_attention_launch(self, *a):
+            calls.append(("forward", a[18]))
+            return 0
+
+        def flash_attention_backward_launch(self, *a):
+            calls.append(("backward", a[25]))
+            return 0
+
+    def plain(*a, **k):
+        calls.append("plain")
+        raise AssertionError("the plain version ran on the card path")
     monkeypatch.setattr(fa, "_on_cpu", lambda *xs: False)
-    monkeypatch.setattr(fa, "flash_attention_plain",
-                        lambda *a, **k: calls.append("plain"))
-    monkeypatch.setattr(fa, "_forward",
-                        lambda *a, **k: calls.append("forward"))
+    monkeypatch.setattr(fa, "_stream", lambda: 0)
+    monkeypatch.setattr(fa._build, "library", lambda name: Lib())
+    monkeypatch.setattr(fa, "flash_attention_plain", plain)
+    monkeypatch.setattr(fa, "flash_attention_backward_plain", plain)
+    fa.reset_launches()
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        fa.flash_attention(q, q, q, q_offset=8)
-    with pytest.raises(NotImplementedError, match="sharded training"):
-        fa.flash_attention_backward(q, q, q, q, q, torch.zeros(1, 2, 8),
-                                    q_offset=8)
-    assert calls == []
+    k = torch.randn(1, 1, 24, 16, requires_grad=True)
+    out = fa.flash_attention(q, k, k, q_offset=8)
+    assert "FlashAttentionFn" in type(out.grad_fn).__name__
+    torch.autograd.grad(out, (q, k), torch.ones_like(out))
+    assert calls == [("forward", 8), ("backward", 8)]
+    assert fa.launches == {"flash_attention": 1,
+                           "flash_attention_backward": 1}
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention_backward(q, k, k, q, q, torch.zeros(1, 2, 8),
+                                    q_offset=-1)
 
 
 def test_reduced_configs_split_heads_on_2x4_and_rows_on_1x8():

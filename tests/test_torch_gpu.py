@@ -1025,6 +1025,35 @@ def test_flash_attention_q_offset(cuda, mask, off, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("off", [0, 40, 128, 200])
+@pytest.mark.parametrize("mask", ["causal", "swa16"])
+def test_flash_backward_q_offset(cuda, mask, off, dtype):
+    # the backward kernels at a block of 72 query rows placed at ``off``
+    # of 272 keys, against the plain backward with the same offset; then
+    # the Function on the card (forward and backward kernels, never the
+    # plain version) against autograd through the plain forward
+    from repro_torch.kernels import flash_attention as fa
+    causal, window = MASKS[mask]
+    _, got, want = _backward_case(cuda, 2, 8, 2, 72, 272, 80, dtype,
+                                  causal, window, seed=off + 7, q_offset=off)
+    _backward_compare(got, want, dtype)
+    q, k, v = _attn_inputs(1, 8, 2, 72, 272, 80, torch.float32, seed=off)
+    g = torch.randn(1, 8, 72, 80, generator=torch.Generator().manual_seed(3))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        fa.reset_launches()
+        out = fa.flash_attention(*leaves, causal=causal, window=window,
+                                 q_offset=off)
+        grads[dev.type] = torch.autograd.grad(out, leaves, g.to(dev))
+        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            assert fa.launches == {"flash_attention": 1,
+                                   "flash_attention_backward": 1}
+    _backward_compare(grads["cuda"], grads["cpu"], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_attention_ragged_q_and_masked_rows_on_card(cuda, dtype):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
@@ -1157,21 +1186,25 @@ def _backward_compare(got, want, dtype):
 
 
 def _backward_case(cuda, b, hq, hkv, lq, lkv, d, dtype, causal, window,
-                   seed):
-    """The kernel forward's (out, lse) and both backwards on one input."""
+                   seed, q_offset=0):
+    """The kernel forward's (out, lse) and both backwards on one input, q
+    row i at position ``q_offset + i``."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = (t.to(cuda) for t in _attn_inputs(b, hq, hkv, lq, lkv, d,
                                                   dtype, seed))
     dout = torch.as_tensor(np.random.default_rng(seed + 1).standard_normal(
         (b, hq, lq, d)).astype(np.float32)).to(dtype).to(cuda)
-    out, lse = fa._forward(q, k, v, causal, window, with_lse=True)
+    out, lse = fa._forward(q, k, v, causal, window, with_lse=True,
+                           q_offset=q_offset)
     fa.reset_launches()
     got = fa.flash_attention_backward(q, k, v, out, dout, lse,
-                                      causal=causal, window=window)
+                                      causal=causal, window=window,
+                                      q_offset=q_offset)
     torch.cuda.synchronize()
     assert fa.launches["flash_attention_backward"] == 1
     want = fa.flash_attention_backward_plain(q, k, v, out, dout, lse,
-                                             causal=causal, window=window)
+                                             causal=causal, window=window,
+                                             q_offset=q_offset)
     return (q, k, v, out, dout, lse), got, want
 
 

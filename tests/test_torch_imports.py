@@ -46,7 +46,9 @@ MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.dist.sparse_selftest",
            "repro_torch.dist.serve_selftest",
            "repro_torch.dist.model_cases",
-           "repro_torch.models.explicit_tp")
+           "repro_torch.models.explicit_tp",
+           "repro_torch.dist.train_cases",
+           "repro_torch.dist.train_selftest")
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"

@@ -717,7 +717,33 @@ def test_every_parameter_leaf_gets_a_gradient(name):
 
 
 def test_sharded_train_step_raises_naming_the_mesh_slice():
-    for fn in (trainer.make_sharded_train_step, trainer.state_shardings,
-               trainer.batch_shardings):
-        with pytest.raises(NotImplementedError, match="mesh slice"):
-            fn(None)
+    # the model-mesh slice has arrived: the three run.  On a 1x1 mesh (a
+    # one-rank gloo world in this process) the specs name every axis
+    # whole and the sharded step gives the one-device step's numbers
+    # (tests/test_torch_train_mesh.py holds it on 8 ranks)
+    from repro_torch.dist import spawn
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    opt = adamw.AdamWConfig(warmup_steps=2, total_steps=10)
+    state = trainer.init_state(torch.Generator().manual_seed(0), cfg, opt)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(cfg, 0).items()}
+    want, wm = trainer.make_train_step(cfg, opt)(state, batch)
+    with spawn.single_rank(device="cpu"):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        axes = transformer.param_axes(cfg)
+        st_sh = trainer.state_shardings(state, axes, mesh)
+        assert str(st_sh.params["embed"]) == "PartitionSpec('model', 'data')"
+        assert trainer.batch_shardings(mesh) == {
+            "tokens": ("data", None), "targets": ("data", None)}
+        step, st_sh2, b_sh = trainer.make_sharded_train_step(
+            cfg, opt, mesh, state, axes, donate=False)
+        assert st_sh2 == st_sh and "frontend" not in b_sh
+        placed = trainer.place_state(state, st_sh, mesh)
+        placed, m = step(placed, batch)
+        got = trainer.gather_state(placed, st_sh, mesh)
+    for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+        assert rel(m[k], wm[k].numpy()) <= 1e-6, k
+    for (path, p), (_, w) in zip(leaves(got.params), leaves(want.params)):
+        assert rel(p, w.numpy()) <= 1e-6, path
+    assert int(got.opt.step) == 1
