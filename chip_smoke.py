@@ -267,7 +267,23 @@ each of which fails the run (non-zero exit) when it fails:
    layer's query rows through ``chunked_attn_manual`` and the backward
    kernels' ``q_offset``.  The phase prints its seconds and each rank's
    peak memory; its launches join row 8 and its backward entry, which
-   also gains the offset rows (no time here is a mesh's speed).
+   also gains the offset rows (no time here is a mesh's speed);
+19. elastic training on a model mesh (``elastic_ranks`` in phase 18's
+   four ranks, then ``elastic_phase``): h2o-danube-1.8b at full width,
+   ``EL_LAYERS`` layers, phase 18's precision and batch; ``TrainDriver``
+   on a 2x2 ("data", "model") mesh checkpointing every ``EL_EVERY``
+   steps fails at step ``EL_FAIL`` and ``run_with_restarts`` restores
+   it onto 4x1 for ``EL_STEPS`` steps in all: (a) the six losses within
+   ``TM_LOSS_TOL`` x |loss| of one card's uninterrupted run, flash's
+   forward and backward launched on every rank (counted from 0 over the
+   run); (b) every rank's restored blocks bit for bit the checkpoint's
+   arrays, with a planted fault (blocks placed at permuted coordinates)
+   that must fail that check; (c) the final checkpoint restored onto one
+   card with no specs equal bit for bit to the ranks' gathered final
+   state, at step ``EL_STEPS``.  The phase prints its seconds, each
+   rank's peak memory and the checkpoint write and restore seconds (not
+   a mesh's speed: gloo stages through host memory); its launches join
+   row 8 and its backward entry.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
@@ -3021,11 +3037,12 @@ def _tm_batch(cfg, i, dev):
             for k, v in _batch_numpy(data, i).items()}
 
 
-def train_mesh_ranks(paths):
-    """Phase 18 (b)-(c) in each of four gloo ranks sharing the card; every
-    rank's record on rank 0.  Each rank holds its blocks of the gradient
-    to its blocks of the one-card gradient (``paths``' files,
-    memory-mapped)."""
+def train_mesh_ranks(paths, elastic_dir=None):
+    """Phase 18 (b)-(c) in each of four gloo ranks sharing the card, then
+    phase 19's rank part (``elastic_ranks``) when ``elastic_dir`` is
+    given; every rank's record on rank 0.  Each rank holds its blocks of
+    the gradient to its blocks of the one-card gradient (``paths``'
+    files, memory-mapped); ``paths`` None skips phase 18."""
     import gc
 
     import torch
@@ -3078,32 +3095,35 @@ def train_mesh_ranks(paths):
         torch.cuda.empty_cache()
         rec["seconds"][tag] = time.perf_counter() - t0
 
-    # (b) TM_LAYERS layers, the heads split over "model"
-    run("b", TM_LAYERS, TM_STEPS)
-    # (c) 2 layers above FULL_SCORES_MAX_LEN: the query rows through
-    # chunked_attn_manual and the kernels' q_offset
-    calls = []
-    real = explicit_tp.chunked_attn_manual
+    if paths is not None:
+        # (b) TM_LAYERS layers, the heads split over "model"
+        run("b", TM_LAYERS, TM_STEPS)
+        # (c) 2 layers above FULL_SCORES_MAX_LEN: the query rows through
+        # chunked_attn_manual and the kernels' q_offset
+        calls = []
+        real = explicit_tp.chunked_attn_manual
 
-    def counted(*a, **k):
-        out = real(*a, **k)
-        calls.append(out is not None)
-        return out
-    keep = attention.FULL_SCORES_MAX_LEN
-    attention.FULL_SCORES_MAX_LEN = TP_FULL_MAX
-    explicit_tp.chunked_attn_manual = counted
-    try:
-        run("c", TM_CHUNKED_LAYERS, 1)
-    finally:
-        attention.FULL_SCORES_MAX_LEN = keep
-        explicit_tp.chunked_attn_manual = real
-    rec["chunked_calls"] = [len(calls), sum(calls)]
+        def counted(*a, **k):
+            out = real(*a, **k)
+            calls.append(out is not None)
+            return out
+        keep = attention.FULL_SCORES_MAX_LEN
+        attention.FULL_SCORES_MAX_LEN = TP_FULL_MAX
+        explicit_tp.chunked_attn_manual = counted
+        try:
+            run("c", TM_CHUNKED_LAYERS, 1)
+        finally:
+            attention.FULL_SCORES_MAX_LEN = keep
+            explicit_tp.chunked_attn_manual = real
+        rec["chunked_calls"] = [len(calls), sum(calls)]
+    if elastic_dir is not None:
+        rec["elastic"] = elastic_ranks(elastic_dir, mesh)
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, rec)
     return out
 
 
-def train_mesh_phase(check):
+def train_mesh_phase(check, elastic_dir=None):
     """Phase 18: a sharded train step on a model mesh.  (a)
     ``q_offset_backward_check``; then the one-card references (no mesh,
     the same seeded weights and batches): h2o-danube-1.8b at full width
@@ -3121,9 +3141,11 @@ def train_mesh_phase(check):
     ``FULL_SCORES_MAX_LEN`` at 256: the query rows through
     ``chunked_attn_manual`` on every layer and the backward kernels'
     ``q_offset``, held the same way.  One card: ranks share it over
-    host-staged gloo, so no time here is a mesh's speed.  Returns (the
-    flash forward's and backward's launches over the ranks in (b)-(c),
-    the backward's rows at the offsets, summary)."""
+    host-staged gloo, so no time here is a mesh's speed.  With
+    ``elastic_dir`` the same ranks then run phase 19's rank part there.
+    Returns (the flash forward's and backward's launches over the ranks
+    in (b)-(c), the backward's rows at the offsets, summary, every
+    rank's phase 19 record or None)."""
     import gc
     import math
     import tempfile
@@ -3177,7 +3199,8 @@ def train_mesh_phase(check):
         ref_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         recs = spawn.run_ranks(train_mesh_ranks, MESH_RANKS, device="cuda",
-                               backend="gloo", args=(paths,), timeout=900)
+                               backend="gloo", args=(paths, elastic_dir),
+                               timeout=900)
         ranks_s = time.perf_counter() - t0
     launches = {"flash_attention": 0, "flash_attention_backward": 0}
     worst = {}
@@ -3207,7 +3230,11 @@ def train_mesh_phase(check):
         check(r["chunked_calls"] == [calls, calls],
               f"(c) {tag}: chunked_attn_manual [calls, applied] "
               f"{r['chunked_calls']}, expected {calls} applied")
-    secs = time.perf_counter() - t_phase
+    elastic = ([r.pop("elastic") for r in recs] if elastic_dir is not None
+               else None)
+    # phase 19's part of the ranks' run is its own
+    secs = time.perf_counter() - t_phase - max(
+        (e["seconds"] for e in elastic or ()), default=0.0)
     for part, (gerr, path, lerr) in worst.items():
         print(f"train mesh ({part}): the worst rank's gradient {path} off "
               f"by {gerr:.3e} x max|g|, losses {recs[0][part]['losses']} "
@@ -3237,7 +3264,238 @@ def train_mesh_phase(check):
         "seconds": {"phase": secs, "references": ref_s, "ranks": ranks_s},
         "note": "four ranks share one card over host-staged gloo: times "
                 "are not a mesh's speed"})
-    return launches, offset_rows, summary
+    return launches, offset_rows, summary, elastic
+
+
+#: phase 19: elastic training on a model mesh.  h2o-danube-1.8b at full
+#: width and EL_LAYERS layers, phase 18's precision, batch and lr, in its
+#: four gloo ranks: ``TrainDriver`` on 2x2 ("data", "model") checkpointing
+#: every EL_EVERY steps, failing at step EL_FAIL, restarted by
+#: ``run_with_restarts`` onto 4x1 for EL_STEPS steps in all
+EL_LAYERS, EL_STEPS, EL_EVERY, EL_FAIL = 2, 6, 2, 3
+EL_MESHES = ((2, 2), (4, 1))
+
+
+def _el_run(cfg, ckpt_dir, **kw):
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.driver import RunConfig
+    return (cfg, adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                   total_steps=EL_STEPS),
+            DataConfig(vocab=cfg.vocab, seq_len=TM_SEQ,
+                       global_batch=TM_BATCH, seed=0),
+            RunConfig(total_steps=EL_STEPS, ckpt_every=EL_EVERY,
+                      ckpt_dir=ckpt_dir, log_every=1, **kw))
+
+
+def elastic_ranks(ckpt_dir, mesh):
+    """Phase 19's rank part, in each of phase 18's four ranks (``mesh``:
+    their 2x2 mesh): the driver on 2x2 failing at ``EL_FAIL``, restarted
+    onto 4x1 from the last checkpoint, flash's launches counted from 0
+    over the run; (b) the restarted driver's blocks against the
+    checkpoint's arrays, and the same restore at permuted coordinates
+    (the planted fault); the ranks' final state's digest, gathered as a
+    checkpoint gathers it (the writing rank's; None elsewhere); the
+    checkpoint write and restore seconds, the peak memory."""
+    import gc
+
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.dist import train_cases as tc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.driver import TrainDriver, run_with_restarts
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    meshes = [mesh, make_mesh(EL_MESHES[1], ("data", "model"),
+                              device="cuda", backend="gloo")]
+    cfg = _tm_cfg(EL_LAYERS)
+    rec = {"save_s": [], "snapshot_s": [], "restore_s": []}
+    real_save, real_restore = store.save, store.restore
+    real_snapshot = store.AsyncCheckpointer.save_async
+
+    def timed(fn, key):
+        def call(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            rec[key].append(time.perf_counter() - t)
+            return out
+        return call
+    drivers = []
+
+    def make():
+        if drivers:                      # the failed driver's blocks go
+            drivers[-1].state = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        m = meshes[len(drivers)]
+        d = TrainDriver(*_el_run(cfg, ckpt_dir), mesh=m,
+                        failure_at=None if drivers else EL_FAIL)
+        if d.start_step:
+            arrays = tc.ckpt_arrays(ckpt_dir, d.start_step)
+            rec["restored_bad"] = tc.block_mismatches(d.state, d.state_sh,
+                                                      m, arrays)
+            fault = tc.place_arrays(d.state, d.state_sh, tc.permuted(m),
+                                    arrays)
+            rec["fault_bad"] = len(tc.block_mismatches(
+                fault, d.state_sh, m, arrays))
+            del fault, arrays
+        drivers.append(d)
+        return d
+
+    store.save, store.restore = (timed(real_save, "save_s"),
+                                 timed(real_restore, "restore_s"))
+    store.AsyncCheckpointer.save_async = timed(real_snapshot, "snapshot_s")
+    fa.reset_launches()
+    try:
+        out = run_with_restarts(make)
+    finally:
+        store.save, store.restore = real_save, real_restore
+        store.AsyncCheckpointer.save_async = real_snapshot
+    torch.cuda.synchronize()
+    rec["launches"] = dict(fa.launches)
+    last = drivers[-1]
+    rec.update({
+        "losses": {m["step"]: m["loss"] for d in drivers
+                   for m in d.metrics_log},
+        "restarts": out["restarts"], "final_step": out["final_step"],
+        "start_step": last.start_step,
+        "digest": tc.state_digest(last.state, last.state_sh, meshes[1]),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    drivers.clear()
+    del last
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def elastic_phase(check, recs, ckpt_dir):
+    """Phase 19: elastic training on a model mesh.  ``recs``: every
+    rank's ``elastic_ranks`` record (run in phase 18's world); then here,
+    on one card: the reference, ``EL_STEPS`` uninterrupted steps of the
+    same seeded model and batches.  (a) every rank's six losses finite and
+    within ``TM_LOSS_TOL`` x |loss| of one card's, one restart from step
+    ``EL_FAIL // EL_EVERY * EL_EVERY``, flash's forward and backward
+    launched on every rank; (b) every rank's restored blocks bit for bit
+    the checkpoint's, and blocks restored at permuted coordinates not;
+    (c) the mesh's final checkpoint restored onto one card with no specs
+    (``TrainDriver`` on the card: start step ``EL_STEPS``) equal bit for
+    bit to the ranks' gathered final state.  Returns (flash's launches
+    over the ranks, summary)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.dist import train_cases as tc
+    from repro_torch.runtime.driver import TrainDriver
+    from repro_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = _tm_cfg(EL_LAYERS)
+    _, opt, data, _ = _el_run(cfg, ckpt_dir)
+    print(f"elastic: {cfg.name} at full width, {EL_LAYERS} of 24 layers, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, batch {TM_BATCH} x "
+          f"{TM_SEQ}, bf16 compute over fp32 masters; TrainDriver on "
+          f"{EL_MESHES[0]} checkpointing every {EL_EVERY} steps, a failure "
+          f"at step {EL_FAIL}, run_with_restarts onto {EL_MESHES[1]}, "
+          f"{EL_STEPS} steps")
+    t0 = time.perf_counter()
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(
+        data.seed), cfg, opt)
+    step = trainer.make_train_step(cfg, opt)
+    ref = {}
+    for i in range(EL_STEPS):
+        state, m = step(state, _tm_batch(cfg, i, dev))
+        ref[i + 1] = float(m["loss"])
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    launches = {"flash_attention": 0, "flash_attention_backward": 0}
+    restart_at = EL_FAIL // EL_EVERY * EL_EVERY
+    worst = 0.0
+    for rank, r in enumerate(recs):
+        tag = f"rank {rank}"
+        got = {int(k): v for k, v in r["losses"].items()}
+        check(sorted(got) == sorted(ref), f"(a) {tag}: steps {sorted(got)}")
+        errs = [abs(got[k] - w) / abs(w) for k, w in ref.items()]
+        worst = max(worst, max(errs))
+        check(all(math.isfinite(x) for x in got.values())
+              and max(errs) <= TM_LOSS_TOL,
+              f"(a) {tag}: losses {got} against one card's {ref}")
+        check(r["restarts"] == 1 and r["start_step"] == restart_at
+              and r["final_step"] == EL_STEPS,
+              f"(a) {tag}: restarts {r['restarts']}, restart from step "
+              f"{r['start_step']}, final step {r['final_step']}")
+        la = r["launches"]
+        check(la["flash_attention"] > 0
+              and la["flash_attention_backward"] > 0,
+              f"(a) {tag}: flash launches {la}")
+        for k in launches:
+            launches[k] += la[k]
+        check(r["restored_bad"] == [], f"(b) {tag}: restored blocks off the "
+              f"checkpoint's: {r['restored_bad'][:4]}")
+        check(r["fault_bad"] > 0, f"(b) {tag}: the planted fault (blocks "
+              "placed at permuted coordinates) passed the block check")
+    digests = {r["digest"] for r in recs} - {None}
+    check(len(digests) == 1, f"(c) {len(digests)} digests of the ranks' "
+          "gathered final state, not 1 (the writing rank's)")
+    t0 = time.perf_counter()
+    one = TrainDriver(*_el_run(cfg, ckpt_dir), device=dev)
+    restore_one_s = time.perf_counter() - t0
+    check(one.start_step == EL_STEPS, f"(c) one card restored step "
+          f"{one.start_step}, expected {EL_STEPS}")
+    same = tc.state_digest(one.state) in digests
+    check(same, "(c) the final checkpoint restored on one card differs from "
+          "the ranks' gathered final state")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    rank_s = max(r["seconds"] for r in recs)
+    secs = time.perf_counter() - t_phase + rank_s
+    print(f"elastic (a): losses {[round(ref[k], 4) for k in sorted(ref)]} "
+          f"on one card; the worst rank's largest rel diff {worst:.2e} "
+          f"(limit {TM_LOSS_TOL}); restart from step {restart_at} onto "
+          f"{EL_MESHES[1]}; flash launches over the 4 ranks {launches}")
+    print(f"elastic (b): restored blocks bit-equal on every rank "
+          f"{all(r['restored_bad'] == [] for r in recs)}; planted fault "
+          f"(permuted coordinates) leaves off on each rank "
+          f"{[r['fault_bad'] for r in recs]}")
+    print(f"elastic (c): one card restored step {EL_STEPS}, equal to the "
+          f"ranks' gathered final state {same} ({restore_one_s:.1f} s)")
+    print(f"elastic seconds: phase {secs:.1f} (ranks {rank_s:.1f}, one-card "
+          f"reference {ref_s:.1f}); checkpoint writes a rank (gather, one "
+          "rank writing, barrier) " + "; ".join(
+              f"{i}: " + "/".join(f"{x:.1f}" for x in r["save_s"])
+              for i, r in enumerate(recs))
+          + "; periodic checkpoints' snapshots (gather; the write runs "
+          "behind the steps) " + "; ".join(
+              f"{i}: " + "/".join(f"{x:.1f}" for x in r["snapshot_s"])
+              for i, r in enumerate(recs))
+          + "; restores " + "; ".join(
+              f"{i}: " + "/".join(f"{x:.1f}" for x in r["restore_s"])
+              for i, r in enumerate(recs))
+          + "; peak GB a rank " + ", ".join(
+              f"{i}: {r['peak_gb']:.1f}" for i, r in enumerate(recs))
+          + " (ranks share one card over host-staged gloo: not a mesh's "
+          "speed)")
+    summary = {
+        "layers": EL_LAYERS, "meshes": EL_MESHES, "reference": ref,
+        "ranks": [{k: r[k] for k in ("losses", "launches", "save_s",
+                                     "snapshot_s", "restore_s", "peak_gb",
+                                     "seconds", "fault_bad", "start_step")}
+                  for r in recs],
+        "worst_loss_rel": worst, "launches": launches,
+        "seconds": {"phase": secs, "ranks": rank_s, "reference": ref_s,
+                    "one_card_restore": restore_one_s},
+        "note": "four ranks share one card over host-staged gloo: times "
+                "are not a mesh's speed"}
+    return launches, summary
 
 
 def main() -> int:
@@ -3892,7 +4150,10 @@ def main() -> int:
     phase("model mesh")
 
     # -- 18. a sharded train step on a model mesh ----------------------------
-    tm_launches, tm_offset_rows, tm_summary = train_mesh_phase(check)
+    # (phase 19's rank part runs in the same four ranks, after phase 18's)
+    el_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_")
+    tm_launches, tm_offset_rows, tm_summary, el_recs = train_mesh_phase(
+        check, el_dir.name)
     for row in kernels:
         if row["name"].split(".")[-1] == "flash_attention":
             row["launches"] += tm_launches["flash_attention"]
@@ -3903,13 +4164,30 @@ def main() -> int:
                 tm_launches["flash_attention_backward"]
             row["backward"]["q_offset_shapes"] = tm_offset_rows
     phase("train mesh")
+
+    # -- 19. elastic training on a model mesh ---------------------------------
+    el_launches, el_summary = elastic_phase(check, el_recs, el_dir.name)
+    el_dir.cleanup()
+    for row in kernels:
+        if row["name"].split(".")[-1] == "flash_attention":
+            row["launches"] += el_launches["flash_attention"]
+            row["launches_elastic"] = el_launches["flash_attention"]
+            row["backward"]["launches"] += \
+                el_launches["flash_attention_backward"]
+            row["backward"]["launches_elastic"] = \
+                el_launches["flash_attention_backward"]
+    phase("elastic")
+    # the ranks' part of phase 19 ran inside phase 18's timer
+    phase_s["train mesh"] = round(
+        phase_s["train mesh"] - el_summary["seconds"]["ranks"], 1)
+    phase_s["elastic"] = round(el_summary["seconds"]["phase"], 1)
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
          "ssm_serve": ssm_summary, "family_serve": family_summary,
          "training": train_summary, "ssm_training": ssm_train_summary,
          "mesh": mesh_summary, "model_mesh": tp_summary,
-         "train_mesh": tm_summary,
+         "train_mesh": tm_summary, "elastic": el_summary,
          "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else

@@ -12,12 +12,18 @@ max|g|, three steps' losses within 1e-5 and the parameters after them
 within 1e-5 x max|p| (granite) or the larger of that and 2e-2 x the
 summed lr (mixtral), and every rank holding the same whole state.  Then
 the planted fault — the loss counted whole on every rank — must miss
-the gradient limit.  Prints one line a case and ``ALL TRAIN MESH
-SELFTESTS PASSED``.
+the gradient limit.  Last, the elastic run: granite-8b's
+``TrainDriver`` on 2x4 fails at step 3 and ``run_with_restarts``
+resumes it on 4x2 from the step-2 checkpoint; every rank's restored
+blocks equal the checkpoint's bit for bit, the six losses are within
+1e-5 x |loss| and the final checkpoint's parameters within 1e-5 x
+max|p| of one device's uninterrupted run.  Prints one line a case and
+``ALL TRAIN MESH SELFTESTS PASSED``.
 """
 from __future__ import annotations
 
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,10 +62,37 @@ def compare(rec: dict, want: dict, dense: bool) -> dict:
                    and over <= 1.0 and rec["agree"])}
 
 
+def elastic(recs: list, root: str) -> dict:
+    """The elastic run's records (every rank's) against one device's
+    uninterrupted run: the largest loss and parameter errors and
+    whether they and the restored blocks are inside their limits."""
+    total = tc.ELASTIC_RUN[0]
+    want = tc.one_device_run(tc.TrainCase("elastic", "granite-8b"),
+                             f"{root}/one", total)
+    want_loss = {m["step"]: m["loss"] for m in want["metrics"]}
+    loss = 0.0
+    for r in recs:
+        got = {m["step"]: m["loss"] for log in r["metrics"] for m in log}
+        if sorted(got) != sorted(want_loss):
+            loss = float("inf")
+            break
+        loss = max([loss] + [abs(got[s] - w) / abs(w)
+                             for s, w in want_loss.items()])
+    got, ref = tc.ckpt_arrays(f"{root}/mesh"), tc.ckpt_arrays(f"{root}/one")
+    params = max(float(np.abs(got[k] - w).max()) / float(np.abs(w).max())
+                 for k, w in ref.items() if k.startswith(".params/"))
+    restored = all(r["restored"] == [] for r in recs)
+    return {"loss": loss, "params": params, "restored": restored,
+            "restarts": recs[0]["restarts"],
+            "ok": loss <= 1e-5 and params <= 1e-5 and restored
+            and all(r["restarts"] == 1 for r in recs)}
+
+
 def main() -> int:
     t0 = time.perf_counter()
-    got = spawn.run_ranks(tc.train_battery, 8, device="cpu", args=(CASES,),
-                          timeout=300)
+    tmp = tempfile.TemporaryDirectory(prefix="train_selftest_")
+    got = spawn.run_ranks(tc.selftest_battery, 8, device="cpu",
+                          args=(CASES, f"{tmp.name}/mesh"), timeout=300)
     failed = []
     for case in CASES:
         want = tc.one_device(case)
@@ -78,6 +111,15 @@ def main() -> int:
                   f"{got[case.label]['agree']} ({'ok' if ok else 'FAIL'})")
         if not ok:
             failed.append(case.label)
+    res = elastic(got["elastic"], tmp.name)
+    tmp.cleanup()
+    print(f"elastic granite-8b 2x4 -> failure at step "
+          f"{tc.ELASTIC_RUN[2]} -> 4x2: {res['restarts']} restart, restored "
+          f"blocks exact {res['restored']}, losses {res['loss']:.2e}, "
+          f"parameters {res['params']:.2e} x max|p| "
+          f"({'ok' if res['ok'] else 'FAIL'})")
+    if not res["ok"]:
+        failed.append("elastic")
     print(f"{time.perf_counter() - t0:.1f} s on the CPU")
     if failed:
         print(f"TRAIN MESH SELFTESTS FAILED: {failed}")

@@ -7,13 +7,28 @@ The port of the reference's ``runtime/driver.py``:
     latest checkpoint (tested by injecting failures mid-run),
   * straggler watchdog: a per-step wall-time EMA; steps slower than
     ``straggler_factor`` x EMA are recorded (tested with a simulated
-    slow step).
+    slow step),
+  * elastic re-mesh: checkpoints are logical, so a restart may build
+    another mesh shape and restore onto it (``checkpoint.store.restore``
+    with the new mesh's specs).
 The driver runs on the card unless given ``device=``; a step is timed
 on the host clock up to ``torch.cuda.synchronize()`` (the reference
 blocks on the loss).  Parameters are drawn from a ``torch.Generator``
 seeded with the data seed, so they are not the reference's numbers; a
-run that starts from a reference checkpoint restores them.  Re-meshing
-on restore arrives with the model-mesh slice.
+run that starts from a reference checkpoint restores them.
+
+**On a mesh** (``mesh=``, a ``DeviceMesh`` from ``launch.mesh``, whose
+device and backend the driver follows), every rank of the mesh runs one
+driver.  Each draws the whole state, places it
+(``trainer.place_state``: its blocks under ``trainer.state_shardings``
+with ``rules``) and frees the whole one, and steps with
+``trainer.make_sharded_train_step(..., donate=False)`` as the reference
+does.  Every rank receives the global batch and keeps its rows (the
+rank model of ``train.trainer``, where the reference hands each host its
+shard).  Checkpoints gather the placed state one leaf at a time and one
+rank writes them; a restore places each leaf under the specs of the
+mesh the driver was built on, which may differ from the one that
+saved it.
 """
 from __future__ import annotations
 
@@ -29,7 +44,9 @@ import torch
 from ..checkpoint import store
 from ..configs.base import ModelConfig
 from ..data.pipeline import DataConfig, SyntheticPipeline, frontend_stub
+from ..dist.comm_engine import mesh_device
 from ..kernels.ops import resolve_device
+from ..models import common, transformer
 from ..optim import adamw
 from ..train import trainer
 
@@ -50,28 +67,47 @@ class RunConfig:
 
 
 class TrainDriver:
-    """Single-process driver on one device."""
+    """One device's driver, or one rank's of a mesh (``mesh=``: every
+    rank of the mesh builds one and makes the same calls)."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                  data_cfg: DataConfig, run_cfg: RunConfig,
                  mesh=None, rules=None,
                  failure_at: Optional[int] = None,
                  slow_step_at: Optional[int] = None, device=None):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(trainer.MESH_SLICE)
         self.cfg, self.opt_cfg = cfg, opt_cfg
         self.data_cfg, self.run_cfg = data_cfg, run_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh_device(mesh)
+            if device is not None and \
+                    resolve_device(device).type != self.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"({self.device})")
         self.failure_at = failure_at
         self.slow_step_at = slow_step_at
         self.ckpt = store.AsyncCheckpointer(run_cfg.ckpt_dir,
-                                            keep=run_cfg.keep_ckpts)
+                                            keep=run_cfg.keep_ckpts,
+                                            mesh=mesh)
         self.stragglers: List[int] = []
         self.metrics_log: List[Dict] = []
 
         gen = torch.Generator(device=self.device).manual_seed(data_cfg.seed)
         self.state = trainer.init_state(gen, cfg, opt_cfg)
-        self.step_fn = trainer.make_train_step(cfg, opt_cfg)
+        self.state_sh = None
+        if mesh is None:
+            self.step_fn = trainer.make_train_step(cfg, opt_cfg)
+        else:
+            self.step_fn, self.state_sh, _ = \
+                trainer.make_sharded_train_step(
+                    cfg, opt_cfg, mesh, self.state,
+                    transformer.param_axes(cfg),
+                    rules or common.DEFAULT_RULES, donate=False)
+            # the whole state goes once this rank holds its blocks
+            self.state = trainer.place_state(self.state, self.state_sh,
+                                             mesh)
         self.pipeline = SyntheticPipeline(data_cfg)
         self.start_step = 0
         self._maybe_restore()
@@ -81,14 +117,16 @@ class TrainDriver:
         latest = store.latest_step(self.run_cfg.ckpt_dir)
         if latest is None:
             return
-        self.state, step, extra = store.restore(self.run_cfg.ckpt_dir,
-                                                self.state)
+        self.state, step, extra = store.restore(
+            self.run_cfg.ckpt_dir, self.state, shardings=self.state_sh,
+            mesh=self.mesh)
         self.start_step = step
         self.pipeline.restore(extra.get("data", {"step": step}))
 
     def _checkpoint(self, step: int) -> None:
         self.ckpt.save_async(step, self.state,
-                             extra={"data": self.pipeline.state()})
+                             extra={"data": self.pipeline.state()},
+                             specs=self.state_sh)
 
     # ------------------------------------------------------------------
     def _device_batch(self, np_batch: Dict[str, np.ndarray]) -> Dict:
@@ -140,7 +178,8 @@ class TrainDriver:
 
     def _checkpoint_final(self, step: int) -> None:
         store.save(self.run_cfg.ckpt_dir, step, self.state,
-                   extra={"data": self.pipeline.state()})
+                   extra={"data": self.pipeline.state()},
+                   specs=self.state_sh, mesh=self.mesh)
 
 
 def run_with_restarts(make_driver: Callable[[], TrainDriver],
@@ -156,7 +195,8 @@ def run_with_restarts(make_driver: Callable[[], TrainDriver],
             return out
         except SimulatedFailure:
             # the failed driver's in-flight checkpoint write finishes (or
-            # fails) before the restart lists the directory
+            # fails), on a mesh every rank passing its barrier, before
+            # the restart lists the directory
             try:
                 driver.ckpt.wait()
             except Exception:            # pragma: no cover

@@ -84,12 +84,6 @@ from ..models import common, transformer
 from ..models import explicit_tp as etp
 from ..optim import adamw
 
-#: the message of the mesh entry points that are still to come
-MESH_SLICE = ("training driven on a mesh (TrainDriver(mesh=), "
-              "restore(shardings=), launch.train --multi-pod) arrives with "
-              "the next model-mesh slice")
-
-
 class TrainState(NamedTuple):
     params: Dict[str, Any]
     opt: adamw.OptState

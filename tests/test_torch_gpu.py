@@ -1965,3 +1965,19 @@ def test_two_gloo_ranks_share_the_card(cuda):
                            args=(cases, "cuda", "gloo", True, 1, True),
                            timeout=300)
     _check_mesh_records(recs, cases, "cuda")
+
+
+def test_two_gloo_ranks_reshard_a_checkpoint_on_the_card(cuda, tmp_path):
+    # a reduced granite state (seeded moments, fp32 and 8-bit) placed on a
+    # 1x2 mesh of two ranks sharing the card, saved, and restored onto
+    # 2x1: every block bit for bit the checkpoint's, on the card
+    from repro_torch.dist import spawn
+    from repro_torch.dist import train_cases as tc
+    for bits in (32, 8):
+        case = tc.TrainCase("reshard", "granite-8b", bits=bits)
+        recs = spawn.run_ranks(
+            tc.reshard, 2, device="cuda", backend="gloo",
+            args=(case, str(tmp_path / str(bits)), (1, 2), (2, 1), "cuda",
+                  "gloo"), timeout=300)
+        for bad, devices in recs:
+            assert bad == [] and all(d.startswith("cuda") for d in devices)

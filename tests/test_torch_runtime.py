@@ -26,8 +26,12 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, _batch_numpy  # noqa: E402
+from repro_torch.dist import spawn  # noqa: E402
+from repro_torch.dist import train_cases as tc  # noqa: E402
+from repro_torch.dist.comm_engine import Spec  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime.driver import (RunConfig, TrainDriver,  # noqa: E402
                                         run_with_restarts)
@@ -93,8 +97,17 @@ def test_missing_directory_and_mesh_restore_raise(tmp_path):
     with pytest.raises(FileNotFoundError):
         store.restore(str(tmp_path / "none"), _tree())
     store.save(str(tmp_path), 1, _tree())
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        store.restore(str(tmp_path), _tree(), shardings=object())
+    specs = {"a": Spec("data", None), "nest": {"b": Spec("model")}}
+    with pytest.raises(ValueError, match="pass mesh="):
+        store.restore(str(tmp_path), _tree(), shardings=specs)
+    # the mesh restore runs: onto a one-rank 1x1 mesh, every block whole
+    with spawn.single_rank(device="cpu"):
+        got, step, _ = store.restore(str(tmp_path), _tree(),
+                                     shardings=specs,
+                                     mesh=make_host_mesh(1, 1, device="cpu"))
+    assert step == 1
+    assert torch.equal(got["a"], _tree()["a"])
+    assert torch.equal(got["nest"]["b"], _tree()["nest"]["b"])
 
 
 # ---------------------------------------------------------------------------
@@ -253,11 +266,18 @@ def test_driver_needs_a_device_without_a_card(tmp_path):
         TrainDriver(cfg, adamw.AdamWConfig(),
                     DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2),
                     RunConfig(ckpt_dir=str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        TrainDriver(cfg, adamw.AdamWConfig(),
-                    DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2),
-                    RunConfig(ckpt_dir=str(tmp_path)), mesh=object(),
-                    device="cpu")
+    # on a mesh the driver follows the mesh's device: a mesh without a
+    # device names the card and raises the same way; a CPU mesh runs
+    with spawn.single_rank(device="cpu"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_host_mesh(1, 1)
+        driver = TrainDriver(
+            cfg, adamw.AdamWConfig(),
+            DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2),
+            RunConfig(total_steps=1, ckpt_dir=str(tmp_path)),
+            mesh=make_host_mesh(1, 1, device="cpu"))
+        assert driver.device.type == "cpu"
+        assert driver.run()["final_step"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -287,9 +307,31 @@ def test_launch_train_smoke_trains_the_ssm_families(tmp_path, capsys,
 
 
 def test_launch_train_multi_pod_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    # the mesh path runs; one process is too small a world for 2 pods
+    with pytest.raises(ValueError, match="needs 512 ranks"):
         launch_train.main(["--arch", "h2o-danube-1.8b", "--multi-pod",
                            "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+
+
+def test_launch_train_runs_on_a_mesh(tmp_path):
+    # four gloo ranks, the production mesh swapped for 2x2 and the config
+    # reduced (dist.train_cases.launch_train_on_mesh)
+    recs = spawn.run_ranks(tc.launch_train_on_mesh, 4, device="cpu", args=(
+        ["--arch", "h2o-danube-1.8b", "--steps", "4", "--global-batch", "4",
+         "--seq-len", "32", "--lr", "1e-2", "--device", "cpu",
+         "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)],), timeout=300)
+    assert [r["final_step"] for r in recs] == [4] * 4
+    assert all(r["losses"] == recs[0]["losses"] for r in recs)
+    assert "finished at step 4 on a 2x2 mesh ('data', 'model') on cpu" in \
+        recs[0]["printed"]
+    assert all(r["printed"] == "" for r in recs[1:])
+    assert store.list_steps(str(tmp_path)) == [2, 4]
+    # the mesh's checkpoint restores on one device
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    state = trainer.init_state(torch.Generator().manual_seed(0), cfg,
+                               adamw.AdamWConfig())
+    _, step, extra = store.restore(str(tmp_path), state)
+    assert step == 4 and extra["data"]["step"] == 4
 
 
 def _served(cfg, params, argv):
