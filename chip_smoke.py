@@ -283,7 +283,22 @@ each of which fails the run (non-zero exit) when it fails:
    state, at step ``EL_STEPS``.  The phase prints its seconds, each
    rank's peak memory and the checkpoint write and restore seconds (not
    a mesh's speed: gloo stages through host memory); its launches join
-   row 8 and its backward entry.
+   row 8 and its backward entry;
+20. the dry run against the card (``dryrun_phase``): (a) ``python -m
+   repro_torch.launch.dryrun`` (a subprocess: the fake world stays out
+   of this process) for h2o-danube-1.8b and mamba2-370m at ``train_4k``,
+   ``prefill_32k`` and ``decode_32k`` on the 16x16 mesh, each record's
+   roofline line printed; (b) the cells of ``DRY_CELLS`` (danube train
+   at 2 layers and batch 2, prefill at batch 1 and decode at batch 8 at
+   full depth, mamba2's prefill at batch 1 and full depth) dry-run on a
+   fake 1x1 world and run for real as one NCCL rank on a 1x1 mesh under
+   ``OpAnalysis``: each kernel's launches and the aten dots' operations
+   equal exactly, ``max_memory_allocated`` over the call within
+   ``DRY_MEM_BAND`` x the dry run's ``per_device_total``; the call's
+   time and the profiler's device time by kernel beside the cut cell's
+   roofline ``step_time_s``; (c) a planted fault, the dry run of the
+   train cell with one layer fewer, must fail (b)'s launch check.  Its
+   launches join rows 8–9 and their backward entries.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
@@ -850,11 +865,9 @@ def gather_check(eng, path, lens, news, rng, check):
           f"(d) paged gather differs from plain on {path}")
     # the bytes this table needs: each distinct page read once, the view
     # written once
-    page_bytes = pool[0].numel() * pool.element_size()
-    nbytes = (len(np.unique(table_np)) * page_bytes
-              + got.numel() * got.element_size() + table_np.nbytes)
-    roof = hopper.RooflineTerms("paged gather", 0.0, float(nbytes),
-                                dtype="bfloat16")
+    roof = hopper.RooflineTerms("paged gather", *paged.cost(
+        pool.shape, table.shape, pool.element_size(),
+        len(np.unique(table_np))), dtype="bfloat16")
     return {
         "name": "paged.paged_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/paged.cu",
@@ -909,10 +922,9 @@ def flash_times(hq, hkv, d, length, g, check, *, lq=None, causal=True):
     check(fault_row > fa.BF16_ROW_TOL,
           f"flash {shape}: a dropped kv block reads {fault_row}, inside "
           f"BF16_ROW_TOL {fa.BF16_ROW_TOL}")
-    pairs = length * (length + 1) // 2 if causal else lq * length
     roof = hopper.RooflineTerms(
-        "flash attention", 4.0 * d * hq * pairs,
-        2.0 * (2 * q.numel() + k.numel() + v.numel()), dtype="bfloat16")
+        "flash attention", *fa.cost(1, hq, hkv, lq, length, d,
+                                    causal=causal), dtype="bfloat16")
     return {
         **errs, "fault_row_err": fault_row,
         "fault_max_abs_err": (fault.float() - want.float()).abs().max().item(),
@@ -1057,24 +1069,16 @@ def ssd_check(lm, cases, g, check):
 
 
 def ssd_roofline(bsz, length, chunk, lm):
-    """The SSD's least time on the card (fp32 on the CUDA cores).  Per
-    chunk, C B^T's lower triangle is needed once per group, Q(Q+1)/2 N
-    multiply-adds; per head, its masked product with x Q(Q+1)/2 P, and
-    the inter-chunk term and the state update Q N P each; scaling by dt
-    and forming dt * a take one multiply an element of x and of dt (the
-    kernels fold both into their decay weights).  Bytes are x,
-    dt, a, y, B and C per group, and the final state, each once."""
+    """The SSD's least time on the card (fp32 on the CUDA cores), from
+    ``kernels.ssd_scan.cost``: per chunk C B^T's lower triangle once per
+    group, per head its masked product with x, the inter-chunk term and
+    the state update; x, dt, a, y, B and C per group and the final state
+    read or written once."""
     from repro_torch.core import hopper
-    h, p = lm.ssm_heads, lm.ssm_head_dim
-    gr, n = lm.ssm_groups, lm.ssm_state
-    q, nc = chunk, length // chunk
-    tri = q * (q + 1) // 2
-    macs = bsz * nc * (gr * tri * n + h * (tri * p + 2 * q * n * p))
-    prep = bsz * length * h * (p + 1)
-    nbytes = 4.0 * (bsz * (2 * length * h * p + length * h
-                           + 2 * length * gr * n + h * n * p) + h)
-    return hopper.RooflineTerms("ssd scan", 2.0 * macs + prep, nbytes,
-                                dtype="float32")
+    from repro_torch.kernels import ssd_scan
+    return hopper.RooflineTerms("ssd scan", *ssd_scan.cost(
+        bsz, length, lm.ssm_heads, lm.ssm_groups, lm.ssm_state,
+        lm.ssm_head_dim, chunk), dtype="float32")
 
 
 def ssm_serve_phase(check):
@@ -1654,15 +1658,6 @@ def bsr_operands(k, lhs, rhs):
     return (lhs, rhs) if k.sparse.side == "lhs" else (rhs.T, lhs.T)
 
 
-def visible_pairs(lq, lkv, causal, window):
-    """The (q row, kv column) pairs the mask lets through."""
-    import numpy as np
-    rows = np.arange(lq)
-    hi = np.minimum(lkv, rows + 1) if causal else np.full(lq, lkv)
-    lo = np.maximum(0, rows - window + 1) if window else np.zeros(lq, int)
-    return int(np.maximum(0, hi - lo).sum())
-
-
 def flash_backward_check(case, dtype, g, check):
     """Check (a): the flash backward kernels against
     ``flash_attention_backward_plain`` on the kernel forward's output and
@@ -1713,12 +1708,9 @@ def flash_backward_check(case, dtype, g, check):
                  / want[1].float().abs().max().item())
     check(fault_err > tol, f"flash backward {label} {name}: a dropped kv "
           f"block reads {fault_err}, inside the tolerance {tol}")
-    pairs = visible_pairs(lq, lkv, causal, window)
-    nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
-              + 4.0 * lse.numel())
-    roof = hopper.RooflineTerms(f"flash backward {label}",
-                                2.5 * 4.0 * d * b * hq * pairs, nbytes,
-                                dtype=name)
+    roof = hopper.RooflineTerms(f"flash backward {label}", *fa.cost(
+        b, hq, hkv, lq, lkv, d, causal=causal, window=window,
+        itemsize=q.element_size(), backward=True), dtype=name)
     row = {"case": label, "dtype": name, "rel_err": errs,
            "max_abs_err": max((x.float() - w.float()).abs().max().item()
                               for x, w in zip(got, want)),
@@ -1867,7 +1859,7 @@ def train_phase(check):
     for name, count in train_launches.items():
         check(count > 0, f"the training phase never launched {name}")
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.swa_window)
+    pairs = fa.visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.swa_window)
     attn_flops = 3 * 4.0 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH * pairs \
         * cfg.n_layers
     model_flops = 6.0 * cfg.param_count() * tokens + attn_flops
@@ -2007,29 +1999,16 @@ def train_phase(check):
 def ssd_backward_roofline(bsz, length, heads, groups, state, head_dim,
                           chunk, final):
     """The SSD backward's least time on the card (fp32 on the CUDA
-    cores), counted as ``csrc/ssd_scan.cu``'s note counts it: per chunk
-    and head the two lower-triangle products with P, Q(Q+1)/2 2P
-    multiply-adds, and four Q N P products; per chunk and group the
-    three with N (C B^T, and dC's and dB's terms of the heads' summed
-    dCB); and an element's dt scaling of dx and ``a`` scaling of ddt.
-    (Until the head-block design the count held the two triangles with N
-    per head: 23.8 GFLOP, 0.355 ms, at mamba2-370m's training shape, for
-    19.6 GFLOP, 0.292 ms, now.)  Bytes:
-    x, dy, dt, B, C, a, the forward's entering states and decays (and
-    the final state's gradient), each once, and dx, ddt, dB, dC, da."""
+    cores), from ``kernels.ssd_scan.cost(backward=True)``, counted as
+    ``csrc/ssd_scan.cu``'s note counts it.  (Until the head-block design
+    the count held the two triangles with N per head: 23.8 GFLOP, 0.355
+    ms, at mamba2-370m's training shape, for 19.6 GFLOP, 0.292 ms,
+    now.)"""
     from repro_torch.core import hopper
-    q, nc = chunk, length // chunk
-    tri = q * (q + 1) // 2
-    macs = bsz * nc * (3 * groups * tri * state + heads * (
-        2 * tri * head_dim + 4 * q * state * head_dim))
-    elems = bsz * length * heads * (head_dim + 1)
-    nbytes = 4.0 * (bsz * (3 * length * heads * head_dim
-                           + 2 * length * heads + 4 * length * groups * state
-                           + nc * heads * (state * head_dim + 1)
-                           + (heads * state * head_dim if final else 0))
-                    + 2 * heads)
-    return hopper.RooflineTerms("ssd backward", 2.0 * macs + elems, nbytes,
-                                dtype="float32")
+    from repro_torch.kernels import ssd_scan
+    return hopper.RooflineTerms("ssd backward", *ssd_scan.cost(
+        bsz, length, heads, groups, state, head_dim, chunk, backward=True,
+        final=final), dtype="float32")
 
 
 def ssd_backward_built(check):
@@ -2240,7 +2219,8 @@ def ssm_train_phase(check):
                 False).flops)
         attn_ops = 0.0
         if hybrid:
-            pairs = visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True, cfg.swa_window)
+            pairs = fa.visible_pairs(TRAIN_SEQ, TRAIN_SEQ, True,
+                                     cfg.swa_window)
             attn_ops = 3 * 4.0 * cfg.head_dim * cfg.n_heads * TRAIN_BATCH \
                 * pairs * (cfg.n_layers // cfg.attn_every)
         model_flops = 6.0 * cfg.param_count() * tokens + ssd_ops + attn_ops
@@ -2988,13 +2968,10 @@ def q_offset_backward_check(g, check):
                 o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                    enable_gqa=True)
                 torch.autograd.grad(o, (qs, ks, vs), dout)
-            pairs = visible_pairs(off + rows, lkv, True, None) - \
-                visible_pairs(off, lkv, True, None)
-            nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
-                      + 4.0 * lse.numel())
             roof = hopper.RooflineTerms(
-                f"flash backward q_offset {off}", 2.5 * 4.0 * d * hq * pairs,
-                nbytes, dtype=name)
+                f"flash backward q_offset {off}", *fa.cost(
+                    1, hq, hkv, rows, lkv, d, causal=True, q_offset=off,
+                    itemsize=q.element_size(), backward=True), dtype=name)
             row = {"case": f"q_offset {off}", "dtype": name,
                    "rel_err": errs, "fault_rel_err": bad if off else None,
                    "max_abs_err": max((x.float() - w.float()).abs().max()
@@ -3496,6 +3473,192 @@ def elastic_phase(check, recs, ckpt_dir):
         "note": "four ranks share one card over host-staged gloo: times "
                 "are not a mesh's speed"}
     return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# 20. the dry run against the card
+# ---------------------------------------------------------------------------
+
+#: (arch, shape, layers (None: full depth), global batch): the dry run's
+#: cells cut to fit one card
+DRY_CELLS = (("h2o-danube-1.8b", "train_4k", 2, 2),
+             ("h2o-danube-1.8b", "prefill_32k", None, 1),
+             ("h2o-danube-1.8b", "decode_32k", None, 8),
+             ("mamba2-370m", "prefill_32k", None, 1))
+DRY_ARCHS = ("h2o-danube-1.8b", "mamba2-370m")
+DRY_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+#: the card's peak over the dry run's ``per_device_total``
+DRY_MEM_BAND = (0.5, 1.5)
+
+_DRY_CUT = r"""
+import json, sys
+from repro_torch.launch import dryrun
+out = []
+for arch, shape, layers, batch in json.loads(sys.argv[1]):
+    cut = dryrun.depth_cut(arch, layers) if layers else None
+    out.append(dryrun.run_cell(arch, shape, overrides=cut, batch=batch,
+                               mesh_shape=(1, 1)))
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+def dryrun_phase(check):
+    """Phase 20: the dry run (``launch.dryrun`` on ``meta`` tensors in a
+    fake world, in subprocesses: the fake world stays out of this
+    process) against the card.
+
+    (a) ``python -m repro_torch.launch.dryrun`` for h2o-danube-1.8b and
+    mamba2-370m at ``DRY_SHAPES`` on the single-pod 16x16 mesh: each
+    record's roofline line (predictions from H100 data-sheet constants).
+    (b) The cells of ``DRY_CELLS`` cut to fit one card, dry-run on a fake
+    1x1 world, and run for real as one NCCL rank on a 1x1 mesh
+    (``spawn.single_rank``) under ``OpAnalysis`` on real tensors drawn on
+    the card: each kernel's launches equal exactly, the aten dots'
+    operations equal exactly (the kernels' ctypes launches bypass the
+    dispatcher here: their cost is compared through the launches), and
+    ``max_memory_allocated`` over the call within ``DRY_MEM_BAND`` x the
+    dry run's ``per_device_total``; then, without the mode, the call's
+    host time and the profiler's device time by kernel beside the cut
+    cell's ``step_time_s``.  (c) Planted fault: the dry run of the
+    train cell with one layer fewer must fail (b)'s launch check.
+    Returns ({kernel: launches of (b)}, summary)."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.dist import spawn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged, ssd_scan
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    sweep = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         ",".join(DRY_ARCHS), "--shape", ",".join(DRY_SHAPES), "--mesh",
+         "single", "--out", tmp.name, "--force"], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cut_json = os.path.join(tmp.name, "cut.json")
+    cells = [list(c) for c in DRY_CELLS]
+    fault_cell = [DRY_CELLS[0][0], DRY_CELLS[0][1], DRY_CELLS[0][2] - 1,
+                  DRY_CELLS[0][3]]
+    cut = subprocess.Popen(
+        [sys.executable, "-c", _DRY_CUT, json.dumps(cells + [fault_cell]),
+         cut_json], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    # (b) the real calls, while the dry runs trace on the host
+    dev = torch.device("cuda")
+    real = []
+    mods = (fa, ssd_scan, paged)
+    with spawn.single_rank(device=dev):
+        for arch, shape, layers, batch in DRY_CELLS:
+            over = dryrun.depth_cut(arch, layers) if layers else None
+            mesh = make_host_mesh(1, 1, device=dev)
+            cell = specs.input_specs(arch, shape, mesh, overrides=over,
+                                     batch=batch)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            args, held = dryrun.rank_args(cell, mesh, gen, dev)
+            for m in mods:
+                m.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out, res = dryrun.analyze_cell(cell, mesh, args, held,
+                                           device="cuda")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: v for m in mods for k, v in m.launches.items()
+                        if v}
+            grad = (torch.enable_grad if cell.kind == "train"
+                    else torch.no_grad)
+            held_args = list(args)
+            if cell.kind == "train":
+                held_args[0] = out[0]          # the inputs were donated
+            del out
+
+            def call(a=held_args, fn=cell.fn, kind=cell.kind, grad=grad):
+                with grad():
+                    res = fn(*a)
+                if kind == "train":
+                    a[0] = res[0]
+                return res
+            bd = device_breakdown(call, top=6)
+            real.append({"arch": arch, "shape": shape, "layers": layers,
+                         "batch": batch, "launches": launches,
+                         "dot_flops": res["stats"].dot_flops,
+                         "peak_bytes": peak, "breakdown": bd})
+            del held_args, args, call
+            torch.cuda.empty_cache()
+
+    out_a, _ = sweep.communicate(timeout=600)
+    out_c, _ = cut.communicate(timeout=600)
+    check(sweep.returncode == 0, f"phase 20 (a): the dry run exited "
+          f"{sweep.returncode}:\n{out_a[-3000:]}")
+    check(cut.returncode == 0, f"phase 20 (b): the cut dry runs exited "
+          f"{cut.returncode}:\n{out_c[-3000:]}")
+    sweep_recs = {}
+    for arch in DRY_ARCHS:
+        for shape in DRY_SHAPES:
+            path = os.path.join(tmp.name, f"{arch}_{shape}_single.json")
+            with open(path) as f:
+                rec = json.load(f)
+            sweep_recs[f"{arch}/{shape}"] = {
+                "roofline": rec["roofline"], "memory": rec["memory"],
+                "kernel_launches": rec["kernel_launches"],
+                "trace_s": rec["trace_s"]}
+            print(f"  (a) {arch} {shape} 16x16: "
+                  f"{dryrun.roofline_line(rec)}")
+    with open(cut_json) as f:
+        dry = json.load(f)
+    tmp.cleanup()
+
+    rows, totals = [], {}
+    for r, d in zip(real, dry):
+        tag = f"{r['arch']} {r['shape']} (layers {r['layers'] or 'all'}, " \
+              f"batch {r['batch']})"
+        check(r["launches"] == d["kernel_launches"],
+              f"phase 20 (b) {tag}: launches {r['launches']} on the card, "
+              f"{d['kernel_launches']} in the dry run")
+        want = sum(d["hlo_stats"]["dot_flops_by_name"].values())
+        check(r["dot_flops"] == want, f"phase 20 (b) {tag}: dot operations "
+              f"{r['dot_flops']} on the card, {want} in the dry run")
+        pred = d["memory"]["per_device_total"]
+        ratio = r["peak_bytes"] / pred
+        check(DRY_MEM_BAND[0] <= ratio <= DRY_MEM_BAND[1],
+              f"phase 20 (b) {tag}: peak {r['peak_bytes']} B, "
+              f"{ratio:.3f} x the predicted {pred} B")
+        for k, v in r["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        bd = r["breakdown"]
+        step = d["roofline"]["step_time_s"] * 1e3
+        rows.append({"cell": tag, "launches": r["launches"],
+                     "dot_flops": r["dot_flops"], "peak_bytes":
+                     r["peak_bytes"], "predicted_bytes": pred,
+                     "peak_ratio": ratio, "call_ms": bd["call_ms"],
+                     "device_ms": bd["device_ms"], "step_time_ms": step,
+                     "bottleneck": d["roofline"]["bottleneck"],
+                     "kernels": bd["kernels"]})
+        print(f"  (b) {tag}: launches {r['launches']} equal, dots "
+              f"{r['dot_flops']:.4g} equal, peak {r['peak_bytes'] / 1e9:.3f}"
+              f" GB = {ratio:.3f} x predicted {pred / 1e9:.3f} GB; call "
+              f"{bd['call_ms']:.2f} ms, device {bd['device_ms']} ms, "
+              f"roofline {step:.3f} ms ({d['roofline']['bottleneck']})")
+        for k in bd["kernels"]:
+            print(f"      {k['ms']:9.3f} ms x{k['count']:<5d} {k['name']}")
+    fault = dry[len(real)]
+    check(fault["kernel_launches"] != real[0]["launches"],
+          f"phase 20 (c): the dry run with one layer fewer gives the "
+          f"card's launches {real[0]['launches']}")
+    print(f"  (c) planted fault: {DRY_CELLS[0][2] - 1} layer(s) predict "
+          f"{fault['kernel_launches']} against {real[0]['launches']}: "
+          f"caught")
+    seconds = time.perf_counter() - t0
+    print(f"  phase 20: {seconds:.1f} s")
+    return totals, {"sweep": sweep_recs, "cells": rows, "seconds": seconds}
 
 
 def main() -> int:
@@ -4181,6 +4344,19 @@ def main() -> int:
     phase_s["train mesh"] = round(
         phase_s["train mesh"] - el_summary["seconds"]["ranks"], 1)
     phase_s["elastic"] = round(el_summary["seconds"]["phase"], 1)
+
+    # -- 20. the dry run against the card -------------------------------------
+    dry_launches, dry_summary = dryrun_phase(check)
+    for row in kernels:
+        name = row["name"].split(".")[-1]
+        if name in dry_launches:
+            row["launches"] += dry_launches[name]
+            row["launches_dryrun"] = dry_launches[name]
+        back = f"{name}_backward"
+        if back in dry_launches:
+            row["backward"]["launches"] += dry_launches[back]
+            row["backward"]["launches_dryrun"] = dry_launches[back]
+    phase("dry run")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
@@ -4188,7 +4364,7 @@ def main() -> int:
          "training": train_summary, "ssm_training": ssm_train_summary,
          "mesh": mesh_summary, "model_mesh": tp_summary,
          "train_mesh": tm_summary, "elastic": el_summary,
-         "phase_s": phase_s}, indent=1))
+         "dryrun": dry_summary, "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

@@ -14,6 +14,10 @@ sparsity, at the full 700 W power limit):
     bf16 tensor-core peak     : 989 TFLOP/s
     fp32 peak (CUDA cores)    : 67 TFLOP/s
 
+and of the network of an H100 SXM cluster (the DGX H100 data sheet):
+NVLink 4 at 450 GB/s each way a GPU among the 8 GPUs of a node, and one
+400 Gb/s link (50 GB/s) a GPU between nodes.
+
 The fp32 CUDA-core peak is the one that bounds the port's fp32 GEMMs:
 TF32 stays off so that fp32 results match the reference, and the
 templates' kernels multiply on the CUDA cores.  A card run below 700 W
@@ -22,6 +26,7 @@ reaches less; results therefore carry the card's ``power.limit``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +41,9 @@ class HopperSpec:
     hbm_bw: float = 3.35e12                 # bytes/s
     peak_flops_bf16: float = 989e12         # FLOP/s, tensor cores
     peak_flops_fp32: float = 67e12          # FLOP/s, CUDA cores
+    nvlink_bw: float = 450e9                # bytes/s each way, within a node
+    network_bw: float = 50e9                # bytes/s a GPU, between nodes
+    node_gpus: int = 8
 
     def peak_flops(self, dtype: str) -> float:
         """Peak rate for operations on inputs of ``dtype`` (a dtype name:
@@ -90,3 +98,86 @@ def gemm_roofline(cell: str, nb: int, m: int, n: int, k: int, *,
     c = nb * m * n
     return RooflineTerms(cell, 2.0 * nb * m * n * k,
                          float((a + b + c) * elem_bytes), dtype=dtype)
+
+
+@dataclasses.dataclass
+class CellRoofline:
+    """The three-term roofline of one (arch x shape x mesh) cell from
+    its per-device counts summed over ``chips`` (the counterpart of the
+    reference's ``tpu.RooflineTerms``): operations at the bf16
+    tensor-core peak, bytes at the memory rate, and wire bytes at the
+    rate of the link they cross — ``network_bytes`` of them over groups
+    that span nodes at ``network_bw``, the rest over NVLink.  These are
+    predictions from data-sheet constants, not measurements."""
+
+    cell: str
+    chips: int
+    flops: float
+    bytes: float
+    collective_bytes: float          # summed over all chips
+    model_flops: float               # 6*N*D (train) or 2*N_active*D
+    network_bytes: float = 0.0       # the part of collective_bytes
+    spec: HopperSpec = dataclasses.field(default_factory=lambda: H100)
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / (self.chips * self.spec.peak_flops_bf16)
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes / (self.chips * self.spec.hbm_bw)
+
+    @property
+    def collective_s(self) -> float:
+        fast = self.collective_bytes - self.network_bytes
+        return (fast / (self.chips * self.spec.nvlink_bw)
+                + self.network_bytes / (self.chips * self.spec.network_bw))
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time_s(self) -> float:
+        """The larger of the three terms (perfect overlap)."""
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """Model operations over counted operations (recompute and the
+        whole-weight departures read below 1)."""
+        return self.model_flops / self.flops if self.flops else 0.0
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Model operations over ``chips`` x peak x ``step_time_s``: the
+        MFU the roofline allows."""
+        denom = self.chips * self.spec.peak_flops_bf16 * self.step_time_s
+        return self.model_flops / denom if denom else 0.0
+
+    def as_dict(self) -> Dict:
+        return {
+            "cell": self.cell, "chips": self.chips,
+            "hlo_flops": self.flops, "hlo_bytes": self.bytes,
+            "collective_bytes": self.collective_bytes,
+            "network_bytes": self.network_bytes,
+            "model_flops": self.model_flops,
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "bottleneck": self.bottleneck,
+            "step_time_s": self.step_time_s,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "roofline_fraction": self.roofline_fraction,
+        }
+
+
+def dense_train_model_flops(n_params: float, tokens: float) -> float:
+    """6*N*D: forward 2ND + backward 4ND."""
+    return 6.0 * n_params * tokens
+
+
+def decode_model_flops(n_active_params: float, tokens: float) -> float:
+    """Forward only: 2*N_active a token."""
+    return 2.0 * n_active_params * tokens

@@ -127,8 +127,22 @@ def _spec_of(tp: TensorPartition) -> Spec:
     return Spec(*tp.placement)
 
 
+#: the backend a ``fake`` default group stands for, innermost last
+#: (``launch.mesh.fake_world`` pushes it): the collectives take its path
+FAKE_BACKEND: list = []
+
+
+def fake_world() -> bool:
+    """Whether the default group is PyTorch's ``fake`` one: collectives
+    move nothing and a rank's tensors are ``meta``."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
 def mesh_device(mesh) -> torch.device:
-    """The device this rank computes on for ``mesh``."""
+    """The device this rank computes on for ``mesh``: ``meta`` in a fake
+    world."""
+    if fake_world():
+        return torch.device("meta")
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
@@ -167,9 +181,14 @@ class RankMesh:
                 raise ValueError(f"mesh axis {a!r}: group ranks {ranks} are "
                                  f"not in coordinate order {line}")
             self.ranks[a] = ranks
-        #: gloo stages through host memory; NCCL moves device tensors
-        self.host = {a: dist.get_backend(g) != "nccl"
-                     for a, g in self.groups.items()}
+        have = {a: dist.get_backend(g) for a, g in self.groups.items()}
+        #: each axis's collective path: its group's backend, or the one a
+        #: fake group stands for
+        self.backend = {a: (FAKE_BACKEND[-1] if FAKE_BACKEND else "nccl")
+                        if b == "fake" else b for a, b in have.items()}
+        #: gloo stages through host memory; NCCL moves device tensors and
+        #: a fake group moves nothing
+        self.host = {a: b == "gloo" for a, b in have.items()}
 
     def axis_index(self, axis: str) -> int:
         return self.coord[axis]
@@ -216,6 +235,25 @@ class RankMesh:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return buf.to(self.device)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        """Sum ``x`` over ``axis`` and keep this rank's block along
+        ``dim``: ``dist.reduce_scatter_tensor`` on an NCCL axis, one
+        all_reduce and the rank's slice on a gloo one (gloo's
+        reduce-scatter differs across PyTorch releases)."""
+        n, idx = self.sizes[axis], self.coord[axis]
+        if n == 1:
+            return x
+        if self.backend[axis] == "gloo":
+            step = x.shape[dim] // n
+            return self.psum(x, (axis,)).narrow(dim, idx * step,
+                                                step).contiguous()
+        src = x.movedim(dim, 0).contiguous()
+        out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=self.groups[axis])
+        return out.movedim(0, dim).contiguous()
 
     # -- shards -----------------------------------------------------------
     def shard_of(self, entry) -> Tuple[int, int]:

@@ -39,12 +39,13 @@ differentiated by autograd instead.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _build
-from .stt_gemm import _DTYPE_CODES, _on_cpu, _stream
+from .stt_gemm import _DTYPE_CODES, _on_cpu, _stream, meta_launch
 
 NEG_INF = float(-1e30)
 #: head dims the kernel is instantiated for (multiples of 8 up to 128)
@@ -66,6 +67,45 @@ launches = {"flash_attention": 0, "flash_attention_backward": 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def visible_pairs(lq: int, lkv: int, causal: bool, window: Optional[int],
+                  q_offset: int = 0) -> int:
+    """The (q row, kv column) pairs the mask lets through, q row i at
+    position ``q_offset + i``."""
+    rows = np.arange(q_offset, q_offset + lq)
+    hi = np.minimum(lkv, rows + 1) if causal else np.full(lq, lkv)
+    lo = (np.maximum(0, rows - window + 1) if window
+          else np.zeros(lq, np.int64))
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def cost(b: int, hq: int, hkv: int, lq: int, lkv: int, d: int, *,
+         causal: bool, window: Optional[int] = None, q_offset: int = 0,
+         itemsize: int = 2, backward: bool = False, with_lse: bool = False
+         ) -> Tuple[float, float]:
+    """(operations, bytes) of one call, the counts behind the kernels'
+    bounds.  Forward: 4 D operations a visible pair and q head (Q K^T and
+    P V); q, k and v read once, the output written once, and with
+    ``with_lse`` the fp32 log-sum-exp written.  Backward: 2.5x the
+    forward's operations (S and dP recomputed, dV, dQ, dK); q, the
+    output, dO and dQ, k, v, dK and dV each once, and the log-sum-exp
+    read."""
+    pairs = visible_pairs(lq, lkv, causal, window, q_offset)
+    nq, nk = b * hq * lq * d, b * hkv * lkv * d
+    if backward:
+        return (2.5 * 4.0 * d * b * hq * pairs,
+                itemsize * (4 * nq + 4 * nk) + 4.0 * b * hq * lq)
+    return (4.0 * d * b * hq * pairs,
+            itemsize * (2.0 * nq + 2 * nk) + (4.0 * b * hq * lq
+                                              if with_lse else 0.0))
+
+
+def _meta_cost(q, k, window, causal, q_offset, **kw) -> Tuple[float, float]:
+    b, hq, lq, d = q.shape
+    return cost(b, hq, k.shape[1], lq, k.shape[2], d, causal=causal,
+                window=window, q_offset=q_offset, itemsize=q.element_size(),
+                **kw)
 
 
 def _check(q, k, v, window) -> int:
@@ -255,6 +295,10 @@ def _forward(q, k, v, causal: bool, window: Optional[int],
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
+    if q.is_meta:
+        meta_launch(launches, "flash_attention", *_meta_cost(
+            q, k, window, causal, q_offset, with_lse=with_lse))
+        return out, lse
     lib = _build.library("flash_attention")
     _build.check(lib.flash_attention_launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), _strides(q), k.data_ptr(),
@@ -334,6 +378,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
     delta = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        meta_launch(launches, "flash_attention_backward", *_meta_cost(
+            q, k, window, causal, q_offset, backward=True))
+        return dq, dk, dv
     lib = _build.library("flash_attention")
     _build.check(lib.flash_attention_backward_launch(
         _DTYPE_CODES[q.dtype], q.data_ptr(), _strides(q), k.data_ptr(),

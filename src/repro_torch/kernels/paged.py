@@ -19,10 +19,12 @@ reference's is no Pallas kernel either) and writes the pool in place.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from . import _build
-from .stt_gemm import _no_backward, _on_cpu, _stream
+from .stt_gemm import _no_backward, _on_cpu, _stream, meta_launch
 
 #: kernel launches since the last ``reset_launches``
 launches = {"paged_gather": 0}
@@ -30,6 +32,20 @@ launches = {"paged_gather": 0}
 
 def reset_launches() -> None:
     launches["paged_gather"] = 0
+
+
+def cost(pool_shape, table_shape, itemsize: int,
+         distinct: Optional[int] = None) -> Tuple[float, float]:
+    """(operations, bytes) of one gather, the count behind its bound:
+    no operations; each of the ``distinct`` pages the table names read
+    once (unknown, as on ``meta``: every entry's, at most the pool), the
+    view written once and the int32 table read once."""
+    p, page, f = pool_shape
+    c, n = table_shape
+    if distinct is None:
+        distinct = min(c * n, p)
+    page_bytes = page * f * itemsize
+    return 0.0, float(distinct * page_bytes + c * n * page_bytes + 4 * c * n)
 
 
 def _check(pool: torch.Tensor, page_table: torch.Tensor) -> None:
@@ -78,6 +94,10 @@ def paged_gather(pool: torch.Tensor, page_table: torch.Tensor
     c, n = page_table.shape
     out = torch.empty((c, n * page, f), dtype=pool.dtype, device=pool.device)
     if out.numel() == 0:
+        return out
+    if pool.is_meta:
+        meta_launch(launches, "paged_gather", *cost(
+            pool.shape, page_table.shape, pool.element_size()))
         return out
     lib = _build.library("paged")
     _build.check(lib.paged_gather_launch(

@@ -47,7 +47,7 @@ import torch
 
 from . import _build, ref
 from ..core.hopper import H100
-from .stt_gemm import _on_cpu, _stream
+from .stt_gemm import _on_cpu, _stream, meta_launch
 
 #: the kernels' limits: chunk length and state width
 MAX_CHUNK, MAX_STATE = 64, 128
@@ -67,6 +67,45 @@ launches = {"ssd_scan": 0, "ssd_scan_backward": 0}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def cost(bsz: int, length: int, heads: int, groups: int, state: int,
+         head_dim: int, chunk: int, *, backward: bool = False,
+         final: bool = False) -> Tuple[float, float]:
+    """(operations, bytes) of one call in fp32, the counts behind the
+    kernels' bounds (``csrc/ssd_scan.cu``'s note).
+
+    Forward: per chunk C B^T's lower triangle once per group, Q(Q+1)/2 N
+    multiply-adds; per head its masked product with x, Q(Q+1)/2 P, and
+    the inter-chunk term and the state update, Q N P each; one multiply
+    an element of x and of dt (dt scaling, dt * a).  Bytes: x, dt, a, y,
+    B and C per group and the final state, each once.
+
+    Backward: per chunk and head the two lower-triangle products with P,
+    Q(Q+1)/2 2P multiply-adds, and four Q N P products; per chunk and
+    group the three with N (C B^T, dC's and dB's terms of the heads'
+    summed dCB); an element's dt scaling of dx and ``a`` scaling of ddt.
+    Bytes: x, dy, dt, B, C, a, the forward's entering states and decays
+    (and with ``final`` the final state's gradient), each once, and dx,
+    ddt, dB, dC, da."""
+    h, p, gr, n = heads, head_dim, groups, state
+    q, nc = chunk, length // chunk
+    tri = q * (q + 1) // 2
+    if backward:
+        macs = bsz * nc * (3 * gr * tri * n + h * (2 * tri * p
+                                                   + 4 * q * n * p))
+        elems = bsz * length * h * (p + 1)
+        nbytes = 4.0 * (bsz * (3 * length * h * p + 2 * length * h
+                               + 4 * length * gr * n
+                               + nc * h * (n * p + 1)
+                               + (h * n * p if final else 0))
+                        + 2 * h)
+        return 2.0 * macs + elems, nbytes
+    macs = bsz * nc * (gr * tri * n + h * (tri * p + 2 * q * n * p))
+    prep = bsz * length * h * (p + 1)
+    nbytes = 4.0 * (bsz * (2 * length * h * p + length * h
+                           + 2 * length * gr * n + h * n * p) + h)
+    return 2.0 * macs + prep, nbytes
 
 
 class Plan(NamedTuple):
@@ -213,6 +252,9 @@ def _forward(x, dt, a, b, c, chunk):
     scratch = torch.empty(plan.scratch, dtype=f32, device=x.device)
     if bsz == 0 or h == 0 or p == 0:
         return y, state, scratch, ops
+    if x.is_meta:
+        meta_launch(launches, "ssd_scan", *cost(bsz, l, h, g, n, p, chunk))
+        return y, state, scratch, ops
     lib = _build.library("ssd_scan")
     _build.check(lib.ssd_scan_launch(
         xf.data_ptr(), _strides(xf), dtf.data_ptr(), _strides(dtf),
@@ -277,6 +319,11 @@ def _backward(xf, dtf, af, bf, cf, dy, dh_final, scratch, chunk):
         return dx, ddt.zero_(), da, db.zero_(), dc.zero_()
     bplan = backward_plan(bsz, l, h, g, n, p, chunk)
     work = torch.empty(bplan.work, dtype=f32, device=dev)
+    if xf.is_meta:
+        meta_launch(launches, "ssd_scan_backward", *cost(
+            bsz, l, h, g, n, p, chunk, backward=True,
+            final=dh_final is not None))
+        return dx, ddt, da, db, dc
     lib = _build.library("ssd_scan")
     _build.check(lib.ssd_scan_backward_launch(
         xf.data_ptr(), _strides(xf), dtf.data_ptr(), _strides(dtf),

@@ -21,8 +21,11 @@ rank-2 outputs.
 Each wrapper keeps the reference's argument checks and then runs, by
 the device of its operands: on the CPU the template's plain PyTorch
 version (``*_plain``, which also defines the kernel's arithmetic); on a
-CUDA tensor the kernel, or it raises.  ``launches`` counts kernel
-launches per template, and only launches.
+CUDA tensor the kernel, or it raises.  A ``meta`` tensor takes the path
+of the device it stands for (:func:`modelling`; the dry run's): the
+attention, SSD and gather wrappers have meta branches that count the
+launch and charge its ``cost()``.  ``launches`` counts kernel launches
+per template, and only launches.
 
 Operands reach the kernels as strided views: the wrappers pass each
 operand's strides instead of making it contiguous, so gemm's ``B.T`` and
@@ -30,8 +33,9 @@ the input-stationary transposition cost no copy.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -179,14 +183,57 @@ def reduction_tree_plain(a3, b3, *, out_dtype, epilogue=(),
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+#: the device a ``meta`` tensor stands for: the card by default, the CPU
+#: inside ``modelling("cpu")`` (``launch.op_analysis`` sets it)
+_MODELLED = ["cuda"]
+
+#: what a meta branch charges its launch to: ``fn(name, flops, bytes)``
+#: callables, innermost last (``launch.op_analysis.OpAnalysis`` pushes one)
+COST_SINKS: list = []
+
+
+@contextlib.contextmanager
+def modelling(device: str) -> Iterator[None]:
+    """Let ``meta`` tensors stand for ``device``'s (``"cuda"`` or
+    ``"cpu"``) for the ``with`` block: every route then takes the path
+    that device would take."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"a meta tensor stands for 'cuda' or 'cpu', got "
+                         f"{device!r}")
+    _MODELLED.append(device)
+    try:
+        yield
+    finally:
+        _MODELLED.pop()
+
+
 def _on_cpu(*xs: torch.Tensor) -> bool:
+    """Whether the operands take the plain versions' path (the CPU's)
+    rather than the kernels' (the card's); a ``meta`` operand takes the
+    path of the device it stands for (:func:`modelling`).  Operands of
+    two devices raise."""
     devs = {x.device.type for x in xs if x is not None}
+    devs = {_MODELLED[-1] if d == "meta" else d for d in devs}
     if len(devs) != 1:
         raise ValueError(f"operands on different devices: {sorted(devs)}")
     dev = devs.pop()
     if dev not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev!r}")
     return dev == "cpu"
+
+
+def on_card(*xs: torch.Tensor) -> bool:
+    """Whether the operands take the card's path (:func:`_on_cpu`)."""
+    return not _on_cpu(*xs)
+
+
+def meta_launch(counts: dict, name: str, flops: float, nbytes: float
+                ) -> None:
+    """A kernel launch on ``meta`` operands: counted in the module's
+    ``launches`` and charged to the active cost sink; nothing runs."""
+    counts[name] += 1
+    if COST_SINKS:
+        COST_SINKS[-1](name, flops, nbytes)
 
 
 #: the slice that brings backward kernels for the generated

@@ -48,9 +48,14 @@ def resolve_backend(device: torch.device, backend: Optional[str]) -> str:
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None,
               backend: Optional[str] = None) -> DeviceMesh:
     """A ``shape`` mesh named ``axes`` over the first ``prod(shape)``
-    ranks of the default process group."""
-    device = resolve_device(device)
-    backend = resolve_backend(device, backend)
+    ranks of the default process group.  In a :func:`fake_world` the
+    mesh's groups are fake (``device`` and ``backend`` are the world's)."""
+    fake = dist.is_initialized() and dist.get_backend() == "fake"
+    if fake:
+        device = torch.device("cpu")
+    else:
+        device = resolve_device(device)
+        backend = resolve_backend(device, backend)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} and axes "
                          f"{tuple(axes)} differ in length")
@@ -60,7 +65,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *, device=None,
             "repro_torch.dist.spawn.run_ranks (or single_rank), or call "
             "torch.distributed.init_process_group first")
     have = dist.get_backend()
-    if have != backend:
+    if not fake and have != backend:
         raise RuntimeError(f"the default process group runs {have!r}; this "
                            f"mesh asks for {backend!r}")
     n = math.prod(shape)
@@ -90,6 +95,37 @@ def make_host_mesh(data: int = 1, model: int = 1, *, device=None,
     ranks — what tests and the examples use."""
     return make_mesh((data, model), ("data", "model"), device=device,
                      backend=backend)
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0, backend: str = "nccl"
+               ) -> Iterator[None]:
+    """Open PyTorch's ``fake`` default process group of ``world`` ranks,
+    this process being ``rank``, for the ``with`` block: the counterpart
+    of the reference's ``--xla_force_host_platform_device_count``.  One
+    process then stands for one rank of a mesh of any size: meshes build
+    as on a real world, a rank's tensors are ``meta``
+    (``dist.comm_engine.mesh_device``) and its collectives move nothing,
+    taking the path of ``backend`` (``"nccl"``, the card's, or
+    ``"gloo"``).  One process holds one default group: the block needs
+    none open, and closes its own."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from ..dist.comm_engine import FAKE_BACKEND
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"a fake world stands for 'nccl' or 'gloo', got "
+                         f"{backend!r}")
+    if dist.is_initialized():
+        raise RuntimeError("a default process group is open: a fake world "
+                           "needs the process to itself")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    FAKE_BACKEND.append(backend)
+    try:
+        yield
+    finally:
+        FAKE_BACKEND.pop()
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

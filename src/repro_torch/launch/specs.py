@@ -32,6 +32,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs import SHAPES, InputShape, ModelConfig, cells_for, get_config
+from ..core import hopper
 from ..dist.comm_engine import Spec
 from ..launch.mesh import set_mesh
 from ..models import common, decode as dec, transformer
@@ -178,18 +179,27 @@ class Cell:
     donate: Tuple[int, ...]
     model_flops: float             # 6ND / 2ND per the assignment formulas
     tokens: float
+    cfg: Optional[ModelConfig] = None   # the configuration, overrides in
 
 
 def input_specs(arch: str, shape_name: str, mesh,
-                overrides: Optional[Dict] = None) -> Cell:
+                overrides: Optional[Dict] = None,
+                batch: Optional[int] = None,
+                seq_len: Optional[int] = None) -> Cell:
     """Build the cell for (arch x shape x mesh).
 
     ``overrides``: ModelConfig field overrides (remat,
-    sequence_parallel, attention block knobs)."""
+    sequence_parallel, attention block knobs, depth); ``batch`` and
+    ``seq_len``: a global batch and a length in place of the shape's (a
+    cell cut to fit a card or a test)."""
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     shape = SHAPES[shape_name]
+    if batch is not None:
+        shape = dataclasses.replace(shape, global_batch=batch)
+    if seq_len is not None:
+        shape = dataclasses.replace(shape, seq_len=seq_len)
     if shape_name not in cells_for(cfg):
         raise ValueError(f"{arch} skips {shape_name} (full attention: "
                          "long_500k runs the sub-quadratic archs only)")
@@ -213,7 +223,8 @@ def input_specs(arch: str, shape_name: str, mesh,
         tokens = float(B) * S
         return Cell(arch, shape, "train", step, (state, batch),
                     (st_sh, b_sh), (st_sh, None), (0,),
-                    model_flops=6.0 * n_active * tokens, tokens=tokens)
+                    hopper.dense_train_model_flops(n_active, tokens),
+                    tokens, cfg)
 
     # serving cells: bf16 params
     params, axes = params_struct(cfg, dtype=torch.bfloat16)
@@ -237,7 +248,9 @@ def input_specs(arch: str, shape_name: str, mesh,
         c_sh = cache_shardings(cache_struct(cfg, B, S), cfg, mesh)
         tokens = float(B) * S
         return Cell(arch, shape, "prefill", fn, tuple(args), tuple(in_sh),
-                    (logits_sh, c_sh), (), 2.0 * n_active * tokens, tokens)
+                    (logits_sh, c_sh), (),
+                    hopper.decode_model_flops(n_active, tokens), tokens,
+                    cfg)
 
     # decode
     cache = cache_struct(cfg, B, S)
@@ -252,7 +265,7 @@ def input_specs(arch: str, shape_name: str, mesh,
     tokens = float(B)
     return Cell(arch, shape, "decode", fn, (params, toks, cache),
                 (p_sh, t_sh, c_sh), (logits_sh, c_sh), (2,),
-                2.0 * n_active * tokens, tokens)
+                hopper.decode_model_flops(n_active, tokens), tokens, cfg)
 
 
 def all_cells(mesh_name: str = "single"):

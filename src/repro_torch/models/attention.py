@@ -42,6 +42,7 @@ from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from ..kernels import flash_attention as fa
 from ..kernels import ops, ref
+from ..kernels.stt_gemm import on_card
 from . import common
 from . import explicit_tp as etp
 from .common import stacked_dense_init
@@ -310,15 +311,17 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def _attend(qh, kh, vh, *, causal, window, q_offset=0):
-    """Prefill attention on the device's path: the flash kernel on a CUDA
-    tensor (causal through ``ops.attention``, which pads to whole
-    blocks), the plain full-scores path on a CPU one up to
-    ``FULL_SCORES_MAX_LEN`` and the chunked one above it.  q row i sits
-    at ``q_offset + i``."""
-    if qh.is_cuda and causal:
+    """Prefill attention on the device's path
+    (``kernels.stt_gemm.on_card``): the flash kernel on a CUDA tensor
+    (causal through ``ops.attention``, which pads to whole blocks), the
+    plain full-scores path on a CPU one up to ``FULL_SCORES_MAX_LEN`` and
+    the chunked one above it; a ``meta`` tensor takes the path of the
+    device it stands for.  q row i sits at ``q_offset + i``."""
+    card = on_card(qh, kh, vh)
+    if card and causal:
         return ops.attention(qh, kh, vh, causal=True, window=window,
                              q_offset=q_offset)
-    if qh.is_cuda:
+    if card:
         return fa.flash_attention(qh, kh, vh, causal=False, window=window,
                                   q_offset=q_offset)
     if kh.shape[2] <= FULL_SCORES_MAX_LEN:

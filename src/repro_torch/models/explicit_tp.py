@@ -54,10 +54,11 @@ reference, all declared:
   rows through ``chunked_attn_manual`` above ``FULL_SCORES_MAX_LEN``;
 * the logits are gathered over the batch axes, so every rank returns the
   global logits; caches stay the rank's batch rows;
-* reduce-scatter is ``dist.reduce_scatter_tensor`` on NCCL axes and one
-  ``all_reduce`` followed by the rank's slice on gloo axes (gloo's
-  reduce-scatter differs across PyTorch releases); which one follows the
-  axis group's backend, never a failure;
+* reduce-scatter is ``RankMesh.reduce_scatter``:
+  ``dist.reduce_scatter_tensor`` on NCCL axes and one ``all_reduce``
+  followed by the rank's slice on gloo axes (gloo's reduce-scatter
+  differs across PyTorch releases); which one follows the axis group's
+  backend (in a fake world, the backend it stands for), never a failure;
 * the MoE's aux loss is averaged over the batch axes only, as the
   reference's ``moe_manual`` averages it; the model's fallback MoE
   averages each of its terms over the batch axes, which gives the
@@ -76,7 +77,6 @@ import threading
 from typing import Iterator, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..launch.mesh import current_mesh
@@ -248,23 +248,6 @@ def batch_shards() -> int:
 # the collectives, differentiable
 # ---------------------------------------------------------------------------
 
-def _reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int
-                    ) -> torch.Tensor:
-    """Sum ``x`` over ``axis`` and keep this rank's block along ``dim``:
-    ``dist.reduce_scatter_tensor`` on an NCCL axis, one all_reduce and
-    the rank's slice on a gloo one."""
-    n, idx = mesh.sizes[axis], mesh.coord[axis]
-    if n == 1:
-        return x
-    if mesh.host[axis]:
-        return _block(mesh.psum(x, (axis,)), dim, idx, n).contiguous()
-    src = x.movedim(dim, 0).contiguous()
-    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    dist.reduce_scatter_tensor(out, src, group=mesh.groups[axis])
-    return out.movedim(0, dim).contiguous()
-
-
 class _AllGather(torch.autograd.Function):
     """Tiled all-gather along ``dim`` over one axis; backward:
     reduce-scatter."""
@@ -276,7 +259,7 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (_reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None,
+        return (ctx.mesh.reduce_scatter(g, ctx.axis, ctx.dim), None, None,
                 None)
 
 
@@ -286,7 +269,7 @@ class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
         ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
-        return _reduce_scatter(x, mesh, axis, dim)
+        return mesh.reduce_scatter(x, axis, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -436,10 +419,11 @@ def chunked_attn_manual(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lkv % bkv:
         bkv = next((bb for bb in (512, 256, 128, 64, 1) if lkv % bb == 0), 1)
     from ..kernels import flash_attention as fa
+    from ..kernels.stt_gemm import on_card
     rows = lq // m
     off = model_index() * rows
     q_rows = model_block(q, 2)
-    if q.is_cuda:
+    if on_card(q_rows, k, v):
         return fa.flash_attention(q_rows, k, v, causal=causal, window=window,
                                   q_offset=off)
     return fa.flash_attention_plain(q_rows, k, v, causal=causal,

@@ -137,8 +137,9 @@ def apply_ssm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         y, h_fin = ssd_scan(xs, dt, a, bs, cs, chunk=chunk)
         y, xs = y[:, :l], xs[:, :l]
         if collect_cache:
-            # the window is cut from the unpadded prompt
-            new_cache = {"conv": xbc[:, l - (kconv - 1):].to(f32),
+            # the window is cut from the unpadded prompt, and copied: a
+            # view would keep the whole (B, L, cd) input alive in the cache
+            new_cache = {"conv": xbc[:, l - (kconv - 1):].to(f32, copy=True),
                          "state": h_fin}
     else:
         # decode: rolling conv window (B, k-1, cd) + state (B, H, N, P)

@@ -335,7 +335,7 @@ def _sum_block(g: torch.Tensor, spec: Spec, rm: RankMesh) -> torch.Tensor:
     for d, entry in enumerate(spec):
         for a in _axes_in(entry, rm):
             used.append(a)
-            g = etp._reduce_scatter(g, rm, a, d)
+            g = rm.reduce_scatter(g, a, d)
     g = rm.psum(g, tuple(a for a in _sum_axes(rm) if a not in used))
     return g.to(rm.device).contiguous()
 

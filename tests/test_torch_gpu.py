@@ -1981,3 +1981,61 @@ def test_two_gloo_ranks_reshard_a_checkpoint_on_the_card(cuda, tmp_path):
                   "gloo"), timeout=300)
         for bad, devices in recs:
             assert bad == [] and all(d.startswith("cuda") for d in devices)
+
+
+def _like(real, meta):
+    """Each meta output has its kernel output's shape and dtype."""
+    assert len(real) == len(meta)
+    for r, m in zip(real, meta):
+        if isinstance(r, torch.Tensor):
+            assert m.is_meta and m.shape == r.shape and m.dtype == r.dtype
+        else:
+            _like(r, m)
+
+
+def test_meta_branches_give_the_kernels_outputs(cuda):
+    # the dry run's meta branches against the kernels' real outputs:
+    # flash forward (with the log-sum-exp) and backward, the SSD forward
+    # (y, final state, scratch) and backward, the paged gather; each
+    # meta call counts one launch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged, ssd_scan
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def meta(xs):
+        return [x.to("meta") if isinstance(x, torch.Tensor) else x
+                for x in xs]
+    bf = torch.bfloat16
+    q, k, v = rnd(2, 8, 96, 64, dtype=bf), rnd(2, 2, 96, 64, dtype=bf), \
+        rnd(2, 2, 96, 64, dtype=bf)
+    real = fa._forward(q, k, v, True, 32, with_lse=True, q_offset=16)
+    before = fa.launches["flash_attention"]
+    _like(real, fa._forward(*meta((q, k, v)), True, 32, with_lse=True,
+                            q_offset=16))
+    assert fa.launches["flash_attention"] == before + 1
+    dout = rnd(2, 8, 96, 64, dtype=bf)
+    bargs = (q, k, v, real[0], dout, real[1])
+    _like(fa.flash_attention_backward(*bargs, window=32, q_offset=16),
+          fa.flash_attention_backward(*meta(bargs), window=32, q_offset=16))
+
+    x, dt = rnd(2, 128, 8, 16), rnd(2, 128, 8).abs() * 0.1
+    a, b, c = -rnd(8).abs(), rnd(2, 128, 2, 32), rnd(2, 128, 2, 32)
+    fwd = ssd_scan._forward(x, dt, a, b, c, 32)
+    mfwd = ssd_scan._forward(*meta((x, dt, a, b, c)), 32)
+    _like(fwd[:3], mfwd[:3])
+    dy, dh = rnd(2, 128, 8, 16), rnd(2, 8, 32, 16)
+    got = ssd_scan._backward(*fwd[3], dy, dh, fwd[2], 32)
+    before = ssd_scan.launches["ssd_scan_backward"]
+    _like(got, ssd_scan._backward(*meta(mfwd[3]), *meta((dy, dh, mfwd[2])),
+                                  32))
+    assert ssd_scan.launches["ssd_scan_backward"] == before + 1
+
+    pool = rnd(9, 16, 64, dtype=bf)
+    table = torch.randint(0, 9, (3, 4), generator=g, device=cuda,
+                          dtype=torch.int32)
+    _like([paged.paged_gather(pool, table)],
+          [paged.paged_gather(*meta((pool, table)))])
