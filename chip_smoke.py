@@ -298,7 +298,29 @@ each of which fails the run (non-zero exit) when it fails:
    time and the profiler's device time by kernel beside the cut cell's
    roofline ``step_time_s``; (c) a planted fault, the dry run of the
    train cell with one layer fewer, must fail (b)'s launch check.  Its
-   launches join rows 8–9 and their backward entries.
+   launches join rows 8–9 and their backward entries;
+21. decode on a cache placed by the cell's ``cache_shardings``
+   (``placed_decode_phase``): four gloo ranks sharing the card on a 1x4
+   ("data", "model") mesh run ``PLACED_DECODE`` (h2o-danube-1.8b 24
+   layers, mamba2-370m 48, zamba2-1.2b 38, full width, batch
+   ``PD_BATCH`` x ``PD_PROMPT`` tokens) in fp32 and in bf16: ``prefill``
+   on the mesh (flash and the SSD scan on each rank), then ``PD_STEPS``
+   greedy ``decode_step`` s on the cache blocks it returned.  Checks:
+   every rank the same logits; in fp32 the tokens equal one card's
+   unplaced decode and the logits within ``PD_LOGIT_TOL`` x max|logit|
+   of it; in bf16 (the cells' precision; its agreement with one card
+   printed) each rank's cache bytes equal the dry run's
+   ``spec_cache_bytes`` of the cut decode cell (``run_cell(...,
+   mesh_shape=(1, 4))``, a subprocess), each rank's decode peak printed
+   beside the dry run's ``per_device_total``.  Its launches join rows
+   8–9;
+22. the port's example scripts (``examples_phase``, started beside phase
+   21): ``examples/torch_quickstart.py --ranks 4``, ``torch_serve_lm.py``,
+   ``torch_train_lm.py`` and ``torch_dse_explore.py`` on the card, each
+   in a subprocess that zeroes the kernels' launch counts before the
+   script and prints them after it: exit 0, the reference's success
+   lines, and the kernels each script's path runs launched.  Their
+   launches join the rows.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
@@ -3661,6 +3683,365 @@ def dryrun_phase(check):
     return totals, {"sweep": sweep_recs, "cells": rows, "seconds": seconds}
 
 
+#: phase 21: decode on a cache placed by cache_shardings: (model, its
+#: depth) at full width, on a 1x4 ("data", "model") mesh of gloo ranks
+#: sharing the card, in fp32 (tokens and logits against one card) and in
+#: the cells' bf16 (cache bytes against the dry run's specs)
+PLACED_DECODE = (("h2o-danube-1.8b", 24), ("mamba2-370m", 48),
+                 ("zamba2-1.2b", 38))
+PD_MESH = (1, 4)
+PD_DTYPES = ("float32", "bfloat16")
+PD_BATCH, PD_PROMPT, PD_STEPS = 4, 512, 16
+#: fp32 logits against one card's, x max|logit| (the CPU gates' fp32
+#: tolerance, ``tests/test_torch_placed_decode.py``).  bf16 is not held
+#: to one card's logits here: cuBLAS picks its kernels by shape, so the
+#: rank's head counts sum in another order, and one bf16 rounding apart
+#: moves the logits by ~2^-8; the bf16 run's agreement is printed
+PD_LOGIT_TOL = 1e-5
+
+_PD_DRY = r"""
+import json, sys
+from repro_torch.launch import dryrun
+out = []
+for arch, layers, batch, length in json.loads(sys.argv[1]):
+    rec = dryrun.run_cell(arch, "decode_32k",
+                          overrides=dryrun.depth_cut(arch, layers),
+                          batch=batch, seq_len=length, mesh_shape=(1, 4))
+    out.append(rec["memory"])
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+def _pd_decode(params, tokens, cfg):
+    """Prefill, then ``PD_STEPS`` greedy steps: {logits (steps + 1, B, V)
+    fp32 on the host, tokens (B, steps), the prefill cache's bytes
+    (``pos`` aside), the peaks of ``max_memory_allocated`` over the
+    prefill and over the steps, and the seconds of each}."""
+    import torch
+
+    from repro_torch.models import decode as dec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = dec.prefill(params, tokens, cfg,
+                                max_len=PD_PROMPT + PD_STEPS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pre_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    held = {k: v for k, v in cache.items() if k != "pos"}
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for part in held.values() for t in part.values())
+    out, toks = [logits.float().cpu()], []
+    for _ in range(PD_STEPS):
+        nxt = logits.argmax(-1)[:, None]
+        toks.append(nxt.cpu())
+        logits, cache = dec.decode_step(params, nxt, cache, cfg)
+        out.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    return {"logits": torch.stack(out), "tokens": torch.cat(toks, dim=1),
+            "cache_bytes": cache_bytes, "prefill_peak": pre_peak,
+            "decode_peak": torch.cuda.max_memory_allocated(),
+            "prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1}
+
+
+def _pd_params(name, layers, dtype, dev):
+    import gc
+
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import compute_params
+    cfg = _tp_cfg(name, n_layers=layers, dtype=dtype)
+    params = compute_params(init_params(
+        torch.Generator(device=dev).manual_seed(0), cfg), cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def _pd_runs():
+    return [(m, d) for m in PLACED_DECODE for d in PD_DTYPES]
+
+
+def _pd_agreement(got, want, w_toks, toks):
+    """(logit error x max|logit| up to the first token that differs, a
+    line saying where the tokens part: '' when they never do).  Logits i
+    decide token i, so up to the first differing token both runs saw
+    the same inputs."""
+    import numpy as np
+    scale = want.abs().max().item()
+    diff = np.asarray(toks) != w_toks.numpy()
+    steps = np.flatnonzero(diff.any(axis=0))
+    upto = PD_STEPS + 1 if steps.size == 0 else steps[0] + 1
+    err = (got[:upto] - want[:upto]).abs().max().item() / scale
+    if steps.size == 0:
+        return err, ""
+    top2 = want[steps[0]].topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1])[diff[:, steps[0]]]
+    return err, (f"tokens part from step {steps[0]} on ({int(diff.sum())} "
+                 f"of {diff.size}); one card's top-2 gap there "
+                 f"{gap.min().item() / scale:.3e} x max|logit|")
+
+
+def placed_decode_ranks(spec, out_dir):
+    """Phase 21 in each of four gloo ranks sharing the card: every
+    model's prefill and greedy decode on the 1x4 mesh (logits to
+    ``out_dir``); every rank's record on rank 0."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+
+    dev = torch.device("cuda")
+    rank = dist.get_rank()
+    mesh = make_mesh(PD_MESH, ("data", "model"), device="cuda",
+                     backend="gloo")
+    rec = {"rank": rank, "models": {}}
+    for (name, layers), dtype in _pd_runs():
+        cfg, params = _pd_params(name, layers, dtype, dev)
+        tokens = torch.as_tensor(spec[name], device=dev)
+        fa.reset_launches()
+        ssd_scan.reset_launches()
+        with torch.no_grad(), set_mesh(mesh):
+            res = _pd_decode(params, tokens, cfg)
+        torch.save(res.pop("logits"), f"{out_dir}/{name}.{dtype}.{rank}.pt")
+        res["tokens"] = res["tokens"].tolist()
+        res["launches"] = {"flash_attention": fa.launches["flash_attention"],
+                           "ssd_scan": ssd_scan.launches["ssd_scan"]}
+        rec["models"][f"{name}/{dtype}"] = res
+        del params, tokens, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, rec)
+    return out
+
+
+def placed_decode_phase(check):
+    """Phase 21 (module docstring).  Returns ({kernel: launches over the
+    ranks}, summary)."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import spawn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_placed_")
+    dry_json = os.path.join(tmp.name, "dry.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry = subprocess.Popen(
+        [sys.executable, "-c", _PD_DRY, json.dumps(
+            [[n, layers, PD_BATCH, PD_PROMPT + PD_STEPS]
+             for n, layers in PLACED_DECODE]), dry_json],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    rng = np.random.default_rng(21)
+    spec = {name: rng.integers(0, _tp_cfg(name).vocab,
+                               (PD_BATCH, PD_PROMPT)).tolist()
+            for name, _ in PLACED_DECODE}
+
+    # one card, unplaced
+    t0 = time.perf_counter()
+    want = {}
+    for (name, layers), dtype in _pd_runs():
+        cfg, params = _pd_params(name, layers, dtype, dev)
+        with torch.no_grad():
+            want[f"{name}/{dtype}"] = _pd_decode(
+                params, torch.as_tensor(spec[name], device=dev), cfg)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    recs = spawn.run_ranks(placed_decode_ranks, 4, device="cuda",
+                           backend="gloo", args=(spec, tmp.name),
+                           timeout=600)
+    ranks_s = time.perf_counter() - t0
+    out_d, _ = dry.communicate(timeout=600)
+    check(dry.returncode == 0, f"phase 21: the cut dry runs exited "
+          f"{dry.returncode}:\n{out_d[-3000:]}")
+    with open(dry_json) as f:
+        dry_mem = dict(zip([n for n, _ in PLACED_DECODE], json.load(f)))
+
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    rows = {}
+    for (name, layers), dtype in _pd_runs():
+        key = f"{name}/{dtype}"
+        w, mem = want[key], dry_mem[name]
+        row = {"layers": layers, "dtype": dtype, "ranks": {},
+               "one_card": {k: w[k] for k in (
+                   "cache_bytes", "decode_peak", "prefill_peak",
+                   "prefill_s", "decode_s")}}
+        first = None
+        for r in recs:
+            m = r["models"][key]
+            tag = f"phase 21 {key} rank {r['rank']}"
+            got = torch.load(f"{tmp.name}/{name}.{dtype}.{r['rank']}.pt")
+            err, parted = _pd_agreement(got, w["logits"], w["tokens"],
+                                        m["tokens"])
+            if first is None:
+                first = got
+            check(torch.equal(got, first), f"{tag}: the ranks' logits "
+                  "differ")
+            if dtype == "float32":
+                check(not parted, f"{tag}: the greedy tokens differ from "
+                      f"one card's: {parted}, the logits {err:.3e} x "
+                      f"max|logit| apart until then")
+                check(err <= PD_LOGIT_TOL, f"{tag}: logits {err:.3e} x "
+                      f"max|logit| off one card's (limit {PD_LOGIT_TOL})")
+            else:
+                check(m["cache_bytes"] == mem["spec_cache_bytes"]
+                      == mem["cache_bytes"],
+                      f"{tag}: holds {m['cache_bytes']} cache bytes, the "
+                      f"dry run's specs place {mem['spec_cache_bytes']}")
+            need = (("flash_attention",) if name != "mamba2-370m" else ())
+            need += (("ssd_scan",) if name != "h2o-danube-1.8b" else ())
+            for k in need:
+                check(m["launches"][k] > 0, f"{tag}: {k} never launched")
+            for k, v in m["launches"].items():
+                launches[k] += v
+            row["ranks"][r["rank"]] = {
+                "logit_err": err, "tokens_part": parted,
+                **{k: m[k] for k in ("cache_bytes", "prefill_peak",
+                                     "decode_peak", "launches",
+                                     "prefill_s", "decode_s")}}
+        rows[key] = row
+        r0 = row["ranks"][0]
+        agree = (f"tokens equal one card's on every rank, logits "
+                 f"{r0['logit_err']:.3e} x max|logit| apart"
+                 if not r0["tokens_part"] else
+                 f"{r0['tokens_part']}, logits {r0['logit_err']:.3e} x "
+                 f"max|logit| apart until then")
+        line = (f"  placed decode {key} ({layers} layers, batch {PD_BATCH} "
+                f"x {PD_PROMPT} + {PD_STEPS} steps, 1x4): {agree}; cache "
+                f"{r0['cache_bytes'] / 1e6:.3f} MB a rank (one card "
+                f"{w['cache_bytes'] / 1e6:.3f} MB)")
+        if dtype == "bfloat16":
+            line += (f" = the dry run's spec {mem['spec_cache_bytes'] / 1e6:.3f}"
+                     f" MB; decode peak " + ", ".join(
+                         f"{v['decode_peak'] / 1e9:.3f}"
+                         for v in row["ranks"].values())
+                     + f" GB a rank beside the dry run's decode "
+                     f"per_device_total {mem['per_device_total'] / 1e9:.3f} "
+                     f"GB (one card {w['decode_peak'] / 1e9:.3f}; prefill "
+                     f"peak {r0['prefill_peak'] / 1e9:.3f} GB a rank, one "
+                     f"card {w['prefill_peak'] / 1e9:.3f})")
+            row["dry_run"] = mem
+        print(line + f"; launches {r0['launches']} a rank; prefill "
+              f"{r0['prefill_s']:.2f} s, {PD_STEPS} steps "
+              f"{r0['decode_s']:.2f} s (host-staged gloo)")
+    tmp.cleanup()
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 21: {secs:.1f} s (one card {ref_s:.1f}, four ranks "
+          f"{ranks_s:.1f} with spawning; ranks share one card over "
+          f"host-staged gloo: not a mesh's speed)")
+    return launches, {"models": rows, "seconds": {
+        "phase": secs, "one_card": ref_s, "ranks": ranks_s}}
+
+
+#: phase 22: the example scripts, each with its arguments and the lines
+#: and kernels its run must show
+EXAMPLES = (
+    ("torch_quickstart.py", ("--ranks", "4"),
+     ("quickstart OK", "multi-chip (2x2 mesh, strategy=cannon)"),
+     ("output_stationary", "fused_chain", "fused_dag")),
+    ("torch_serve_lm.py", (), ("serve OK", "decode compiles 1"),
+     ("paged_gather", "flash_attention")),
+    ("torch_train_lm.py", (), ("DECREASED",),
+     ("flash_attention", "flash_attention_backward")),
+    ("torch_dse_explore.py", (), ("pareto frontier",
+                                  "generated search winner"), ()),
+)
+
+_EXAMPLE = r"""
+import json, runpy, sys
+from repro_torch.kernels import (bsr_gemm, flash_attention, fused_chain,
+                                 paged, ssd_scan, stt_gemm)
+mods = (stt_gemm, bsr_gemm, fused_chain, paged, flash_attention, ssd_scan)
+for m in mods:
+    m.reset_launches()
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+print("LAUNCHES " + json.dumps({k: v for m in mods
+                                for k, v in m.launches.items()}))
+"""
+
+
+def start_examples(tmp):
+    """Phase 22's subprocesses, started together: {script: Popen}."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for script, argv, _, _ in EXAMPLES:
+        extra = (("--ckpt-dir", os.path.join(tmp, "ckpt"))
+                 if script == "torch_train_lm.py" else ())
+        procs[script] = subprocess.Popen(
+            [sys.executable, "-c", _EXAMPLE,
+             str(ROOT / "examples" / script), *argv, *extra],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def examples_phase(check, procs):
+    """Phase 22 (module docstring): wait for ``start_examples``'s runs
+    and check them.  Returns ({kernel: launches}, summary)."""
+    t0 = time.perf_counter()
+    totals, summary = {}, {}
+    for script, _, lines, kernels in EXAMPLES:
+        p = procs[script]
+        out, _ = p.communicate(timeout=900)
+        (OUT_DIR / (script + ".log")).write_text(out)
+        check(p.returncode == 0, f"phase 22 {script} exited "
+              f"{p.returncode}:\n{out[-3000:]}")
+        for line in lines:
+            check(line in out, f"phase 22 {script}: no {line!r} line")
+        got = json.loads(out.rsplit("LAUNCHES ", 1)[1].splitlines()[0])
+        for k in kernels:
+            check(got.get(k, 0) > 0, f"phase 22 {script}: {k} never "
+                  "launched")
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        shown = [ln for ln in out.splitlines()
+                 if any(key in ln for key in lines)]
+        summary[script] = {"lines": shown, "launches": got}
+        print(f"  {script}: {' | '.join(shown)}; launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+    summary["wait_s"] = time.perf_counter() - t0
+    return totals, summary
+
+
+#: a kernels-line row's last name part -> its launch counter's key, where
+#: the two differ
+ROW_KEYS = {"bsr_matmul": "bsr", "fused_chain_matmul": "fused_chain"}
+
+
+def add_launches(kernels, launches, tag):
+    """Add a phase's launches to the kernels line's rows (and their
+    backward entries), each also under ``launches_<tag>``."""
+    for row in kernels:
+        name = row["name"].split(".")[-1]
+        key = ROW_KEYS.get(name, name)
+        if launches.get(key):
+            row["launches"] += launches[key]
+            row[f"launches_{tag}"] = launches[key]
+        back = launches.get(f"{key}_backward")
+        if back and "backward" in row:
+            row["backward"]["launches"] += back
+            row["backward"][f"launches_{tag}"] = back
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4305,11 +4686,7 @@ def main() -> int:
 
     # -- 17. serving on a model mesh -------------------------------------------
     tp_launches, tp_summary = model_mesh_phase(check)
-    for row in kernels:
-        name = row["name"].split(".")[-1]
-        if name in tp_launches:
-            row["launches"] += tp_launches[name]
-            row["launches_model_mesh"] = tp_launches[name]
+    add_launches(kernels, tp_launches, "model_mesh")
     phase("model mesh")
 
     # -- 18. a sharded train step on a model mesh ----------------------------
@@ -4347,16 +4724,19 @@ def main() -> int:
 
     # -- 20. the dry run against the card -------------------------------------
     dry_launches, dry_summary = dryrun_phase(check)
-    for row in kernels:
-        name = row["name"].split(".")[-1]
-        if name in dry_launches:
-            row["launches"] += dry_launches[name]
-            row["launches_dryrun"] = dry_launches[name]
-        back = f"{name}_backward"
-        if back in dry_launches:
-            row["backward"]["launches"] += dry_launches[back]
-            row["backward"]["launches_dryrun"] = dry_launches[back]
+    add_launches(kernels, dry_launches, "dryrun")
     phase("dry run")
+
+    # -- 21. decode on a placed cache; 22. the examples, started beside it -
+    ex_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_examples_")
+    ex_procs = start_examples(ex_dir.name)
+    pd_launches, pd_summary = placed_decode_phase(check)
+    add_launches(kernels, pd_launches, "placed_decode")
+    phase("placed decode")
+    ex_launches, ex_summary = examples_phase(check, ex_procs)
+    ex_dir.cleanup()
+    add_launches(kernels, ex_launches, "examples")
+    phase("examples")
     (OUT_DIR / "chip_smoke_cases.json").write_text(json.dumps(
         {"device": smi, "cases": cases, "kernels": kernels,
          "tune": tune_summary, "serve": serve_summary,
@@ -4364,7 +4744,8 @@ def main() -> int:
          "training": train_summary, "ssm_training": ssm_train_summary,
          "mesh": mesh_summary, "model_mesh": tp_summary,
          "train_mesh": tm_summary, "elastic": el_summary,
-         "dryrun": dry_summary, "phase_s": phase_s}, indent=1))
+         "dryrun": dry_summary, "placed_decode": pd_summary,
+         "examples": ex_summary, "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

@@ -19,20 +19,25 @@ Rank 0 takes its arguments as the rank program takes them:
 * prefill and decode cells: whole parameters (the rank model's declared
   departure: "parameters are whole on every rank") and the global
   tokens and frontend, whose batch rows it keeps;
-* decode cells: the cache of its batch rows only (the decode closure
-  takes a cache placed over the batch axes, where ``cache_shardings``
-  also shards features over ``model``), with ``pos`` a 0-d CPU int32
-  holding ``seq_len - 1`` (the decode step reads it on the host).
+* decode cells: its blocks of the cache as ``cache_shardings`` places
+  them (batch rows, and over ``model`` the K/V columns, conv channels
+  and state heads), with ``pos`` a 0-d CPU int32 holding ``seq_len - 1``
+  (the decode step reads it on the host).
 
 So the record's ``argument_bytes`` is what the rank holds and
 ``spec_argument_bytes`` what the cell's ``in_shardings`` place (the
-reference's ``argument_size_in_bytes``); they differ for serving cells.
+reference's ``argument_size_in_bytes``); for serving cells they differ
+by the whole parameters, and only by them.  ``cache_bytes`` is the
+cache the rank holds (a decode cell's argument, a prefill cell's
+output; ``pos`` aside) and ``spec_cache_bytes`` its blocks under the
+cell's cache specs: the two are equal.
 
 Per cell this records (the reference's record, with ``lower_s`` and
 ``compile_s`` as ``trace_s`` and ``xla_cost_analysis`` and
 ``trip_counts`` as ``kernel_launches``):
 
   * ``memory``: ``argument_bytes``, ``spec_argument_bytes``,
+    serving cells' ``cache_bytes`` and ``spec_cache_bytes``,
     ``output_bytes``, ``alias_bytes`` (donated arguments), ``temp_bytes``
     (the peak of live storage less what the rank was handed),
     ``per_device_total`` (the arguments plus ``temp_bytes``: the most the
@@ -182,19 +187,46 @@ def rank_args(cell, mesh, gen: Optional[torch.Generator] = None,
         placed = trainer.place_state(state, st_sh, mesh)
         del state
         return (placed, batch), (None, b_sh)
-    args = real(cell.args)
     held = [None, _rows(cell.in_shardings[1])]
     if cell.kind == "prefill":
+        args = real(cell.args)
         if len(args) > 2:
             held.append(_rows(cell.in_shardings[2]))
         return args, tuple(held)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    b = args[1].shape[0]
-    nb = math.prod(sizes.get(a, 1) for a in BATCH_AXES)
-    cache = real(specs.cache_struct(cell.cfg, b // nb if b % nb == 0 else b,
-                                    cell.shape.seq_len))
+    params, toks = real(cell.args[:2])
+    cache = real(placed_struct(cell.args[2], cell.in_shardings[2], sizes))
     cache["pos"] = torch.tensor(cell.shape.seq_len - 1, dtype=torch.int32)
-    return (args[0], args[1], cache), (None, held[1], None)
+    return (params, toks, cache), (None, held[1], None)
+
+
+def placed_struct(tree, spec, sizes: Dict[str, int]):
+    """``meta`` stand-ins of a device's blocks of ``tree``'s leaves under
+    ``spec`` (dicts of leaves)."""
+    if isinstance(tree, dict):
+        return {k: placed_struct(v, spec[k], sizes) for k, v in tree.items()}
+    return specs._sds(shard_shape(tree.shape, spec, sizes), tree.dtype)
+
+
+def _no_pos(tree):
+    return {k: v for k, v in tree.items() if k != "pos"}
+
+
+def cache_memory(cell, args, out, mesh) -> Dict[str, int]:
+    """A serving cell's ``cache_bytes`` (what the rank holds of the
+    cache: a decode cell's argument, a prefill cell's output) and
+    ``spec_cache_bytes`` (the blocks the cell's cache specs place), ``pos``
+    aside."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if cell.kind == "decode":
+        held, struct, spec = args[2], cell.args[2], cell.in_shardings[2]
+    else:
+        held, spec = out[1], cell.out_shardings[1]
+        struct = specs.cache_struct(cell.cfg, cell.shape.global_batch,
+                                    cell.shape.seq_len)
+    return {"cache_bytes": block_bytes(_no_pos(held), None, sizes),
+            "spec_cache_bytes": block_bytes(_no_pos(struct), _no_pos(spec),
+                                            sizes)}
 
 
 def spec_argument_bytes(cell, mesh) -> int:
@@ -238,6 +270,8 @@ def analyze_cell(cell, mesh, args, held, *, device: str = "cuda"
               "output_bytes": storage_bytes(out), "alias_bytes": alias,
               "temp_bytes": temp, "per_device_total": total,
               "fits_hbm": bool(total < H100.hbm_bytes)}
+    if cell.kind != "train":
+        memory.update(cache_memory(cell, args, out, mesh))
     return out, {"stats": st, "memory": memory, "trace_s": trace_s}
 
 

@@ -107,28 +107,18 @@ def _chunked_attn(q, k, v, *, causal, window, q_offset=0, bkv: int = 1024):
                                     bkv=bkv, q_offset=q_offset)
 
 
-def _decode_attn(q, k_cache, v_cache, *, pos, window, cache_len):
-    """q: (B, Hq, 1, dh); caches (B, Hkv, S, dh); attend to entries < pos+1.
+def _decode_valid(pos, s: int, window, cache_len: int, device
+                  ) -> torch.Tensor:
+    """The slots of an ``s``-slot cache that a decode query at ``pos``
+    attends to, shaped to broadcast over (B, heads, group, S) scores.
 
     With a rolling (SWA) cache the entries are position-tagged modulo the
     cache length, so validity is derived from absolute positions.  ``pos``
     may be an int (one shared position, the classic batched decode) or a
     ``(B,)`` tensor (per-slot positions, continuous batching): the masks
-    vectorize over the batch and each row computes exactly what it would
-    with that row's scalar position.  The q heads of one kv head are
-    multiplied as a group against that head (the reference repeats the
-    kv heads first; the products are the same).
-    """
-    b, hq, _, dh = q.shape
-    hkv, s = k_cache.shape[1], k_cache.shape[2]
-    group = hq // hkv
-    scale = 1.0 / (dh ** 0.5)
-    kf = k_cache.to(torch.float32)
-    vf = v_cache.to(torch.float32)
-    qg = (q.to(torch.float32) * scale).reshape(b, hkv, group, dh)
-    scores = torch.matmul(qg, kf.transpose(-1, -2))     # (B, Hkv, group, S)
-    slots = torch.arange(s, device=q.device)
-    pos_t = torch.as_tensor(pos, device=q.device)
+    vectorize over the batch."""
+    slots = torch.arange(s, device=device)
+    pos_t = torch.as_tensor(pos, device=device)
     if pos_t.dim():
         pos_b, slots = pos_t[:, None], slots[None, :]    # (B, 1) x (1, S)
     else:
@@ -143,12 +133,82 @@ def _decode_attn(q, k_cache, v_cache, *, pos, window, cache_len):
         # warm).  Entries beyond pos when cold (pos < S) are invalid.
         abs_pos = pos_b - ((pos_b - slots) % s)
         valid = (abs_pos >= 0) & (abs_pos > pos_b - window)
-    valid = (valid[:, None, None, :] if pos_t.dim()
-             else valid[None, None, None, :])
+    return (valid[:, None, None, :] if pos_t.dim()
+            else valid[None, None, None, :])
+
+
+def _decode_attn(q, k_cache, v_cache, *, pos, window, cache_len):
+    """q: (B, Hq, 1, dh); caches (B, Hkv, S, dh); attend to entries < pos+1
+    (:func:`_decode_valid`); each row computes exactly what it would with
+    that row's scalar position.  The q heads of one kv head are
+    multiplied as a group against that head (the reference repeats the
+    kv heads first; the products are the same).
+    """
+    b, hq, _, dh = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    group = hq // hkv
+    scale = 1.0 / (dh ** 0.5)
+    kf = k_cache.to(torch.float32)
+    vf = v_cache.to(torch.float32)
+    qg = (q.to(torch.float32) * scale).reshape(b, hkv, group, dh)
+    scores = torch.matmul(qg, kf.transpose(-1, -2))     # (B, Hkv, group, S)
+    valid = _decode_valid(pos, s, window, cache_len, q.device)
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
     out = torch.matmul(p, vf).reshape(b, hq, 1, dh)
     return out.to(q.dtype)
+
+
+def _placed_decode_attn(q, k_blk, v_blk, cols: Tuple[int, int], hkv: int,
+                        *, pos, window, cache_len):
+    """:func:`_decode_attn` on a cache placed over ``model``: ``k_blk`` /
+    ``v_blk`` (B, S, w) hold the rank's columns ``cols = [c0, c1)`` of the
+    (B, S, kv_dim) cache (``explicit_tp.feature_block``); q (B, Hq, 1, dh)
+    is whole, of ``hkv`` kv heads.  Where ``w`` is whole heads the rank
+    runs :func:`_decode_attn` on its kv heads and their q heads, one
+    card's computation on them.  Else each kv head the block touches
+    scores on the rank's columns of it (part of one head, or across a
+    head boundary), the partial scores of every head are summed over
+    ``model`` before the softmax, and ``P · V_block`` gives the rank's
+    columns of each q head's output.  Either way the rank's part of the
+    output is gathered over ``model`` into head order.  Returns (B, Hq,
+    1, dh)."""
+    b, hq, _, dh = q.shape
+    c0, c1 = cols
+    w, s = c1 - c0, k_blk.shape[1]
+    group = hq // hkv
+    h0, h1 = c0 // dh, (c1 - 1) // dh + 1               # heads touched
+    if w % dh == 0:
+        def heads(t):
+            return t.reshape(b, s, h1 - h0, dh).transpose(1, 2)
+        out = _decode_attn(q[:, h0 * group:h1 * group], heads(k_blk),
+                           heads(v_blk), pos=pos, window=window,
+                           cache_len=cache_len)
+        return etp.gather_model(out, 1)
+    scale = 1.0 / (dh ** 0.5)
+    kf = k_blk.to(torch.float32)
+    vf = v_blk.to(torch.float32)
+    # q in the cache's column order: column h·dh + j of group member g is
+    # q head h·group + g, dim j
+    qc = (q.to(torch.float32) * scale).reshape(b, hkv, group, dh).transpose(
+        1, 2).reshape(b, group, hkv * dh)[:, :, c0:c1]
+    spans = [(max(c0, h * dh) - c0, min(c1, (h + 1) * dh) - c0)
+             for h in range(h0, h1)]
+    scores = torch.stack([torch.matmul(qc[..., a:z],
+                                       kf[..., a:z].transpose(-1, -2))
+                          for a, z in spans], dim=1)    # (B, nh, group, S)
+    # a head's columns lie on several ranks: sum its partial scores
+    full = scores.new_zeros((b, hkv, group, s))
+    full[:, h0:h1] = scores
+    scores = etp.psum_model(full)[:, h0:h1]
+    valid = _decode_valid(pos, s, window, cache_len, q.device)
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.cat([torch.matmul(p[:, i], vf[..., a:z])
+                     for i, (a, z) in enumerate(spans)], dim=-1)
+    out = etp.gather_model(out.to(q.dtype), 2)          # (B, group, kv_dim)
+    return out.reshape(b, group, hkv, dh).transpose(1, 2).reshape(
+        b, hq, 1, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -250,11 +310,30 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
         return c.reshape(b, c.shape[1], cfg.n_kv_heads, cfg.head_dim
                          ).transpose(1, 2).to(compute)
 
+    # decode on a model mesh: the cache holds the rank's columns
+    placed = None if cache is None else etp.feature_block(cfg.kv_dim)
+    if placed is not None and cache["k"].shape[-1] != placed[1] - placed[0]:
+        raise ValueError(
+            f"decode on a model mesh takes the cache placed by "
+            f"cache_shardings: {placed[1] - placed[0]} of {cfg.kv_dim} K/V "
+            f"columns a rank, got {cache['k'].shape[-1]}")
+
+    def attend_cache(ck, cv, pos, window, s_cache):
+        if placed is not None:
+            return _placed_decode_attn(qh, ck.to(compute), cv.to(compute),
+                                       placed, cfg.n_kv_heads,
+                                       pos=pos, window=window,
+                                       cache_len=s_cache)
+        return _decode_attn(qh, from_cache(ck), from_cache(cv), pos=pos,
+                            window=window, cache_len=s_cache)
+
     def collected():
-        # prefill: hand rotated K / V back for the decode cache
+        # prefill: hand rotated K / V back for the decode cache; on a
+        # model mesh the rank's columns, copied (a view would keep the
+        # whole K / V alive in the cache)
         lkv = kh.shape[2]
-        return {"k": kh.transpose(1, 2).reshape(b, lkv, cfg.kv_dim),
-                "v": vh.transpose(1, 2).reshape(b, lkv, cfg.kv_dim)}
+        return {n: etp.feature_copy(t.transpose(1, 2).reshape(
+            b, lkv, cfg.kv_dim), 2) for n, t in (("k", kh), ("v", vh))}
 
     new_cache = None
     if cache is None and etp.model_size() > 1 and lay is not None:
@@ -273,14 +352,17 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
         # read-only precomputed cross K/V (e.g. whisper's encoder
         # output): non-causal attention over the whole cache
         s_cache = cache["k"].shape[1]
-        out = _decode_attn(qh, from_cache(cache["k"]),
-                           from_cache(cache["v"]), pos=s_cache - 1,
-                           window=None, cache_len=s_cache)
+        out = attend_cache(cache["k"], cache["v"], s_cache - 1, None,
+                           s_cache)
     elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         s_cache = ck.shape[1]
         k_flat = kh.transpose(1, 2).reshape(b, lq, cfg.kv_dim)
         v_flat = vh.transpose(1, 2).reshape(b, lq, cfg.kv_dim)
+        if placed is not None:
+            # the rank writes only its columns
+            k_flat = k_flat[..., placed[0]:placed[1]]
+            v_flat = v_flat[..., placed[0]:placed[1]]
         pos_t = torch.as_tensor(pos)
         if pos_t.dim():
             # per-slot write positions: one row per batch lane
@@ -298,8 +380,7 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
         # rope for cached keys is applied at write time (above); a rolling
         # cache stores *rotated* keys, which is fine because rope is
         # absolute-position — each key was rotated at its own position.
-        out = _decode_attn(qh, from_cache(ck), from_cache(cv), pos=pos,
-                           window=cfg.swa_window, cache_len=s_cache)
+        out = attend_cache(ck, cv, pos, cfg.swa_window, s_cache)
     else:
         out = _attend(qh, kh, vh, causal=causal and is_self,
                       window=cfg.swa_window if is_self else None)

@@ -23,7 +23,12 @@ reference returns new arrays); the SSM conv windows and states come back
 as new tensors, the given ones untouched; the static cross K/V come back
 as they were given.  On a mesh (``launch.mesh.set_mesh``) prefill and
 decode take global inputs and return global logits, and every cache
-holds the rank's batch rows (``explicit_tp``'s rank model).
+leaf holds the rank's block as ``launch.specs.cache_shardings`` places
+it (``explicit_tp``'s rank model): its batch rows, and over ``model``
+the K/V columns, the conv channels and the state heads
+(``explicit_tp.feature_block``; a leaf whose extent ``model`` does not
+divide stays whole).  ``prefill`` and ``init_cache`` build those blocks
+(copies) and ``decode_step`` takes them.
 """
 from __future__ import annotations
 
@@ -81,12 +86,15 @@ def _cross_cache(params: Dict[str, Any], cfg: ModelConfig, *,
                  img: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """The static cross K/V, ``(n, B, F, kv_dim)`` bf16: one entry per
     decoder layer from the encoder output ``enc`` (encdec), one per cross
-    layer from the image embeddings ``img`` (vlm)."""
+    layer from the image embeddings ``img`` (vlm); on a model mesh each
+    layer's rank columns (``explicit_tp.feature_copy``)."""
     if cfg.family == "encdec":
         ps, src = params["layers"]["cross"], enc
     else:
         ps, src = params["cross_layers"]["attn"], img
-    return _stack([attn.precompute_cross_cache(layer_params(ps, i), src, cfg)
+    return _stack([{n: etp.feature_copy(t, 2) for n, t in
+                    attn.precompute_cross_cache(layer_params(ps, i), src,
+                                                cfg).items()}
                    for i in range(ps["wq"].shape[0])])
 
 
@@ -136,13 +144,22 @@ def init_cache(params: Dict[str, Any], cfg: ModelConfig, batch: int,
     it they are zeros of their shape, ``(L | n_cross, batch,
     frontend_tokens, kv_dim)`` — the slot engine's template, which runs
     no encoder.  A ``"meta"`` device gives the leaf shapes and dtypes
-    without memory."""
+    without memory.  On a mesh ``batch`` and ``frontend`` are global and
+    each leaf is the rank's block as ``cache_shardings`` places it (its
+    batch rows where the batch axes divide ``batch``, its feature block
+    over ``model``)."""
     require_family(cfg)
     device = params["embed"].device if device is None else device
     s_c = cache_len(cfg, seq_len)
+    nb = etp.batch_shards()
+    rows = batch // nb if batch % nb == 0 else batch
+
+    def width(n):
+        blk = etp.feature_block(n)
+        return n if blk is None else blk[1] - blk[0]
 
     def kv(n, s=s_c, dt=dtype):
-        shape = (n, batch, s, cfg.kv_dim)
+        shape = (n, rows, s, width(cfg.kv_dim))
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -158,10 +175,13 @@ def init_cache(params: Dict[str, Any], cfg: ModelConfig, batch: int,
             cache["cross"] = _cross_cache(params, cfg,
                                           enc=encode(params, frontend, cfg))
         else:
+            img = etp.local_rows(frontend, etp.layout_for(batch, 1, cfg))
             cache["cross"] = _cross_cache(
-                params, cfg, img=frontend.to(torch_dtype(cfg.dtype)))
+                params, cfg, img=img.to(torch_dtype(cfg.dtype)))
     if cfg.family in ("ssm", "hybrid"):
-        one = ssm_mod.make_ssm_cache(cfg, batch, device=device)
+        one = ssm_mod.make_ssm_cache(cfg, rows, device=device,
+                                     channels=width(ssm_mod.conv_dim(cfg)),
+                                     heads=width(cfg.ssm_heads))
         cache["ssm"] = {k: v[None].expand(cfg.n_layers, *v.shape).contiguous()
                         for k, v in one.items()}
     if cfg.family == "hybrid":
@@ -187,8 +207,13 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     Returns (logits (B, vocab) fp32, cache with pos + 1; its K/V tensors
     are the given ones, updated in place; its SSM leaves are new
     tensors; its cross K/V are the given ones, unchanged).  On a mesh
-    the tokens and positions are global, the cache is the rank's batch
-    rows (as prefill on the mesh made it) and the logits are global."""
+    the tokens and positions are global, the logits are global and every
+    cache leaf is the rank's block as ``cache_shardings`` places it (as
+    ``prefill`` and ``init_cache`` on the mesh make it): its batch rows,
+    and over ``model`` its K/V columns, conv channels and state heads.
+    The rank computes the new token's q, k and v whole, writes its
+    columns, sums split heads' partial scores over ``model`` and gathers
+    the attention output and the SSM block's conv output and ``y``."""
     require_family(cfg)
     compute = torch_dtype(cfg.dtype)
     new_cache: Dict[str, Any] = {"pos": cache["pos"] + 1}

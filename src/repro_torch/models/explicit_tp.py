@@ -53,7 +53,16 @@ reference, all declared:
   ``flash_attention`` with ``q_offset`` on the card), and on its query
   rows through ``chunked_attn_manual`` above ``FULL_SCORES_MAX_LEN``;
 * the logits are gathered over the batch axes, so every rank returns the
-  global logits; caches stay the rank's batch rows;
+  global logits;
+* caches hold the rank's batch rows and, over ``model``, the feature block
+  ``launch.specs.cache_shardings`` places (:func:`feature_block`: the K/V
+  columns, the SSM conv channels and state heads; a leaf whose feature
+  extent ``model`` does not divide stays whole, ``_fit``'s fallback).
+  Decode computes q, k and v of the new token whole (parameters are
+  whole), writes only its columns, scores on them per kv head and sums a
+  head's partial scores over ``model`` where a block splits one
+  (:func:`psum_model`); the heads' output columns and the SSM block's
+  conv output and ``y`` are gathered back over ``model``;
 * reduce-scatter is ``RankMesh.reduce_scatter``:
   ``dist.reduce_scatter_tensor`` on NCCL axes and one ``all_reduce``
   followed by the rank's slice on gloo axes (gloo's reduce-scatter
@@ -179,6 +188,31 @@ def model_block(t: torch.Tensor, dim: int) -> torch.Tensor:
     return t if m <= 1 else _block(t, dim, model_index(), m)
 
 
+def feature_block(n: int) -> Optional[Tuple[int, int]]:
+    """This rank's ``[start, stop)`` of a cache leaf's feature dim of
+    extent ``n`` over ``model``, where ``launch.specs.cache_shardings``
+    puts ``model`` on it; None (the leaf stays whole) off a ``model`` axis
+    above 1 or where ``model`` does not divide ``n`` (``_fit``'s
+    fallback)."""
+    m = model_size()
+    if m <= 1 or n % m:
+        return None
+    step = n // m
+    i = model_index()
+    return i * step, (i + 1) * step
+
+
+def feature_copy(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's :func:`feature_block` of ``t``'s ``dim`` as a
+    contiguous **copy** (never a view that would keep the whole of ``t``
+    alive); ``t`` itself where it stays whole."""
+    blk = feature_block(t.shape[dim])
+    if blk is None:
+        return t
+    return t.narrow(dim, blk[0], blk[1] - blk[0]).clone(
+        memory_format=torch.contiguous_format)
+
+
 def local_rows(t: Optional[torch.Tensor], lay: Optional[Layout]
                ) -> Optional[torch.Tensor]:
     """This rank's batch rows of a global ``(B, ...)`` input (all of them
@@ -230,6 +264,14 @@ def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     if model_size() <= 1:
         return x
     return _AllGather.apply(x, current_mesh(), MODEL, dim)
+
+
+def psum_model(x: torch.Tensor) -> torch.Tensor:
+    """Sum over ``model``: the partial scores of the ranks that share a
+    kv head's columns (a no-op off a ``model`` axis above 1)."""
+    if model_size() <= 1:
+        return x
+    return _AllReduce.apply(x, current_mesh(), (MODEL,))
 
 
 def psum_batch(x: torch.Tensor) -> torch.Tensor:

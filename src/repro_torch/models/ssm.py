@@ -138,14 +138,30 @@ def apply_ssm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         y, xs = y[:, :l], xs[:, :l]
         if collect_cache:
             # the window is cut from the unpadded prompt, and copied: a
-            # view would keep the whole (B, L, cd) input alive in the cache
-            new_cache = {"conv": xbc[:, l - (kconv - 1):].to(f32, copy=True),
-                         "state": h_fin}
+            # view would keep the whole (B, L, cd) input alive in the
+            # cache; on a model mesh the rank keeps its channel block of
+            # the window and its head block of the state
+            new_cache = {
+                "conv": etp.feature_copy(
+                    xbc[:, l - (kconv - 1):].to(f32, copy=True), 2),
+                "state": etp.feature_copy(h_fin, 1)}
     else:
-        # decode: rolling conv window (B, k-1, cd) + state (B, H, N, P)
+        # decode: rolling conv window (B, k-1, cd) + state (B, H, N, P);
+        # on a model mesh the rank's channel block of the window and its
+        # head block of the state (explicit_tp.feature_block)
+        cb = etp.feature_block(xbc.shape[-1])
+        hb = etp.feature_block(h)
+        cw, cbias = p["conv_w"], p["conv_b"]
+        if cb is not None:
+            xbc = xbc[..., cb[0]:cb[1]]
+            cw, cbias = cw[:, cb[0]:cb[1]], cbias[cb[0]:cb[1]]
+        _placed_check(cache, xbc.shape[-1], h if hb is None
+                      else hb[1] - hb[0])
         win = torch.cat([cache["conv"], xbc], dim=1)           # (B, k, cd)
-        conv = sum(win[:, i:i + 1] * p["conv_w"][i] for i in range(kconv))
-        conv = F.silu(conv + p["conv_b"])                      # (B, 1, cd)
+        conv = sum(win[:, i:i + 1] * cw[i] for i in range(kconv))
+        conv = F.silu(conv + cbias)                            # (B, 1, cd)
+        if cb is not None:
+            conv = etp.gather_model(conv, 2)
         xs = conv[..., :di].reshape(b, h, ph)
         bs = conv[..., di:di + g * n].reshape(b, g, n)
         cs = conv[..., di + g * n:].reshape(b, g, n)
@@ -153,10 +169,18 @@ def apply_ssm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
         bh = bs.repeat_interleave(rep, dim=1)                  # (B, H, N)
         ch = cs.repeat_interleave(rep, dim=1)
         dt1 = dt[:, 0]                                         # (B, H)
-        decay = torch.exp(dt1 * a)                             # (B, H)
+        ah, xh = a, xs
+        if hb is not None:
+            sl = slice(hb[0], hb[1])
+            bh, ch, dt1, ah, xh = bh[:, sl], ch[:, sl], dt1[:, sl], a[sl], \
+                xs[:, sl]
+        decay = torch.exp(dt1 * ah)                            # (B, H)
         h_new = decay[..., None, None] * cache["state"] + torch.einsum(
-            "bhn,bhp->bhnp", dt1[..., None] * bh, xs)
-        y = torch.einsum("bhn,bhnp->bhp", ch, h_new)[:, None]  # (B,1,H,P)
+            "bhn,bhp->bhnp", dt1[..., None] * bh, xh)
+        y = torch.einsum("bhn,bhnp->bhp", ch, h_new)           # (B, H, P)
+        if hb is not None:
+            y = etp.gather_model(y, 1)
+        y = y[:, None]                                         # (B,1,H,P)
         new_cache = {"conv": win[:, 1:], "state": h_new}
         xs = xs[:, None]                                       # for D skip
 
@@ -167,11 +191,28 @@ def apply_ssm(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
     return etp.to_layout(out, lay), new_cache
 
 
+def _placed_check(cache: Dict[str, torch.Tensor], channels: int,
+                  heads: int) -> None:
+    """Raise unless the decode cache holds ``channels`` conv channels and
+    ``heads`` state heads (the rank's blocks on a model mesh)."""
+    got = (cache["conv"].shape[-1], cache["state"].shape[1])
+    if got != (channels, heads):
+        raise ValueError(
+            f"SSM decode takes the cache placed by cache_shardings: "
+            f"{channels} conv channels and {heads} state heads a rank, got "
+            f"{got[0]} and {got[1]}")
+
+
 def make_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None, *, channels: Optional[int] = None,
+                   heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Zero conv window and state; ``channels`` / ``heads`` in place of
+    the whole ``conv_dim`` / ``ssm_heads`` (a rank's blocks)."""
+    channels = conv_dim(cfg) if channels is None else channels
+    heads = cfg.ssm_heads if heads is None else heads
     return {
-        "conv": torch.zeros((batch, cfg.conv_kernel - 1, conv_dim(cfg)),
+        "conv": torch.zeros((batch, cfg.conv_kernel - 1, channels),
                             dtype=dtype, device=device),
-        "state": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state,
+        "state": torch.zeros((batch, heads, cfg.ssm_state,
                               cfg.ssm_head_dim), dtype=dtype, device=device),
     }

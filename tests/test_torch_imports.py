@@ -48,7 +48,10 @@ MODULES = ("repro_torch", "repro_torch.api", "repro_torch.kernels.ops",
            "repro_torch.dist.model_cases",
            "repro_torch.models.explicit_tp",
            "repro_torch.dist.train_cases",
-           "repro_torch.dist.train_selftest")
+           "repro_torch.dist.train_selftest",
+           "repro_torch.dist.decode_cases")
+#: the port's example scripts (beside the reference's in ``examples/``)
+EXAMPLES = tuple(sorted((ROOT / "examples").glob("torch_*.py")))
 
 _IMPORT = re.compile(
     r"^\s*(import\s+(jax|repro)\b(?!_torch)"
@@ -82,11 +85,28 @@ def test_port_modules_load_no_jax_and_no_reference():
 
 
 def test_sources_have_no_jax_or_reference_imports():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + list(EXAMPLES))
+    assert len(files) > 10 and len(EXAMPLES) == 4
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in files for m in _IMPORT.finditer(p.read_text())]
     assert offenders == []
+
+
+@pytest.mark.parametrize("script", [p.name for p in EXAMPLES])
+def test_example_scripts_load_no_jax_and_no_reference(script):
+    code = (
+        "import runpy, sys\n"
+        f"runpy.run_path({str(ROOT / 'examples' / script)!r}, "
+        "run_name='loaded')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m.startswith('jaxlib') or m == 'repro' "
+        "or m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch' in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
 
 
 def test_import_scan_catches_offenders():
@@ -118,6 +138,18 @@ def test_entry_points_raise_without_cuda_and_device():
                  lambda: AcceleratorEngine()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+@pytest.mark.parametrize("script", [p.name for p in EXAMPLES])
+def test_example_scripts_need_the_card_by_default(script, tmp_path):
+    _require_no_cuda()
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / script),
+                          *(["--ckpt-dir", str(tmp_path / "ck")]
+                            if script == "torch_train_lm.py" else [])],
+                         env=_env(), capture_output=True, text=True,
+                         timeout=300, cwd=tmp_path)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr[-2000:]
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -14,8 +14,10 @@ world of ranks.
   ``spec_argument_bytes`` and ``argument_bytes`` equal the reference's
   per-device sum over ``cell.args`` of ``prod(shard_shape) x itemsize``
   exactly; a serving cell's ``spec_argument_bytes`` equals it, and its
-  ``argument_bytes`` is whole parameters plus the batch rows of tokens,
-  frontend and cache (the rank model's declared departure).
+  ``argument_bytes`` is whole parameters (the rank model's declared
+  departure) plus the batch rows of tokens and frontend and, for a
+  decode cell, the cache's blocks under its specs.  A decode cell's
+  ``cache_bytes`` equals its ``spec_cache_bytes``.
 * **Collectives.**  Reduced granite-8b, a ``train_4k``-shaped step cut to
   4 x 32 tokens, on 4 gloo CPU ranks (2x2) counted by ``OpAnalysis``
   equals the dry run on a fake 2x2 world standing for gloo, on the CPU's
@@ -35,7 +37,8 @@ world of ranks.
     only attention over its heads: ``(F - A) / data + A / (data x
     model)`` of the one-device count ``F``, ``A`` being attention's dots
     (2 a layer forward; training 8: forward, remat's re-forward, 4 in
-    the backward; decode none: a decode step attends whole);
+    the backward; decode 2 a layer, one query against the ``S``-slot
+    cache on the rank's columns of it);
   - the port is held to the reference's one-device count so changed
     within 1e-9 on both meshes; the reference's own count on 2x4 exceeds
     its one-device count over 8 by 4.3–6.0% (in prefill: GSPMD computes
@@ -132,10 +135,15 @@ for name, (shape, axes) in spec["meshes"].items():
         pairs = list(leaves(c.args, c.in_shardings))
         rec = {"spec": sum(nbytes(l, s) for l, s in pairs)}
         if c.kind != "train":
+            # whole parameters, the batch rows of tokens and frontend, a
+            # decode cell's cache at its spec blocks
             whole = sum(math.prod(l.shape) * l.dtype.itemsize
                         for l, _ in leaves(c.args[0], c.in_shardings[0]))
-            rest = list(leaves(c.args[1:], c.in_shardings[1:]))
-            rec["held"] = whole + sum(nbytes(l, rows(s)) for l, s in rest)
+            n_rows = 2 if c.kind == "decode" else len(c.args)
+            rest = list(leaves(c.args[1:n_rows], c.in_shardings[1:n_rows]))
+            cache = list(leaves(c.args[n_rows:], c.in_shardings[n_rows:]))
+            rec["held"] = (whole + sum(nbytes(l, rows(s)) for l, s in rest)
+                           + sum(nbytes(l, s) for l, s in cache))
         out["bytes"][f"{name}/{arch}/{sname}"] = rec
 
 for sname, mname in spec["flops"]:
@@ -188,7 +196,9 @@ def port_bytes():
                 args, held = dryrun.rank_args(cell, mesh)
                 out[f"{name}/{arch}/{sname}"] = (
                     dryrun.spec_argument_bytes(cell, mesh),
-                    dryrun.argument_bytes(args, held, mesh))
+                    dryrun.argument_bytes(args, held, mesh),
+                    dryrun.cache_memory(cell, args, None, mesh)
+                    if cell.kind == "decode" else None)
     return out
 
 
@@ -360,7 +370,7 @@ def test_meta_kernels_count_and_charge_their_cost():
 def test_train_argument_bytes_equal_the_reference(reference, port_bytes,
                                                  mesh, arch, shape):
     key = f"{mesh}/{arch}/{shape}"
-    spec_b, held_b = port_bytes[key]
+    spec_b, held_b, _ = port_bytes[key]
     assert spec_b == reference["bytes"][key]["spec"]
     assert held_b == reference["bytes"][key]["spec"]
 
@@ -368,9 +378,18 @@ def test_train_argument_bytes_equal_the_reference(reference, port_bytes,
 @pytest.mark.parametrize("mesh,arch,shape", SERVE)
 def test_serving_argument_bytes(reference, port_bytes, mesh, arch, shape):
     key = f"{mesh}/{arch}/{shape}"
-    spec_b, held_b = port_bytes[key]
+    spec_b, held_b, _ = port_bytes[key]
     assert spec_b == reference["bytes"][key]["spec"]
     assert held_b == reference["bytes"][key]["held"]
+
+
+@pytest.mark.parametrize("mesh,arch,shape", [
+    (m, a, s) for m, a, s in SERVE if specs.SHAPES[s].kind == "decode"])
+def test_decode_cache_bytes_equal_the_specs(port_bytes, mesh, arch, shape):
+    """The rank holds the cache as ``cache_shardings`` places it: its
+    batch rows and its feature block over ``model``."""
+    mem = port_bytes[f"{mesh}/{arch}/{shape}"][2]
+    assert mem["cache_bytes"] == mem["spec_cache_bytes"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -409,11 +428,13 @@ def test_meta_and_gloo_records_equal_on_2x2():
 # ---------------------------------------------------------------------------
 
 def _attention_dots(cfg, kind, b, s):
-    """The attention dots the rank model splits over heads: 2·B·H·S²·dh
-    each, 2 a layer forward, 8 in training with remat, none in decode."""
+    """The attention dots the rank model splits over heads or cache
+    columns: 2·B·H·Lq·S·dh each, 2 a layer forward, 8 in training with
+    remat; decode's 2 a layer have ``Lq`` 1."""
     n = {"prefill": 2, "train": 2 + (2 if cfg.remat else 0) + 4,
-         "decode": 0}[kind]
-    return n * 2.0 * b * cfg.n_heads * s * s * cfg.head_dim * cfg.n_layers
+         "decode": 2}[kind]
+    lq = 1 if kind == "decode" else s
+    return n * 2.0 * b * cfg.n_heads * lq * s * cfg.head_dim * cfg.n_layers
 
 
 @pytest.mark.parametrize("shape,mesh", FLOP_CELLS)
@@ -462,6 +483,9 @@ def test_every_cell_runs_at_two_layers(mesh, arch, shape):
     assert st["flops"] > 0 and st["hbm_bytes"] > 0
     assert rec["memory"]["per_device_total"] > rec["memory"][
         "argument_bytes"] > 0
+    if rec["kind"] != "train":
+        assert rec["memory"]["cache_bytes"] == rec["memory"][
+            "spec_cache_bytes"] > 0
     cfg = get_config(arch)
     attends = cfg.family != "ssm" and rec["kind"] != "decode"
     if attends:
