@@ -107,10 +107,12 @@ each of which fails the run (non-zero exit) when it fails:
 12. serving the SSM families at full width and depth (``SSM_SERVE``):
    zamba2-1.2b (38 Mamba-2 layers, the shared attention+MLP block after
    every 6, bf16) over ``SlotEngine(capacity=8, max_context=2048,
-   page_size=16, total_pages=512)`` answering 16 greedy requests of the
-   same traffic (numpy seed 0), and mamba2-370m (48 layers, state 128,
-   no paged leaf: one page a slot) answering 8 (seed 1), each from 4
-   threads through ``ContinuousServer``.  Every prefill runs the SSD-scan
+   page_size=16, total_pages=512)`` answering 12 greedy requests
+   (prompts 128..1536, 8..32 new tokens, numpy seed 0: more requests
+   than slots, so freed slots are refilled under load), and mamba2-370m
+   (48 layers, state 128, no paged leaf: one page a slot) answering 8
+   (16..64 new tokens, seed 1), each from 4 threads through
+   ``ContinuousServer``.  Every prefill runs the SSD-scan
    kernel in each SSM layer; zamba2's shared block runs flash attention
    in prefill and gathers its paged K/V every decode step.  The three
    launch counts are zeroed before each server run and read after it
@@ -131,8 +133,9 @@ each of which fails the run (non-zero exit) when it fails:
    8 experts, top 2) answering 8 requests (prompts 128..1536, 16..64 new
    tokens, seed 2) over ``SlotEngine(capacity=8, max_context=2048,
    page_size=16, total_pages=512)``; whisper-small (all 12 encoder and
-   12 decoder layers) answering 16 (its trained 448-token context,
-   prompts 4..64, 32..128 new tokens, seed 3), each with its own
+   12 decoder layers) answering 12 (its trained 448-token context,
+   prompts 4..64, 16..64 new tokens, seed 3: more requests than slots),
+   each with its own
    ``0.1·normal (1500, 768)`` frames; llama-3.2-vision-11b (all 40
    layers, 8 gated cross layers, gates opened to 0.5) answering 8
    (prompts 128..1024, 16..64 new tokens, seed 4), each with its own
@@ -273,7 +276,7 @@ each of which fails the run (non-zero exit) when it fails:
    ``EL_LAYERS`` layers, phase 18's precision and batch; ``TrainDriver``
    on a 2x2 ("data", "model") mesh checkpointing every ``EL_EVERY``
    steps fails at step ``EL_FAIL`` and ``run_with_restarts`` restores
-   it onto 4x1 for ``EL_STEPS`` steps in all: (a) the six losses within
+   it onto 4x1 for ``EL_STEPS`` steps in all: (a) the losses within
    ``TM_LOSS_TOL`` x |loss| of one card's uninterrupted run, flash's
    forward and backward launched on every rank (counted from 0 over the
    run); (b) every rank's restored blocks bit for bit the checkpoint's
@@ -301,8 +304,9 @@ each of which fails the run (non-zero exit) when it fails:
    launches join rows 8–9 and their backward entries;
 21. decode on a cache placed by the cell's ``cache_shardings``
    (``placed_decode_phase``): four gloo ranks sharing the card on a 1x4
-   ("data", "model") mesh run ``PLACED_DECODE`` (h2o-danube-1.8b 24
-   layers, mamba2-370m 48, zamba2-1.2b 38, full width, batch
+   ("data", "model") mesh run ``PLACED_DECODE`` (h2o-danube-1.8b 8 of
+   24 layers, mamba2-370m 16 of 48, zamba2-1.2b 12 of 38, full width,
+   batch
    ``PD_BATCH`` x ``PD_PROMPT`` tokens) in fp32 and in bf16: ``prefill``
    on the mesh (flash and the SSD scan on each rank), then ``PD_STEPS``
    greedy ``decode_step`` s on the cache blocks it returned.  Checks:
@@ -314,13 +318,38 @@ each of which fails the run (non-zero exit) when it fails:
    mesh_shape=(1, 4))``, a subprocess), each rank's decode peak printed
    beside the dry run's ``per_device_total``.  Its launches join rows
    8–9;
-22. the port's example scripts (``examples_phase``, started beside phase
-   21): ``examples/torch_quickstart.py --ranks 4``, ``torch_serve_lm.py``,
+22. the port's example scripts (``examples_phase``, started after phase
+   20's timed cells and run beside phases 21 and 23, whose times are
+   host-staged gloo's anyway): ``examples/torch_quickstart.py --ranks
+   4``, ``torch_serve_lm.py``,
    ``torch_train_lm.py`` and ``torch_dse_explore.py`` on the card, each
    in a subprocess that zeroes the kernels' launch counts before the
    script and prints them after it: exit 0, the reference's success
    lines, and the kernels each script's path runs launched.  Their
-   launches join the rows.
+   launches join the rows;
+23. serving with parameters placed by the cells' ``param_shardings``
+   (``placed_params_phase``): four gloo ranks sharing the card on a 2x2
+   ("data", "model") mesh, each holding only its blocks
+   (``models.placed.place_params``: drawn whole by one rank at a time,
+   placed, freed) and gathering each layer while it runs, for
+   ``PLACED_PARAMS`` (h2o-danube-1.8b, zamba2-1.2b, mixtral-8x22b at 1
+   of 56 layers in bf16 only; full width, batch ``PP_BATCH`` x
+   ``PP_PROMPT``): in fp32, at the cut depths and steps, tokens equal
+   one card's and
+   logits within ``PD_LOGIT_TOL`` x max|logit| of it, and danube's
+   ``SlotEngine`` built on the mesh returns one card's results with one
+   decode build; in bf16 (every leaf, as the cells' parameters; danube
+   and zamba2 at full depth) each rank's parameter bytes equal the
+   cut cell's ``param_shardings`` blocks, its prefill and decode peaks
+   within ``PP_PEAK_BAND`` x the dry run's ``per_device_total`` on a
+   fake 2x2 world standing for gloo (``_PP_DRY``, a subprocess), flash
+   and the SSD scan launched a rank as that dry run counts them, and the
+   outputs held to one card's bf16 run loosely (``PP_BF16_TOL``: a
+   rank's batch rows and vocab block change cuBLAS's kernels, so bf16
+   logits round apart): logits within it x max|logit| (a step's rows
+   only while their tokens so far agree), and a token that differs a
+   near tie, one card's logits of both within it.  Its launches join
+   rows 7–9.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
@@ -414,23 +443,31 @@ PROMPT_LENS, NEW_TOKENS = (128, 1536), (16, 64)
 #: of its 56 layers (every layer has the same pattern; 10.4 B parameters,
 #: 41.7 GB of fp32 masters), whisper-small all 12 + 12 at Whisper's
 #: trained 448-token context (transcription: 1500 frames, short prompts),
-#: llama-3.2-vision-11b all 40 with its 8 gated cross layers
+#: llama-3.2-vision-11b all 40 with its 8 gated cross layers.  whisper
+#: answers 12 requests on 8 slots, so its cross lanes are refilled under
+#: load (16 with 32..128 new tokens until phase 23 needed the time: each
+#: request is decoded again alone, 45 ms a step); the traced step fills
+#: all 8 slots, so no model answers fewer
 FAMILY_SERVE = (
     ("mixtral-8x22b", 4, 8, 2, dict(capacity=8, max_context=2048,
                                     page_size=16, total_pages=512),
      (128, 1536), (16, 64)),
-    ("whisper-small", 12, 16, 3, dict(capacity=8, max_context=448,
-                                      page_size=16), (4, 64), (32, 128)),
+    ("whisper-small", 12, 12, 3, dict(capacity=8, max_context=448,
+                                       page_size=16), (4, 64), (16, 64)),
     ("llama-3.2-vision-11b", 40, 8, 4, dict(capacity=8, max_context=2048,
                                             page_size=16, total_pages=512),
      (128, 1024), (16, 64)),
 )
-#: the SSM serve phase: (model, its depth, requests, numpy seed, engine)
+#: the SSM serve phase: (model, its depth, requests, numpy seed, engine,
+#: new tokens).  zamba2 answers 12 requests on 8 slots, so its SSM lanes
+#: and shared pool are refilled under load (16 with 16..64 new tokens
+#: until phase 23 needed the time)
 SSM_SERVE = (
-    ("zamba2-1.2b", 38, 16, 0, dict(capacity=8, max_context=2048,
-                                    page_size=16, total_pages=512)),
+    ("zamba2-1.2b", 38, 12, 0, dict(capacity=8, max_context=2048,
+                                     page_size=16, total_pages=512),
+     (8, 32)),
     ("mamba2-370m", 48, 8, 1, dict(capacity=8, max_context=2048,
-                                   page_size=16)),
+                                   page_size=16), NEW_TOKENS),
 )
 
 
@@ -1116,7 +1153,7 @@ def ssm_serve_phase(check):
 
     dev = torch.device("cuda")
     summary, ssd_launches, timed = {}, 0, None
-    for model, depth, n, seed, engine_kw in SSM_SERVE:
+    for model, depth, n, seed, engine_kw, news_r in SSM_SERVE:
         lm = get_config(model)
         check(lm.n_layers == depth and lm.dtype == "bfloat16",
               f"{model}: not full depth in bf16")
@@ -1125,7 +1162,8 @@ def ssm_serve_phase(check):
         eng = SlotEngine(params, lm, **engine_kw)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        rng, lens, news, prompts = serve_traffic(n, seed, lm.vocab)
+        rng, lens, news, prompts = serve_traffic(n, seed, lm.vocab,
+                                                 new_tokens=news_r)
         hybrid = lm.family == "hybrid"
 
         # the main path: the requests from 4 threads through the server
@@ -2648,11 +2686,12 @@ def model_mesh_ranks(spec, paths):
     cfg = _tp_cfg(TP_MODEL, dtype="float32", explicit_collectives=True)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
     fa.reset_launches()
+    # the engine built off the mesh keeps the parameters whole (one built
+    # on it places them: phase 23); it decodes on the mesh it runs under
+    eng = DecodeEngine(params, cfg, ServeConfig(max_new_tokens=TP_TOKENS))
     with torch.no_grad(), set_mesh(tp):
         logits = forward(params, tokens, cfg)[0]
         rec["flash_b"] = fa.launches["flash_attention"]
-        eng = DecodeEngine(params, cfg, ServeConfig(
-            max_new_tokens=TP_TOKENS))
         rec["tokens"] = eng.generate(np.asarray(spec["tokens"]))[0].tolist()
     if rank == 0:
         torch.save(logits.cpu(), paths["b"])
@@ -2924,9 +2963,10 @@ def model_mesh_phase(check):
 #: backward's q_offset at danube's heads; (b)-(c) four gloo ranks sharing
 #: the card on a 2x2 ("data", "model") mesh
 TM_MODEL = "h2o-danube-1.8b"
-#: (b)'s depth, cut for memory: each of the four ranks holds whole
-#: gathered weights and whole partial gradients on the one card
-TM_LAYERS = 4
+#: (b)'s depth, cut for memory (each of the four ranks holds whole
+#: gathered weights and whole partial gradients on the one card) and, 2
+#: of 4 since phase 23 joined the script, for its time
+TM_LAYERS = 2
 TM_BATCH, TM_SEQ, TM_STEPS = 4, 512, 3
 TM_CHUNKED_LAYERS = 2
 TM_LOSS_TOL, TM_GRAD_TOL = 1e-3, 2e-2
@@ -3270,8 +3310,9 @@ def train_mesh_phase(check, elastic_dir=None):
 #: width and EL_LAYERS layers, phase 18's precision, batch and lr, in its
 #: four gloo ranks: ``TrainDriver`` on 2x2 ("data", "model") checkpointing
 #: every EL_EVERY steps, failing at step EL_FAIL, restarted by
-#: ``run_with_restarts`` onto 4x1 for EL_STEPS steps in all
-EL_LAYERS, EL_STEPS, EL_EVERY, EL_FAIL = 2, 6, 2, 3
+#: ``run_with_restarts`` onto 4x1 for EL_STEPS steps in all (4 of 6 since
+#: phase 23 joined the script: the restart still resumes two steps)
+EL_LAYERS, EL_STEPS, EL_EVERY, EL_FAIL = 2, 4, 2, 3
 EL_MESHES = ((2, 2), (4, 1))
 
 
@@ -3375,7 +3416,7 @@ def elastic_phase(check, recs, ckpt_dir):
     """Phase 19: elastic training on a model mesh.  ``recs``: every
     rank's ``elastic_ranks`` record (run in phase 18's world); then here,
     on one card: the reference, ``EL_STEPS`` uninterrupted steps of the
-    same seeded model and batches.  (a) every rank's six losses finite and
+    same seeded model and batches.  (a) every rank's losses finite and
     within ``TM_LOSS_TOL`` x |loss| of one card's, one restart from step
     ``EL_FAIL // EL_EVERY * EL_EVERY``, flash's forward and backward
     launched on every rank; (b) every rank's restored blocks bit for bit
@@ -3686,9 +3727,12 @@ def dryrun_phase(check):
 #: phase 21: decode on a cache placed by cache_shardings: (model, its
 #: depth) at full width, on a 1x4 ("data", "model") mesh of gloo ranks
 #: sharing the card, in fp32 (tokens and logits against one card) and in
-#: the cells' bf16 (cache bytes against the dry run's specs)
-PLACED_DECODE = (("h2o-danube-1.8b", 24), ("mamba2-370m", 48),
-                 ("zamba2-1.2b", 38))
+#: the cells' bf16 (cache bytes against the dry run's specs).  A third of
+#: each model's depth since phase 23 joined the script (full depth: 96 s
+#: of its 1200 s limit; every layer is alike, and zamba2's 12 keep two
+#: shared-block applications)
+PLACED_DECODE = (("h2o-danube-1.8b", 8), ("mamba2-370m", 16),
+                 ("zamba2-1.2b", 12))
 PD_MESH = (1, 4)
 PD_DTYPES = ("float32", "bfloat16")
 PD_BATCH, PD_PROMPT, PD_STEPS = 4, 512, 16
@@ -4020,6 +4064,395 @@ def examples_phase(check, procs):
               f"{ {k: v for k, v in got.items() if v} }")
     summary["wait_s"] = time.perf_counter() - t0
     return totals, summary
+
+
+#: phase 23: serving with parameters placed by the cells' param_shardings,
+#: at full width on a 2x2 ("data", "model") mesh of gloo ranks sharing
+#: the card (both the FSDP gather over "data" and the tensor-parallel one
+#: over "model" run): (model, fp32 depth, fp32 greedy steps, bf16 depth,
+#: bf16 steps; no fp32 run where its depth is None).  Every pass gathers
+#: every layer through host-staged gloo, about 0.35 GB of whole weights a
+#: second a rank on one card (danube fp32 at 24 layers: 19 s a decode
+#: step), so the fp32 runs (against one card) are cut in depth and steps;
+#: the bf16 runs (against the dry run) keep danube's and zamba2's full
+#: depth, zamba2's with a decode step (danube's prefill alone); mixtral-
+#: 8x22b runs 1 of 56 layers, prefill only, in bf16 alone (its fp32
+#: prefill gathers 10.8 GB: 35 s)
+PLACED_PARAMS = (("h2o-danube-1.8b", 2, 1, 24, 0),
+                 ("zamba2-1.2b", 6, 1, 38, 1),
+                 ("mixtral-8x22b", None, 0, 1, 0))
+PP_MESH = (2, 2)
+PP_BATCH, PP_PROMPT = 4, 512
+#: danube's slot engine on the mesh, at its fp32 depth: requests (their
+#: prompt lengths) and steps
+PP_SLOT = dict(capacity=2, max_context=256, page_size=16)
+PP_SLOT_LENS, PP_SLOT_STEPS = (100, 180), 2
+#: a rank's bf16 peak against the dry run's per_device_total of the same
+#: cut cell on a fake 2x2 world standing for gloo
+PP_PEAK_BAND = (0.9, 1.3)
+#: bf16 logits against one card's, x max|logit| (phase 17 (c)'s bound);
+#: a gather of the wrong block moves them by their whole size
+PP_BF16_TOL = 5e-2
+
+_PP_DRY = r"""
+import json, sys
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch.mesh import fake_world, make_mesh
+out = []
+for arch, layers, steps, batch, prompt in json.loads(sys.argv[1]):
+    cut = dryrun.depth_cut(arch, layers)
+    shapes = [("prefill_32k", prompt)]
+    if steps:
+        shapes.append(("decode_32k", prompt + steps))
+    rec = {}
+    for shape, length in shapes:
+        r = dryrun.run_cell(arch, shape, overrides=cut, batch=batch,
+                            seq_len=length, mesh_shape=(2, 2),
+                            backend="gloo")
+        rec[shape] = {"memory": r["memory"],
+                      "launches": r["kernel_launches"]}
+    with fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"))
+        cell = specs.input_specs(arch, "decode_32k", mesh, overrides=cut,
+                                 batch=batch, seq_len=prompt + 1)
+        rec["param_bytes"] = dryrun.block_bytes(
+            cell.args[0], cell.in_shardings[0], {"data": 2, "model": 2})
+    out.append(rec)
+json.dump(out, open(sys.argv[2], "w"))
+"""
+
+
+def _pp_runs():
+    """(model, depth, dtype, steps) of every run, fp32 first a model."""
+    return [(name, layers, dtype, steps)
+            for name, l32, s32, l16, s16 in PLACED_PARAMS
+            for layers, dtype, steps in ((l32, "float32", s32),
+                                         (l16, "bfloat16", s16))
+            if layers is not None]
+
+
+def _pp_whole(name, layers, dtype, dev):
+    """(cfg, the whole seeded parameters on the card): fp32 masters for
+    fp32; for bf16 every leaf in bf16, as the serving cells' parameters
+    (``launch.specs.params_struct(cfg, dtype=bfloat16)``)."""
+    import torch
+
+    from repro_torch.launch.dryrun import depth_cut
+    from repro_torch.models import init_params
+    cfg = _tp_cfg(name, dtype=dtype, **depth_cut(name, layers))
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    if dtype == "bfloat16":
+        params = _map_leaves(lambda t: t.to(torch.bfloat16), params)
+    return cfg, params
+
+
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _pp_decode(params, tokens, cfg, steps):
+    """Prefill (its cache sized for ``steps``), then ``steps`` greedy
+    steps: {logits (steps + 1, B, V) fp32 on the host, tokens (B, steps
+    + 1): each row's argmax, and per part (``prefill``; ``decode`` when
+    ``steps``) the peak of ``max_memory_allocated``, the launches of
+    flash and the SSD scan and the seconds}."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models import decode as dec
+
+    def part(t0):
+        torch.cuda.synchronize()
+        out = {"peak": torch.cuda.max_memory_allocated(),
+               "launches": {"flash_attention": fa.launches["flash_attention"],
+                            "ssd_scan": ssd_scan.launches["ssd_scan"]},
+               "s": time.perf_counter() - t0}
+        fa.reset_launches()
+        ssd_scan.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+    part(time.perf_counter())
+    t0 = time.perf_counter()
+    logits, cache = dec.prefill(params, tokens, cfg,
+                                max_len=PP_PROMPT + steps)
+    res = {"prefill": part(t0)}
+    out = [logits.float().cpu()]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = dec.decode_step(params, logits.argmax(-1)[:, None],
+                                        cache, cfg)
+        out.append(logits.float().cpu())
+    if steps:
+        res["decode"] = part(t0)
+    logits = torch.stack(out)
+    res.update(logits=logits, tokens=logits.argmax(-1).T)
+    return res
+
+
+def _pp_slots(params, cfg, prompts, dev):
+    """Danube's slot engine: the requests inserted, ``PP_SLOT_STEPS``
+    steps; (the packed results, step builds, gather launches)."""
+    import numpy as np
+
+    from repro_torch.kernels import paged
+    from repro_torch.serve import SlotEngine
+    eng = SlotEngine(params, cfg, device=dev, **PP_SLOT)
+    paged.reset_launches()
+    for p in prompts:
+        eng.insert(np.asarray(p, np.int64),
+                   max_new_tokens=PP_SLOT_STEPS + 1)
+    got = [eng.step().data.tolist() for _ in range(PP_SLOT_STEPS)]
+    return got, eng.decode_compiles, paged.launches["paged_gather"], eng
+
+
+def placed_params_ranks(spec, out_dir):
+    """Phase 23 in each of four gloo ranks sharing the card: each run's
+    parameters drawn whole by one rank at a time, placed
+    (``models.placed.place_params``) and freed, then prefill and greedy
+    steps on the 2x2 mesh (fp32 logits to ``out_dir``), danube's slot
+    engine on it too; every rank's record on rank 0."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models.placed import place_params
+
+    dev = torch.device("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(PP_MESH, ("data", "model"), device="cuda",
+                     backend="gloo")
+    rec = {"rank": rank, "models": {}}
+    for name, layers, dtype, steps in _pp_runs():
+        t0 = time.perf_counter()
+        placed = None
+        for r in range(world):             # one whole tree on the card
+            if r == rank:
+                cfg, whole = _pp_whole(name, layers, dtype, dev)
+                placed = place_params(whole, cfg, mesh)
+                del whole
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        setup_s = time.perf_counter() - t0
+        tokens = torch.as_tensor(spec[name], device=dev)
+        with torch.no_grad(), set_mesh(mesh):
+            res = _pp_decode(placed, tokens, cfg, steps)
+        res["param_bytes"] = dryrun.storage_bytes(placed)
+        res["setup_s"] = setup_s
+        logits = res.pop("logits")
+        torch.save(logits, f"{out_dir}/{name}.{dtype}.{rank}.pt")
+        res["tokens"] = res["tokens"].tolist()
+        if name == "h2o-danube-1.8b" and dtype == "float32":
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                got, builds, gathers, eng = _pp_slots(placed, cfg,
+                                                      spec["slots"], dev)
+            res["slots"] = {"results": got, "builds": builds,
+                            "gathers": gathers,
+                            "param_bytes": dryrun.storage_bytes(eng.params),
+                            "s": time.perf_counter() - t1}
+            del eng
+        rec["models"][f"{name}/{dtype}"] = res
+        del placed, tokens, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = [None] * world
+    dist.all_gather_object(out, rec)
+    return out
+
+
+def _pp_bf16_agreement(got, want, tag, check):
+    """A bf16 run's logits (steps + 1, B, V) against one card's: every
+    row at the prefill, a later step's rows only while their tokens so
+    far agree (a row fed another token decodes something else).  Within
+    ``PP_BF16_TOL`` x max|logit|, and where the greedy tokens differ,
+    one card's logits of both tokens within it too (a near tie)."""
+    import torch
+
+    scale = want.abs().max().item()
+    tok_g, tok_w = got.argmax(-1), want.argmax(-1)
+    same = (tok_g == tok_w).cumprod(0).bool()
+    alive = torch.cat([torch.ones_like(same[:1]), same[:-1]])
+    err = ((got - want).abs().amax(-1)[alive].max().item() / scale)
+    check(err <= PP_BF16_TOL, f"{tag}: logits {err:.3e} x max|logit| off "
+          f"one card's bf16 (limit {PP_BF16_TOL})")
+    parted = alive & ~same
+    gap = (want.gather(-1, tok_w[..., None]) - want.gather(
+        -1, tok_g[..., None]))[..., 0][parted]
+    worst = gap.max().item() / scale if gap.numel() else 0.0
+    check(worst <= PP_BF16_TOL, f"{tag}: a greedy token differs from one "
+          f"card's where its logit is {worst:.3e} x max|logit| below one "
+          f"card's choice: no near tie")
+    return {"logit_err": err, "tokens_compared": int(alive.sum()),
+            "tokens_equal": int((alive & same).sum())}
+
+
+def placed_params_phase(check):
+    """Phase 23 (module docstring).  Returns ({kernel: launches over the
+    ranks}, summary)."""
+    import gc
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import spawn
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_params_")
+    dry_json = os.path.join(tmp.name, "dry.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry = subprocess.Popen(
+        [sys.executable, "-c", _PP_DRY, json.dumps(
+            [[n, l16, s16, PP_BATCH, PP_PROMPT]
+             for n, _, _, l16, s16 in PLACED_PARAMS]), dry_json],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    rng = np.random.default_rng(23)
+    spec = {name: rng.integers(0, _tp_cfg(name).vocab,
+                               (PP_BATCH, PP_PROMPT)).tolist()
+            for name, *_ in PLACED_PARAMS}
+    spec["slots"] = [rng.integers(0, _tp_cfg(PLACED_PARAMS[0][0]).vocab,
+                                  (n,)).tolist() for n in PP_SLOT_LENS]
+
+    # one card, whole parameters: the yardsticks, on the host
+    t0 = time.perf_counter()
+    want = {}
+    for name, layers, dtype, steps in _pp_runs():
+        cfg, params = _pp_whole(name, layers, dtype, dev)
+        with torch.no_grad():
+            want[f"{name}/{dtype}"] = _pp_decode(params, torch.as_tensor(
+                spec[name], device=dev), cfg, steps)
+            if name == "h2o-danube-1.8b" and dtype == "float32":
+                want["slots"], _, _, eng = _pp_slots(params, cfg,
+                                                     spec["slots"], dev)
+                del eng
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    recs = spawn.run_ranks(placed_params_ranks, 4, device="cuda",
+                           backend="gloo", args=(spec, tmp.name),
+                           timeout=600)
+    ranks_s = time.perf_counter() - t0
+    out_d, _ = dry.communicate(timeout=600)
+    check(dry.returncode == 0, f"phase 23: the cut dry runs exited "
+          f"{dry.returncode}:\n{out_d[-3000:]}")
+    with open(dry_json) as f:
+        dry_rec = dict(zip([n for n, *_ in PLACED_PARAMS], json.load(f)))
+
+    launches = {"flash_attention": 0, "ssd_scan": 0, "paged_gather": 0}
+    rows = {}
+    lo, hi = PP_PEAK_BAND
+    for name, layers, dtype, steps in _pp_runs():
+        key = f"{name}/{dtype}"
+        parts = ("prefill", "decode") if steps else ("prefill",)
+        row = {"layers": layers, "dtype": dtype, "steps": steps,
+               "ranks": {}}
+        first = None
+        for r in recs:
+            m = r["models"][key]
+            tag = f"phase 23 {key} rank {r['rank']}"
+            entry = {k: m[k] for k in ("param_bytes", "setup_s")}
+            for p in parts:
+                for k, v in m[p]["launches"].items():
+                    launches[k] += v
+                entry.update({f"{p}_{k}": m[p][k]
+                              for k in ("peak", "launches", "s")})
+            w = want[key]
+            got = torch.load(f"{tmp.name}/{name}.{dtype}.{r['rank']}.pt")
+            if first is None:
+                first = got
+            check(torch.equal(got, first), f"{tag}: the ranks' logits "
+                  "differ")
+            if dtype == "float32":
+                diff = np.asarray(m["tokens"]) != w["tokens"].numpy()
+                check(not diff.any(), f"{tag}: greedy tokens differ from "
+                      f"one card's at {int(diff.sum())} of {diff.size}")
+                scale = w["logits"].abs().max().item()
+                err = (got - w["logits"]).abs().max().item() / scale
+                check(err <= PD_LOGIT_TOL, f"{tag}: logits {err:.3e} x "
+                      f"max|logit| off one card's (limit {PD_LOGIT_TOL})")
+                entry["logit_err"] = err
+                if "slots" in m:
+                    sl = m["slots"]
+                    check(sl["results"] == want["slots"], f"{tag}: the slot "
+                          "engine's results differ from one card's")
+                    check(sl["builds"] == 1, f"{tag}: {sl['builds']} decode "
+                          "builds")
+                    check(sl["gathers"] > 0, f"{tag}: the paged gather never "
+                          "launched")
+                    launches["paged_gather"] += sl["gathers"]
+                    entry["slots"] = {k: sl[k] for k in (
+                        "builds", "gathers", "param_bytes", "s")}
+            else:
+                entry.update(_pp_bf16_agreement(got, w["logits"], tag,
+                                                check))
+                d = dry_rec[name]
+                check(m["param_bytes"] == d["param_bytes"],
+                      f"{tag}: holds {m['param_bytes']} parameter bytes, "
+                      f"the cell's param_shardings place {d['param_bytes']}")
+                for p in parts:
+                    dm = d[f"{p}_32k"]
+                    ratio = m[p]["peak"] / dm["memory"]["per_device_total"]
+                    entry[f"{p}_ratio"] = ratio
+                    check(lo <= ratio <= hi, f"{tag}: {p} peak "
+                          f"{m[p]['peak'] / 1e9:.3f} GB, {ratio:.3f}x the "
+                          f"dry run's per_device_total (band {lo}-{hi})")
+                    got_l = {k: v for k, v in m[p]["launches"].items() if v}
+                    check(got_l == dm["launches"], f"{tag}: {p} launches "
+                          f"{got_l}, the dry run counts {dm['launches']}")
+            row["ranks"][r["rank"]] = entry
+        rows[key] = row
+        r0 = row["ranks"][0]
+        line = (f"  placed params {key} ({layers} layers, batch {PP_BATCH} "
+                f"x {PP_PROMPT} + {steps} steps, 2x2): ")
+        if dtype == "float32":
+            line += (f"tokens equal one card's on every rank, logits "
+                     f"{r0['logit_err']:.3e} x max|logit| apart")
+            if "slots" in r0:
+                line += (f"; slot engine ({len(PP_SLOT_LENS)} requests, "
+                         f"{PP_SLOT_STEPS} steps) results equal one card's, "
+                         f"{r0['slots']['gathers']} gathers a rank, "
+                         f"{r0['slots']['s']:.1f} s")
+        else:
+            d = dry_rec[name]
+            line += (f"{r0['param_bytes'] / 1e6:.3f} MB of parameters a rank "
+                     f"= the specs' {d['param_bytes'] / 1e6:.3f}; peak "
+                     + "; ".join(
+                         f"{p} " + ", ".join(
+                             f"{v[f'{p}_peak'] / 1e9:.3f}"
+                             for v in row["ranks"].values())
+                         + f" GB a rank, {r0[f'{p}_ratio']:.3f}x the dry "
+                         f"run's {d[f'{p}_32k']['memory']['per_device_total'] / 1e9:.3f}"
+                         for p in parts)
+                     + f"; prefill launches {r0['prefill_launches']}; "
+                     f"logits {r0['logit_err']:.3e} x max|logit| off one "
+                     f"card's bf16, tokens {r0['tokens_equal']} of "
+                     f"{r0['tokens_compared']} equal"
+                     + ("" if r0["tokens_equal"] == r0["tokens_compared"]
+                        else " (the rest near ties)"))
+            row["dry_run"] = d
+        print(line + f"; prefill {r0['prefill_s']:.2f} s"
+              + (f", {steps} steps {r0['decode_s']:.2f} s" if steps else "")
+              + f", draw and place {r0['setup_s']:.1f} s (host-staged "
+              f"gloo)")
+    tmp.cleanup()
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 23: {secs:.1f} s (one card {ref_s:.1f}, four ranks "
+          f"{ranks_s:.1f} with spawning; ranks share one card over "
+          f"host-staged gloo: not a mesh's speed)")
+    return launches, {"models": rows, "seconds": {
+        "phase": secs, "one_card": ref_s, "ranks": ranks_s}}
 
 
 #: a kernels-line row's last name part -> its launch counter's key, where
@@ -4722,17 +5155,25 @@ def main() -> int:
         phase_s["train mesh"] - el_summary["seconds"]["ranks"], 1)
     phase_s["elastic"] = round(el_summary["seconds"]["phase"], 1)
 
-    # -- 20. the dry run against the card -------------------------------------
+    # -- 20. the dry run against the card, timed with the card to itself ----
     dry_launches, dry_summary = dryrun_phase(check)
     add_launches(kernels, dry_launches, "dryrun")
     phase("dry run")
 
-    # -- 21. decode on a placed cache; 22. the examples, started beside it -
+    # -- 22. the examples, started beside 21 and 23 (their subprocesses
+    # count their own launches and hold little of the card) ----------------
     ex_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_examples_")
     ex_procs = start_examples(ex_dir.name)
+
+    # -- 21. decode on a placed cache ------------------------------------------
     pd_launches, pd_summary = placed_decode_phase(check)
     add_launches(kernels, pd_launches, "placed_decode")
     phase("placed decode")
+
+    # -- 23. serving with placed parameters -----------------------------------
+    pp_launches, pp_summary = placed_params_phase(check)
+    add_launches(kernels, pp_launches, "placed_params")
+    phase("placed params")
     ex_launches, ex_summary = examples_phase(check, ex_procs)
     ex_dir.cleanup()
     add_launches(kernels, ex_launches, "examples")
@@ -4745,7 +5186,8 @@ def main() -> int:
          "mesh": mesh_summary, "model_mesh": tp_summary,
          "train_mesh": tm_summary, "elastic": el_summary,
          "dryrun": dry_summary, "placed_decode": pd_summary,
-         "examples": ex_summary, "phase_s": phase_s}, indent=1))
+         "examples": ex_summary, "placed_params": pp_summary,
+         "phase_s": phase_s}, indent=1))
     for c in cases:
         prof = ("not traced" if c["kernel_ms"] is None else
                 f"kernel {c['kernel_ms']:.3f} ms, other device "

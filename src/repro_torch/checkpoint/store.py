@@ -42,8 +42,8 @@ import torch
 import torch.distributed as dist
 
 from ..dist.comm_engine import RankMesh
+from ..models import placed
 from ..optim.adamw import Q8
-from ..train import trainer
 
 
 def _children(node) -> Optional[list]:
@@ -96,10 +96,10 @@ def _to_writer(x: torch.Tensor, spec, rm) -> Optional[torch.Tensor]:
     the ranks at coordinate 0 of every replicating axis and of every
     axis gathered before take part, so no block travels twice and
     nothing returns to the device (gloo axes stay on the host)."""
-    used = [a for e in spec for a in trainer._axes_in(e, rm)]
+    used = [a for e in spec for a in placed.axes_in(e, rm)]
     holds = not any(rm.coord[a] for a in rm.axes if a not in used)
     for d, entry in enumerate(spec):
-        for a in reversed(trainer._axes_in(entry, rm)):
+        for a in reversed(placed.axes_in(entry, rm)):
             if not holds or rm.sizes[a] == 1:
                 continue
             w = rm._wire(x, a)
@@ -166,7 +166,7 @@ def save(ckpt_dir: str, step: int, tree: Any, *,
     every rank returns once the checkpoint is published."""
     if mesh is None:
         return _write(ckpt_dir, step, _flatten_with_paths(tree), extra)
-    rm = trainer._rank_mesh(mesh)
+    rm = placed.rank_mesh(mesh)
     flat = _gathered(tree, specs, rm)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     error = None
@@ -193,7 +193,7 @@ class AsyncCheckpointer:
     def __init__(self, ckpt_dir: str, keep: int = 3, mesh=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
-        self.mesh = None if mesh is None else trainer._rank_mesh(mesh)
+        self.mesh = None if mesh is None else placed.rank_mesh(mesh)
         self._thread: Optional[threading.Thread] = None
         self._pending = False
         self.last_error: Optional[BaseException] = None
@@ -266,7 +266,7 @@ def _block_shape(shape, spec, rm) -> Tuple[int, ...]:
     out = list(shape)
     for d, entry in enumerate(spec):
         count = 1
-        for a in trainer._axes_in(entry, rm):
+        for a in placed.axes_in(entry, rm):
             count *= rm.sizes[a]
         out[d] = shape[d] // count if shape[d] % count == 0 else -1
     return tuple(out)
@@ -284,7 +284,7 @@ def _rebuild(like, data, prefix: str, spec=None, rm=None):
                              f"ckpt {arr.shape} vs model {want}")
         if rm is not None:
             whole = torch.from_numpy(np.asarray(arr))
-            return trainer._local(whole, spec, rm).to(
+            return placed.local(whole, spec, rm).to(
                 device=rm.device, dtype=like.dtype, copy=True).contiguous()
         if isinstance(like, torch.Tensor):
             return torch.from_numpy(np.array(arr)).to(device=like.device,
@@ -335,7 +335,7 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
         if not isinstance(mesh, RankMesh) and \
                 mesh.get_coordinate() is None:
             return None, step, extra           # not a rank of this mesh
-        rm = trainer._rank_mesh(mesh)
+        rm = placed.rank_mesh(mesh)
     with np.load(os.path.join(path, "arrays.npz")) as data:
         out = _rebuild(tree_like, data, prefix, shardings, rm)
     return out, step, extra

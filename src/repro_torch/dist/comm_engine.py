@@ -41,6 +41,7 @@ einsums, and cast to the kernel dtype at the end.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, Sequence, Tuple
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from ..core import plan as plan_mod
 from ..core.plan import CommPlan, PartitionSolution, TensorPartition
@@ -186,23 +188,46 @@ class RankMesh:
         #: fake group stands for
         self.backend = {a: (FAKE_BACKEND[-1] if FAKE_BACKEND else "nccl")
                         if b == "fake" else b for a, b in have.items()}
-        #: gloo stages through host memory; NCCL moves device tensors and
-        #: a fake group moves nothing
-        self.host = {a: b == "gloo" for a, b in have.items()}
+        #: gloo stages through host memory (a fake group standing for gloo
+        #: too, on ``meta``: the device holds what a real one's would);
+        #: NCCL moves device tensors
+        self.host = {a: b == "gloo" for a, b in self.backend.items()}
 
     def axis_index(self, axis: str) -> int:
         return self.coord[axis]
 
+    def restrict(self, axes: Sequence[str]) -> "RankMesh":
+        """This rank on the mesh's axes named in ``axes`` alone (the same
+        groups): the other axes split nothing under it."""
+        out = copy.copy(self)
+        out.axes = tuple(a for a in self.axes if a in axes)
+        for name in ("coord", "sizes", "groups", "ranks", "backend",
+                     "host"):
+            setattr(out, name, {a: getattr(self, name)[a]
+                                for a in out.axes})
+        return out
+
     def _wire(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         x = x.contiguous()
-        return x.cpu() if self.host[axis] else x
+        return x.cpu() if self.host[axis] and not x.is_meta else x
 
     def all_gather(self, x: torch.Tensor, axis: str, dim: int
                    ) -> torch.Tensor:
         """Concatenate the shards of ``x`` along ``dim`` over ``axis`` in
         coordinate order (``all_gather(..., tiled=True)``)."""
         w = self._wire(x, axis)
-        parts = [torch.empty_like(w) for _ in range(self.sizes[axis])]
+        n = self.sizes[axis]
+        if self.host[axis] and w.is_meta:
+            # a fake gloo axis: a real one's parts and their concatenation
+            # live in host memory and the device receives the result alone,
+            # so the parts are made where no counting mode sees them
+            with _disable_current_modes():
+                parts = [torch.empty_like(w) for _ in range(n)]
+            dist.all_gather(parts, w, group=self.groups[axis])
+            shape = list(w.shape)
+            shape[dim] *= n
+            return torch.empty(shape, dtype=w.dtype, device=self.device)
+        parts = [torch.empty_like(w) for _ in range(n)]
         dist.all_gather(parts, w, group=self.groups[axis])
         return torch.cat(parts, dim=dim).to(self.device)
 

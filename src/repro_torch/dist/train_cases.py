@@ -274,12 +274,12 @@ def block_mismatches(tree, specs, mesh, arrays) -> list:
     ``specs`` on ``mesh``) is not bit for bit its block of the logical
     ``arrays`` (a checkpoint's, by the checkpoint's key strings)."""
     from ..checkpoint import store
-    from ..train import trainer
-    rm = trainer._rank_mesh(mesh)
+    from ..models import placed
+    rm = placed.rank_mesh(mesh)
     bad = []
     for (key, leaf), (_, spec) in zip(store._paths(tree),
                                       store._paths(specs)):
-        want = trainer._local(torch.from_numpy(arrays[key]), spec, rm)
+        want = placed.local(torch.from_numpy(arrays[key]), spec, rm)
         got = leaf.detach().cpu()
         if got.shape != want.shape or not torch.equal(got,
                                                       want.to(got.dtype)):
@@ -293,9 +293,9 @@ def state_digest(tree, specs=None, mesh=None) -> Optional[str]:
     as a checkpoint gathers it (collective): the digest is the writing
     rank's, None on the others."""
     from ..checkpoint import store
-    from ..train import trainer
+    from ..models import placed
     if mesh is not None:
-        flat = store._gathered(tree, specs, trainer._rank_mesh(mesh))
+        flat = store._gathered(tree, specs, placed.rank_mesh(mesh))
         if not flat:
             return None
     else:
@@ -312,8 +312,8 @@ def place_arrays(like, specs, mesh, arrays):
     shaped as ``like``: the placement ``store.restore(shardings=)``
     makes, from arrays already read."""
     from ..checkpoint import store
-    from ..train import trainer
-    return store._rebuild(like, arrays, "", specs, trainer._rank_mesh(mesh))
+    from ..models import placed
+    return store._rebuild(like, arrays, "", specs, placed.rank_mesh(mesh))
 
 
 def permuted(mesh):
@@ -322,8 +322,8 @@ def permuted(mesh):
     planted fault for the block checks)."""
     import copy
 
-    from ..train import trainer
-    rm = copy.copy(trainer._rank_mesh(mesh))
+    from ..models import placed
+    rm = copy.copy(placed.rank_mesh(mesh))
     rm.coord = {a: rm.sizes[a] - 1 - c for a, c in rm.coord.items()}
     return rm
 

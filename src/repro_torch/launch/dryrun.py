@@ -16,9 +16,10 @@ Rank 0 takes its arguments as the rank program takes them:
 
 * train cells: its blocks of the state (``trainer.place_state`` under
   the cell's specs) and the global batch, whose batch rows it keeps;
-* prefill and decode cells: whole parameters (the rank model's declared
-  departure: "parameters are whole on every rank") and the global
-  tokens and frontend, whose batch rows it keeps;
+* prefill and decode cells: its blocks of the bf16 parameters as the
+  cell's ``param_shardings`` place them (a ``models.placed.Placed``
+  tree: the model gathers each layer whole while it runs) and the
+  global tokens and frontend, whose batch rows it keeps;
 * decode cells: its blocks of the cache as ``cache_shardings`` places
   them (batch rows, and over ``model`` the K/V columns, conv channels
   and state heads), with ``pos`` a 0-d CPU int32 holding ``seq_len - 1``
@@ -26,8 +27,8 @@ Rank 0 takes its arguments as the rank program takes them:
 
 So the record's ``argument_bytes`` is what the rank holds and
 ``spec_argument_bytes`` what the cell's ``in_shardings`` place (the
-reference's ``argument_size_in_bytes``); for serving cells they differ
-by the whole parameters, and only by them.  ``cache_bytes`` is the
+reference's ``argument_size_in_bytes``): the two are equal for every
+cell.  ``cache_bytes`` is the
 cache the rank holds (a decode cell's argument, a prefill cell's
 output; ``pos`` aside) and ``spec_cache_bytes`` its blocks under the
 cell's cache specs: the two are equal.
@@ -72,7 +73,8 @@ import torch
 
 from ..configs import get_config
 from ..core.hopper import H100, CellRoofline
-from ..dist.comm_engine import Spec, _axes_of
+from ..dist.comm_engine import RankMesh, Spec, _axes_of
+from ..models.placed import Placed
 from ..optim import adamw
 from ..train import trainer
 from . import specs
@@ -187,14 +189,17 @@ def rank_args(cell, mesh, gen: Optional[torch.Generator] = None,
         placed = trainer.place_state(state, st_sh, mesh)
         del state
         return (placed, batch), (None, b_sh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    params = Placed(real(placed_struct(cell.args[0], cell.in_shardings[0],
+                                       sizes)),
+                    cell.in_shardings[0], RankMesh(mesh))
     held = [None, _rows(cell.in_shardings[1])]
     if cell.kind == "prefill":
-        args = real(cell.args)
-        if len(args) > 2:
+        rest = real(cell.args[1:])
+        if len(rest) > 1:
             held.append(_rows(cell.in_shardings[2]))
-        return args, tuple(held)
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    params, toks = real(cell.args[:2])
+        return (params, *rest), tuple(held)
+    toks = real(cell.args[1])
     cache = real(placed_struct(cell.args[2], cell.in_shardings[2], sizes))
     cache["pos"] = torch.tensor(cell.shape.seq_len - 1, dtype=torch.int32)
     return (params, toks, cache), (None, held[1], None)

@@ -279,12 +279,15 @@ class OpAnalysis(TorchDispatchMode):
         ns, name = func.namespace, func._schema.name.split("::")[-1]
         flat_out = [t for t in tree_flatten(out)[0]
                     if isinstance(t, torch.Tensor)]
-        for t in flat_out:
-            self._track(t)
         if ns == "c10d":
+            # a collective's results are the buffers it was handed, each
+            # counted where it was allocated (a fake gloo axis's gather
+            # buffers stand for host memory: not at all)
             if name in _C10D:
                 self._collective(name, args)
             return out
+        for t in flat_out:
+            self._track(t)
         if func.is_view or name in _NO_TRAFFIC:
             return out
         s = self.stats

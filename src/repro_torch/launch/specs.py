@@ -35,7 +35,7 @@ from ..configs import SHAPES, InputShape, ModelConfig, cells_for, get_config
 from ..core import hopper
 from ..dist.comm_engine import Spec
 from ..launch.mesh import set_mesh
-from ..models import common, decode as dec, transformer
+from ..models import decode as dec, placed, transformer
 from ..models.ssm import conv_dim
 from ..models.transformer import hybrid_groups
 from ..optim import adamw
@@ -53,13 +53,13 @@ def opt_config_for(cfg: ModelConfig) -> adamw.AdamWConfig:
 # ---------------------------------------------------------------------------
 
 def _batch_axes(mesh) -> Tuple[str, ...]:
-    names = trainer._mesh_shape(mesh)
+    names = placed.mesh_shape(mesh)
     return tuple(a for a in ("pod", "data") if a in names)
 
 
 def _fit(spec_axes, shape, mesh) -> Spec:
     """A spec with the divisibility fallback (axis -> None)."""
-    sizes = trainer._mesh_shape(mesh)
+    sizes = placed.mesh_shape(mesh)
     out = []
     for dim, ax in zip(shape, spec_axes):
         if ax is None:
@@ -104,10 +104,10 @@ def params_struct(cfg: ModelConfig, dtype=None) -> Tuple[Any, Any]:
     return params, transformer.param_axes(cfg)
 
 
-def param_shardings(params, axes, cfg: ModelConfig, mesh,
-                    rules: common.AxisRules = common.DEFAULT_RULES):
-    """A :class:`Spec` a parameter, from its logical axes."""
-    return rules.specs(axes, params, trainer._mesh_shape(mesh))
+def param_shardings(params, axes, cfg: ModelConfig, mesh):
+    """A :class:`Spec` a parameter, from its logical axes
+    (``models.placed.param_specs``)."""
+    return placed.param_specs(params, axes, mesh)
 
 
 def cache_struct(cfg: ModelConfig, batch: int, seq_len: int) -> Dict:

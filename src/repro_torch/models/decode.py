@@ -41,12 +41,13 @@ from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import explicit_tp as etp
+from . import placed as pp
 from . import ssm as ssm_mod
 from .common import rmsnorm
 from .transformer import (_cross_block, _decoder_block, _dense_block,
                           _shared_block, _ssm_block, _stack, encode,
-                          forward_hidden, hybrid_groups, layer_params,
-                          logits_from_hidden, require_family, shared_after)
+                          forward_hidden, hybrid_groups, logits_from_hidden,
+                          require_family, shared_after)
 
 
 # ---------------------------------------------------------------------------
@@ -89,13 +90,12 @@ def _cross_cache(params: Dict[str, Any], cfg: ModelConfig, *,
     layer from the image embeddings ``img`` (vlm); on a model mesh each
     layer's rank columns (``explicit_tp.feature_copy``)."""
     if cfg.family == "encdec":
-        ps, src = params["layers"]["cross"], enc
+        ps, src = pp.layers(params, "layers", "cross"), enc
     else:
-        ps, src = params["cross_layers"]["attn"], img
+        ps, src = pp.layers(params, "cross_layers", "attn"), img
     return _stack([{n: etp.feature_copy(t, 2) for n, t in
-                    attn.precompute_cross_cache(layer_params(ps, i), src,
-                                                cfg).items()}
-                   for i in range(ps["wq"].shape[0])])
+                    attn.precompute_cross_cache(ps[i], src, cfg).items()}
+                   for i in range(len(ps))])
 
 
 def prefill(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
@@ -221,34 +221,38 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     pos = cache["pos"]
     if isinstance(pos, torch.Tensor):
         pos = etp.local_rows(pos, rows)
-    x = params["embed"][etp.local_rows(tokens, rows)].to(compute)
+    x = pp.embed(params, etp.local_rows(tokens, rows)).to(compute)
     with etp.activation(rows):
         x, new_cache = _decode_blocks(params, x, pos, cache, new_cache, cfg)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = rmsnorm(x, pp.whole(params, "final_norm"), cfg.norm_eps)
     logits = etp.gather_rows(logits_from_hidden(params, x, cfg), rows)
     return logits[:, 0], new_cache
 
 
 def _decode_blocks(params, x, pos, cache, new_cache, cfg):
-    """Every block of one decode step: (x, the new cache)."""
-    lay = params["layers"]
+    """Every block of one decode step: (x, the new cache).  Each block
+    gets its weights straight from ``placed.layers`` (one layer gathered
+    at a time on a placed tree; the hybrid's shared block once an
+    application)."""
+    lay = pp.layers(params, "layers")
     if cfg.family in ("dense", "moe", "encdec", "vlm"):
         ck, cv = cache["self"]["k"], cache["self"]["v"]
         cross = cache.get("cross")
+        cross_layers = (pp.layers(params, "cross_layers")
+                        if cfg.family == "vlm" else None)
         for i in range(ck.shape[0]):
             self_kv = {"k": ck[i], "v": cv[i]}
             if cfg.family == "encdec":
                 x, _ = _decoder_block(
-                    layer_params(lay, i), x, cfg, cache=self_kv, pos=pos,
+                    lay[i], x, cfg, cache=self_kv, pos=pos,
                     cross={"k": cross["k"][i], "v": cross["v"][i]})
                 continue
             if cfg.family == "vlm" and i % cfg.cross_attn_every == 0:
                 gi = i // cfg.cross_attn_every
                 x = _cross_block(
-                    layer_params(params["cross_layers"], gi), x, cfg,
+                    cross_layers[gi], x, cfg,
                     cross={"k": cross["k"][gi], "v": cross["v"][gi]})
-            x, _, _ = _dense_block(layer_params(lay, i), x, cfg,
-                                   cache=self_kv, pos=pos)
+            x, _, _ = _dense_block(lay[i], x, cfg, cache=self_kv, pos=pos)
         new_cache["self"] = {"k": ck, "v": cv}
         if cross is not None:
             new_cache["cross"] = cross
@@ -256,13 +260,13 @@ def _decode_blocks(params, x, pos, cache, new_cache, cfg):
         conv, state = cache["ssm"]["conv"], cache["ssm"]["state"]
         lanes = []
         for i in range(conv.shape[0]):
-            x, c = _ssm_block(layer_params(lay, i), x, cfg,
+            x, c = _ssm_block(lay[i], x, cfg,
                               cache={"conv": conv[i], "state": state[i]})
             lanes.append(c)
             gi = shared_after(cfg, i)
             if gi is not None:
                 x, _ = _shared_block(
-                    params["shared"], x, cfg, pos=pos,
+                    pp.whole(params, "shared"), x, cfg, pos=pos,
                     cache={"k": cache["shared"]["k"][gi],
                            "v": cache["shared"]["v"][gi]})
         new_cache["ssm"] = _stack(lanes)

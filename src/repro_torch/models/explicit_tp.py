@@ -33,14 +33,19 @@ reference, all declared:
   and the sequence divisible), else whole; a :class:`Layout` records
   which, one per activation stream (the encoder's frames have their own),
   and the model entry points publish it (:func:`activation`);
+* a rank **holds its blocks of the parameters** as the cells'
+  ``param_shardings`` place them (``models.placed``): serving gathers
+  each layer's weights whole just before the layer runs and drops them
+  after it, looks the embedding up on the rank's vocab rows and
+  projects the logits on its vocab block; ``train.trainer``'s sharded
+  step gathers the whole weights for its forward and backward and sums
+  the gradient partials over the ranks;
 * the helpers take activations **as the reference's ``in_specs`` hand
   them to the ``shard_map`` body** — the rank's sequence shard of ``x``
   (whole where the layout keeps it whole: the gather is then the rank's
-  own data), the column block of ``h`` — and **whole weights**, whose
-  block they take as a view (a parameter's gradient on a rank is that
-  rank's partial: ``train.trainer``'s sharded step keeps the weights
-  placed, gathers them whole for the forward and sums the partials
-  over the ranks);
+  own data), the column block of ``h`` — and **whole weights** (a
+  gathered layer's), whose block they take as a view; their checks
+  read the global extents from those weights' shapes;
   ``chunked_attn_manual`` takes every query row and keeps its block;
 * where a helper returns None under a mesh the model gathers the
   sequence, runs the op on the whole sequence and takes its shard back;
@@ -52,14 +57,15 @@ reference, all declared:
   ``model`` axis, on its query rows otherwise (``ops.attention`` /
   ``flash_attention`` with ``q_offset`` on the card), and on its query
   rows through ``chunked_attn_manual`` above ``FULL_SCORES_MAX_LEN``;
-* the logits are gathered over the batch axes, so every rank returns the
-  global logits;
+* the logits are gathered over the vocab axes (a rank with placed
+  parameters projects onto its vocab block) and over the batch axes, so
+  every rank returns the global logits;
 * caches hold the rank's batch rows and, over ``model``, the feature block
   ``launch.specs.cache_shardings`` places (:func:`feature_block`: the K/V
   columns, the SSM conv channels and state heads; a leaf whose feature
   extent ``model`` does not divide stays whole, ``_fit``'s fallback).
-  Decode computes q, k and v of the new token whole (parameters are
-  whole), writes only its columns, scores on them per kv head and sums a
+  Decode computes q, k and v of the new token whole (from the gathered
+  layer), writes only its columns, scores on them per kv head and sums a
   head's partial scores over ``model`` where a block splits one
   (:func:`psum_model`); the heads' output columns and the SSM block's
   conv output and ``y`` are gathered back over ``model``;

@@ -28,6 +28,13 @@ torch would not, so the port promotes explicitly.
 once (the reference casts them on every call; the values are the same),
 which the serving engines do when they are built.
 
+The entry points read a parameter tree through ``models.placed``'s
+accessors, so they take whole trees and trees of a rank's blocks
+(``placed.place_params``) alike: on a placed tree each layer's weights
+are gathered whole just before the layer runs and dropped after it, the
+embedding looks the tokens up on the rank's vocab rows and the logits
+are computed on its vocab block and gathered.
+
 Training differentiates :func:`forward` with autograd.  With
 ``cfg.remat`` and autograd recording, every block (a layer, the hybrid's
 shared block, a vlm cross block, an encoder layer) runs under
@@ -52,6 +59,7 @@ from ..kernels.stt_gemm import _fp32_product
 from . import attention as attn
 from . import explicit_tp as etp
 from . import mlp as mlp_mod
+from . import placed as pp
 from . import ssm as ssm_mod
 from .common import Logical, normal, ones_init, rmsnorm, zeros_init
 
@@ -129,8 +137,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, Any]:
         p["shared"] = {
             "ln1": ones_init(gen, (d,)),
             "ln2": ones_init(gen, (d,)),
-            "attn": layer_params(attn.init_attention(gen, cfg, 1), 0),
-            "mlp": layer_params(mlp_mod.init_mlp(gen, cfg, 1), 0),
+            "attn": pp.layer_params(attn.init_attention(gen, cfg, 1), 0),
+            "mlp": pp.layer_params(mlp_mod.init_mlp(gen, cfg, 1), 0),
         }
     return p
 
@@ -189,63 +197,60 @@ _FP32_LEAVES = ("ln1", "ln2", "ln3", "ln", "final_norm", "enc_norm",
 def compute_params(params: Dict[str, Any], cfg: ModelConfig
                    ) -> Dict[str, Any]:
     """The parameters a serving engine runs: every weight cast to the
-    compute dtype once, the norm gains kept fp32, and ``w_out`` — the
-    output projection ``(d, vocab)`` rounded to the compute dtype and
-    held in fp32, the operand of the logits product.  The masters are
-    not changed."""
+    compute dtype once, the norm gains kept fp32, and on a whole tree
+    ``w_out`` — the output projection ``(d, vocab)`` rounded to the
+    compute dtype and held in fp32, the operand of the logits product.
+    A placed tree (``placed.Placed``) stays the rank's blocks, cast
+    alike; its output projection is made from the rank's block at each
+    projection, never whole.  The masters are not changed."""
     compute = torch_dtype(cfg.dtype)
 
-    def cast(tree):
-        return {k: (cast(v) if isinstance(v, dict) else
-                    v if k in _FP32_LEAVES else v.to(compute))
+    def cast(k, v):
+        return v if k in _FP32_LEAVES else v.to(compute)
+
+    if isinstance(params, pp.Placed):
+        return params.map(cast)
+
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict) else cast(k, v))
                 for k, v in tree.items()}
 
-    out = cast(params)
-    out["w_out"] = _w_out(params, cfg)
+    out = walk(params)
+    out["w_out"] = _w_out(params, cfg)[0]
     return out
 
 
-def _w_out(params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+def _w_out(params: Dict[str, Any], cfg: ModelConfig
+           ) -> Tuple[torch.Tensor, Any, Tuple[str, ...]]:
+    """(the output projection, fp32 of compute-dtype values; the mesh and
+    the axes its logits are gathered over): ``w_out`` as prepared, else
+    made from ``unembed`` or ``embed.T`` (a placed tree's vocab block,
+    gathered over its ``embed`` axes)."""
     w = params.get("w_out")
-    if w is None:
-        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-        w = w.to(torch_dtype(cfg.dtype)).to(torch.float32)
-    return w
+    if w is not None:
+        return w, None, ()
+    w, rm, axes = pp.out_projection(params, cfg.tie_embeddings)
+    return w.to(torch_dtype(cfg.dtype)).to(torch.float32), rm, axes
 
 
 def logits_from_hidden(params: Dict[str, Any], x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
     """The output projection: x and the weights in the compute dtype,
     products and sums in fp32, fp32 logits (the reference's
-    ``preferred_element_type=float32``)."""
+    ``preferred_element_type=float32``).  On a placed tree the rank
+    projects onto its vocab block and the blocks are gathered over the
+    vocab axes: every rank gets every logit of its rows."""
     xc = x.to(torch_dtype(cfg.dtype)).to(torch.float32)
-    return torch.matmul(xc, _w_out(params, cfg))
+    w, rm, axes = _w_out(params, cfg)
+    logits = torch.matmul(xc, w)
+    for a in reversed(axes):
+        logits = rm.all_gather(logits, a, logits.dim() - 1)
+    return logits
 
 
-def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
-            for k, v in stacked.items()}
-
-
-def unstack(stacked: Dict[str, Any]) -> list:
-    """Every layer of a stacked parameter tree, as views from one
-    ``unbind`` a leaf.  Under autograd a leaf's gradient is then one
-    ``stack`` of its layers' gradients, where indexing it layer by layer
-    (:func:`layer_params`) would add a zero-filled gradient of the whole
-    stack for every layer."""
-    def split(tree):
-        return {k: (split(v) if isinstance(v, dict) else v.unbind(0))
-                for k, v in tree.items()}
-
-    def pick(tree, i):
-        return {k: (pick(v, i) if isinstance(v, dict) else v[i])
-                for k, v in tree.items()}
-    parts = split(stacked)
-    leaf = parts
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return [pick(parts, i) for i in range(len(leaf))]
+#: layer ``i`` of a stacked tree, as views (``models.placed``'s; the name
+#: stays here for its callers)
+layer_params = pp.layer_params
 
 
 # ---------------------------------------------------------------------------
@@ -356,10 +361,12 @@ def encode(params: Dict[str, Any], frontend: torch.Tensor,
     lay = etp.layout_for(frontend.shape[0], frontend.shape[1], cfg)
     h = etp.to_layout(etp.local_rows(frontend, lay).to(
         torch_dtype(cfg.dtype)), lay)
+    enc = pp.layers(params, "encoder")
     with etp.activation(lay):
-        for pl_ in unstack(params["encoder"]):
-            h, _, _ = _run(_dense_block, cfg, pl_, h, cfg, causal=False)
-    return etp.full_seq(rmsnorm(h, params["enc_norm"], cfg.norm_eps), lay)
+        for i in range(len(enc)):
+            h, _, _ = _run(_dense_block, cfg, enc[i], h, cfg, causal=False)
+    return etp.full_seq(rmsnorm(h, pp.whole(params, "enc_norm"),
+                                cfg.norm_eps), lay)
 
 
 def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
@@ -380,31 +387,35 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
                          f"{cfg.d_model})")
     compute = torch_dtype(cfg.dtype)
     lay = etp.layout_for(tokens.shape[0], tokens.shape[1], cfg)
-    x = params["embed"][etp.local_rows(tokens, lay)].to(compute)
+    x = pp.embed(params, etp.local_rows(tokens, lay)).to(compute)
     x = etp.to_layout(x, lay)
     with etp.activation(lay):
         x, aux, caches = _blocks(params, x, cfg, frontend, collect_cache)
-    x = etp.full_seq(rmsnorm(x, params["final_norm"], cfg.norm_eps), lay)
+    x = etp.full_seq(rmsnorm(x, pp.whole(params, "final_norm"),
+                             cfg.norm_eps), lay)
     return x, aux, caches if collect_cache else None
 
 
 def _blocks(params, x, cfg, frontend, collect_cache):
     """Every block of the stack on the embedded stream x: (x, aux,
-    caches)."""
+    caches).  Each block is handed its weights as ``placed.layers``
+    gives them, straight into the call: on a placed tree one layer is
+    gathered at a time and dropped when its block returns (the hybrid's
+    shared block once an application)."""
     compute = torch_dtype(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layers = unstack(params["layers"])
+    layers = pp.layers(params, "layers")
     caches: Dict[str, Any] = {}
     if cfg.family in ("dense", "moe", "vlm"):
         img = None if cfg.family != "vlm" else etp.local_rows(
             frontend, etp.current_layout()).to(compute)
-        cross = [] if img is None else unstack(params["cross_layers"])
+        cross = [] if img is None else pp.layers(params, "cross_layers")
         kvs = []
-        for i, pl_ in enumerate(layers):
+        for i in range(len(layers)):
             if img is not None and i % cfg.cross_attn_every == 0:
                 x = _run(_cross_block, cfg, cross[i // cfg.cross_attn_every],
                          x, cfg, img=img)
-            x, aux_l, kv = _run(_dense_block, cfg, pl_, x, cfg,
+            x, aux_l, kv = _run(_dense_block, cfg, layers[i], x, cfg,
                                 collect_kv=collect_cache)
             aux = aux + aux_l
             kvs.append(kv)
@@ -413,8 +424,8 @@ def _blocks(params, x, cfg, frontend, collect_cache):
     elif cfg.family == "encdec":
         enc = encode(params, frontend, cfg)
         kvs = []
-        for pl_ in layers:
-            x, kv = _run(_decoder_block, cfg, pl_, x, cfg, enc=enc,
+        for i in range(len(layers)):
+            x, kv = _run(_decoder_block, cfg, layers[i], x, cfg, enc=enc,
                          collect_kv=collect_cache)
             kvs.append(kv)
         if collect_cache:
@@ -422,13 +433,13 @@ def _blocks(params, x, cfg, frontend, collect_cache):
             caches["enc_out"] = enc
     else:
         ssm_caches, shared_kv = [], []
-        for i, pl_ in enumerate(layers):
-            x, c = _run(_ssm_block, cfg, pl_, x, cfg,
+        for i in range(len(layers)):
+            x, c = _run(_ssm_block, cfg, layers[i], x, cfg,
                         collect_cache=collect_cache)
             ssm_caches.append(c)
             if shared_after(cfg, i) is not None:
-                x, kv = _run(_shared_block, cfg, params["shared"], x, cfg,
-                             collect_kv=collect_cache)
+                x, kv = _run(_shared_block, cfg, pp.whole(params, "shared"),
+                             x, cfg, collect_kv=collect_cache)
                 shared_kv.append(kv)
         if collect_cache:
             caches["ssm"] = _stack(ssm_caches)

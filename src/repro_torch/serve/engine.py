@@ -6,7 +6,11 @@ The port of the reference's ``serve/engine.py``.
 independent sequences with per-sequence EOS tracking; it is the
 sequential parity oracle of the slot engine.  It casts the fp32 master
 weights to the compute dtype once, when it is built
-(``models.compute_params``).  Temperature sampling draws from a
+(``models.compute_params``).  On a mesh the engines hold the rank's
+parameter blocks (:func:`serving_params`): a tree placed by
+``models.placed.place_params``, or a whole tree handed to an engine
+built under ``launch.mesh.set_mesh``, which places it; each layer's
+weights are then gathered whole while the layer runs.  Temperature sampling draws from a
 ``torch.Generator`` seeded by ``ServeConfig.seed``; its bits differ from
 ``jax.random``'s, so parity with the reference holds for greedy decoding.
 
@@ -29,7 +33,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
+from ..launch.mesh import current_mesh
 from ..models import decode as dec
+from ..models.placed import Placed, place_params
 from ..models.transformer import compute_params
 
 
@@ -47,6 +53,20 @@ def to_device(params: Dict[str, Any], device: torch.device
     kept, not copied)."""
     return {k: (to_device(v, device) if isinstance(v, dict)
                 else v.to(device)) for k, v in params.items()}
+
+
+def serving_params(params: Dict[str, Any], cfg: ModelConfig,
+                   device: torch.device) -> Dict[str, Any]:
+    """The parameters an engine runs, cast once (``compute_params``): a
+    placed tree (``models.placed.Placed``) stays the rank's blocks; a
+    whole tree is placed under the current mesh where there is one (each
+    block copied to the mesh's device), else moved to ``device``
+    whole."""
+    if not isinstance(params, Placed):
+        mesh = current_mesh()
+        params = (to_device(params, device) if mesh is None
+                  else place_params(params, cfg, mesh))
+    return compute_params(params, cfg)
 
 
 def to_frontend(frontend, device: torch.device) -> Optional[torch.Tensor]:
@@ -68,7 +88,9 @@ def sample(logits: torch.Tensor, temperature: float,
 
 class DecodeEngine:
     """Prefill + decode of a static batch on one device: the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  ``generate`` runs on the current mesh, if any (the
+    rank model of ``models.explicit_tp``), with the parameters whole or
+    placed (:func:`serving_params`)."""
 
     def __init__(self, params, cfg: ModelConfig,
                  serve_cfg: Optional[ServeConfig] = None, device=None):
@@ -78,7 +100,7 @@ class DecodeEngine:
         # would silently reconfigure every other engine.
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = compute_params(to_device(params, self.device), cfg)
+        self.params = serving_params(params, cfg, self.device)
         self.serve_cfg = serve_cfg if serve_cfg is not None else ServeConfig()
 
     @torch.no_grad()

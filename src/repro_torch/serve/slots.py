@@ -29,9 +29,25 @@ MoE groups its tokens by batch row, so each slot routes within its own
 expert capacity and idle slots take none of it.  Pools placed over a
 mesh (``pages.place_pools``) are gathered and written through their
 placement; the step is the same.
+
+On a model mesh (an engine built under ``launch.mesh.set_mesh``, or
+handed parameters placed by ``models.placed.place_params``) the engine
+holds the rank's parameter blocks, and each layer's weights are gathered
+whole while the layer runs.  Its model calls run on the mesh's
+``model`` axis alone: every rank holds every slot (the batch axes split
+no slot; they place the parameters), the cache leaves hold the rank's
+K/V columns, conv channels and state heads, and every rank samples the
+same tokens.  Every layer of every prefill and step runs collectives on
+the parameters' mesh, so every rank must make the same calls in the same
+order: the same requests inserted into the same slots at the same steps
+(a ``ContinuousServer`` on each rank must be given the same requests in
+the same order before it starts, or fed from one rank, say by a
+broadcast); ranks that admit differently deadlock or mix up their
+collectives.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -41,9 +57,11 @@ import torch
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
 from ..kernels.ops import resolve_device
+from ..launch.mesh import set_mesh
 from ..models import decode as dec
-from ..models.transformer import compute_params, require_family
-from .engine import ServeConfig, sample, to_device, to_frontend
+from ..models.placed import Placed
+from ..models.transformer import require_family
+from .engine import ServeConfig, sample, serving_params, to_frontend
 from .pages import PagedKVCache, _flatten_cache, _nest
 
 
@@ -75,7 +93,8 @@ class ResultTokens:
 
 class SlotEngine:
     """Fixed-capacity continuous-batching decode engine over a paged
-    cache, on one device (the card unless ``device="cpu"``).
+    cache, on one device (the card unless ``device="cpu"``), or on a
+    model mesh (module docstring).
     Thread-compatible (one caller drives step/insert/evict; the async
     server in ``server.py`` is that caller)."""
 
@@ -86,7 +105,11 @@ class SlotEngine:
         require_family(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = compute_params(to_device(params, self.device), cfg)
+        self.params = serving_params(params, cfg, self.device)
+        #: the mesh the model calls run on: the ``model`` axis of the
+        #: parameters' mesh (None off a mesh)
+        self._mesh = (self.params.mesh.restrict(("model",))
+                      if isinstance(self.params, Placed) else None)
         self.capacity = int(capacity)
         self.max_context = int(max_context)
         self.serve_cfg = serve_cfg or ServeConfig()
@@ -95,10 +118,11 @@ class SlotEngine:
         # without running one: (L, capacity, cache slots, kv_dim) in the
         # compute dtype, and the cross K/V's (n, capacity, frontend
         # tokens, kv_dim) in bf16
-        template = dec.init_cache(self.params, cfg, self.capacity,
-                                  self.max_context,
-                                  dtype=torch_dtype(cfg.dtype),
-                                  device="meta")
+        with self._on_mesh():
+            template = dec.init_cache(self.params, cfg, self.capacity,
+                                      self.max_context,
+                                      dtype=torch_dtype(cfg.dtype),
+                                      device="meta")
         self.cache = PagedKVCache(template, capacity=self.capacity,
                                   page_size=page_size,
                                   total_pages=total_pages,
@@ -118,6 +142,12 @@ class SlotEngine:
         #: no host->device copy — the twin re-syncs from the host mirrors
         #: only after insert/evict touched them.
         self._dev: Optional[Tuple] = None
+
+    def _on_mesh(self):
+        """The ``with`` block of a model call: on the engine's mesh, if
+        it has one."""
+        return (contextlib.nullcontext() if self._mesh is None
+                else set_mesh(self._mesh))
 
     # -- introspection ----------------------------------------------------
     @property
@@ -154,7 +184,9 @@ class SlotEngine:
             views = self.cache.gather_views(table)
             cache: Dict[str, Any] = _nest({**views, **self.cache.lanes})
             cache["pos"] = pos
-            logits, new_cache = dec.decode_step(params, tokens, cache, cfg)
+            with self._on_mesh():
+                logits, new_cache = dec.decode_step(params, tokens, cache,
+                                                    cfg)
             flat_new = _flatten_cache(new_cache)
             self.cache.scatter_written(
                 table, {p: flat_new[p] for p, _ in lay.paged}, pos, active)
@@ -207,9 +239,10 @@ class SlotEngine:
         if fe is not None and fe.dim() == 2:
             fe = fe[None]
         try:
-            logits, cache_p = dec.prefill(self.params, tokens, self.cfg,
-                                          frontend=fe,
-                                          max_len=self.max_context)
+            with self._on_mesh():
+                logits, cache_p = dec.prefill(self.params, tokens, self.cfg,
+                                              frontend=fe,
+                                              max_len=self.max_context)
         except Exception:
             self.cache.free(slot)          # a refused request holds nothing
             raise

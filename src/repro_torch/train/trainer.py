@@ -31,8 +31,9 @@ the port's ``dist.comm_engine.Spec``).  Departures, declared:
 * every rank receives the global batch and keeps its batch rows (the
   rank model), where the reference hands each device its rows;
 * the step all-gathers each parameter over the axes its spec names,
-  minor axis first, into whole weights (the models' explicit-TP views
-  take their blocks of whole weights), runs forward and backward under
+  minor axis first, into whole weights at once (the models' explicit-TP
+  views take their blocks of whole weights; serving gathers one layer
+  at a time, ``models.placed``), runs forward and backward under
   ``launch.mesh.set_mesh``, sums the gradient partials over every rank
   and keeps the rank's block (:func:`sharded_value_and_grad`); the
   whole weights and gradients are dropped before the update;
@@ -67,20 +68,25 @@ sum is one collective an axis in a fixed order — a reduce-scatter over
 each axis the leaf's spec shards it over, then an all_reduce of the
 block over the others — so a repeated step gives the same bits.
 
+A leaf's block and its gather live in ``models.placed``, which serving
+shares; :func:`place_tree` and :func:`gather_tree` apply them over a
+train state's trees, 8-bit moments included.
+
 Gloo ranks that share one card stage every collective through host
 memory: no time such ranks give is a mesh's speed.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
-from ..dist.comm_engine import RankMesh, Spec, _axes_of
+from ..dist.comm_engine import RankMesh, Spec
 from ..launch.mesh import current_mesh, set_mesh
 from ..models import common, transformer
+from ..models import placed as placement
 from ..models import explicit_tp as etp
 from ..optim import adamw
 
@@ -152,17 +158,29 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
 # placement on a mesh
 # ---------------------------------------------------------------------------
 
-def _mesh_shape(mesh) -> Dict[str, int]:
-    """{axis: size} of a ``DeviceMesh``, a ``RankMesh`` or a mapping."""
-    if isinstance(mesh, Mapping):
-        return dict(mesh)
-    if isinstance(mesh, RankMesh):
-        return dict(mesh.sizes)
-    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+def _map(fn, tree, specs):
+    """``fn(tensor, spec)`` over a parameter or moment tree (a Q8's
+    ``q`` and ``scale`` with their own specs)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, adamw.Q8):
+        return adamw.Q8(fn(tree.q, specs.q), fn(tree.scale, specs.scale),
+                        tree.shape)
+    return fn(tree, specs)
 
 
-def _rank_mesh(mesh) -> RankMesh:
-    return mesh if isinstance(mesh, RankMesh) else RankMesh(mesh)
+def place_tree(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's block of every whole leaf of a tree under ``specs``,
+    each a tensor of its own on the mesh's device."""
+    rm = placement.rank_mesh(mesh)
+    return _map(lambda x, s: placement.own(x, s, rm), tree, specs)
+
+
+def gather_tree(tree: Any, specs: Any, mesh) -> Any:
+    """The whole leaves of a tree of blocks (parameters, gradients or
+    moments) under ``specs``, on every rank (collective)."""
+    rm = placement.rank_mesh(mesh)
+    return _map(lambda x, s: placement.gather(x, s, rm), tree, specs)
 
 
 def state_shardings(state: TrainState, axes: Any, mesh,
@@ -175,7 +193,7 @@ def state_shardings(state: TrainState, axes: Any, mesh,
     leading block dimension over ``data`` where ``data`` divides it,
     else replicated; the step counter replicated.  ``mesh``: a
     ``DeviceMesh``, a ``RankMesh`` or ``{axis: size}``."""
-    mesh_shape = _mesh_shape(mesh)
+    mesh_shape = placement.mesh_shape(mesh)
     pspecs = rules.specs(axes, state.params, mesh_shape)
     d = mesh_shape.get("data", 1)
 
@@ -200,7 +218,7 @@ def batch_shardings(mesh, with_frontend: bool = False) -> Dict[str, Spec]:
     """The batch's rows over (``pod``, ``data``), the reference's.  The
     sharded step takes the global batch on every rank and each rank
     keeps these rows (``explicit_tp``'s rank model)."""
-    names = _mesh_shape(mesh)
+    names = placement.mesh_shape(mesh)
     rows = tuple(a for a in ("pod", "data") if a in names)
     # one axis prints bare, as PartitionSpec normalizes it
     rows = rows[0] if len(rows) == 1 else rows
@@ -210,51 +228,6 @@ def batch_shardings(mesh, with_frontend: bool = False) -> Dict[str, Spec]:
     return out
 
 
-def _axes_in(entry, rm: RankMesh) -> Tuple[str, ...]:
-    """The mesh axes a spec entry names that the mesh has (an axis it
-    lacks has size 1)."""
-    return tuple(a for a in _axes_of(entry) if a in rm.sizes)
-
-
-def _local(x: torch.Tensor, spec: Spec, rm: RankMesh) -> torch.Tensor:
-    """This rank's block of the whole ``x`` (a view)."""
-    for d, entry in enumerate(spec):
-        idx, count = 0, 1
-        for a in _axes_in(entry, rm):
-            idx, count = idx * rm.sizes[a] + rm.coord[a], count * rm.sizes[a]
-        if count > 1:
-            step = x.shape[d] // count
-            x = x.narrow(d, idx * step, step)
-    return x
-
-
-def _own(x: torch.Tensor, spec: Spec, rm: RankMesh) -> torch.Tensor:
-    """This rank's block of ``x`` as a tensor of its own, on the mesh's
-    device."""
-    return _local(x, spec, rm).to(rm.device, copy=True).contiguous()
-
-
-def _gather(x: torch.Tensor, spec: Spec, rm: RankMesh) -> torch.Tensor:
-    """The whole leaf from every rank's block: each dimension gathered
-    over the axes its entry names, minor axis first."""
-    for d, entry in enumerate(spec):
-        for a in reversed(_axes_in(entry, rm)):
-            if rm.sizes[a] > 1:
-                x = rm.all_gather(x, a, d)
-    return x
-
-
-def _map(fn, tree, specs):
-    """``fn(tensor, spec)`` over a parameter or moment tree (a Q8's
-    ``q`` and ``scale`` with their own specs)."""
-    if isinstance(tree, dict):
-        return {k: _map(fn, tree[k], specs[k]) for k in tree}
-    if isinstance(tree, adamw.Q8):
-        return adamw.Q8(fn(tree.q, specs.q), fn(tree.scale, specs.scale),
-                        tree.shape)
-    return fn(tree, specs)
-
-
 def _map_state(fn, state: TrainState, st_sh: TrainState) -> TrainState:
     return TrainState(_map(fn, state.params, st_sh.params), adamw.OptState(
         fn(state.opt.step, st_sh.opt.step), _map(fn, state.opt.m,
@@ -262,34 +235,20 @@ def _map_state(fn, state: TrainState, st_sh: TrainState) -> TrainState:
         _map(fn, state.opt.v, st_sh.opt.v)))
 
 
-def place_tree(tree: Any, specs: Any, mesh) -> Any:
-    """This rank's block of every whole leaf of a tree under ``specs``,
-    each a tensor of its own on the mesh's device."""
-    rm = _rank_mesh(mesh)
-    return _map(lambda x, s: _own(x, s, rm), tree, specs)
-
-
 def place_state(state: TrainState, st_sh: TrainState, mesh) -> TrainState:
     """This rank's block of every leaf of the whole ``state`` under the
     specs ``st_sh`` (from :func:`state_shardings`), each a tensor of its
     own on the mesh's device: the whole state can be freed after."""
-    rm = _rank_mesh(mesh)
-    return _map_state(lambda x, s: _own(x, s, rm), state, st_sh)
-
-
-def gather_tree(tree: Any, specs: Any, mesh) -> Any:
-    """The whole leaves of a tree of blocks (parameters, gradients or
-    moments) under ``specs``, on every rank (collective)."""
-    rm = _rank_mesh(mesh)
-    return _map(lambda x, s: _gather(x, s, rm), tree, specs)
+    rm = placement.rank_mesh(mesh)
+    return _map_state(lambda x, s: placement.own(x, s, rm), state, st_sh)
 
 
 def gather_state(placed: TrainState, st_sh: TrainState, mesh
                  ) -> TrainState:
     """The whole state on every rank from every rank's blocks (tests and
     checkpoints; collective: every rank of the mesh calls it)."""
-    rm = _rank_mesh(mesh)
-    return _map_state(lambda x, s: _gather(x, s, rm), placed, st_sh)
+    rm = placement.rank_mesh(mesh)
+    return _map_state(lambda x, s: placement.gather(x, s, rm), placed, st_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +292,7 @@ def _sum_block(g: torch.Tensor, spec: Spec, rm: RankMesh) -> torch.Tensor:
     mesh's order: one collective an axis, in a fixed order."""
     used = []
     for d, entry in enumerate(spec):
-        for a in _axes_in(entry, rm):
+        for a in placement.axes_in(entry, rm):
             used.append(a)
             g = rm.reduce_scatter(g, a, d)
     g = rm.psum(g, tuple(a for a in _sum_axes(rm) if a not in used))
@@ -351,9 +310,9 @@ def sharded_value_and_grad(params: Dict[str, Any],
     global on every rank, the gradients as the rank's blocks of the
     one-device gradient (the partials summed over every rank by
     :func:`_sum_block`).  Call it under ``set_mesh(mesh)``."""
-    rm = _rank_mesh(mesh)
-    whole = _map(lambda x, s: _gather(x, s, rm).detach().requires_grad_(True),
-                 params, specs)
+    rm = placement.rank_mesh(mesh)
+    whole = _map(lambda x, s: placement.gather(x, s, rm).detach()
+                 .requires_grad_(True), params, specs)
     flat = adamw.tree_leaves(whole)
     with torch.enable_grad():
         share, parts = rank_loss(whole, batch, cfg)
@@ -375,7 +334,7 @@ def sharded_value_and_grad(params: Dict[str, Any],
 def _owner(spec: Spec, rm: RankMesh) -> bool:
     """Whether this rank counts its block of a leaf in the gradient norm:
     coordinate 0 on every axis the spec replicates the leaf over."""
-    used = {a for e in spec for a in _axes_in(e, rm)}
+    used = {a for e in spec for a in placement.axes_in(e, rm)}
     return all(rm.coord[a] == 0 for a in rm.axes if a not in used)
 
 
@@ -393,7 +352,7 @@ def sharded_apply_updates(placed: TrainState, grads: Dict[str, Any],
     once, the clip, the update; a leaf with Q8 moments updates whole
     (module docstring).  ``donate`` frees each input block once its
     leaf is updated.  Returns (the new placed state, {grad_norm, lr})."""
-    rm = _rank_mesh(mesh)
+    rm = placement.rank_mesh(mesh)
     pspecs = adamw.tree_leaves(st_sh.params)
     gl = adamw.tree_leaves(grads)
     sq = torch.zeros((), dtype=torch.float32, device=rm.device)
@@ -404,8 +363,8 @@ def sharded_apply_updates(placed: TrainState, grads: Dict[str, Any],
     sc = adamw.step_scalars(placed.opt.step, gnorm, opt_cfg)
 
     def whole(q8, s):
-        return adamw.Q8(_gather(q8.q, s.q, rm),
-                        _gather(q8.scale, s.scale, rm), q8.shape)
+        return adamw.Q8(placement.gather(q8.q, s.q, rm),
+                        placement.gather(q8.scale, s.scale, rm), q8.shape)
     ms, vs = adamw.tree_leaves(placed.opt.m), adamw.tree_leaves(placed.opt.v)
     mspecs = adamw.tree_leaves(st_sh.opt.m)
     vspecs = adamw.tree_leaves(st_sh.opt.v)
@@ -415,10 +374,10 @@ def sharded_apply_updates(placed: TrainState, grads: Dict[str, Any],
         g, m, v = gl[i], ms[i], vs[i]
         if isinstance(m, adamw.Q8):
             pn, mn, vn = adamw.update_leaf(
-                _gather(p, spec, rm), _gather(g, spec, rm),
+                placement.gather(p, spec, rm), placement.gather(g, spec, rm),
                 whole(m, mspecs[i]), whole(v, vspecs[i]), sc, opt_cfg)
-            pn = _own(pn, spec, rm)
-            mn, vn = (_map(lambda x, s: _own(x, s, rm), q8, s)
+            pn = placement.own(pn, spec, rm)
+            mn, vn = (_map(lambda x, s: placement.own(x, s, rm), q8, s)
                       for q8, s in ((mn, mspecs[i]), (vn, vspecs[i])))
         else:
             pn, mn, vn = adamw.update_leaf(p, g, m, v, sc, opt_cfg)

@@ -13,11 +13,11 @@ world of ranks.
   the reference's ``launch.specs`` on 2x4 and 2x2x2.  A train cell's
   ``spec_argument_bytes`` and ``argument_bytes`` equal the reference's
   per-device sum over ``cell.args`` of ``prod(shard_shape) x itemsize``
-  exactly; a serving cell's ``spec_argument_bytes`` equals it, and its
-  ``argument_bytes`` is whole parameters (the rank model's declared
-  departure) plus the batch rows of tokens and frontend and, for a
-  decode cell, the cache's blocks under its specs.  A decode cell's
-  ``cache_bytes`` equals its ``spec_cache_bytes``.
+  exactly; so do a serving cell's: the rank holds its parameter blocks
+  under ``param_shardings`` (``models.placed``), the batch rows of
+  tokens and frontend and, for a decode cell, the cache's blocks under
+  its specs.  A decode cell's ``cache_bytes`` equals its
+  ``spec_cache_bytes``.
 * **Collectives.**  Reduced granite-8b, a ``train_4k``-shaped step cut to
   4 x 32 tokens, on 4 gloo CPU ranks (2x2) counted by ``OpAnalysis``
   equals the dry run on a fake 2x2 world standing for gloo, on the CPU's
@@ -33,12 +33,14 @@ world of ranks.
   - prefill projects the last position only to logits (the reference
     projects all ``S``): ``2 d V B (S - 1)`` fewer;
   - on a mesh the rank model computes its batch rows' projections, MLP,
-    logits and loss whole (GSPMD also splits them over ``model``) and
-    only attention over its heads: ``(F - A) / data + A / (data x
-    model)`` of the one-device count ``F``, ``A`` being attention's dots
-    (2 a layer forward; training 8: forward, remat's re-forward, 4 in
-    the backward; decode 2 a layer, one query against the ``S``-slot
-    cache on the rank's columns of it);
+    and a train step's logits and loss whole (GSPMD also splits them
+    over ``model``), and only attention over its heads and a serving
+    cell's logits over its vocab block (its placed parameters, the
+    vocab over ``model``): ``(F - A) / data + A / (data x model)`` of
+    the one-device count ``F``, ``A`` being attention's dots (2 a layer
+    forward; training 8: forward, remat's re-forward, 4 in the backward;
+    decode 2 a layer, one query against the ``S``-slot cache on the
+    rank's columns of it) plus, serving, the logits' ``2 d V B``;
   - the port is held to the reference's one-device count so changed
     within 1e-9 on both meshes; the reference's own count on 2x4 exceeds
     its one-device count over 8 by 4.3–6.0% (in prefill: GSPMD computes
@@ -92,14 +94,12 @@ PARITY_LAYERS = 2
 
 _REFERENCE = r"""
 import json, math, os, sys
-from jax.sharding import NamedSharding, PartitionSpec as P
 import jax
 from repro import jax_compat
 from repro.launch import hlo_analysis, specs
 from repro.optim import adamw
 
 spec = json.load(open(sys.argv[1]))
-BATCH = {"pod", "data"}
 
 
 def leaves(tree, sh):
@@ -120,31 +120,14 @@ def nbytes(leaf, sharding):
     return math.prod(sharding.shard_shape(leaf.shape)) * leaf.dtype.itemsize
 
 
-def rows(sharding):
-    def keep(e):
-        axes = (e,) if isinstance(e, str) else tuple(e or ())
-        return e if axes and set(axes) <= BATCH else None
-    return NamedSharding(sharding.mesh, P(*(keep(e) for e in sharding.spec)))
-
-
 out = {"bytes": {}, "flops": {}}
 for name, (shape, axes) in spec["meshes"].items():
     mesh = jax_compat.make_mesh(tuple(shape), tuple(axes))
     for arch, sname in specs.all_cells():
         c = specs.input_specs(arch, sname, mesh)
         pairs = list(leaves(c.args, c.in_shardings))
-        rec = {"spec": sum(nbytes(l, s) for l, s in pairs)}
-        if c.kind != "train":
-            # whole parameters, the batch rows of tokens and frontend, a
-            # decode cell's cache at its spec blocks
-            whole = sum(math.prod(l.shape) * l.dtype.itemsize
-                        for l, _ in leaves(c.args[0], c.in_shardings[0]))
-            n_rows = 2 if c.kind == "decode" else len(c.args)
-            rest = list(leaves(c.args[1:n_rows], c.in_shardings[1:n_rows]))
-            cache = list(leaves(c.args[n_rows:], c.in_shardings[n_rows:]))
-            rec["held"] = (whole + sum(nbytes(l, rows(s)) for l, s in rest)
-                           + sum(nbytes(l, s) for l, s in cache))
-        out["bytes"][f"{name}/{arch}/{sname}"] = rec
+        out["bytes"][f"{name}/{arch}/{sname}"] = {
+            "spec": sum(nbytes(l, s) for l, s in pairs)}
 
 for sname, mname in spec["flops"]:
     shape, axes = spec["flop_meshes"][mname]
@@ -380,7 +363,7 @@ def test_serving_argument_bytes(reference, port_bytes, mesh, arch, shape):
     key = f"{mesh}/{arch}/{shape}"
     spec_b, held_b, _ = port_bytes[key]
     assert spec_b == reference["bytes"][key]["spec"]
-    assert held_b == reference["bytes"][key]["held"]
+    assert held_b == reference["bytes"][key]["spec"]
 
 
 @pytest.mark.parametrize("mesh,arch,shape", [
@@ -451,8 +434,11 @@ def test_flops_against_the_reference_hlo(reference, shape, mesh):
     base = reference["flops"][f"{shape}/1x1"]
     if sh.kind == "prefill":
         base -= 2.0 * cfg.d_model * cfg.vocab * b * (s - 1)
-    attn = _attention_dots(cfg, sh.kind, b, s)
-    want = (base - attn) / data + attn / (data * model)
+    # the dots split over the rank's heads, cache columns or vocab block
+    split = _attention_dots(cfg, sh.kind, b, s)
+    if sh.kind != "train":
+        split += 2.0 * cfg.d_model * cfg.vocab * b
+    want = (base - split) / data + split / (data * model)
     assert abs(got - want) <= 1e-9 * want, (got, want)
     # the reference's own count on the mesh: its partitioner's excess
     excess = (reference["flops"][f"{shape}/{mesh}"] * data * model

@@ -399,21 +399,34 @@ def test_the_dry_run_charges_the_decode_collectives():
     over ``data``, no reduce); on 1x16 its 64 columns split a head, so
     each layer also all-reduces the (B, Hq, S) fp32 scores, charged by
     ``op_analysis``'s all-reduce rule.  mamba2-370m gathers its conv
-    output and ``y`` a layer."""
+    output and ``y`` a layer.  Beside them run the placed parameters'
+    collectives (``models.placed``): each leaf of a layer gathered over
+    every axis above 1 its spec names (granite: the 2 norms over
+    ``data``, the 7 projections over ``data`` and ``model``; mamba2 on
+    1x16: ``in_proj``, ``conv_w``, ``conv_b``, ``norm_g``, ``out_proj``
+    over ``model``), the final norm over ``data``, the tied table over
+    ``data`` for the lookup and again for the output projection, the
+    looked-up rows summed over ``model`` and the logits gathered over
+    it; mamba2's vocab is whole (``model`` does not divide 50280)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import op_analysis
     cut = dryrun.depth_cut("granite-8b", 2)
     whole = dryrun.run_cell("granite-8b", "decode_32k", overrides=cut,
                             mesh_shape=(2, 4))["hlo_stats"]
-    assert whole["collective_counts"] == {"all-gather": 3}
+    params_2x4 = 2 * (2 + 2 * 7) + 1 + 2 + 1
+    assert whole["collective_counts"] == {"all-gather": 3 + params_2x4,
+                                          "all-reduce": 1}
     split = dryrun.run_cell("granite-8b", "decode_32k", overrides=cut,
                             mesh_shape=(1, 16))["hlo_stats"]
-    assert split["collective_counts"] == {"all-reduce": 2, "all-gather": 2}
+    assert split["collective_counts"] == {"all-reduce": 2 + 1,
+                                          "all-gather": 2 + 2 * 7 + 1}
     cfg, sh = get_config("granite-8b"), specs.SHAPES["decode_32k"]
     scores = sh.global_batch * cfg.n_heads * sh.seq_len * 4
-    assert split["wire_by_kind"]["all-reduce"] == 2 * \
-        op_analysis._WIRE_FACTOR["all-reduce"](scores, 16)
+    rows = sh.global_batch * cfg.d_model * 2
+    rule = op_analysis._WIRE_FACTOR["all-reduce"]
+    assert split["wire_by_kind"]["all-reduce"] == 2 * rule(scores, 16) + \
+        rule(rows, 16)
     ssm = dryrun.run_cell("mamba2-370m", "decode_32k",
                           overrides=dryrun.depth_cut("mamba2-370m", 2),
                           mesh_shape=(1, 16))["hlo_stats"]
-    assert ssm["collective_counts"] == {"all-gather": 4}
+    assert ssm["collective_counts"] == {"all-gather": 4 + 2 * 5}
