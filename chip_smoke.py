@@ -260,12 +260,17 @@ each of which fails the run (non-zero exit) when it fails:
    version and SDPA's forward + backward under the same mask; then four
    gloo ranks sharing the card (``train_mesh_ranks``) on a 2x2 ("data",
    "model") mesh: (b) h2o-danube-1.8b at full width, ``TM_LAYERS``
-   layers (depth cut for memory, printed), bf16 compute over fp32
-   masters, ``explicit_collectives`` on, the state placed by
-   ``trainer.place_state``: the first gradient's blocks within 2e-2 x
+   layers (depth cut for the script's time, printed), bf16 compute over
+   fp32 masters, ``explicit_collectives`` on, the state placed by
+   ``trainer.place_state``, each rank holding its blocks and gathering
+   a layer while it runs: the first gradient's blocks within 2e-2 x
    max|g| of the one-card gradient's, ``TM_STEPS`` steps of ``TM_BATCH``
    x ``TM_SEQ`` tokens with losses finite and within 1e-3 x |loss| of
-   one card's, flash's forward and backward launched on every rank; (c)
+   one card's, flash's forward and backward launched on every rank, the
+   first step's ``max_memory_allocated`` within ``TM_PEAK_BAND`` x the
+   dry run's ``per_device_total`` of the same cut cell on a fake 2x2
+   gloo world (``_TM_DRY``, a subprocess), the most gathered bytes alive
+   at once printed; (c)
    the same at 2 layers with ``FULL_SCORES_MAX_LEN`` at 256: every
    layer's query rows through ``chunked_attn_manual`` and the backward
    kernels' ``q_offset``.  The phase prints its seconds and each rank's
@@ -1780,6 +1785,7 @@ def flash_backward_check(case, dtype, g, check):
            "shape": f"q ({b}, {hq}, {lq}, {d}), k/v ({b}, {hkv}, {lkv}, "
                     f"{d}) {name}, {'causal' if causal else 'non-causal'}"
                     f"{'' if window is None else f', window {window}'}"}
+    row["sdpa_backward_ms"] = None
     if label.endswith("training"):
         qs, ks, vs = (x.detach().requires_grad_() for x in (q, k, v))
 
@@ -1788,14 +1794,30 @@ def flash_backward_check(case, dtype, g, check):
                                                enable_gqa=hq != hkv)
             torch.autograd.grad(o, (qs, ks, vs), dout)
         row["library_ms"] = event_ms(sdpa, 3)
+        row["sdpa_backward_ms"] = sdpa_backward_ms(
+            lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=hq != hkv),
+            (qs, ks, vs), dout)
     del q, k, v, dout, out, lse, got, want, again, fault
     torch.cuda.empty_cache()
     print(f"train checks: (a) flash backward {row['shape']}: rel errors "
           f"{ {k: f'{e:.2e}' for k, e in errs.items()} }, fault "
           f"{fault_err:.3f}, {row['ms']:.3f} ms (bound {row['bound_ms']:.4f}"
           f" {row['bound_by']}, plain {row['plain_ms']:.3f}, SDPA fwd+bwd "
-          f"{row['library_ms']})")
+          f"{row['library_ms']}, SDPA bwd alone {row['sdpa_backward_ms']})")
     return row
+
+
+def sdpa_backward_ms(forward, inputs, dout, reps=3):
+    """CUDA-event ms of SDPA's backward alone: ``forward()``'s graph
+    built once, then ``autograd.grad`` of its output over ``inputs``
+    timed with ``retain_graph``."""
+    import torch
+    o = forward()
+    ms = event_ms(lambda: torch.autograd.grad(o, inputs, dout,
+                                              retain_graph=True), reps)
+    del o
+    return ms
 
 
 def _leaves(tree, prefix=""):
@@ -2051,7 +2073,8 @@ def train_phase(check):
                     "differentiates its XLA attention)",
         "launches": train_launches["flash_attention_backward"],
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms", "shape")},
+                                "bound_by", "library_ms", "sdpa_backward_ms",
+                                "shape")},
         "other_shapes": [r for r in rows if r is not main]}
     return entry, train_launches["flash_attention"], summary
 
@@ -2963,13 +2986,28 @@ def model_mesh_phase(check):
 #: backward's q_offset at danube's heads; (b)-(c) four gloo ranks sharing
 #: the card on a 2x2 ("data", "model") mesh
 TM_MODEL = "h2o-danube-1.8b"
-#: (b)'s depth, cut for memory (each of the four ranks holds whole
-#: gathered weights and whole partial gradients on the one card) and, 2
-#: of 4 since phase 23 joined the script, for its time
+#: (b)'s depth, cut for the script's time: a rank holds its blocks and
+#: one gathered layer, so memory sets no cut, but every pass gathers
+#: each layer twice (forward, remat recompute) and sums its gradient
+#: over host-staged gloo (~0.35 GB/s a rank)
 TM_LAYERS = 2
 TM_BATCH, TM_SEQ, TM_STEPS = 4, 512, 3
 TM_CHUNKED_LAYERS = 2
 TM_LOSS_TOL, TM_GRAD_TOL = 1e-3, 2e-2
+#: (b)'s first step's peak a rank against the dry run's per_device_total
+#: of the same cut cell on a fake 2x2 world standing for gloo
+TM_PEAK_BAND = (0.9, 1.3)
+
+_TM_DRY = r"""
+import json, sys
+from repro_torch.launch import dryrun
+arch, layers, batch, seq = json.loads(sys.argv[1])
+r = dryrun.run_cell(arch, "train_4k", overrides={
+    "n_layers": layers, "explicit_collectives": True}, batch=batch,
+    seq_len=seq, mesh_shape=(2, 2), backend="gloo")
+json.dump({"memory": r["memory"], "launches": r["kernel_launches"]},
+          open(sys.argv[2], "w"))
+"""
 
 
 def q_offset_backward_check(g, check):
@@ -2979,8 +3017,9 @@ def q_offset_backward_check(g, check):
     same offset: dQ, dK and dV against ``flash_attention_backward_plain(
     q_offset=...)`` within ``FLASH_BWD_TOL`` x max|.|; a planted fault —
     the backward called without the offset — must fail that limit at every
-    offset above 0.  Times: the backward, its plain version and SDPA's
-    forward + backward under the same mask; the bound counts 2.5x the
+    offset above 0.  Times: the backward, its plain version, SDPA's
+    forward + backward under the same mask and SDPA's backward alone
+    (``sdpa_backward_ms``); the bound counts 2.5x the
     forward's 4 D flops a visible pair and q head."""
     import torch
     import torch.nn.functional as F
@@ -3041,6 +3080,10 @@ def q_offset_backward_check(g, check):
                    "ms": event_ms(run, 5), "plain_ms": event_ms(plain, 1),
                    "bound_ms": roof.bound_s * 1e3, "bound_by": roof.bound_by,
                    "library_ms": event_ms(sdpa, 3),
+                   "sdpa_backward_ms": sdpa_backward_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           qs, ks, vs, attn_mask=mask, enable_gqa=True),
+                       (qs, ks, vs), dout),
                    "shape": f"q (1, {hq}, {rows}, {d}) at rows {off}.."
                             f"{off + rows - 1}, k/v (1, {hkv}, {lkv}, {d}) "
                             f"{name}, causal"}
@@ -3050,7 +3093,8 @@ def q_offset_backward_check(g, check):
                   f"ignored {bad:.3e}, {row['ms']:.4f} ms (bound "
                   f"{row['bound_ms']:.4f} {row['bound_by']}, plain "
                   f"{row['plain_ms']:.3f}, SDPA fwd+bwd "
-                  f"{row['library_ms']:.3f})")
+                  f"{row['library_ms']:.3f}, bwd alone "
+                  f"{row['sdpa_backward_ms']:.3f})")
             del out, lse, got, want, fault
     torch.cuda.empty_cache()
     return out_rows
@@ -3089,12 +3133,14 @@ def train_mesh_ranks(paths, elastic_dir=None):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_mesh, set_mesh
-    from repro_torch.models import attention, explicit_tp, transformer
+    from repro_torch.models import attention, explicit_tp, placed as pp
+    from repro_torch.models import transformer
     from repro_torch.train import trainer
 
     dev = torch.device("cuda")
     rank = dist.get_rank()
-    rec = {"rank": rank, "seconds": {}, "peak_gb": {}}
+    rec = {"rank": rank, "seconds": {}, "peak_gb": {}, "step_peak": {},
+           "gathered_peak": {}}
     mesh = make_mesh((2, 2), ("data", "model"), device="cuda",
                      backend="gloo")
 
@@ -3112,6 +3158,7 @@ def train_mesh_ranks(paths, elastic_dir=None):
         torch.cuda.empty_cache()
         want = torch.load(paths[tag], mmap=True)
         fa.reset_launches()
+        pp.GATHERED.reset()
         with set_mesh(mesh) as rm:
             loss, _, grads = trainer.sharded_value_and_grad(
                 placed.params, _tm_batch(cfg, 0, dev), cfg, st_sh.params, rm)
@@ -3121,14 +3168,21 @@ def train_mesh_ranks(paths, elastic_dir=None):
                     for (path, gb), (_, w) in zip(_leaves(grads),
                                                   _leaves(mine))}
         del grads, mine
-        losses = [float(loss)]
+        losses, peaks = [float(loss)], []
         for i in range(steps):
-            placed, m = step(placed, _tm_batch(cfg, i, dev))
+            batch = _tm_batch(cfg, i, dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            placed, m = step(placed, batch)
             losses.append(float(m["loss"]))
+            peaks.append(torch.cuda.max_memory_allocated())
         torch.cuda.synchronize()
+        # the dry run's cell is one step on the placed state
+        rec["step_peak"][tag] = peaks[0]
+        rec["gathered_peak"][tag] = pp.GATHERED.peak
         rec[tag] = {"grad_errs": errs, "losses": losses,
                     "launches": dict(fa.launches)}
-        rec["peak_gb"][tag] = torch.cuda.max_memory_allocated() / 1e9
+        rec["peak_gb"][tag] = max(peaks) / 1e9
         del placed, want
         gc.collect()
         torch.cuda.empty_cache()
@@ -3187,6 +3241,7 @@ def train_mesh_phase(check, elastic_dir=None):
     rank's phase 19 record or None)."""
     import gc
     import math
+    import os
     import tempfile
 
     import torch
@@ -3196,16 +3251,24 @@ def train_mesh_phase(check, elastic_dir=None):
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
+    dry_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_tm_dry_")
+    dry_json = os.path.join(dry_dir.name, "dry.json")
+    dry = subprocess.Popen(
+        [sys.executable, "-c", _TM_DRY, json.dumps(
+            [TM_MODEL, TM_LAYERS, TM_BATCH, TM_SEQ]), dry_json],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     g = torch.Generator(device=dev).manual_seed(18)
     offset_rows = q_offset_backward_check(g, check)
     summary = {"q_offset_backward": offset_rows}
     t0 = time.perf_counter()
     cfg = _tm_cfg(TM_LAYERS)
     print(f"train mesh: {cfg.name} at full width, {TM_LAYERS} of 24 layers "
-          f"(depth cut for memory: each of 4 ranks on one card holds whole "
-          f"gathered weights and whole partial gradients), "
+          f"(depth cut for the script's time: every pass gathers each layer "
+          f"twice and sums its gradient over host-staged gloo), "
           f"{cfg.param_count() / 1e9:.3f} B parameters, batch {TM_BATCH} x "
-          f"{TM_SEQ}, {TM_STEPS} steps, bf16 compute over fp32 masters")
+          f"{TM_SEQ}, {TM_STEPS} steps, bf16 compute over fp32 masters, each "
+          f"rank on its parameter blocks")
     ref = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tm_") as tmp:
         paths = {"b": f"{tmp}/b.pt", "c": f"{tmp}/c.pt"}
@@ -3269,6 +3332,21 @@ def train_mesh_phase(check, elastic_dir=None):
         check(r["chunked_calls"] == [calls, calls],
               f"(c) {tag}: chunked_attn_manual [calls, applied] "
               f"{r['chunked_calls']}, expected {calls} applied")
+    out_d, _ = dry.communicate(timeout=600)
+    check(dry.returncode == 0, f"phase 18: the cut dry run exited "
+          f"{dry.returncode}:\n{out_d[-3000:]}")
+    with open(dry_json) as f:
+        dry_rec = json.load(f)
+    dry_dir.cleanup()
+    dry_total = dry_rec["memory"]["per_device_total"]
+    lo, hi = TM_PEAK_BAND
+    ratios = {}
+    for r in recs:
+        ratios[r["rank"]] = r["step_peak"]["b"] / dry_total
+        check(lo <= ratios[r["rank"]] <= hi, f"(b) rank {r['rank']}: a "
+              f"step's peak {r['step_peak']['b'] / 1e9:.3f} GB, "
+              f"{ratios[r['rank']]:.3f}x the dry run's per_device_total "
+              f"{dry_total / 1e9:.3f} GB (band {lo}-{hi})")
     elastic = ([r.pop("elastic") for r in recs] if elastic_dir is not None
                else None)
     # phase 19's part of the ranks' run is its own
@@ -3279,6 +3357,16 @@ def train_mesh_phase(check, elastic_dir=None):
               f"by {gerr:.3e} x max|g|, losses {recs[0][part]['losses']} "
               f"against one card's {ref[part]} (largest rel diff "
               f"{lerr:.2e})")
+    print(f"train mesh (b): a step's peak a rank "
+          + ", ".join(f"{r['step_peak']['b'] / 1e9:.3f}" for r in recs)
+          + f" GB, {min(ratios.values()):.3f}-{max(ratios.values()):.3f}x "
+          f"the dry run's per_device_total {dry_total / 1e9:.3f} GB (fake "
+          f"2x2 gloo world; argument bytes "
+          f"{dry_rec['memory']['argument_bytes'] / 1e9:.3f}); the most "
+          f"gathered bytes alive at once a rank (b)/(c) "
+          + ", ".join("/".join(f"{v / 1e6:.1f}" for v in
+                               r["gathered_peak"].values()) for r in recs)
+          + " MB")
     print(f"train mesh launches over the 4 ranks: {launches}")
     print(f"train mesh seconds: phase {secs:.1f} (one-card references "
           f"{ref_s:.1f}, four ranks {ranks_s:.1f} with spawning; per rank "
@@ -3293,7 +3381,9 @@ def train_mesh_phase(check, elastic_dir=None):
           "mesh's speed)")
     summary.update({
         "layers": TM_LAYERS, "references": ref,
+        "dry_run": dry_rec, "peak_ratio": ratios,
         "ranks": [{k: r[k] for k in ("rank", "seconds", "peak_gb",
+                                     "step_peak", "gathered_peak",
                                      "chunked_calls")}
                   | {p: {"losses": r[p]["losses"],
                          "launches": r[p]["launches"],

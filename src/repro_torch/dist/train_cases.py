@@ -549,3 +549,267 @@ def launch_train_on_mesh(argv: Sequence[str]) -> dict:
                               "final_step": out["final_step"],
                               "losses": [m["loss"] for m in out["metrics"]],
                               "printed": printed.getvalue()})
+
+
+# ---------------------------------------------------------------------------
+# the step on blocks: the gather's backward, the whole-gather yardstick,
+# the gathered bytes alive under remat
+# ---------------------------------------------------------------------------
+
+#: a model of each family
+FAMILY_ARCHS = (("dense", "h2o-danube-1.8b"), ("moe", "mixtral-8x22b"),
+                ("ssm", "mamba2-370m"), ("hybrid", "zamba2-1.2b"),
+                ("encdec", "whisper-small"),
+                ("vlm", "llama-3.2-vision-11b"))
+#: the stacked subtrees of a parameter tree (a leading layer dim)
+STACKED = ("layers", "encoder", "cross_layers")
+
+
+def gather_cases(params, cfg):
+    """(name, block, gather spec, keep) of every gather a model makes on
+    the placed tree ``params``: layer 0 of each stacked leaf and each
+    unstacked leaf over its spec, the embedding table over its embed
+    axes and the output projection, each keeping its vocab axes."""
+    from ..checkpoint import store
+    from ..dist.comm_engine import Spec
+    from ..models import placed
+    rm = params.mesh
+    out = []
+    for path, block in store._paths(dict(params)):
+        spec = placed._at(params.specs, path.split("/"))
+        if path.split("/")[0] in STACKED:
+            block, spec = block[0], Spec(*spec[1:])
+        out.append((path, block, spec, ()))
+    v_entry, e_entry = params.specs["embed"]
+    vocab = placed.axes_in(v_entry, rm)
+    out.append(("embed table", params["embed"], Spec(None, e_entry), vocab))
+    if cfg.tie_embeddings:
+        out.append(("tied projection", params["embed"].T,
+                    Spec(e_entry, None), vocab))
+    else:
+        e_entry, v_entry = params.specs["unembed"]
+        out.append(("projection", params["unembed"], Spec(e_entry, None),
+                    placed.axes_in(v_entry, rm)))
+    return out
+
+
+def _coords(mesh) -> Dict[int, Dict[str, int]]:
+    """{rank: {axis: coordinate}} of every rank of ``mesh``."""
+    import itertools
+    grid = mesh.mesh
+    return {int(grid[idx]): dict(zip(mesh.mesh_dim_names, idx))
+            for idx in itertools.product(*(range(n) for n in grid.shape))}
+
+
+def _cotangent(shape, case: int, rank: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(7919 * case + rank)
+    return torch.randn(shape, generator=gen)
+
+
+def gather_backward(mesh, fault=None) -> Dict[str, float]:
+    """``placed.GatherLeaf``'s block gradient for every gather of every
+    family's reduced model placed on ``mesh`` (:func:`gather_cases`),
+    each rank's cotangent drawn from its rank: ``{"sum_block": the
+    largest difference from placed.sum_block of this rank's cotangent,
+    "sum": the largest difference x max|want| from the block of every
+    rank's cotangent summed here, rank by rank}``.  ``fault(sum_block)``
+    replaces ``placed.sum_block`` for the run (a planted fault)."""
+    from ..configs import get_config
+    from ..dist.comm_engine import RankMesh
+    from ..models import placed, transformer
+    rm, coords = RankMesh(mesh), _coords(mesh)
+    real = placed.sum_block
+    worst = {"sum_block": 0.0, "sum": 0.0}
+    for fam, arch in FAMILY_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = placed.place_params(transformer.init_params(
+            torch.Generator().manual_seed(0), cfg), cfg, rm)
+        for i, (name, block, spec, keep) in enumerate(
+                gather_cases(params, cfg)):
+            x = block.detach().requires_grad_(True)
+            if fault is not None:
+                placed.sum_block = fault(real)
+            try:
+                out = placed.GatherLeaf.apply(x, spec, rm, keep)
+                g = _cotangent(out.shape, i, dist.get_rank())
+                got, = torch.autograd.grad(out, x, g)
+            finally:
+                placed.sum_block = real
+            same = placed.sum_block(g, spec, rm, keep)
+            worst["sum_block"] = max(worst["sum_block"], float(
+                (got - same).abs().max()))
+            mine = rm.coord
+            total = sum(_cotangent(out.shape, i, r) for r, c in
+                        coords.items() if all(c[a] == mine[a] for a in keep))
+            want = placed.local(total, spec, rm)
+            worst["sum"] = max(worst["sum"], float(
+                (got - want).abs().max() / want.abs().max()))
+    return worst
+
+
+def no_replica_sum(real):
+    """A planted fault: ``placed.sum_block`` (``real``) without its
+    all_reduce over the axes that replicate the block."""
+    return lambda g, spec, rm, keep=(): real(g, spec, rm, tuple(rm.axes))
+
+
+def keep_ignored(real):
+    """A planted fault: ``placed.sum_block`` (``real``) summing over the
+    axes a partial gather keeps split."""
+    return lambda g, spec, rm, keep=(): real(g, spec, rm)
+
+
+def whole_gather_grads(blocks, batch, cfg, specs, rm) -> list:
+    """The yardstick of the step on blocks: every leaf gathered whole
+    before the forward, :func:`trainer.rank_loss` differentiated on the
+    whole tree, each whole partial summed onto the rank's block
+    (``placed.sum_block``); the blocks in ``tree_leaves`` order."""
+    from ..models import placed
+    from ..optim import adamw
+    from ..train import trainer
+    whole = trainer._map(lambda x, s: placed.gather(x, s, rm).detach()
+                         .requires_grad_(True), blocks, specs)
+    flat = adamw.tree_leaves(whole)
+    with torch.enable_grad():
+        share, _ = trainer.rank_loss(whole, batch, cfg)
+        grads = torch.autograd.grad(share, flat, allow_unused=True)
+    return [placed.sum_block(torch.zeros_like(p) if g is None else g, s, rm)
+            for p, g, s in zip(flat, grads, adamw.tree_leaves(specs))]
+
+
+class PlainPsum:
+    """A planted fault: the embedding rows summed over the vocab axes by
+    the plain all_reduce (``RankMesh.psum``), which autograd does not
+    see, in place of ``placed._AllReduce``."""
+
+    @staticmethod
+    def apply(x, rm, axes):
+        return rm.psum(x, axes)
+
+
+def _placed_cfg(arch: str, **kw):
+    from ..configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(), **dict(FLAGS),
+                               **kw)
+
+
+def step_against_whole_gather(arch: str, mesh, planted: bool = False,
+                              **kw) -> Dict[str, float]:
+    """``trainer.sharded_value_and_grad`` on ``arch``'s reduced model on
+    ``mesh`` (fp32) against :func:`whole_gather_grads`: {leaf path: the
+    largest difference in this rank's block x the whole leaf's max|g|}
+    (every rank of the world on ``mesh``).  ``planted``: the
+    embedding's sum through :class:`PlainPsum`."""
+    from ..checkpoint import store
+    from ..launch.mesh import set_mesh
+    from ..models import placed, transformer
+    from ..optim import adamw
+    from ..train import trainer
+    cfg = _placed_cfg(arch, **kw)
+    state = trainer.init_state(torch.Generator().manual_seed(0), cfg,
+                               adamw.AdamWConfig())
+    if "cross_layers" in state.params:
+        state.params["cross_layers"]["gate"].fill_(0.5)
+    st_sh = trainer.state_shardings(state, transformer.param_axes(cfg), mesh)
+    blocks = trainer.place_tree(state.params, st_sh.params, mesh)
+    case = TrainCase(arch, arch)
+    batch = _tensors(case_batch(case, cfg, 0), "cpu")
+    real = placed._AllReduce
+    with set_mesh(mesh) as rm:
+        want = whole_gather_grads(blocks, batch, cfg, st_sh.params, rm)
+        if planted:
+            placed._AllReduce = PlainPsum
+        try:
+            _, _, got = trainer.sharded_value_and_grad(
+                blocks, batch, cfg, st_sh.params, rm)
+        finally:
+            placed._AllReduce = real
+    # max|g| of each whole leaf: the largest of the ranks' blocks
+    scale = torch.stack([w.abs().max() for w in want])
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX)
+    return {p: float((g - w).abs().max() / max(float(m), 1e-30))
+            for (p, _), g, w, m in zip(store._paths(blocks),
+                                       adamw.tree_leaves(got), want, scale)}
+
+
+def gather_outside(real):
+    """A planted fault: ``transformer._run`` with the block's weights
+    gathered before the checkpoint, which then keeps them alive until
+    the backward."""
+    def run(block, cfg, weights, *a, **k):
+        w = weights()
+        return real(block, cfg, lambda: w, *a, **k)
+    return run
+
+
+def remat_gathered_bytes(arch: str, mesh, depth: int = 4,
+                         planted: bool = False) -> Dict[str, int]:
+    """The most gathered bytes alive at once (``placed.GATHERED``) in one
+    ``sharded_value_and_grad`` of ``arch``'s reduced model at ``depth``
+    layers (an encoder of as many) with remat on, beside one layer's
+    whole bytes (the largest of any stack's) and the unstacked leaves'
+    whole bytes.  ``planted``: :func:`gather_outside`."""
+    from ..launch.mesh import set_mesh
+    from ..models import placed, transformer
+    from ..optim import adamw
+    from ..train import trainer
+    base = _placed_cfg(arch)
+    kw = {"n_layers": depth, "remat": True}
+    if base.n_enc_layers:
+        kw["n_enc_layers"] = depth
+    cfg = dataclasses.replace(base, **kw)
+    state = trainer.init_state(torch.Generator().manual_seed(0), cfg,
+                               adamw.AdamWConfig())
+    st_sh = trainer.state_shardings(state, transformer.param_axes(cfg), mesh)
+    blocks = trainer.place_tree(state.params, st_sh.params, mesh)
+    layer, unstacked = 0, 0
+    for key, sub in state.params.items():
+        leaves = adamw.tree_leaves(sub)
+        n = sum(t.numel() * t.element_size() for t in leaves)
+        if key in STACKED:
+            layer = max(layer, n // leaves[0].shape[0])
+        else:
+            unstacked += n
+    batch = _tensors(case_batch(TrainCase(arch, arch), cfg, 0), "cpu")
+    real = transformer._run
+    with set_mesh(mesh) as rm:
+        if planted:
+            transformer._run = gather_outside(real)
+        try:
+            placed.GATHERED.reset()
+            trainer.sharded_value_and_grad(blocks, batch, cfg, st_sh.params,
+                                           rm)
+        finally:
+            transformer._run = real
+    return {"peak": placed.GATHERED.peak, "layer": layer,
+            "unstacked": unstacked}
+
+
+def placed_step_battery(spec: dict) -> dict:
+    """The step-on-blocks checks in every rank of an 8-rank world (2x4,
+    1x8, and 2x2 with ranks 4-7 idle); every rank's records on rank 0.
+    ``spec``: ``grads`` (mesh names the families' gradients run on),
+    ``remat`` (mesh names the remat bytes run on)."""
+    meshes = {"2x4": _mesh((2, 4)), "1x8": _mesh((1, 8)),
+              "2x2": _mesh((2, 2))}
+    rec = {"rank": dist.get_rank()}
+    for name, mesh in meshes.items():
+        if mesh.get_coordinate() is None:
+            continue
+        rec[f"gather/{name}"] = gather_backward(mesh)
+        if name == "2x4":
+            for fault in (no_replica_sum, keep_ignored):
+                rec[f"gather/{name}/{fault.__name__}"] = gather_backward(
+                    mesh, fault)
+        for fam, arch in FAMILY_ARCHS:
+            if name in spec["grads"]:
+                rec[f"grads/{name}/{fam}"] = step_against_whole_gather(
+                    arch, mesh)
+            if name in spec["remat"]:
+                for planted in (False, True):
+                    rec[f"remat/{name}/{fam}/{planted}"] = (
+                        remat_gathered_bytes(arch, mesh, planted=planted))
+        if name == "2x4":
+            rec["grads/2x4/planted"] = step_against_whole_gather(
+                FAMILY_ARCHS[0][1], mesh, planted=True)
+    return _gathered_objects(rec)

@@ -38,8 +38,9 @@ reference, all declared:
   each layer's weights whole just before the layer runs and drops them
   after it, looks the embedding up on the rank's vocab rows and
   projects the logits on its vocab block; ``train.trainer``'s sharded
-  step gathers the whole weights for its forward and backward and sums
-  the gradient partials over the ranks;
+  step gathers each layer the same way, inside its remat checkpoint,
+  and sums the layer's gradient partials over the ranks onto the rank's
+  blocks in its backward (``placed.GatherLeaf``);
 * the helpers take activations **as the reference's ``in_specs`` hand
   them to the ``shard_map`` body** — the rank's sequence shard of ``x``
   (whole where the layout keeps it whole: the gather is then the rank's

@@ -26,7 +26,17 @@ one mesh position (``models.explicit_tp``'s rank model):
   - :func:`out_projection` is the rank's vocab block of the output
     projection (``unembed``, or ``embed.T`` under the transposed spec
     when embeddings are tied) gathered over its ``embed`` axes, and the
-    axes its logits are gathered over.
+    axes its logits are gathered over (under autograd the whole
+    projection).
+
+Every accessor gathers through :class:`GatherLeaf`, whose backward
+(the sharded train step, ``train.trainer``) is :func:`sum_block`: the
+rank's block of the sum of every rank's whole cotangent.  So a layer's
+gradient is summed onto the rank's blocks as soon as the layer's
+backward ends, and no whole gradient outlives its layer.  Under
+``no_grad`` (serving) the Function runs its forward alone, which is
+:func:`gather`.  :data:`GATHERED` counts the gathered bytes alive on the rank
+(the most at once since its ``reset``).
 
 The leaf rules (:func:`local`, :func:`own`, :func:`gather`) serve
 ``train.trainer``'s placed train state, ``checkpoint.store`` and
@@ -36,10 +46,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Sequence, Tuple
 
+import weakref
+
 import torch
 
 from ..dist.comm_engine import RankMesh, Spec, _axes_of
 from .common import DEFAULT_RULES
+from .explicit_tp import _AllReduce
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +105,87 @@ def gather(x: torch.Tensor, spec: Spec, rm: RankMesh) -> torch.Tensor:
             if rm.sizes[a] > 1:
                 x = rm.all_gather(x, a, d)
     return x
+
+
+def sum_block(g: torch.Tensor, spec: Spec, rm: RankMesh,
+              keep: Tuple[str, ...] = ()) -> torch.Tensor:
+    """This rank's block of the sum of every rank's whole partial ``g``:
+    a reduce-scatter over each axis the spec shards the leaf over (its
+    dimensions in order, an entry's axes major to minor), then an
+    all_reduce of the block over the mesh's other axes but ``keep`` (the
+    axes that split a leaf gathered only in part: their ranks hold other
+    blocks), in the mesh's order: one collective an axis, in a fixed
+    order."""
+    used = []
+    for d, entry in enumerate(spec):
+        for a in axes_in(entry, rm):
+            used.append(a)
+            g = rm.reduce_scatter(g, a, d)
+    g = rm.psum(g, tuple(a for a in rm.axes if rm.sizes[a] > 1
+                         and a not in used and a not in keep))
+    return g.to(rm.device).contiguous()
+
+
+class GatherLeaf(torch.autograd.Function):
+    """:func:`gather` under autograd: forward the whole leaf from the
+    rank's block ``x`` (over the axes ``spec`` names), backward
+    :func:`sum_block` of the cotangent, the rank's block of every rank's
+    partial summed.  The sharded step's loss shares add up to the global
+    loss once (``train.trainer``), so that sum is the block of the
+    one-device gradient.  ``keep``: the axes a partial gather leaves
+    split (the embedding's vocab axes), whose ranks hold other blocks
+    and are not summed over."""
+
+    @staticmethod
+    def forward(ctx, x, spec, rm, keep):
+        ctx.spec, ctx.rm, ctx.keep = spec, rm, keep
+        return gather(x, spec, rm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_block(g, ctx.spec, ctx.rm, ctx.keep), None, None, None
+
+
+class LiveBytes:
+    """Bytes of the gathered leaves alive on this rank: ``bytes`` now,
+    ``peak`` the most at once since :meth:`reset`; each storage counted
+    from its gather to its release, as ``launch.op_analysis`` counts
+    live storage."""
+
+    def __init__(self):
+        self.bytes = self.peak = 0
+        self._refs: Dict[int, weakref.ref] = {}
+
+    def reset(self) -> None:
+        self.peak = self.bytes
+
+    def add(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key, n = id(st), st.nbytes()
+        if key in self._refs:
+            return
+
+        def gone(_, key=key, n=n):
+            if self._refs.pop(key, None) is not None:
+                self.bytes -= n
+        self._refs[key] = weakref.ref(st, gone)
+        self.bytes += n
+        self.peak = max(self.peak, self.bytes)
+
+
+#: the gathered weights alive on this rank (:class:`LiveBytes`)
+GATHERED = LiveBytes()
+
+
+def _gather(x: torch.Tensor, spec: Spec, rm: RankMesh,
+            keep: Tuple[str, ...] = ()) -> torch.Tensor:
+    """An accessor's gather, through :class:`GatherLeaf` (under
+    ``no_grad`` its forward alone: :func:`gather`); a gathered result is
+    counted in :data:`GATHERED`."""
+    out = GatherLeaf.apply(x, spec, rm, keep)
+    if any(rm.sizes[a] > 1 for e in spec for a in axes_in(e, rm)):
+        GATHERED.add(out)
+    return out
 
 
 def tree_map(fn, tree, specs):
@@ -165,7 +259,7 @@ def whole(params: Dict[str, Any], *path: str) -> Any:
     if not isinstance(params, Placed):
         return node
     rm = params.mesh
-    return tree_map(lambda x, s: gather(x, s, rm), node,
+    return tree_map(lambda x, s: _gather(x, s, rm), node,
                     _at(params.specs, path))
 
 
@@ -202,21 +296,23 @@ def _depth(stacked) -> int:
 class _Gathered(Sequence):
     """The layers of a placed stacked subtree: item ``i`` is layer ``i``
     gathered whole, made when it is asked for and held by the caller
-    alone."""
+    alone.  The blocks are :func:`unstack`'s views, so under autograd a
+    leaf's block gradient is one ``stack`` of its layers' summed
+    blocks."""
 
     def __init__(self, params: Placed, path: Tuple[str, ...]):
-        self.node = _at(params, path)
+        self.parts = unstack(_at(params, path))
         self.specs = _at(params.specs, path)
         self.mesh = params.mesh
 
     def __len__(self) -> int:
-        return _depth(self.node)
+        return len(self.parts)
 
     def __getitem__(self, i: int) -> Dict[str, Any]:
         rm = self.mesh
         # the layer dim is never split ("layers" maps to no mesh axis)
-        return tree_map(lambda x, s: gather(x[i], Spec(*s[1:]), rm),
-                        self.node, self.specs)
+        return tree_map(lambda x, s: _gather(x, Spec(*s[1:]), rm),
+                        self.parts[i], self.specs)
 
 
 def layers(params: Dict[str, Any], *path: str) -> Sequence:
@@ -238,17 +334,18 @@ def embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
     if not isinstance(params, Placed):
         return params["embed"][tokens]
     rm, (v_entry, e_entry) = params.mesh, params.specs["embed"]
-    table = gather(params["embed"], Spec(None, e_entry), rm)
-    split = tuple(a for a in axes_in(v_entry, rm) if rm.sizes[a] > 1)
+    vocab = axes_in(v_entry, rm)
+    table = _gather(params["embed"], Spec(None, e_entry), rm, keep=vocab)
+    split = tuple(a for a in vocab if rm.sizes[a] > 1)
     if not split:
         return table[tokens]
-    idx, _ = rm.shard_of(tuple(axes_in(v_entry, rm)))
+    idx, _ = rm.shard_of(vocab)
     n = table.shape[0]
     t = tokens - idx * n
     inside = (t >= 0) & (t < n)
     rows = table[t.clamp(0, n - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
-    return rm.psum(rows, split)
+    return _AllReduce.apply(rows, rm, split)
 
 
 def out_projection(params: Dict[str, Any], tie: bool
@@ -256,7 +353,10 @@ def out_projection(params: Dict[str, Any], tie: bool
     """(the output projection ``(d, vocab block)`` as held, the mesh, the
     axes the logits' vocab dim is gathered over): ``unembed`` or, tied,
     ``embed.T``.  Whole trees: the whole leaf and no axes.  Placed: the
-    rank's vocab block gathered over its ``embed`` axes."""
+    rank's vocab block gathered over its ``embed`` axes; while autograd
+    records, the whole leaf (no axes), so the logits' gradient reaches
+    the hidden states through one product over the whole vocabulary, as
+    on one device (``train.trainer``'s module docstring)."""
     if not isinstance(params, Placed):
         w = params["embed"].T if tie else params["unembed"]
         return w, None, ()
@@ -267,5 +367,8 @@ def out_projection(params: Dict[str, Any], tie: bool
     else:
         e_entry, v_entry = params.specs["unembed"]
         w = params["unembed"]
-    w = gather(w, Spec(e_entry, None), rm)
-    return w, rm, tuple(a for a in axes_in(v_entry, rm) if rm.sizes[a] > 1)
+    if torch.is_grad_enabled():
+        return _gather(w, Spec(e_entry, v_entry), rm), rm, ()
+    vocab = axes_in(v_entry, rm)
+    w = _gather(w, Spec(e_entry, None), rm, keep=vocab)
+    return w, rm, tuple(a for a in vocab if rm.sizes[a] > 1)

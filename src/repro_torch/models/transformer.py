@@ -40,8 +40,13 @@ Training differentiates :func:`forward` with autograd.  With
 shared block, a vlm cross block, an encoder layer) runs under
 ``torch.utils.checkpoint`` (non-reentrant): its activations are
 recomputed in the backward, as the reference's ``jax.checkpoint`` of
-each scanned layer does.  Serving runs under ``no_grad`` and calls the
-blocks as they are.
+each scanned layer does.  A block is handed a call that gives its
+weights, made inside the checkpoint: on a placed tree the layer is
+gathered there and gathered again in the recompute, so the checkpoint
+holds only the rank's blocks (FSDP's reshard after forward), and the
+gathered weights' gradient is summed onto the blocks when the layer's
+backward ends (``placed.GatherLeaf``).  Serving runs under ``no_grad``
+and calls the blocks as they are.
 """
 from __future__ import annotations
 
@@ -329,18 +334,26 @@ def shared_after(cfg: ModelConfig, i: int) -> Optional[int]:
     return gi - 1 if r == 0 else None
 
 
-def _run(block, cfg: ModelConfig, *args, **kw):
-    """``block(*args, **kw)``, checkpointed when ``cfg.remat`` and
-    autograd records (the reference's per-layer ``jax.checkpoint``); the
-    recomputation sees the stream's layout of the forward."""
+def _run(block, cfg: ModelConfig, weights, *args, **kw):
+    """``block(weights(), *args, **kw)``, checkpointed when ``cfg.remat``
+    and autograd records (the reference's per-layer ``jax.checkpoint``):
+    ``weights`` is called inside the checkpoint, so a placed layer is
+    gathered there and again in the recomputation, and the checkpoint
+    keeps no gathered weight; the recomputation sees the stream's layout
+    of the forward."""
     if cfg.remat and torch.is_grad_enabled():
         lay = etp.current_layout()
 
         def body(*a, **k):
             with etp.activation(lay):
-                return block(*a, **k)
+                return block(weights(), *a, **k)
         return checkpoint(body, *args, use_reentrant=False, **kw)
-    return block(*args, **kw)
+    return block(weights(), *args, **kw)
+
+
+def _at(seq, i: int):
+    """A call that gives ``seq[i]`` (a placed layer is gathered then)."""
+    return lambda: seq[i]
 
 
 def _stack(trees):
@@ -364,7 +377,8 @@ def encode(params: Dict[str, Any], frontend: torch.Tensor,
     enc = pp.layers(params, "encoder")
     with etp.activation(lay):
         for i in range(len(enc)):
-            h, _, _ = _run(_dense_block, cfg, enc[i], h, cfg, causal=False)
+            h, _, _ = _run(_dense_block, cfg, _at(enc, i), h, cfg,
+                           causal=False)
     return etp.full_seq(rmsnorm(h, pp.whole(params, "enc_norm"),
                                 cfg.norm_eps), lay)
 
@@ -398,10 +412,10 @@ def forward_hidden(params: Dict[str, Any], tokens: torch.Tensor,
 
 def _blocks(params, x, cfg, frontend, collect_cache):
     """Every block of the stack on the embedded stream x: (x, aux,
-    caches).  Each block is handed its weights as ``placed.layers``
-    gives them, straight into the call: on a placed tree one layer is
-    gathered at a time and dropped when its block returns (the hybrid's
-    shared block once an application)."""
+    caches).  Each block is handed a call to ``placed.layers`` for its
+    weights (:func:`_run`): on a placed tree one layer is gathered at a
+    time, inside the block's checkpoint, and dropped when its block
+    returns (the hybrid's shared block once an application)."""
     compute = torch_dtype(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = pp.layers(params, "layers")
@@ -413,9 +427,10 @@ def _blocks(params, x, cfg, frontend, collect_cache):
         kvs = []
         for i in range(len(layers)):
             if img is not None and i % cfg.cross_attn_every == 0:
-                x = _run(_cross_block, cfg, cross[i // cfg.cross_attn_every],
-                         x, cfg, img=img)
-            x, aux_l, kv = _run(_dense_block, cfg, layers[i], x, cfg,
+                x = _run(_cross_block, cfg,
+                         _at(cross, i // cfg.cross_attn_every), x, cfg,
+                         img=img)
+            x, aux_l, kv = _run(_dense_block, cfg, _at(layers, i), x, cfg,
                                 collect_kv=collect_cache)
             aux = aux + aux_l
             kvs.append(kv)
@@ -425,8 +440,8 @@ def _blocks(params, x, cfg, frontend, collect_cache):
         enc = encode(params, frontend, cfg)
         kvs = []
         for i in range(len(layers)):
-            x, kv = _run(_decoder_block, cfg, layers[i], x, cfg, enc=enc,
-                         collect_kv=collect_cache)
+            x, kv = _run(_decoder_block, cfg, _at(layers, i), x, cfg,
+                         enc=enc, collect_kv=collect_cache)
             kvs.append(kv)
         if collect_cache:
             caches["self"] = _stack(kvs)
@@ -434,12 +449,13 @@ def _blocks(params, x, cfg, frontend, collect_cache):
     else:
         ssm_caches, shared_kv = [], []
         for i in range(len(layers)):
-            x, c = _run(_ssm_block, cfg, layers[i], x, cfg,
+            x, c = _run(_ssm_block, cfg, _at(layers, i), x, cfg,
                         collect_cache=collect_cache)
             ssm_caches.append(c)
             if shared_after(cfg, i) is not None:
-                x, kv = _run(_shared_block, cfg, pp.whole(params, "shared"),
-                             x, cfg, collect_kv=collect_cache)
+                x, kv = _run(_shared_block, cfg,
+                             lambda: pp.whole(params, "shared"), x, cfg,
+                             collect_kv=collect_cache)
                 shared_kv.append(kv)
         if collect_cache:
             caches["ssm"] = _stack(ssm_caches)

@@ -30,13 +30,31 @@ the port's ``dist.comm_engine.Spec``).  Departures, declared:
   block of every parameter and moment, the step counter replicated;
 * every rank receives the global batch and keeps its batch rows (the
   rank model), where the reference hands each device its rows;
-* the step all-gathers each parameter over the axes its spec names,
-  minor axis first, into whole weights at once (the models' explicit-TP
-  views take their blocks of whole weights; serving gathers one layer
-  at a time, ``models.placed``), runs forward and backward under
-  ``launch.mesh.set_mesh``, sums the gradient partials over every rank
-  and keeps the rank's block (:func:`sharded_value_and_grad`); the
-  whole weights and gradients are dropped before the update;
+* the step differentiates with respect to the rank's blocks
+  (:func:`sharded_value_and_grad`): the model reads them as a
+  ``models.placed.Placed`` tree, which gathers a layer whole only while
+  the layer runs, in the forward and again in the remat recompute (the
+  models' explicit-TP views take their blocks of the gathered weights),
+  and sums that layer's gradient partials over every rank onto the
+  rank's blocks as soon as its backward ends (``placed.GatherLeaf``,
+  whose backward is ``placed.sum_block``); the hybrid's shared block is
+  summed once an application.  A rank holds its blocks of every
+  parameter, moment and gradient, and one layer's whole weights and
+  gradient at a time (with ``cfg.remat``; without it autograd keeps
+  every layer's gathered weights for the backward);
+* the output projection is gathered whole through the same Function
+  (``placed.out_projection`` under autograd), where serving projects on
+  the rank's vocab block and gathers the logits: the logits' gradient
+  then reaches the hidden states through one product over the whole
+  vocabulary, as on one device, and the gradients equal the
+  whole-gather step's within 2.7e-7 x max|g| (fp32, six families on 2x4
+  and 1x8 CPU ranks).  The vocab-block route (the logits through the
+  differentiable all-gather) sums the blocks' partial products in
+  another order: 2.9e-6 x max|g| on the SSM's ``a_log``.  The price: a
+  whole ``d x vocab`` fp32 projection and its gradient while the loss
+  runs (5.0 GB each for qwen1.5-110b's 152k vocabulary); the logits of
+  the rank's batch rows are whole on either route, and the loss shares
+  are as they were;
 * AdamW runs on the rank's blocks; a leaf with Q8 moments updates whole
   on every rank (the 128-element quantization blocks of the flattened
   leaf do not line up with the parameter's block: its moments are
@@ -66,7 +84,8 @@ one-device gradient exactly once.  A loss computed whole on every rank
 (the gathered logits' cross-entropy) would count it once a rank.  The
 sum is one collective an axis in a fixed order — a reduce-scatter over
 each axis the leaf's spec shards it over, then an all_reduce of the
-block over the others — so a repeated step gives the same bits.
+block over the others (``placed.sum_block``), once a gather — so a
+repeated step gives the same bits.
 
 A leaf's block and its gather live in ``models.placed``, which serving
 shares; :func:`place_tree` and :func:`gather_tree` apply them over a
@@ -260,7 +279,8 @@ def rank_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """This rank's share of :func:`loss_fn` under the current mesh (the
     invariant of the module docstring): ``(share, {"ce": its ce share,
-    "aux": its aux share})``.  ``params`` whole; ``batch`` global."""
+    "aux": its aux share})``.  ``params`` whole or the rank's blocks
+    (a ``models.placed.Placed`` tree); ``batch`` global."""
     mesh = current_mesh()
     world = math.prod(mesh.sizes.values())
     tokens = batch["tokens"]
@@ -284,21 +304,6 @@ def _sum_axes(rm: RankMesh) -> Tuple[str, ...]:
     return tuple(a for a in rm.axes if rm.sizes[a] > 1)
 
 
-def _sum_block(g: torch.Tensor, spec: Spec, rm: RankMesh) -> torch.Tensor:
-    """This rank's block of the sum of every rank's whole partial ``g``:
-    a reduce-scatter over each axis the spec shards the leaf over (its
-    dimensions in order, an entry's axes major to minor), then an
-    all_reduce of the block over the axes that replicate it, in the
-    mesh's order: one collective an axis, in a fixed order."""
-    used = []
-    for d, entry in enumerate(spec):
-        for a in placement.axes_in(entry, rm):
-            used.append(a)
-            g = rm.reduce_scatter(g, a, d)
-    g = rm.psum(g, tuple(a for a in _sum_axes(rm) if a not in used))
-    return g.to(rm.device).contiguous()
-
-
 def sharded_value_and_grad(params: Dict[str, Any],
                            batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                            specs: Dict[str, Any], mesh
@@ -308,27 +313,26 @@ def sharded_value_and_grad(params: Dict[str, Any],
     in every rank: ``params`` are the rank's blocks under ``specs``, the
     batch global; the loss and its parts (``ce``, ``aux``) come back
     global on every rank, the gradients as the rank's blocks of the
-    one-device gradient (the partials summed over every rank by
-    :func:`_sum_block`).  Call it under ``set_mesh(mesh)``."""
+    one-device gradient.  The blocks are the leaves autograd
+    differentiates: :func:`rank_loss` reads them as a
+    ``models.placed.Placed`` tree, each layer gathered while it runs and
+    its partials summed onto the blocks in its backward (module
+    docstring), so no leaf is gathered whole outside a layer's run.
+    Call it under ``set_mesh(mesh)``."""
     rm = placement.rank_mesh(mesh)
-    whole = _map(lambda x, s: placement.gather(x, s, rm).detach()
-                 .requires_grad_(True), params, specs)
-    flat = adamw.tree_leaves(whole)
+    blocks = _map(lambda x, s: x.detach().requires_grad_(True), params,
+                  specs)
+    flat = adamw.tree_leaves(blocks)
     with torch.enable_grad():
-        share, parts = rank_loss(whole, batch, cfg)
-        grads = list(torch.autograd.grad(share, flat, allow_unused=True))
-    # the graph's nodes hold the whole leaves: keep none of them
+        share, parts = rank_loss(placement.Placed(blocks, specs, rm), batch,
+                                 cfg)
+        grads = torch.autograd.grad(share, flat, allow_unused=True)
     shares = torch.stack([parts["ce"], parts["aux"]]).detach()
-    del whole, share, parts
-    blocks = []
-    for i, (p, spec) in enumerate(zip(flat, adamw.tree_leaves(specs))):
-        g = torch.zeros_like(p) if grads[i] is None else grads[i]
-        grads[i] = flat[i] = None      # no whole leaf outlives its turn
-        blocks.append(_sum_block(g, spec, rm))
     tot = rm.psum(shares, _sum_axes(rm))
     ce, aux = tot[0], tot[1]
     return (ce + 0.01 * aux, {"ce": ce, "aux": aux},
-            _unflatten(specs, iter(blocks)))
+            _unflatten(specs, iter(torch.zeros_like(p) if g is None else g
+                                   for p, g in zip(flat, grads))))
 
 
 def _owner(spec: Spec, rm: RankMesh) -> bool:
