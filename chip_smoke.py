@@ -336,7 +336,9 @@ each of which fails the run (non-zero exit) when it fails:
    (``placed_params_phase``): four gloo ranks sharing the card on a 2x2
    ("data", "model") mesh, each holding only its blocks
    (``models.placed.place_params``: drawn whole by one rank at a time,
-   placed, freed) and gathering each layer while it runs, for
+   placed, freed) and gathering each layer over ``data`` alone while it
+   runs, each leaf keeping the rank's ``model`` block that the layer
+   computes on (the SSM mixer gathered whole, declared), for
    ``PLACED_PARAMS`` (h2o-danube-1.8b, zamba2-1.2b, mixtral-8x22b at 1
    of 56 layers in bf16 only; full width, batch ``PP_BATCH`` x
    ``PP_PROMPT``): in fp32, at the cut depths and steps, tokens equal
@@ -353,8 +355,12 @@ each of which fails the run (non-zero exit) when it fails:
    rank's batch rows and vocab block change cuBLAS's kernels, so bf16
    logits round apart): logits within it x max|logit| (a step's rows
    only while their tokens so far agree), and a token that differs a
-   near tie, one card's logits of both within it.  Its launches join
-   rows 7–9.
+   near tie, one card's logits of both within it.  Every run: each
+   rank's ``placed.GATHERED.peak`` over the pass at most the larger of
+   one layer's leaves gathered over ``data`` alone and the output
+   projection's vocab block, plus the norms (``_pp_gather_bound``, from
+   the specs), printed beside one layer gathered whole, which is above
+   it for every model of the phase.  Its launches join rows 7–9.
 
 Prints the ``nvidia-smi`` line, one ``{"kernels": [...]}`` JSON line
 (nine rows, one per kernel; rows 7–8 carry the family phase's launches
@@ -4158,10 +4164,11 @@ def examples_phase(check, procs):
 
 #: phase 23: serving with parameters placed by the cells' param_shardings,
 #: at full width on a 2x2 ("data", "model") mesh of gloo ranks sharing
-#: the card (both the FSDP gather over "data" and the tensor-parallel one
-#: over "model" run): (model, fp32 depth, fp32 greedy steps, bf16 depth,
+#: the card (the FSDP gather over "data", and the activations' gathers
+#: and the row-parallel reductions over "model", run): (model, fp32
+#: depth, fp32 greedy steps, bf16 depth,
 #: bf16 steps; no fp32 run where its depth is None).  Every pass gathers
-#: every layer through host-staged gloo, about 0.35 GB of whole weights a
+#: every layer through host-staged gloo, about 0.35 GB of weights a
 #: second a rank on one card (danube fp32 at 24 layers: 19 s a decode
 #: step), so the fp32 runs (against one card) are cut in depth and steps;
 #: the bf16 runs (against the dry run) keep danube's and zamba2's full
@@ -4297,6 +4304,35 @@ def _pp_slots(params, cfg, prompts, dev):
     return got, eng.decode_compiles, paged.launches["paged_gather"], eng
 
 
+def _pp_gather_bound(whole, specs, cfg, mesh):
+    """The most gathered bytes a rank may hold at once over a pass,
+    from the specs (``models.placed.held_bytes``): the larger of the
+    largest layer (a stacked subtree's one layer, the hybrid's shared
+    block) gathered over ``data`` alone, each leaf its ``model`` block
+    (the SSM mixer whole, declared), and the output projection's vocab
+    block (a pass drops its last layer before it gathers the
+    projection), plus the unstacked norms; beside it the largest layer
+    gathered whole (``whole_layer``), which is above the bound."""
+    from repro_torch.models import placed as pp
+    proj = "embed" if cfg.tie_embeddings else "unembed"
+    layer = whole_layer = norms = 0
+    for key, sub in whole.items():
+        if not isinstance(sub, dict):
+            if key not in ("embed", "unembed"):
+                norms += pp.held_bytes(sub, specs[key], mesh)
+            continue
+        leaves = [t for _, t in _leaves(sub)]
+        n_whole = sum(t.numel() * t.element_size() for t in leaves)
+        n = pp.held_bytes(sub, specs[key], mesh)
+        if key in ("layers", "encoder", "cross_layers"):
+            depth = leaves[0].shape[0]
+            n, n_whole = n // depth, n_whole // depth
+        layer, whole_layer = max(layer, n), max(whole_layer, n_whole)
+    vocab = pp.held_bytes(whole[proj], specs[proj], mesh)
+    return {"bound": max(layer, vocab) + norms, "layer": layer,
+            "vocab": vocab, "whole_layer": whole_layer}
+
+
 def placed_params_ranks(spec, out_dir):
     """Phase 23 in each of four gloo ranks sharing the card: each run's
     parameters drawn whole by one rank at a time, placed
@@ -4310,6 +4346,7 @@ def placed_params_ranks(spec, out_dir):
 
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh, set_mesh
+    from repro_torch.models import placed as pp
     from repro_torch.models.placed import place_params
 
     dev = torch.device("cuda")
@@ -4324,14 +4361,17 @@ def placed_params_ranks(spec, out_dir):
             if r == rank:
                 cfg, whole = _pp_whole(name, layers, dtype, dev)
                 placed = place_params(whole, cfg, mesh)
+                bound = _pp_gather_bound(whole, placed.specs, cfg, mesh)
                 del whole
                 gc.collect()
                 torch.cuda.empty_cache()
             dist.barrier()
         setup_s = time.perf_counter() - t0
         tokens = torch.as_tensor(spec[name], device=dev)
+        pp.GATHERED.reset()
         with torch.no_grad(), set_mesh(mesh):
             res = _pp_decode(placed, tokens, cfg, steps)
+        res["gathered"] = dict(bound, peak=pp.GATHERED.peak)
         res["param_bytes"] = dryrun.storage_bytes(placed)
         res["setup_s"] = setup_s
         logits = res.pop("logits")
@@ -4458,6 +4498,17 @@ def placed_params_phase(check):
                     launches[k] += v
                 entry.update({f"{p}_{k}": m[p][k]
                               for k in ("peak", "launches", "s")})
+            g = m["gathered"]
+            check(0 < g["peak"] <= g["bound"], f"{tag}: {g['peak']} "
+                  f"gathered bytes alive at once, above the larger of one "
+                  f"layer's {g['layer']} gathered over data alone and the "
+                  f"output projection's vocab block {g['vocab']}, plus the "
+                  f"norms ({g['bound']})")
+            check(g["whole_layer"] > g["bound"], f"{tag}: one layer "
+                  f"gathered whole ({g['whole_layer']}) is within the "
+                  f"bound {g['bound']}: the gate cannot see a gather over "
+                  f"model")
+            entry["gathered"] = g
             w = want[key]
             got = torch.load(f"{tmp.name}/{name}.{dtype}.{r['rank']}.pt")
             if first is None:
@@ -4532,6 +4583,12 @@ def placed_params_phase(check):
                      + ("" if r0["tokens_equal"] == r0["tokens_compared"]
                         else " (the rest near ties)"))
             row["dry_run"] = d
+        g0 = r0["gathered"]
+        line += (f"; gathered at once {g0['peak'] / 1e6:.1f} MB a rank "
+                 f"(bound {g0['bound'] / 1e6:.1f}: the larger of a "
+                 f"layer's blocks {g0['layer'] / 1e6:.1f} and the vocab "
+                 f"block {g0['vocab'] / 1e6:.1f}, + the norms; one layer "
+                 f"whole {g0['whole_layer'] / 1e6:.1f})")
         print(line + f"; prefill {r0['prefill_s']:.2f} s"
               + (f", {steps} steps {r0['decode_s']:.2f} s" if steps else "")
               + f", draw and place {r0['setup_s']:.1f} s (host-staged "

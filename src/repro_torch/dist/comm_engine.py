@@ -261,6 +261,30 @@ class RankMesh:
             work.wait()
         return buf.to(self.device)
 
+    def exchange(self, sends: Dict[int, torch.Tensor], axis: str
+                 ) -> Dict[int, torch.Tensor]:
+        """Send ``sends[j]`` to position ``j`` of ``axis`` and receive a
+        tensor of its shape and dtype from ``j``, for every ``j``, in one
+        ``batch_isend_irecv``.  The pairs must be symmetric: each ``j``
+        sends this rank a tensor of the same shape.  Returns {j: what
+        ``j`` sent}."""
+        g, ranks = self.groups[axis], self.ranks[axis]
+        ops, got = [], {}
+        for j, x in sends.items():
+            w = self._wire(x, axis)
+            got[j] = torch.empty_like(w)
+            ops += [dist.P2POp(dist.isend, w, ranks[j], g),
+                    dist.P2POp(dist.irecv, got[j], ranks[j], g)]
+        if fake_world():
+            # a fake group moves nothing and coalesces no ``meta`` tensors:
+            # each op is posted alone
+            works = [op.op(op.tensor, op.peer, op.group) for op in ops]
+        else:
+            works = dist.batch_isend_irecv(ops) if ops else []
+        for work in works:
+            work.wait()
+        return {j: t.to(self.device) for j, t in got.items()}
+
     def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int
                        ) -> torch.Tensor:
         """Sum ``x`` over ``axis`` and keep this rank's block along

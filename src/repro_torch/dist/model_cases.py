@@ -11,7 +11,9 @@ input a rank is handed (per dimension ``"rows"`` — the
 rank's batch rows over ``data`` —, ``"model"`` — its block over
 ``model`` — or None, whole) and the block of the global output it
 returns, as the reference's ``shard_map`` ``in_specs`` / ``out_specs``
-would cut them.
+would cut them; the weights are the rank's ``model`` blocks, as
+``models.placed`` hands a layer's leaves to the helpers, and the
+helpers read the global extents from a config (:func:`extents`).
 """
 from __future__ import annotations
 
@@ -32,17 +34,19 @@ SPECS = {
     "gather_seq": ((("x", ("rows", "model", None)),),
                    (("rows", None, None),)),
     "project_scatter": ((("h", ("rows", None, "model")),
-                         ("w", (None, None))),
+                         ("w", ("model", None))),
                         (("rows", "model", None),)),
-    "mlp_manual": ((("x", ("rows", "model", None)), ("wg", (None, None)),
-                    ("wu", (None, None)), ("wd", (None, None))),
+    "mlp_manual": ((("x", ("rows", "model", None)), ("wg", (None, "model")),
+                    ("wu", (None, "model")), ("wd", ("model", None))),
                    (("rows", "model", None),)),
-    "qkv_manual": ((("x", ("rows", "model", None)), ("wq", (None, None)),
-                    ("wk", (None, None)), ("wv", (None, None))),
+    "qkv_manual": ((("x", ("rows", "model", None)), ("wq", (None, "model")),
+                    ("wk", (None, "model")), ("wv", (None, "model"))),
                    (("rows", None, "model"),) * 3),
     "moe_manual": ((("x", ("rows", "model", None)),
-                    ("router", (None, None)), ("mwg", (None, None, None)),
-                    ("mwu", (None, None, None)), ("mwd", (None, None, None))),
+                    ("router", (None, None)),
+                    ("mwg", (None, None, "model")),
+                    ("mwu", (None, None, "model")),
+                    ("mwd", (None, "model", None))),
                    (("rows", "model", None),)),
     "chunked_attn_manual": ((("q", ("rows", None, None, None)),
                              ("k", ("rows", None, None, None)),
@@ -80,20 +84,31 @@ def _mesh(shape, device):
     return make_mesh(shape, AXES, device=device)
 
 
-def _call(name, args, lay, compute=torch.float32):
+def extents(ins: Dict[str, np.ndarray]):
+    """The global extents a helper reads from its config, from its
+    global inputs ``ins``: ``q_dim``, ``kv_dim``, ``d_ff`` and
+    ``project_scatter``'s row count."""
+    import types
+    dim = {"q_dim": ("wq", 1), "kv_dim": ("wk", 1), "d_ff": ("wg", 1),
+           "rows": ("w", 0), "moe_ff": ("mwg", 2)}
+    return types.SimpleNamespace(**{k: ins[a].shape[d] for k, (a, d)
+                                    in dim.items() if a in ins})
+
+
+def _call(name, args, lay, ext, compute=torch.float32):
     from ..models import explicit_tp as etp
     if name == "gather_seq":
         return etp.gather_seq(args["x"], lay)
     if name == "project_scatter":
-        return etp.project_scatter(args["h"], args["w"], lay)
+        return etp.project_scatter(args["h"], args["w"], lay, ext.rows)
     if name == "mlp_manual":
         return etp.mlp_manual(args["x"], args["wg"], args["wu"], args["wd"],
-                              compute, lay)
+                              compute, lay, ext)
     if name == "qkv_manual":
         return etp.qkv_manual(args["x"], args["wq"], args["wk"], args["wv"],
-                              compute, lay)
+                              compute, lay, ext)
     if name == "moe_manual":
-        cfg = moe_config(args["x"].shape[-1], args["mwg"].shape[-1])
+        cfg = moe_config(args["x"].shape[-1], ext.moe_ff)
         p = {"router": args["router"], "wg": args["mwg"],
              "wu": args["mwu"], "wd": args["mwd"]}
         return etp.moe_manual(args["x"], p, cfg, compute, lay)
@@ -136,7 +151,8 @@ def helper_battery(inputs: Dict[str, np.ndarray],
             first = inputs[ins[0][0]]
             seq = first.shape[2 if name == "chunked_attn_manual" else 1]
             lay = etp.Layout(first.shape[0], seq, seq_split=True)
-            res = _call(name, args, lay)
+            res = _call(name, args, lay,
+                        extents({k: inputs[k] for k, _ in ins}))
             if name == "moe_manual":
                 res, aux = res
                 rec["aux"] = float(aux.detach())
@@ -187,7 +203,7 @@ def _none_flags(by_helper, rm):
         m = 1 if rm is None else rm.sizes["model"]
         seq = first.shape[2 if name == "chunked_attn_manual" else 1]
         lay = etp.Layout(first.shape[0], seq, seq_split=seq % m == 0)
-        flags[name] = _call(name, args, lay) is None
+        flags[name] = _call(name, args, lay, extents(ins)) is None
     return flags
 
 

@@ -747,8 +747,10 @@ def remat_gathered_bytes(arch: str, mesh, depth: int = 4,
     """The most gathered bytes alive at once (``placed.GATHERED``) in one
     ``sharded_value_and_grad`` of ``arch``'s reduced model at ``depth``
     layers (an encoder of as many) with remat on, beside one layer's
-    whole bytes (the largest of any stack's) and the unstacked leaves'
-    whole bytes.  ``planted``: :func:`gather_outside`."""
+    bytes as the rank gathers them (``placed.held_bytes``: whole over the
+    batch axes, its ``model`` block of each leaf; the largest of any
+    stack's) and the unstacked leaves' alike.  ``planted``:
+    :func:`gather_outside`."""
     from ..launch.mesh import set_mesh
     from ..models import placed, transformer
     from ..optim import adamw
@@ -764,10 +766,9 @@ def remat_gathered_bytes(arch: str, mesh, depth: int = 4,
     blocks = trainer.place_tree(state.params, st_sh.params, mesh)
     layer, unstacked = 0, 0
     for key, sub in state.params.items():
-        leaves = adamw.tree_leaves(sub)
-        n = sum(t.numel() * t.element_size() for t in leaves)
+        n = placed.held_bytes(sub, st_sh.params[key], mesh)
         if key in STACKED:
-            layer = max(layer, n // leaves[0].shape[0])
+            layer = max(layer, n // adamw.tree_leaves(sub)[0].shape[0])
         else:
             unstacked += n
     batch = _tensors(case_batch(TrainCase(arch, arch), cfg, 0), "cpu")

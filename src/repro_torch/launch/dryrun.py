@@ -18,7 +18,8 @@ Rank 0 takes its arguments as the rank program takes them:
   the cell's specs) and the global batch, whose batch rows it keeps;
 * prefill and decode cells: its blocks of the bf16 parameters as the
   cell's ``param_shardings`` place them (a ``models.placed.Placed``
-  tree: the model gathers each layer whole while it runs) and the
+  tree: the model gathers each layer over the batch axes while it
+  runs and computes on its ``model`` block of each leaf) and the
   global tokens and frontend, whose batch rows it keeps;
 * decode cells: its blocks of the cache as ``cache_shardings`` places
   them (batch rows, and over ``model`` the K/V columns, conv channels

@@ -26,11 +26,15 @@ cache (``precompute_cross_cache``, bf16 whatever the compute dtype) is
 read whole and never written.
 
 With ``cfg.explicit_collectives`` the reference's manual branches run
-first (``explicit_tp.qkv_manual``, ``gather_seq``, ``project_scatter``,
+first (``explicit_tp.qkv_manual``, ``gather_seq``,
 ``chunked_attn_manual``); with no mesh each returns None and the block
 is the one-device one, bit for bit.  On a mesh (``launch.mesh.set_mesh``)
-x and the result are in the stream's layout and a prefill attends on
-the rank's q heads or query rows (``explicit_tp``'s rank model).
+x and the result are in the stream's layout, and a layer handed by
+``models.placed`` holds the rank's ``model`` blocks: q, k and v are its
+columns, K/V are gathered back to whole kv heads, a prefill attends on
+the rank's q heads or query rows and the output projection is its
+columns times its ``wo`` rows, reduced over ``model`` once
+(``explicit_tp``'s rank model).
 """
 from __future__ import annotations
 
@@ -168,10 +172,11 @@ def _placed_decode_attn(q, k_blk, v_blk, cols: Tuple[int, int], hkv: int,
     runs :func:`_decode_attn` on its kv heads and their q heads, one
     card's computation on them.  Else each kv head the block touches
     scores on the rank's columns of it (part of one head, or across a
-    head boundary), the partial scores of every head are summed over
-    ``model`` before the softmax, and ``P · V_block`` gives the rank's
-    columns of each q head's output.  Either way the rank's part of the
-    output is gathered over ``model`` into head order.  Returns (B, Hq,
+    head boundary), each head's partial scores are summed over the ranks
+    that share it before the softmax (``explicit_tp.sum_head_partials``),
+    and ``P · V_block`` gives the rank's columns of each q head's output.
+    Either way the rank's part of the output is gathered over ``model``
+    into head order.  Returns (B, Hq,
     1, dh)."""
     b, hq, _, dh = q.shape
     c0, c1 = cols
@@ -197,10 +202,9 @@ def _placed_decode_attn(q, k_blk, v_blk, cols: Tuple[int, int], hkv: int,
     scores = torch.stack([torch.matmul(qc[..., a:z],
                                        kf[..., a:z].transpose(-1, -2))
                           for a, z in spans], dim=1)    # (B, nh, group, S)
-    # a head's columns lie on several ranks: sum its partial scores
-    full = scores.new_zeros((b, hkv, group, s))
-    full[:, h0:h1] = scores
-    scores = etp.psum_model(full)[:, h0:h1]
+    # a head's columns lie on several ranks: sum its partial scores over
+    # them
+    scores = etp.sum_head_partials(scores, dh, hkv * dh)
     valid = _decode_valid(pos, s, window, cache_len, q.device)
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
@@ -266,13 +270,13 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
     def heads(t, n):
         return t.reshape(b, -1, n, cfg.head_dim).transpose(1, 2)
 
+    sq, sk = etp.span(p, "wq"), etp.span(p, "wk")
     q = k = v = None
-    cols = False            # q, k, v are the rank's column blocks
     if cfg.explicit_collectives and is_self and not static_cross:
         # fully-manual SP -> TP dataflow: gather + q/k/v dots in one
-        res = etp.qkv_manual(x, p["wq"], p["wk"], p["wv"], compute, lay)
+        res = etp.qkv_manual(x, p["wq"], p["wk"], p["wv"], compute, lay, cfg)
         if res is not None:
-            (q, k, v), cols = res, True
+            q, k, v = res
     if q is None:
         # SP -> TP boundary: gather the compute-dtype sequence shards
         xq = x.to(compute)
@@ -284,27 +288,20 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
             xkv = xq if is_self else kv_x.to(compute)
             k = xkv @ p["wk"].to(compute)
             v = xkv @ p["wv"].to(compute)
-
-    def bias(name, t):
-        bb = p[name].to(compute)
-        return t + (etp.model_block(bb, 0) if cols else bb)
-
+    # q, k and v are the rank's columns where their weights are blocks
+    # (the biases are the same blocks)
     if cfg.qkv_bias:
-        q = bias("bq", q)
+        q = q + p["bq"].to(compute)
         if not static_cross:
-            k, v = bias("bk", k), bias("bv", v)
-    if cols:
-        # the small K/V go back to every rank (the reference's shard(k,
-        # ..., None, None)): a rank may hold part of a kv head's columns
-        k, v = etp.gather_model(k, 2), etp.gather_model(v, 2)
-    if not static_cross:
-        kh = heads(k, cfg.n_kv_heads)
-        vh = heads(v, cfg.n_kv_heads)
+            k, v = k + p["bk"].to(compute), v + p["bv"].to(compute)
     lq = q.shape[1]
-    if is_self:
-        if positions is None:
-            positions = _positions(pos, b, lq, x.device)
-        kh = common.rope(kh, positions, cfg.rope_theta)
+    if is_self and positions is None:
+        positions = _positions(pos, b, lq, x.device)
+
+    def rotate(t):
+        # rope on the (B, L, kv_dim) keys, by heads
+        t = heads(t, cfg.n_kv_heads)
+        return common.rope(t, positions, cfg.rope_theta) if is_self else t
 
     def from_cache(c):
         return c.reshape(b, c.shape[1], cfg.n_kv_heads, cfg.head_dim
@@ -318,6 +315,32 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
             f"cache_shardings: {placed[1] - placed[0]} of {cfg.kv_dim} K/V "
             f"columns a rank, got {cache['k'].shape[-1]}")
 
+    def flat(t):
+        return t.transpose(1, 2).reshape(b, t.shape[2], -1)
+
+    new_cache = None
+    if cache is None and etp.model_size() > 1 and lay is not None:
+        # prefill on a model axis: K/V gathered back to whole kv heads,
+        # attention on this rank's heads or query rows
+        kh = rotate(_whole_cols(k, sk))
+        vh = heads(_whole_cols(v, sk), cfg.n_kv_heads)
+        blk, full = _mesh_prefill(q, kh, vh, sq, cfg, positions, lay,
+                                  causal=causal and is_self,
+                                  window=cfg.swa_window if is_self else None,
+                                  rope=is_self)
+        kv = None
+        if collect_kv:
+            # the rank's cache columns, copied (a view would keep the
+            # whole K / V alive in the cache)
+            kv = {n: etp.feature_copy(flat(t), 2)
+                  for n, t in (("k", kh), ("v", vh))}
+        return _project_out(p, blk, full, cfg, lay, x.dtype), kv
+
+    # one query (decode) or one device: q whole, by heads
+    qh = heads(_whole_cols(q, sq), cfg.n_heads)   # (B, Hq, Lq, dh)
+    if is_self:
+        qh = common.rope(qh, positions, cfg.rope_theta)
+
     def attend_cache(ck, cv, pos, window, s_cache):
         if placed is not None:
             return _placed_decode_attn(qh, ck.to(compute), cv.to(compute),
@@ -327,27 +350,6 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
         return _decode_attn(qh, from_cache(ck), from_cache(cv), pos=pos,
                             window=window, cache_len=s_cache)
 
-    def collected():
-        # prefill: hand rotated K / V back for the decode cache; on a
-        # model mesh the rank's columns, copied (a view would keep the
-        # whole K / V alive in the cache)
-        lkv = kh.shape[2]
-        return {n: etp.feature_copy(t.transpose(1, 2).reshape(
-            b, lkv, cfg.kv_dim), 2) for n, t in (("k", kh), ("v", vh))}
-
-    new_cache = None
-    if cache is None and etp.model_size() > 1 and lay is not None:
-        # prefill on a model axis: this rank's heads or query rows
-        blk, full = _mesh_prefill(q, kh, vh, cols, cfg, positions, lay,
-                                  causal=causal and is_self,
-                                  window=cfg.swa_window if is_self else None,
-                                  rope=is_self)
-        return (_project_out(p, blk, full, cfg, compute, lay, x.dtype),
-                collected() if collect_kv else None)
-
-    qh = heads(q, cfg.n_heads)                    # (B, Hq, Lq, dh)
-    if is_self:
-        qh = common.rope(qh, positions, cfg.rope_theta)
     if static_cross:
         # read-only precomputed cross K/V (e.g. whisper's encoder
         # output): non-causal attention over the whole cache
@@ -357,12 +359,20 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
     elif cache is not None:
         ck, cv = cache["k"], cache["v"]
         s_cache = ck.shape[1]
-        k_flat = kh.transpose(1, 2).reshape(b, lq, cfg.kv_dim)
-        v_flat = vh.transpose(1, 2).reshape(b, lq, cfg.kv_dim)
-        if placed is not None:
-            # the rank writes only its columns
-            k_flat = k_flat[..., placed[0]:placed[1]]
-            v_flat = v_flat[..., placed[0]:placed[1]]
+        if placed is not None and sk is not None:
+            # the rank's K/V columns are its cache block; keys rotate by
+            # whole heads (a head the block splits is gathered and cut)
+            v_flat = v
+            dh = cfg.head_dim
+            if sk.start % dh == 0 and (sk.stop - sk.start) % dh == 0:
+                k_flat = flat(common.rope(
+                    k.reshape(b, lq, -1, dh).transpose(1, 2), positions,
+                    cfg.rope_theta))
+            else:
+                k_flat = flat(rotate(etp.gather_model(k, 2)))[
+                    ..., sk.start:sk.stop]
+        else:
+            k_flat, v_flat = flat(rotate(k)), v
         pos_t = torch.as_tensor(pos)
         if pos_t.dim():
             # per-slot write positions: one row per batch lane
@@ -382,13 +392,23 @@ def apply_attention(p: Dict[str, torch.Tensor], x: torch.Tensor,
         # absolute-position — each key was rotated at its own position.
         out = attend_cache(ck, cv, pos, cfg.swa_window, s_cache)
     else:
+        kh = rotate(_whole_cols(k, sk))
+        vh = heads(_whole_cols(v, sk), cfg.n_kv_heads)
         out = _attend(qh, kh, vh, causal=causal and is_self,
                       window=cfg.swa_window if is_self else None)
         if collect_kv:
-            new_cache = collected()
+            new_cache = {n: etp.feature_copy(flat(t), 2)
+                         for n, t in (("k", kh), ("v", vh))}
 
     out = out.transpose(1, 2).reshape(b, lq, cfg.q_dim)
-    return _project_out(p, None, out, cfg, compute, lay, x.dtype), new_cache
+    return _project_out(p, None, out, cfg, lay, x.dtype), new_cache
+
+
+def _whole_cols(t: torch.Tensor, sp) -> torch.Tensor:
+    """A (B, L, n) activation of a leaf's columns whole: gathered over
+    ``model`` where ``sp`` (``explicit_tp.span``) says it is the rank's
+    block."""
+    return t if sp is None else etp.gather_model(t, 2)
 
 
 def _attend(qh, kh, vh, *, causal, window, q_offset=0):
@@ -412,22 +432,24 @@ def _attend(qh, kh, vh, *, causal, window, q_offset=0):
                          q_offset=q_offset)
 
 
-def _mesh_prefill(q, kh, vh, cols: bool, cfg: ModelConfig, positions,
-                  lay, *, causal: bool, window, rope: bool):
+def _mesh_prefill(q, kh, vh, sq, cfg: ModelConfig, positions, lay, *,
+                  causal: bool, window, rope: bool):
     """Attention of one prefill on a ``model`` axis of ``m`` ranks, K/V
-    whole (``kh``/``vh`` rotated).  ``q`` is (B, S, q_dim) or, with
-    ``cols``, the rank's column block.  Above ``FULL_SCORES_MAX_LEN``
-    (explicit collectives) the rank takes its query rows through
-    ``chunked_attn_manual``; else its q heads where ``n_heads % m == 0``
-    (with their kv heads), its query rows where ``m`` divides the
-    sequence, or everything.  Returns (the rank's column block of the
-    (B, S, q_dim) output or None, a callable giving the whole output)."""
+    whole (``kh``/``vh`` rotated).  ``q`` is (B, S, q_dim), or the rank's
+    column block where ``sq`` (its ``placed.Span``) says so.  Above
+    ``FULL_SCORES_MAX_LEN`` (explicit collectives) the rank takes its
+    query rows through ``chunked_attn_manual``; else its q heads where
+    ``n_heads % m == 0`` (its own columns, with their kv heads), its query
+    rows where ``m`` divides the sequence (q gathered back: a block that
+    splits a head, whisper's 12 heads on 16, holds no whole head), or
+    everything.  Returns (the rank's column block of the (B, S, q_dim)
+    output or None, a callable giving the whole output)."""
     b, s = q.shape[0], q.shape[1]
     m, idx = etp.model_size(), etp.model_index()
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def whole_q():
-        return etp.gather_model(q, 2) if cols else q
+        return _whole_cols(q, sq)
 
     def qheads(t, n, pos):
         t = t.reshape(b, -1, n, dh).transpose(1, 2)
@@ -443,7 +465,8 @@ def _mesh_prefill(q, kh, vh, cols: bool, cfg: ModelConfig, positions,
     if rows is None and hq % m == 0:
         hl = hq // m
         h0, group = idx * hl, hq // hkv
-        qh = qheads(q if cols else etp.model_block(q, 2), hl, positions)
+        qh = qheads(q if sq is not None else etp.model_block(q, 2), hl,
+                    positions)
         if hl % group == 0:
             ks = kh[:, h0 // group:(h0 + hl) // group]
             vs = vh[:, h0 // group:(h0 + hl) // group]
@@ -468,21 +491,21 @@ def _mesh_prefill(q, kh, vh, cols: bool, cfg: ModelConfig, positions,
     return None, lambda: out.transpose(1, 2).reshape(b, s, cfg.q_dim)
 
 
-def _project_out(p, blk, full, cfg: ModelConfig, compute, lay, dtype):
-    """The output projection: ``project_scatter`` of the rank's column
-    block (explicit collectives and sequence parallelism), else the whole
-    product in the stream's layout.  ``full`` is the (B, S, q_dim) output
-    or a callable giving it."""
-    wo = p["wo"].to(compute)
-    if cfg.explicit_collectives and cfg.sequence_parallel:
-        if blk is None:
-            full = full() if callable(full) else full
-            blk = etp.model_block(full, 2)
-        res = etp.project_scatter(blk, wo, lay)
-        if res is not None:
-            return res.to(dtype)
-    full = full() if callable(full) else full
-    return etp.to_layout((full @ wo).to(dtype), lay)
+def _project_out(p, blk, full, cfg: ModelConfig, lay, dtype):
+    """The output projection.  Where ``wo`` is the rank's row block: the
+    rank's output columns (``blk``, else cut from the whole output) times
+    it, reduced over ``model`` once (``explicit_tp.row_parallel``).
+    Where ``wo`` is whole: the whole product in the stream's layout.
+    ``full`` is the (B, S, q_dim) output or a callable giving it."""
+    wo = p["wo"].to(torch_dtype(cfg.dtype))
+    so = etp.span(p, "wo")
+    if so is None:
+        full = full() if callable(full) else full
+        return etp.to_layout((full @ wo).to(dtype), lay)
+    if blk is None:
+        full = full() if callable(full) else full
+        blk = full[..., so.start:so.stop]
+    return etp.row_parallel(blk, wo, cfg.explicit_collectives, lay).to(dtype)
 
 
 def precompute_cross_cache(p: Dict[str, torch.Tensor], enc_out: torch.Tensor,
@@ -490,7 +513,9 @@ def precompute_cross_cache(p: Dict[str, torch.Tensor], enc_out: torch.Tensor,
     """Project the frontend's tokens (an encoder's output, image patch
     embeddings) to K/V once, ``(B, F, kv_dim)`` in ``dtype`` (bf16
     whatever the compute dtype, as in the reference); decode steps read
-    it statically."""
+    it statically.  On a model mesh the rank's cache columns
+    (``explicit_tp.feature_block``): the product of its ``wk`` / ``wv``
+    blocks."""
     compute = torch_dtype(cfg.dtype)
     xkv = enc_out.to(compute)
     k = xkv @ p["wk"].to(compute)

@@ -88,13 +88,12 @@ def _cross_cache(params: Dict[str, Any], cfg: ModelConfig, *,
     """The static cross K/V, ``(n, B, F, kv_dim)`` bf16: one entry per
     decoder layer from the encoder output ``enc`` (encdec), one per cross
     layer from the image embeddings ``img`` (vlm); on a model mesh each
-    layer's rank columns (``explicit_tp.feature_copy``)."""
+    layer's rank columns, the product of its ``wk`` / ``wv`` blocks."""
     if cfg.family == "encdec":
         ps, src = pp.layers(params, "layers", "cross"), enc
     else:
         ps, src = pp.layers(params, "cross_layers", "attn"), img
-    return _stack([{n: etp.feature_copy(t, 2) for n, t in
-                    attn.precompute_cross_cache(ps[i], src, cfg).items()}
+    return _stack([attn.precompute_cross_cache(ps[i], src, cfg)
                    for i in range(len(ps))])
 
 
@@ -112,6 +111,7 @@ def prefill(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     row is the same)."""
     b, s = tokens.shape
     max_len = max_len or s
+    params = pp.on_mesh(params, cfg)
     x, _, caches = forward_hidden(params, tokens, cfg, frontend=frontend,
                                   collect_cache=True)
     lay = etp.layout_for(b, s, cfg)
@@ -149,6 +149,7 @@ def init_cache(params: Dict[str, Any], cfg: ModelConfig, batch: int,
     batch rows where the batch axes divide ``batch``, its feature block
     over ``model``)."""
     require_family(cfg)
+    params = pp.on_mesh(params, cfg)
     device = params["embed"].device if device is None else device
     s_c = cache_len(cfg, seq_len)
     nb = etp.batch_shards()
@@ -211,11 +212,14 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
     cache leaf is the rank's block as ``cache_shardings`` places it (as
     ``prefill`` and ``init_cache`` on the mesh make it): its batch rows,
     and over ``model`` its K/V columns, conv channels and state heads.
-    The rank computes the new token's q, k and v whole, writes its
-    columns, sums split heads' partial scores over ``model`` and gathers
-    the attention output and the SSM block's conv output and ``y``."""
+    The rank computes the new token's q, k and v on its blocks (its K/V
+    columns are its cache block), sums a split head's partial scores
+    over the ranks that share it, gathers the attention output and the SSM block's conv
+    output and ``y``, and reduces each row-parallel product over
+    ``model``."""
     require_family(cfg)
     compute = torch_dtype(cfg.dtype)
+    params = pp.on_mesh(params, cfg)
     new_cache: Dict[str, Any] = {"pos": cache["pos"] + 1}
     rows = etp.layout_for(tokens.shape[0], 1, cfg)
     pos = cache["pos"]
@@ -232,8 +236,8 @@ def decode_step(params: Dict[str, Any], tokens: torch.Tensor,
 def _decode_blocks(params, x, pos, cache, new_cache, cfg):
     """Every block of one decode step: (x, the new cache).  Each block
     gets its weights straight from ``placed.layers`` (one layer gathered
-    at a time on a placed tree; the hybrid's shared block once an
-    application)."""
+    at a time on a placed tree, each leaf its ``model`` block; the
+    hybrid's shared block once an application)."""
     lay = pp.layers(params, "layers")
     if cfg.family in ("dense", "moe", "encdec", "vlm"):
         ck, cv = cache["self"]["k"], cache["self"]["v"]

@@ -34,42 +34,58 @@ reference, all declared:
   which, one per activation stream (the encoder's frames have their own),
   and the model entry points publish it (:func:`activation`);
 * a rank **holds its blocks of the parameters** as the cells'
-  ``param_shardings`` place them (``models.placed``): serving gathers
-  each layer's weights whole just before the layer runs and drops them
-  after it, looks the embedding up on the rank's vocab rows and
-  projects the logits on its vocab block; ``train.trainer``'s sharded
-  step gathers each layer the same way, inside its remat checkpoint,
-  and sums the layer's gradient partials over the ranks onto the rank's
-  blocks in its backward (``placed.GatherLeaf``);
+  ``param_shardings`` place them (``models.placed``) and computes on
+  its ``model`` block of each: serving gathers each layer's weights over
+  the batch axes just before the layer runs, each leaf keeping the
+  rank's ``model`` block, and drops them after it (``train.trainer``'s
+  sharded step the same, inside the layer's remat checkpoint, and sums
+  the layer's gradient partials over the batch axes onto the rank's
+  blocks in its backward: ``placed.GatherLeaf``); a whole tree on the
+  mesh takes the same route, its blocks views (``placed.on_mesh``).
+  The SSM mixer alone is gathered whole over ``model`` (declared,
+  ``placed.WHOLE_OVER_MODEL``);
+* q, k and v are the rank's ``heads`` / ``kv`` columns (:func:`span`
+  gives each block's place), the MLP's and the experts' products its
+  ``d_ff`` columns, the logits its vocab block; each row-parallel
+  product (``wo``, ``wd``, the experts' ``wd`` after the gate-weighted
+  combine) is reduced over ``model`` once (:func:`row_parallel`):
+  reduce-scattered onto the sequence shard where the layout splits the
+  sequence, else all-reduced; in fp32 with explicit collectives off (the
+  reference constrains the raw fp32 dot output), in the compute dtype
+  with them on, as ``project_scatter`` does.  A dim the divisibility
+  fallback replicates is whole and no reduction runs;
 * the helpers take activations **as the reference's ``in_specs`` hand
   them to the ``shard_map`` body** — the rank's sequence shard of ``x``
   (whole where the layout keeps it whole: the gather is then the rank's
-  own data), the column block of ``h`` — and **whole weights** (a
-  gathered layer's), whose block they take as a view; their checks
-  read the global extents from those weights' shapes;
+  own data), the column block of ``h`` — and the rank's **weight
+  blocks**; their checks read the global extents from ``cfg``;
   ``chunked_attn_manual`` takes every query row and keeps its block;
 * where a helper returns None under a mesh the model gathers the
-  sequence, runs the op on the whole sequence and takes its shard back;
-  decode (``Lq == 1``) is always that case;
-* after ``qkv_manual`` K and V are gathered back over ``model`` (the
-  reference's ``shard(k, ..., None, None)``): a rank may hold part of a
-  kv head's columns;
+  sequence and computes on the same blocks; decode (``Lq == 1``) is
+  always that case;
+* K and V are gathered back over ``model`` where attention needs whole
+  kv heads (the reference's ``shard(k, ..., None, None)``): a rank may
+  hold part of a kv head's columns; q is gathered back where the rank's
+  columns do not hold whole heads of its own;
 * attention runs on the rank's q heads where ``n_heads`` divides the
   ``model`` axis, on its query rows otherwise (``ops.attention`` /
   ``flash_attention`` with ``q_offset`` on the card), and on its query
   rows through ``chunked_attn_manual`` above ``FULL_SCORES_MAX_LEN``;
-* the logits are gathered over the vocab axes (a rank with placed
-  parameters projects onto its vocab block) and over the batch axes, so
-  every rank returns the global logits;
+* the logits are the rank's vocab block; serving gathers them over the
+  vocab axes and over the batch axes, so every rank returns the global
+  logits, and the train step takes the loss on the block
+  (``train.trainer.rank_loss``);
 * caches hold the rank's batch rows and, over ``model``, the feature block
   ``launch.specs.cache_shardings`` places (:func:`feature_block`: the K/V
   columns, the SSM conv channels and state heads; a leaf whose feature
   extent ``model`` does not divide stays whole, ``_fit``'s fallback).
-  Decode computes q, k and v of the new token whole (from the gathered
-  layer), writes only its columns, scores on them per kv head and sums a
-  head's partial scores over ``model`` where a block splits one
-  (:func:`psum_model`); the heads' output columns and the SSM block's
-  conv output and ``y`` are gathered back over ``model``;
+  Decode computes the new token's q, k and v on the rank's blocks, so
+  its K/V columns are its cache block (a kv head split by the block is
+  gathered for rope and cut again), scores on them per kv head and sums
+  a head's partial scores over the ranks that share it where a block
+  splits one (:func:`sum_head_partials`); the heads' output columns and
+  the SSM block's conv output and ``y`` are gathered back over
+  ``model``;
 * reduce-scatter is ``RankMesh.reduce_scatter``:
   ``dist.reduce_scatter_tensor`` on NCCL axes and one ``all_reduce``
   followed by the rank's slice on gloo axes (gloo's reduce-scatter
@@ -96,6 +112,7 @@ import torch
 import torch.nn.functional as F
 
 from ..launch.mesh import current_mesh
+from ..kernels.stt_gemm import _fp32_product
 
 #: the mesh axes the batch shards over (major to minor) and the model axis
 BATCH_AXES = ("pod", "data")
@@ -273,12 +290,39 @@ def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _AllGather.apply(x, current_mesh(), MODEL, dim)
 
 
-def psum_model(x: torch.Tensor) -> torch.Tensor:
-    """Sum over ``model``: the partial scores of the ranks that share a
-    kv head's columns (a no-op off a ``model`` axis above 1)."""
-    if model_size() <= 1:
-        return x
-    return _AllReduce.apply(x, current_mesh(), (MODEL,))
+def sum_head_partials(part: torch.Tensor, dh: int, n: int
+                      ) -> torch.Tensor:
+    """The sum over ``model`` of ``part`` (B, h, ...): this rank's
+    partials of the ``h`` heads of ``dh`` columns that its
+    :func:`feature_block` of ``n`` columns touches.  Each head's partials
+    are exchanged with the ranks whose blocks touch that head, and with no
+    other rank (``RankMesh.exchange``: point to point, the ranks that
+    share a head rather than the whole axis).  Each head's terms are then
+    summed in rank order, so every rank that shares a head gets the same
+    sum.  Forward only (decode)."""
+    mesh, m, i = current_mesh(), model_size(), model_index()
+    w = n // m
+
+    def heads(r):
+        return r * w // dh, ((r + 1) * w - 1) // dh + 1
+    h0, h1 = heads(i)
+    shared = {}
+    for j in range(m):
+        lo, hi = max(heads(j)[0], h0), min(heads(j)[1], h1)
+        if j != i and lo < hi:
+            shared[j] = (lo, hi)
+    got = mesh.exchange({j: part[:, lo - h0:hi - h0]
+                         for j, (lo, hi) in shared.items()}, MODEL)
+    got[i], shared[i] = part, (h0, h1)
+    out = []
+    for h in range(h0, h1):
+        terms = [got[j][:, h - shared[j][0]] for j in sorted(got)
+                 if shared[j][0] <= h < shared[j][1]]
+        acc = terms[0]
+        for t in terms[1:]:
+            acc = acc + t
+        out.append(acc)
+    return torch.stack(out, dim=1)
 
 
 def psum_batch(x: torch.Tensor) -> torch.Tensor:
@@ -291,6 +335,34 @@ def psum_batch(x: torch.Tensor) -> torch.Tensor:
 def batch_shards() -> int:
     mesh, bd, _ = _mesh_info()
     return 1 if mesh is None else _batch_shards(mesh, bd)
+
+
+def span(p, name: str):
+    """The ``placed.Span`` of leaf ``name`` of a layer ``p`` as
+    ``models.placed`` hands it, where the leaf is the rank's ``model``
+    block; None where it is whole (a plain dict's leaves are)."""
+    spans = getattr(p, "spans", None)
+    return None if spans is None else spans.get(name)
+
+
+def reduce_model(part: torch.Tensor, lay: Optional[Layout]) -> torch.Tensor:
+    """The sum over ``model`` of a row-parallel product's partials:
+    reduce-scattered onto the rank's sequence shard (dim 1) where ``lay``
+    splits the sequence, else all-reduced."""
+    mesh = current_mesh()
+    if lay is not None and lay.seq_split:
+        return _ReduceScatter.apply(part, mesh, MODEL, 1)
+    return _AllReduce.apply(part, mesh, (MODEL,))
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, explicit: bool,
+                 lay: Optional[Layout]) -> torch.Tensor:
+    """``h``'s column block times ``w``'s row block, reduced over
+    ``model`` once (:func:`reduce_model`): the fp32 product and an fp32
+    sum (explicit collectives off: the reference's raw fp32 dot output),
+    or the product in ``h``'s dtype and the sum in it (on)."""
+    part = torch.matmul(h, w) if explicit else _fp32_product(h, w)
+    return reduce_model(part, lay)
 
 
 # ---------------------------------------------------------------------------
@@ -373,49 +445,55 @@ def gather_seq(x: torch.Tensor, lay: Optional[Layout]
 
 
 def project_scatter(h: torch.Tensor, w: torch.Tensor,
-                    lay: Optional[Layout]) -> Optional[torch.Tensor]:
+                    lay: Optional[Layout], rows: int
+                    ) -> Optional[torch.Tensor]:
     """h's column block (B, S, F/m) @ w's row block (F/m, D) -> (B,
     S@model, D): the local partial product (fp32 accumulation), cast to
-    h's dtype, reduce-scattered over ``model`` along the sequence.  ``w``
-    is whole; ``F`` is its row count."""
-    mesh = _manual(h.dim(), lay, w.shape[0])
+    h's dtype, reduce-scattered over ``model`` along the sequence.
+    ``rows``: the global ``F`` (``cfg.q_dim`` or ``cfg.d_ff``).  The
+    reference's helper; the models reduce through :func:`row_parallel`,
+    which is this product and sum wherever the layout splits the
+    sequence."""
+    mesh = _manual(h.dim(), lay, rows)
     if mesh is None:
         return None
-    part = torch.matmul(h, model_block(w, 0))
+    part = torch.matmul(h, w)
     return _ReduceScatter.apply(part.to(h.dtype), mesh, MODEL, 1)
 
 
 def mlp_manual(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                wd: torch.Tensor, compute: torch.dtype,
-               lay: Optional[Layout]) -> Optional[torch.Tensor]:
+               lay: Optional[Layout], cfg) -> Optional[torch.Tensor]:
     """The whole SwiGLU MLP as one manual dataflow: all-gather(x over the
     sequence, in ``compute``) -> the rank's ``d_ff`` block of wg/wu,
     silu (fp32), its rows of wd -> reduce-scatter of the partial output
-    (in ``compute``) back to sequence shards.  Weights whole."""
-    mesh = _manual(x.dim(), lay, wg.shape[1])
+    (in ``compute``) back to sequence shards.  Weights: the rank's
+    blocks; ``cfg.d_ff`` the global extent."""
+    mesh = _manual(x.dim(), lay, cfg.d_ff)
     if mesh is None:
         return None
     xf = _gathered(x.to(compute), lay, mesh)
-    g = xf @ model_block(wg, 1).to(compute)
-    u = xf @ model_block(wu, 1).to(compute)
+    g = xf @ wg.to(compute)
+    u = xf @ wu.to(compute)
     h = F.silu(g.to(torch.float32)).to(compute) * u
-    part = torch.matmul(h, model_block(wd, 0).to(compute))
+    part = torch.matmul(h, wd.to(compute))
     return _ReduceScatter.apply(part.to(compute), mesh, MODEL, 1)
 
 
 def qkv_manual(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                wv: torch.Tensor, compute: torch.dtype,
-               lay: Optional[Layout]
+               lay: Optional[Layout], cfg
                ) -> Optional[Tuple[torch.Tensor, torch.Tensor,
                                    torch.Tensor]]:
     """Gather(x over the sequence) + the q/k/v projections in one manual
-    dataflow: each comes back as the rank's column block over ``model``
-    (the caller gathers the small K/V back).  Weights whole."""
-    mesh = _manual(x.dim(), lay, wq.shape[1], wk.shape[1])
+    dataflow: each the rank's column block over ``model`` (the caller
+    gathers the small K/V back).  Weights: the rank's blocks;
+    ``cfg.q_dim`` / ``cfg.kv_dim`` the global extents."""
+    mesh = _manual(x.dim(), lay, cfg.q_dim, cfg.kv_dim)
     if mesh is None:
         return None
     xf = _gathered(x.to(compute), lay, mesh)
-    return tuple(xf @ model_block(w, 1).to(compute) for w in (wq, wk, wv))
+    return tuple(xf @ w.to(compute) for w in (wq, wk, wv))
 
 
 def moe_manual(x: torch.Tensor, p, cfg, compute: torch.dtype,
@@ -427,7 +505,8 @@ def moe_manual(x: torch.Tensor, p, cfg, compute: torch.dtype,
     ``d_ff`` block -> the gate-weighted combine (fp32) -> one
     reduce-scatter (in ``compute``) that sums the ``d_ff`` partials and
     scatters back to sequence shards.  The aux loss is averaged over the
-    batch axes only.  Weights whole."""
+    batch axes only.  Expert weights: the rank's ``d_ff`` blocks (the
+    router whole); ``cfg.d_ff`` the global extent."""
     mesh = _manual(x.dim(), lay, cfg.d_ff)
     if mesh is None:
         return None
@@ -441,10 +520,9 @@ def moe_manual(x: torch.Tensor, p, cfg, compute: torch.dtype,
         aux = psum_batch(aux) / n
     xin, keep, my_pos, cap = expert_inputs(xf, top_idx, cfg, compute)
     e = cfg.n_experts
-    h = F.silu((xin @ model_block(p["wg"], 2).to(compute)
-                ).to(torch.float32)).to(compute)
-    h = h * (xin @ model_block(p["wu"], 2).to(compute))
-    out_e = (h @ model_block(p["wd"], 1).to(compute)).reshape(e, b, cap, d)
+    h = F.silu((xin @ p["wg"].to(compute)).to(torch.float32)).to(compute)
+    h = h * (xin @ p["wu"].to(compute))
+    out_e = (h @ p["wd"].to(compute)).reshape(e, b, cap, d)
     out = combine(out_e, top_idx, gates, keep, my_pos, cap)
     return _ReduceScatter.apply(out.to(compute), mesh, MODEL, 1), aux
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from ..compile.pipeline import torch_dtype
 from ..configs.base import ModelConfig
+from ..kernels.stt_gemm import _fp32_product
 from . import explicit_tp as etp
 from .common import Logical, normal, stacked, stacked_dense_init
 
@@ -59,15 +60,17 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     fp32, the down projection accumulated in fp32 and cast to x's dtype.
 
     With ``cfg.explicit_collectives`` the reference's manual branches run
-    first (``explicit_tp.mlp_manual``, the gather, ``project_scatter``);
-    with no mesh they return None and this is the one-device MLP, bit
-    for bit.  On a mesh x and the result are in the stream's layout."""
+    first (``explicit_tp.mlp_manual``, the gather); with no mesh they
+    return None and this is the one-device MLP, bit for bit.  On a mesh x and the result are in the stream's layout; a
+    layer from ``models.placed`` holds the rank's ``d_ff`` block of wg,
+    wu and wd, and the down projection's partials are reduced over
+    ``model`` once (``explicit_tp.row_parallel``)."""
     compute = torch_dtype(cfg.dtype)
     lay = etp.current_layout()
     manual = cfg.explicit_collectives and cfg.sequence_parallel
     if manual:
         # fully-manual dataflow: gather + dots + reduce-scatter in one
-        res = etp.mlp_manual(x, p["wg"], p["wu"], p["wd"], compute, lay)
+        res = etp.mlp_manual(x, p["wg"], p["wu"], p["wd"], compute, lay, cfg)
         if res is not None:
             return res.to(x.dtype)
     # SP -> TP boundary: gather the compute-dtype sequence shards here
@@ -78,11 +81,9 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     u = xc @ p["wu"].to(compute)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(compute) * u
     wd = p["wd"].to(compute)
-    if manual:
-        res = etp.project_scatter(etp.model_block(h, 2), wd, lay)
-        if res is not None:
-            return res.to(x.dtype)
-    return etp.to_layout((h @ wd).to(x.dtype), lay)
+    if etp.span(p, "wd") is None:
+        return etp.to_layout((h @ wd).to(x.dtype), lay)
+    return etp.row_parallel(h, wd, cfg.explicit_collectives, lay).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +234,10 @@ def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     nothing.  With ``cfg.explicit_collectives`` and sequence parallelism
     ``explicit_tp.moe_manual`` runs first (None with no mesh).  On a mesh
     the fallback runs the rank's batch rows on the whole sequence and
-    averages each aux term over the batch axes (the global loss)."""
+    averages each aux term over the batch axes (the global loss); the
+    router and the dispatch run alike on every ``model`` rank, the
+    experts on the rank's ``d_ff`` block, and the gate-weighted combine
+    (linear) of the partial products is reduced over ``model`` once."""
     compute = torch_dtype(cfg.dtype)
     lay = etp.current_layout()
     if cfg.explicit_collectives and cfg.sequence_parallel:
@@ -253,6 +257,17 @@ def apply_moe(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig
     xin, keep, my_pos, cap = expert_inputs(x, top_idx, cfg, compute)
     h = F.silu((xin @ p["wg"].to(compute)).to(torch.float32)).to(compute)
     h = h * (xin @ p["wu"].to(compute))
-    out_e = (h @ p["wd"].to(compute)).reshape(e, b, cap, d)
-    out = combine(out_e, top_idx, gates, keep, my_pos, cap)
-    return etp.to_layout(out.to(x.dtype), lay), aux
+    wd = p["wd"].to(compute)
+    if etp.span(p, "wd") is None:
+        out_e = (h @ wd).reshape(e, b, cap, d)
+        out = combine(out_e, top_idx, gates, keep, my_pos, cap)
+        return etp.to_layout(out.to(x.dtype), lay), aux
+    # the rank's d_ff rows: combine its partial, then one reduction (fp32
+    # with explicit collectives off, in the compute dtype with them on)
+    if cfg.explicit_collectives:
+        out_e = (h @ wd).reshape(e, b, cap, d)
+        part = combine(out_e, top_idx, gates, keep, my_pos, cap).to(compute)
+    else:
+        out_e = _fp32_product(h, wd).reshape(e, b, cap, d)
+        part = combine(out_e, top_idx, gates, keep, my_pos, cap)
+    return etp.reduce_model(part, lay).to(x.dtype), aux

@@ -1,5 +1,6 @@
 """Parameters placed on a mesh: each rank holds its blocks, and a layer's
-weights are gathered whole just before the layer runs.
+weights are gathered over the batch axes just before the layer runs,
+each leaf keeping the rank's ``model`` block.
 
 The reference's serving and training cells place every parameter with
 ``launch.specs.param_shardings``: the rules of ``common.DEFAULT_RULES``
@@ -12,31 +13,43 @@ one mesh position (``models.explicit_tp``'s rank model):
   specs (copies, on the mesh's device) in a :class:`Placed` tree, which
   carries the specs and the rank's mesh;
 * the model entry points read a parameter tree only through the
-  accessors below, which take a whole tree (a plain dict) or a
-  :class:`Placed` one.  On a whole tree they return what the models
-  read before (views); on a placed tree
-  - :func:`layers` gathers layer ``i`` of a stacked subtree whole when
-    it is asked for, each leaf over the axes its spec names, minor axis
-    first, so the caller holds one gathered layer at a time;
-  - :func:`whole` gathers an unstacked subtree or leaf (the final and
-    encoder norms, the hybrid's shared block, once an application);
+  accessors below, after :func:`on_mesh` (once, at the outer entry
+  points: ``models.transformer``'s docstring names them), which gives a
+  whole tree under a mesh with a ``model`` axis above 1 the same route:
+  a :class:`Placed` of its whole leaves (``whole=True``) whose ``model``
+  blocks are views.  On one device, or where ``model`` is 1, a whole
+  tree is read as it is.  On a placed tree
+  - :func:`layers` gathers layer ``i`` of a stacked subtree when it is
+    asked for, each leaf over the batch axes its spec names (minor axis
+    first) and never over ``model``: the rank holds the leaf's ``model``
+    block, whole over ``data`` and ``pod``, in a :class:`Layer` whose
+    ``spans`` give each block's place in the whole leaf (:class:`Span`),
+    so the caller holds one gathered layer at a time and computes on its
+    blocks (``explicit_tp``'s rank model).  The SSM mixer's leaves
+    (:data:`WHOLE_OVER_MODEL`) are the one exception, declared: they are
+    gathered whole over ``model`` too;
+  - :func:`whole` gathers an unstacked subtree or leaf the same way
+    (the final and encoder norms, the hybrid's shared block, once an
+    application);
   - :func:`embed` looks the tokens up in the rank's vocab rows of the
     table gathered over its ``embed`` axes, zeros for the rows another
     rank holds, summed over the vocab axes: one value plus zeros, exact;
   - :func:`out_projection` is the rank's vocab block of the output
     projection (``unembed``, or ``embed.T`` under the transposed spec
-    when embeddings are tied) gathered over its ``embed`` axes, and the
-    axes its logits are gathered over (under autograd the whole
-    projection).
+    when embeddings are tied) gathered over its ``embed`` axes, with the
+    axes its vocab dim is split over and the block's first column, in
+    serving and in training alike.
 
-Every accessor gathers through :class:`GatherLeaf`, whose backward
-(the sharded train step, ``train.trainer``) is :func:`sum_block`: the
-rank's block of the sum of every rank's whole cotangent.  So a layer's
-gradient is summed onto the rank's blocks as soon as the layer's
-backward ends, and no whole gradient outlives its layer.  Under
-``no_grad`` (serving) the Function runs its forward alone, which is
-:func:`gather`.  :data:`GATHERED` counts the gathered bytes alive on the rank
-(the most at once since its ``reset``).
+Every accessor gathers through :class:`GatherLeaf`, whose backward (the
+sharded train step, ``train.trainer``) is :func:`sum_block` with
+``keep`` the axes the gather leaves split: a reduce-scatter over the
+batch axes the spec shards and no sum over ``model``, so a rank's block
+gradient is its own.  A layer's gradient is summed onto the rank's
+blocks as soon as the layer's backward ends, and no gathered gradient
+outlives its layer.  Under ``no_grad`` (serving) the Function runs its
+forward alone, which is :func:`gather`.  :data:`GATHERED` counts the
+gathered bytes alive on the rank (the most at once since its
+``reset``).
 
 The leaf rules (:func:`local`, :func:`own`, :func:`gather`) serve
 ``train.trainer``'s placed train state, ``checkpoint.store`` and
@@ -44,15 +57,16 @@ The leaf rules (:func:`local`, :func:`own`, :func:`gather`) serve
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import weakref
 
 import torch
 
 from ..dist.comm_engine import RankMesh, Spec, _axes_of
+from ..launch.mesh import current_mesh
 from .common import DEFAULT_RULES
-from .explicit_tp import _AllReduce
+from .explicit_tp import MODEL, _AllReduce
 
 
 # ---------------------------------------------------------------------------
@@ -202,13 +216,16 @@ def tree_map(fn, tree, specs):
 class Placed(dict):
     """A rank's blocks of a parameter tree: the tree's keys, nested dicts
     of block tensors, with ``specs`` (the same keys, a ``Spec`` a leaf)
-    and ``mesh`` (the rank's ``RankMesh`` the blocks are placed on)."""
+    and ``mesh`` (the rank's ``RankMesh`` the blocks are placed on).
+    ``whole``: the leaves are whole (:func:`on_mesh`), and the accessors
+    take the rank's blocks of them as views, with no collective."""
 
     def __init__(self, blocks: Dict[str, Any], specs: Dict[str, Any],
-                 mesh: RankMesh):
+                 mesh: RankMesh, whole: bool = False):
         super().__init__(blocks)
         self.specs = specs
         self.mesh = mesh
+        self.whole = whole
 
     def map(self, fn) -> "Placed":
         """``fn(key, block)`` over every leaf (``key`` the leaf's own
@@ -216,7 +233,7 @@ class Placed(dict):
         def walk(tree):
             return {k: walk(v) if isinstance(v, dict) else fn(k, v)
                     for k, v in tree.items()}
-        return Placed(walk(self), self.specs, self.mesh)
+        return Placed(walk(self), self.specs, self.mesh, self.whole)
 
 
 def param_specs(params: Dict[str, Any], axes: Dict[str, Any], mesh
@@ -252,15 +269,137 @@ def _at(params, path):
     return node
 
 
+def on_mesh(params: Dict[str, Any], cfg) -> Dict[str, Any]:
+    """The tree the entry points read: a placed tree as it is; a whole
+    tree under a mesh (``launch.mesh.set_mesh``) with a ``model`` axis
+    above 1 as a :class:`Placed` of its whole leaves under
+    :func:`param_specs` (``whole=True``), whose accessors take the rank's
+    ``model`` blocks as views, so a whole and a placed tree on one mesh
+    run the same arithmetic; else the whole tree as it is."""
+    if isinstance(params, Placed):
+        return params
+    rm = current_mesh()
+    if rm is None or rm.sizes.get(MODEL, 1) <= 1:
+        return params
+    from .transformer import param_axes
+    return Placed(params, param_specs(params, param_axes(cfg), rm), rm,
+                  whole=True)
+
+
+class Span(NamedTuple):
+    """Where a rank's ``model`` block of a leaf sits along the leaf's
+    ``model`` dim: columns (or rows) ``[start, stop)`` of ``extent``."""
+
+    start: int
+    stop: int
+    extent: int
+
+
+class Layer(dict):
+    """A layer's (or an unstacked subtree's) leaves as the rank computes
+    on them: nested dicts of tensors, each dict with ``spans`` ({leaf key:
+    :class:`Span`}) for each of its leaves that is the rank's ``model``
+    block; a leaf with no span is whole (``explicit_tp.span``)."""
+
+    def __init__(self, leaves: Dict[str, Any], spans: Dict[str, Span]):
+        super().__init__(leaves)
+        self.spans = spans
+
+
+#: the subtrees of a layer gathered whole over ``model`` too: the SSM
+#: mixer, whose ``in_proj`` columns ``[z | x | B | C | dt]`` do not split
+#: on head boundaries (ROADMAP Queue 1)
+WHOLE_OVER_MODEL = ("ssm",)
+
+
+def _model_split(spec: Spec, rm: RankMesh
+                 ) -> Tuple[Spec, Tuple[str, ...], Optional[int]]:
+    """(the spec without the ``model`` axis, the axes that keeps split,
+    the dim ``model`` splits or None) of a leaf's spec on ``rm``; an
+    entry that names ``model`` beside another axis above 1 is refused."""
+    out, keep, dim = [], (), None
+    for d, entry in enumerate(spec):
+        axes = axes_in(entry, rm)
+        if MODEL in axes and rm.sizes[MODEL] > 1:
+            if any(rm.sizes[a] > 1 for a in axes if a != MODEL):
+                raise ValueError(f"a spec entry {entry!r} splits one dim "
+                                 f"over {MODEL!r} and another axis")
+            out.append(None)
+            keep, dim = (MODEL,), d
+        else:
+            out.append(entry)
+    return Spec(*out), keep, dim
+
+
+def _held(x: torch.Tensor, spec: Spec, params: Placed, model: bool = True
+          ) -> Tuple[torch.Tensor, Optional[Span]]:
+    """(the leaf as the rank computes on it, its :class:`Span` or None):
+    of a placed tree's block, gathered over the spec's batch axes (and
+    over ``model`` too where ``model`` is False); of a whole tree's leaf,
+    the rank's ``model`` block as a view."""
+    rm = params.mesh
+    rest, keep, dim = _model_split(spec, rm)
+    if not model:
+        rest, keep, dim = spec, (), None
+    if params.whole:
+        if dim is None:
+            return x, None
+        n, i = rm.sizes[MODEL], rm.coord[MODEL]
+        step = x.shape[dim] // n
+        return (x.narrow(dim, i * step, step),
+                Span(i * step, (i + 1) * step, x.shape[dim]))
+    out = _gather(x, rest, rm, keep)
+    if dim is None:
+        return out, None
+    n, i, step = rm.sizes[MODEL], rm.coord[MODEL], out.shape[dim]
+    return out, Span(i * step, (i + 1) * step, n * step)
+
+
+def _layer(node, specs, params: Placed, model: bool = True, drop: int = 0):
+    """A subtree as the rank computes on it (:class:`Layer` dicts; a leaf
+    alone as a tensor): every leaf through :func:`_held`, its spec's
+    first ``drop`` entries cut (the layer dim); the subtrees of
+    :data:`WHOLE_OVER_MODEL` whole over ``model``."""
+    if not isinstance(node, dict):
+        return _held(node, Spec(*specs[drop:]), params, model)[0]
+    leaves, spans = {}, {}
+    for k, v in node.items():
+        if isinstance(v, dict):
+            leaves[k] = _layer(v, specs[k], params,
+                               model and k not in WHOLE_OVER_MODEL, drop)
+        else:
+            leaves[k], sp = _held(v, Spec(*specs[k][drop:]), params, model)
+            if sp is not None:
+                spans[k] = sp
+    return Layer(leaves, spans)
+
+
+def held_bytes(tree, specs, mesh, model: bool = True) -> int:
+    """The bytes of a whole subtree (or leaf) ``tree`` as a rank computes
+    on it under ``specs`` on ``mesh``: each leaf whole over the batch
+    axes, the rank's ``model`` block of a leaf whose spec splits it over
+    ``model`` (whole in :data:`WHOLE_OVER_MODEL`), i.e. what
+    :func:`layers` and :func:`whole` gather of it."""
+    rm = rank_mesh(mesh)
+    if isinstance(tree, dict):
+        return sum(held_bytes(v, specs[k], rm,
+                              model and k not in WHOLE_OVER_MODEL)
+                   for k, v in tree.items())
+    n = tree.numel() * tree.element_size()
+    if model and _model_split(specs, rm)[2] is not None:
+        n //= rm.sizes[MODEL]
+    return n
+
+
 def whole(params: Dict[str, Any], *path: str) -> Any:
-    """The subtree or leaf at ``path``, whole: as it is in a whole tree,
-    gathered from the ranks' blocks in a placed one (collective)."""
+    """The unstacked subtree or leaf at ``path`` as the rank computes on
+    it: as it is in a whole tree off a model mesh; in a placed tree
+    gathered over the batch axes, each leaf keeping its ``model`` block
+    (collective), a :class:`Layer` for a subtree."""
     node = _at(params, path)
     if not isinstance(params, Placed):
         return node
-    rm = params.mesh
-    return tree_map(lambda x, s: _gather(x, s, rm), node,
-                    _at(params.specs, path))
+    return _layer(node, _at(params.specs, path), params)
 
 
 def layer_params(stacked: Dict[str, Any], i: int) -> Dict[str, Any]:
@@ -295,32 +434,34 @@ def _depth(stacked) -> int:
 
 class _Gathered(Sequence):
     """The layers of a placed stacked subtree: item ``i`` is layer ``i``
-    gathered whole, made when it is asked for and held by the caller
-    alone.  The blocks are :func:`unstack`'s views, so under autograd a
-    leaf's block gradient is one ``stack`` of its layers' summed
-    blocks."""
+    as the rank computes on it (a :class:`Layer`: gathered over the batch
+    axes, each leaf its ``model`` block), made when it is asked for and
+    held by the caller alone.  The blocks are :func:`unstack`'s views,
+    so under autograd a leaf's block gradient is one ``stack`` of its
+    layers' summed blocks."""
 
     def __init__(self, params: Placed, path: Tuple[str, ...]):
         self.parts = unstack(_at(params, path))
         self.specs = _at(params.specs, path)
-        self.mesh = params.mesh
+        self.params = params
+        self.model = not any(k in WHOLE_OVER_MODEL for k in path)
 
     def __len__(self) -> int:
         return len(self.parts)
 
     def __getitem__(self, i: int) -> Dict[str, Any]:
-        rm = self.mesh
         # the layer dim is never split ("layers" maps to no mesh axis)
-        return tree_map(lambda x, s: _gather(x, Spec(*s[1:]), rm),
-                        self.parts[i], self.specs)
+        return _layer(self.parts[i], self.specs, self.params, self.model,
+                      drop=1)
 
 
 def layers(params: Dict[str, Any], *path: str) -> Sequence:
     """The layers of the stacked subtree at ``path``, by index: a whole
-    tree's are :func:`unstack`'s views; a placed tree's are gathered
-    whole one at a time, when indexed (collective), so a loop that
-    passes ``layers[i]`` straight to the block holds one gathered layer
-    while it runs and drops it before the next is gathered."""
+    tree's are :func:`unstack`'s views; a placed tree's are gathered over
+    the batch axes one at a time, when indexed (collective), each leaf
+    keeping its ``model`` block, so a loop that passes ``layers[i]``
+    straight to the block holds one gathered layer while it runs and
+    drops it before the next is gathered."""
     if isinstance(params, Placed):
         return _Gathered(params, path)
     return unstack(_at(params, path))
@@ -335,7 +476,10 @@ def embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens]
     rm, (v_entry, e_entry) = params.mesh, params.specs["embed"]
     vocab = axes_in(v_entry, rm)
-    table = _gather(params["embed"], Spec(None, e_entry), rm, keep=vocab)
+    if params.whole:
+        table = local(params["embed"], Spec(v_entry, None), rm)
+    else:
+        table = _gather(params["embed"], Spec(None, e_entry), rm, keep=vocab)
     split = tuple(a for a in vocab if rm.sizes[a] > 1)
     if not split:
         return table[tokens]
@@ -349,17 +493,22 @@ def embed(params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
 
 
 def out_projection(params: Dict[str, Any], tie: bool
-                   ) -> Tuple[torch.Tensor, RankMesh, Tuple[str, ...]]:
+                   ) -> Tuple[torch.Tensor, Optional[RankMesh],
+                              Tuple[str, ...], int]:
     """(the output projection ``(d, vocab block)`` as held, the mesh, the
-    axes the logits' vocab dim is gathered over): ``unembed`` or, tied,
-    ``embed.T``.  Whole trees: the whole leaf and no axes.  Placed: the
-    rank's vocab block gathered over its ``embed`` axes; while autograd
-    records, the whole leaf (no axes), so the logits' gradient reaches
-    the hidden states through one product over the whole vocabulary, as
-    on one device (``train.trainer``'s module docstring)."""
+    axes its vocab dim is split over, the block's first column):
+    ``w_out`` where a serving engine prepared it, else ``unembed`` or,
+    tied, ``embed.T``.  Whole trees off a model mesh: the whole leaf, no
+    axes.  Placed: the rank's vocab block gathered over its ``embed``
+    axes (a view of it in a whole tree on a model mesh), in serving and
+    in training: the logits are the rank's vocab block, which serving
+    gathers (``transformer.logits_from_hidden``) and training takes the
+    loss on (``train.trainer.rank_loss``)."""
     if not isinstance(params, Placed):
-        w = params["embed"].T if tie else params["unembed"]
-        return w, None, ()
+        w = params.get("w_out")
+        if w is None:
+            w = params["embed"].T if tie else params["unembed"]
+        return w, None, (), 0
     rm = params.mesh
     if tie:
         v_entry, e_entry = params.specs["embed"]
@@ -367,8 +516,11 @@ def out_projection(params: Dict[str, Any], tie: bool
     else:
         e_entry, v_entry = params.specs["unembed"]
         w = params["unembed"]
-    if torch.is_grad_enabled():
-        return _gather(w, Spec(e_entry, v_entry), rm), rm, ()
     vocab = axes_in(v_entry, rm)
-    w = _gather(w, Spec(e_entry, None), rm, keep=vocab)
-    return w, rm, tuple(a for a in vocab if rm.sizes[a] > 1)
+    if params.whole:
+        w = local(params.get("w_out", w), Spec(None, v_entry), rm)
+    else:
+        w = _gather(w, Spec(e_entry, None), rm, keep=vocab)
+    split = tuple(a for a in vocab if rm.sizes[a] > 1)
+    idx, _ = rm.shard_of(split)
+    return w, rm, split, idx * w.shape[1]

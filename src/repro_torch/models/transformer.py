@@ -30,10 +30,16 @@ which the serving engines do when they are built.
 
 The entry points read a parameter tree through ``models.placed``'s
 accessors, so they take whole trees and trees of a rank's blocks
-(``placed.place_params``) alike: on a placed tree each layer's weights
-are gathered whole just before the layer runs and dropped after it, the
-embedding looks the tokens up on the rank's vocab rows and the logits
-are computed on its vocab block and gathered.
+(``placed.place_params``) alike (the outer ones, :func:`forward`,
+``decode.prefill``, ``decode.init_cache``, ``decode.decode_step`` and
+``train.trainer.rank_loss``, hand the tree through ``placed.on_mesh``
+once; :func:`forward_hidden`, :func:`encode` and :func:`logit_block`
+read it as they are handed it): on a model mesh each layer's weights
+are gathered over the batch axes just before the layer runs, each leaf
+keeping the rank's ``model`` block, and dropped after it (a whole tree's
+blocks are views); the blocks compute on them (``explicit_tp``'s rank
+model), the embedding looks the tokens up on the rank's vocab rows and
+the logits are computed on its vocab block, which serving gathers.
 
 Training differentiates :func:`forward` with autograd.  With
 ``cfg.remat`` and autograd recording, every block (a layer, the hybrid's
@@ -226,30 +232,39 @@ def compute_params(params: Dict[str, Any], cfg: ModelConfig
 
 
 def _w_out(params: Dict[str, Any], cfg: ModelConfig
-           ) -> Tuple[torch.Tensor, Any, Tuple[str, ...]]:
-    """(the output projection, fp32 of compute-dtype values; the mesh and
-    the axes its logits are gathered over): ``w_out`` as prepared, else
-    made from ``unembed`` or ``embed.T`` (a placed tree's vocab block,
-    gathered over its ``embed`` axes)."""
-    w = params.get("w_out")
-    if w is not None:
-        return w, None, ()
-    w, rm, axes = pp.out_projection(params, cfg.tie_embeddings)
-    return w.to(torch_dtype(cfg.dtype)).to(torch.float32), rm, axes
+           ) -> Tuple[torch.Tensor, Any, Tuple[str, ...], int]:
+    """(the output projection, fp32 of compute-dtype values; the mesh,
+    the axes its vocab dim is split over and the block's first column,
+    ``placed.out_projection``'s): ``w_out`` as prepared, else made from
+    ``unembed`` or ``embed.T`` (a placed tree's vocab block, gathered
+    over its ``embed`` axes)."""
+    w, rm, axes, start = pp.out_projection(params, cfg.tie_embeddings)
+    if "w_out" not in params:
+        w = w.to(torch_dtype(cfg.dtype)).to(torch.float32)
+    return w, rm, axes, start
+
+
+def logit_block(params: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, Any, Tuple[str, ...], int]:
+    """(the logits of ``x`` on the rank's vocab block, fp32; the mesh, the
+    axes the vocab is split over, the block's first column): x and the
+    weights in the compute dtype, products and sums in fp32 (the
+    reference's ``preferred_element_type=float32``).  Whole, with no
+    axes, off a model mesh."""
+    xc = x.to(torch_dtype(cfg.dtype)).to(torch.float32)
+    w, rm, axes, start = _w_out(params, cfg)
+    return torch.matmul(xc, w), rm, axes, start
 
 
 def logits_from_hidden(params: Dict[str, Any], x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
-    """The output projection: x and the weights in the compute dtype,
-    products and sums in fp32, fp32 logits (the reference's
-    ``preferred_element_type=float32``).  On a placed tree the rank
-    projects onto its vocab block and the blocks are gathered over the
-    vocab axes: every rank gets every logit of its rows."""
-    xc = x.to(torch_dtype(cfg.dtype)).to(torch.float32)
-    w, rm, axes = _w_out(params, cfg)
-    logits = torch.matmul(xc, w)
+    """The output projection (:func:`logit_block`), every logit: on a
+    model mesh the rank projects onto its vocab block and the blocks are
+    gathered over the vocab axes, so every rank gets every logit of its
+    rows (the sampler's input)."""
+    logits, rm, axes, _ = logit_block(params, x, cfg)
     for a in reversed(axes):
-        logits = rm.all_gather(logits, a, logits.dim() - 1)
+        logits = etp._AllGather.apply(logits, rm, a, logits.dim() - 1)
     return logits
 
 
@@ -480,6 +495,7 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     "v"}}`` ``(n_groups, B, S, kv_dim)``.  On a mesh every rank returns
     the global logits (gathered over the batch axes) and its own rows'
     caches."""
+    params = pp.on_mesh(params, cfg)
     x, aux, caches = forward_hidden(params, tokens, cfg, frontend=frontend,
                                     collect_cache=collect_cache)
     lay = etp.layout_for(tokens.shape[0], tokens.shape[1], cfg)

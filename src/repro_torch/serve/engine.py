@@ -10,7 +10,8 @@ weights to the compute dtype once, when it is built
 parameter blocks (:func:`serving_params`): a tree placed by
 ``models.placed.place_params``, or a whole tree handed to an engine
 built under ``launch.mesh.set_mesh``, which places it; each layer's
-weights are then gathered whole while the layer runs.  Temperature sampling draws from a
+weights are then gathered over the batch axes while the layer runs,
+each leaf the rank's ``model`` block.  Temperature sampling draws from a
 ``torch.Generator`` seeded by ``ServeConfig.seed``; its bits differ from
 ``jax.random``'s, so parity with the reference holds for greedy decoding.
 

@@ -32,29 +32,25 @@ the port's ``dist.comm_engine.Spec``).  Departures, declared:
   rank model), where the reference hands each device its rows;
 * the step differentiates with respect to the rank's blocks
   (:func:`sharded_value_and_grad`): the model reads them as a
-  ``models.placed.Placed`` tree, which gathers a layer whole only while
-  the layer runs, in the forward and again in the remat recompute (the
-  models' explicit-TP views take their blocks of the gathered weights),
-  and sums that layer's gradient partials over every rank onto the
-  rank's blocks as soon as its backward ends (``placed.GatherLeaf``,
-  whose backward is ``placed.sum_block``); the hybrid's shared block is
+  ``models.placed.Placed`` tree, which gathers a layer over the batch
+  axes only while the layer runs, in the forward and again in the remat
+  recompute, each leaf keeping the rank's ``model`` block that the
+  models compute on (``models.explicit_tp``'s rank model), and sums
+  that layer's gradient partials over the batch axes onto the rank's
+  blocks as soon as its backward ends (``placed.GatherLeaf``, whose
+  backward is ``placed.sum_block``); the hybrid's shared block is
   summed once an application.  A rank holds its blocks of every
-  parameter, moment and gradient, and one layer's whole weights and
-  gradient at a time (with ``cfg.remat``; without it autograd keeps
-  every layer's gathered weights for the backward);
-* the output projection is gathered whole through the same Function
-  (``placed.out_projection`` under autograd), where serving projects on
-  the rank's vocab block and gathers the logits: the logits' gradient
-  then reaches the hidden states through one product over the whole
-  vocabulary, as on one device, and the gradients equal the
-  whole-gather step's within 2.7e-7 x max|g| (fp32, six families on 2x4
-  and 1x8 CPU ranks).  The vocab-block route (the logits through the
-  differentiable all-gather) sums the blocks' partial products in
-  another order: 2.9e-6 x max|g| on the SSM's ``a_log``.  The price: a
-  whole ``d x vocab`` fp32 projection and its gradient while the loss
-  runs (5.0 GB each for qwen1.5-110b's 152k vocabulary); the logits of
-  the rank's batch rows are whole on either route, and the loss shares
-  are as they were;
+  parameter, moment and gradient, and one layer's gathered blocks and
+  their gradient at a time (with ``cfg.remat``; without it autograd
+  keeps every layer's gathered blocks for the backward).  The SSM mixer
+  alone is gathered whole over ``model`` (``placed.WHOLE_OVER_MODEL``);
+* the logits are the rank's vocab block of its batch rows (the output
+  projection's block, ``placed.out_projection``) and the loss is taken
+  on the block (:func:`block_cross_entropy`): each rank's log-sum-exp
+  over its vocab columns is gathered over the vocab axes and their
+  log-sum-exp taken, the target's logit comes from the rank that holds
+  it, summed over those axes.  No rank holds a whole ``d x vocab``
+  projection or a row's logits over the whole vocabulary;
 * AdamW runs on the rank's blocks; a leaf with Q8 moments updates whole
   on every rank (the 128-element quantization blocks of the flattened
   leaf do not line up with the parameter's block: its moments are
@@ -81,7 +77,10 @@ is one function of the replicated weights, and the gradient of the
 summed shares with respect to a weight is the sum of every rank's
 partial: summing each parameter's partial over all ranks gives the
 one-device gradient exactly once.  A loss computed whole on every rank
-(the gathered logits' cross-entropy) would count it once a rank.  The
+(the gathered logits' cross-entropy) would count it once a rank; the
+vocab-block cross-entropy's pieces (the gathered log-sum-exps, the
+summed target logit) are exact values on every rank of the vocab axes,
+so the share is as it was.  The
 sum is one collective an axis in a fixed order — a reduce-scatter over
 each axis the leaf's spec shards it over, then an all_reduce of the
 block over the others (``placed.sum_block``), once a gather — so a
@@ -274,24 +273,56 @@ def gather_state(placed: TrainState, st_sh: TrainState, mesh
 # the sharded step
 # ---------------------------------------------------------------------------
 
+def block_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        start: int, rm, axes: Tuple[str, ...]
+                        ) -> torch.Tensor:
+    """``common.cross_entropy`` of logits split over the vocab ``axes``:
+    ``logits`` (..., n) fp32 are the rank's columns ``[start, start +
+    n)``.  Each rank's per-position log-sum-exp over its columns is
+    gathered over ``axes`` (the differentiable all-gather, minor axis
+    first, so the blocks stand in vocab order) and their log-sum-exp
+    taken: the same sum on every rank, with no max-reduce; the target's
+    logit is taken from the rank whose columns hold it (zeros on the
+    others) and summed over ``axes``.  With no axes it is
+    ``common.cross_entropy``."""
+    if not axes:
+        return common.cross_entropy(logits, targets)
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)[..., None]
+    for a in reversed(axes):
+        lse = etp._AllGather.apply(lse, rm, a, lse.dim() - 1)
+    logz = torch.logsumexp(lse, dim=-1)
+    n = logits.shape[-1]
+    t = targets.long() - start
+    inside = (t >= 0) & (t < n)
+    gold = torch.gather(logits, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+    gold = torch.where(inside, gold, torch.zeros_like(gold))
+    gold = etp._AllReduce.apply(gold, rm, axes)
+    return torch.mean(logz - gold)
+
+
 def rank_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
               cfg: ModelConfig
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """This rank's share of :func:`loss_fn` under the current mesh (the
     invariant of the module docstring): ``(share, {"ce": its ce share,
     "aux": its aux share})``.  ``params`` whole or the rank's blocks
-    (a ``models.placed.Placed`` tree); ``batch`` global."""
+    (a ``models.placed.Placed`` tree); ``batch`` global.  The
+    cross-entropy is taken on the rank's vocab block of the logits
+    (:func:`block_cross_entropy`): an exact value on every rank of the
+    vocab axes, not a share."""
     mesh = current_mesh()
     world = math.prod(mesh.sizes.values())
     tokens = batch["tokens"]
     b = tokens.shape[0]
+    params = placement.on_mesh(params, cfg)
     x, aux, _ = transformer.forward_hidden(params, tokens, cfg,
                                            frontend=batch.get("frontend"))
     lay = etp.layout_for(b, tokens.shape[1], cfg)
     targets = etp.local_rows(batch["targets"], lay)
     rows = targets.shape[0]
-    ce = common.cross_entropy(transformer.logits_from_hidden(params, x, cfg),
-                              targets)
+    logits, rm, axes, start = transformer.logit_block(params, x, cfg)
+    ce = block_cross_entropy(logits, targets, start, rm, axes)
     # the ranks that hold these rows: all of them over the axes that do
     # not split the batch
     alike = world * rows // b
@@ -315,9 +346,10 @@ def sharded_value_and_grad(params: Dict[str, Any],
     global on every rank, the gradients as the rank's blocks of the
     one-device gradient.  The blocks are the leaves autograd
     differentiates: :func:`rank_loss` reads them as a
-    ``models.placed.Placed`` tree, each layer gathered while it runs and
-    its partials summed onto the blocks in its backward (module
-    docstring), so no leaf is gathered whole outside a layer's run.
+    ``models.placed.Placed`` tree, each layer gathered over the batch
+    axes while it runs (each leaf its ``model`` block) and its partials
+    summed onto the blocks in its backward (module docstring), so no
+    leaf is gathered outside a layer's run.
     Call it under ``set_mesh(mesh)``."""
     rm = placement.rank_mesh(mesh)
     blocks = _map(lambda x, s: x.detach().requires_grad_(True), params,

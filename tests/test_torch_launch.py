@@ -32,20 +32,18 @@ world of ranks.
 
   - prefill projects the last position only to logits (the reference
     projects all ``S``): ``2 d V B (S - 1)`` fewer;
-  - on a mesh the rank model computes its batch rows' projections, MLP,
-    and a train step's logits and loss whole (GSPMD also splits them
-    over ``model``), and only attention over its heads and a serving
-    cell's logits over its vocab block (its placed parameters, the
-    vocab over ``model``): ``(F - A) / data + A / (data x model)`` of
-    the one-device count ``F``, ``A`` being attention's dots (2 a layer
-    forward; training 8: forward, remat's re-forward, 4 in the backward;
-    decode 2 a layer, one query against the ``S``-slot cache on the
-    rank's columns of it) plus, serving, the logits' ``2 d V B``;
-  - the port is held to the reference's one-device count so changed
-    within 1e-9 on both meshes; the reference's own count on 2x4 exceeds
-    its one-device count over 8 by 4.3–6.0% (in prefill: GSPMD computes
-    the K and V projections whole on each ``model`` rank), held to
-    at most 7%.
+  - on a mesh the rank model computes its batch rows (``/ data``) and,
+    over ``model``, only its block of every dot: q, k and v on its
+    ``heads`` / ``kv`` columns, attention on its heads or cache columns,
+    the MLP on its ``d_ff`` columns, the output projections on their row
+    blocks and the logits (and a train step's loss) on its vocab block,
+    the parameters gathered over the batch axes only
+    (``models.placed``): the reference's one-device count over ``data x
+    model``.  No dot of granite-8b runs whole over ``model``;
+  - the port is held to that within 1e-9 on both meshes; the reference's
+    own count on 2x4 exceeds its one-device count over 8 by 4.3–6.0% (in
+    prefill: GSPMD computes the K and V projections whole on each
+    ``model`` rank), held to at most 7%.
 
   ROADMAP Queue 3 records the same terms.
 * **Every cell runs.**  Each of the 34 cells at 2 layers (one layer of
@@ -410,16 +408,6 @@ def test_meta_and_gloo_records_equal_on_2x2():
 # operations against the reference's HLO
 # ---------------------------------------------------------------------------
 
-def _attention_dots(cfg, kind, b, s):
-    """The attention dots the rank model splits over heads or cache
-    columns: 2·B·H·Lq·S·dh each, 2 a layer forward, 8 in training with
-    remat; decode's 2 a layer have ``Lq`` 1."""
-    n = {"prefill": 2, "train": 2 + (2 if cfg.remat else 0) + 4,
-         "decode": 2}[kind]
-    lq = 1 if kind == "decode" else s
-    return n * 2.0 * b * cfg.n_heads * lq * s * cfg.head_dim * cfg.n_layers
-
-
 @pytest.mark.parametrize("shape,mesh", FLOP_CELLS)
 def test_flops_against_the_reference_hlo(reference, shape, mesh):
     cfg = dataclasses.replace(get_config(PARITY_ARCH),
@@ -434,11 +422,8 @@ def test_flops_against_the_reference_hlo(reference, shape, mesh):
     base = reference["flops"][f"{shape}/1x1"]
     if sh.kind == "prefill":
         base -= 2.0 * cfg.d_model * cfg.vocab * b * (s - 1)
-    # the dots split over the rank's heads, cache columns or vocab block
-    split = _attention_dots(cfg, sh.kind, b, s)
-    if sh.kind != "train":
-        split += 2.0 * cfg.d_model * cfg.vocab * b
-    want = (base - split) / data + split / (data * model)
+    # every dot on the rank's batch rows and its model block
+    want = base / (data * model)
     assert abs(got - want) <= 1e-9 * want, (got, want)
     # the reference's own count on the mesh: its partitioner's excess
     excess = (reference["flops"][f"{shape}/{mesh}"] * data * model

@@ -31,7 +31,15 @@ Each mesh run is held to two yardsticks:
   within 1e-5 x max|logit| in fp32 and 2e-3 in bf16
   (``tests/test_torch_explicit_tp.py``'s mesh tolerance), greedy tokens
   equal, every rank the same logits, the cache blocks assembled over the
-  ranks within the same;
+  ranks within the same.  whisper-small's greedy decode is held there
+  to one device's decode from one device's prefill cache with the cross
+  K/V leaves the mesh's (:data:`MESH_CROSS`): the mesh reduces its
+  encoder's row-parallel products over ``model`` in another order than
+  one device's matmul, so the bf16 cross K/V rounded from the encoder
+  output fall a few elements one bf16 ulp apart, as the prefill check
+  allows, and those move whisper's logits ~8e-5 x max|logit|.  Beside
+  it the mesh's greedy tokens equal one device's own end to end, and
+  the reference's yardstick holds whisper end to end;
 * the reference's, for the fp32 cases: greedy tokens equal, logits and
   caches within 1e-5 x max.  whisper-small is held within 1e-4 there:
   its bf16 cross cache rounds a few elements one bf16 ulp apart from
@@ -182,7 +190,52 @@ def both(tmp_path_factory):
             one[case.label] = dc.run_case(case, None, TOKENS,
                                           fronts.get(case.label),
                                           refs[case.label], MAX_LEN)
+            if case.arch in MESH_CROSS:
+                one[case.label]["greedy"] = _greedy_from(
+                    case, _mesh_cross(port[case.label], case,
+                                      one[case.label]),
+                    one[case.label], refs[case.label])
     return {"port": port, "one": one, "ref": flat_ref}
+
+
+#: the archs whose one-device greedy decode starts from the mesh's cross
+#: K/V (the module docstring)
+MESH_CROSS = ("whisper-small",)
+
+
+def _mesh_cross(recs, case, one):
+    """One device's prefill cache with its cross K/V leaves the mesh's,
+    assembled over the ranks (``test_prefill_on_the_mesh_returns_placed_
+    copies`` holds them within one bf16 ulp of one device's)."""
+    spec = dc.cache_specs(case, B, MAX_LEN)
+    sizes = dict(zip(dc.AXES, case.mesh))
+    return {k: (_assemble(recs, "prefill_cache", k, v.shape, spec[k], sizes)
+                .astype(np.float32) if k.startswith("cross/") else v)
+            for k, v in one["prefill_cache"].items()}
+
+
+def _greedy_from(case, cache0, one, ref):
+    """Greedy decode on one device from the prefill cache ``cache0``
+    (leaves in ``one``'s dtypes) after ``one``'s prefill logits: {logits,
+    tokens, cache}, as ``dc.run_case`` records them."""
+    from repro_torch import convert
+    from repro_torch.models import decode as dec
+    cfg = dc.case_config(case)
+    params = convert.params_from_reference(ref["params"], device="cpu")
+    # copies: decode writes the K/V tensors in place
+    cache = dict(dc.nest({k: torch.tensor(v, dtype=getattr(
+        torch, one["dtypes"][k])) for k, v in cache0.items()}), pos=S)
+    logits = torch.as_tensor(one["logits"][0])
+    lg, tk = [one["logits"][0]], []
+    with torch.no_grad():
+        for _ in range(dc.STEPS):
+            nxt = logits.argmax(-1)[:, None]
+            tk.append(nxt.numpy())
+            logits, cache = dec.decode_step(params, nxt, cache, cfg)
+            lg.append(logits.float().numpy())
+    return {"logits": np.stack(lg), "tokens": np.concatenate(tk, axis=1),
+            "cache": {k: v.float().numpy().copy()
+                      for k, v in dc.flat(cache).items()}}
 
 
 def _case(label):
@@ -244,8 +297,9 @@ def _yardstick(both, label, which):
     tolerance) of the port on one device or of the reference."""
     if which == "one device":
         one = both["one"][label]
-        return (one["logits"], one["forced"], one["tokens"],
-                one["prefill_cache"], one["cache"]), _tol(label)
+        g = one.get("greedy", one)
+        return (g["logits"], one["forced"], g["tokens"],
+                one["prefill_cache"], g["cache"]), _tol(label)
     ref = both["ref"]
     logits = ref[f"{label}/logits"]
     return ((logits, logits[1:], ref[f"{label}/tokens"],
@@ -287,6 +341,11 @@ def test_greedy_decode_on_the_mesh(both, label, which):
         # every rank returns the same (global) logits
         np.testing.assert_array_equal(rec["logits"], recs[0]["logits"])
     _check_cache(recs, label, "cache", cache, tol)
+    one = both["one"][label]
+    if which == "one device" and "greedy" in one:
+        # end to end: the tokens of one device's own prefill and decode
+        for rec in recs:
+            np.testing.assert_array_equal(rec["tokens"], one["tokens"])
 
 
 @pytest.mark.parametrize("label", LABELS)
@@ -395,15 +454,20 @@ def test_feature_block_equals_cache_shardings(mesh):
 
 def test_the_dry_run_charges_the_decode_collectives():
     """granite-8b ``decode_32k`` at 2 layers: on 2x4 a rank's 256 K/V
-    columns are 2 whole heads (the output gather a layer, the logits'
-    over ``data``, no reduce); on 1x16 its 64 columns split a head, so
-    each layer also all-reduces the (B, Hq, S) fp32 scores, charged by
-    ``op_analysis``'s all-reduce rule.  mamba2-370m gathers its conv
-    output and ``y`` a layer.  Beside them run the placed parameters'
-    collectives (``models.placed``): each leaf of a layer gathered over
-    every axis above 1 its spec names (granite: the 2 norms over
-    ``data``, the 7 projections over ``data`` and ``model``; mamba2 on
-    1x16: ``in_proj``, ``conv_w``, ``conv_b``, ``norm_g``, ``out_proj``
+    columns are 2 whole heads (the new token's q gathered over ``model``
+    and the heads' output gathered back, a layer; the logits' over
+    ``data``); on 1x16 its 64 columns split a head, so each layer also
+    gathers the new token's k for its rope and swaps its head's (B, Hq /
+    Hkv, S) fp32 partial scores with the one other rank that holds the
+    head's columns (``explicit_tp.sum_head_partials``: a
+    collective-permute).  Each
+    layer all-reduces its two row-parallel products (``wo``, ``wd``: (B,
+    1, d) fp32) over ``model``.  mamba2-370m gathers its conv output and
+    ``y`` a layer.  Beside them run the placed parameters' collectives
+    (``models.placed``): each leaf of a layer gathered over the batch
+    axes above 1 its spec names, never over ``model`` (granite: the 2
+    norms and the 7 projections over ``data``; mamba2 on 1x16: its mixer
+    whole, ``in_proj``, ``conv_w``, ``conv_b``, ``norm_g``, ``out_proj``
     over ``model``), the final norm over ``data``, the tied table over
     ``data`` for the lookup and again for the output projection, the
     looked-up rows summed over ``model`` and the logits gathered over
@@ -413,19 +477,24 @@ def test_the_dry_run_charges_the_decode_collectives():
     cut = dryrun.depth_cut("granite-8b", 2)
     whole = dryrun.run_cell("granite-8b", "decode_32k", overrides=cut,
                             mesh_shape=(2, 4))["hlo_stats"]
-    params_2x4 = 2 * (2 + 2 * 7) + 1 + 2 + 1
-    assert whole["collective_counts"] == {"all-gather": 3 + params_2x4,
-                                          "all-reduce": 1}
+    params_2x4 = 2 * (2 + 7) + 1 + 2 + 1
+    assert whole["collective_counts"] == {"all-gather": 2 * 2 + 1
+                                          + params_2x4,
+                                          "all-reduce": 1 + 2 * 2}
     split = dryrun.run_cell("granite-8b", "decode_32k", overrides=cut,
                             mesh_shape=(1, 16))["hlo_stats"]
-    assert split["collective_counts"] == {"all-reduce": 2 + 1,
-                                          "all-gather": 2 + 2 * 7 + 1}
+    assert split["collective_counts"] == {"all-reduce": 1 + 2 * 2,
+                                          "all-gather": 2 * 3 + 1,
+                                          "collective-permute": 2}
     cfg, sh = get_config("granite-8b"), specs.SHAPES["decode_32k"]
-    scores = sh.global_batch * cfg.n_heads * sh.seq_len * 4
+    head = (sh.global_batch * (cfg.n_heads // cfg.n_kv_heads) * sh.seq_len
+            * 4)
     rows = sh.global_batch * cfg.d_model * 2
+    part = sh.global_batch * cfg.d_model * 4
     rule = op_analysis._WIRE_FACTOR["all-reduce"]
-    assert split["wire_by_kind"]["all-reduce"] == 2 * rule(scores, 16) + \
-        rule(rows, 16)
+    assert split["wire_by_kind"]["all-reduce"] == rule(rows, 16) + \
+        2 * 2 * rule(part, 16)
+    assert split["wire_by_kind"]["collective-permute"] == 2 * head
     ssm = dryrun.run_cell("mamba2-370m", "decode_32k",
                           overrides=dryrun.depth_cut("mamba2-370m", 2),
                           mesh_shape=(1, 16))["hlo_stats"]

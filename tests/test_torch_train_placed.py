@@ -1,6 +1,7 @@
 """The sharded train step on the rank's parameter blocks: each layer
-gathered whole only while it runs (``models.placed.GatherLeaf``), its
-gradient summed onto the rank's blocks when its backward ends
+gathered over the batch axes only while it runs, each leaf keeping the
+rank's ``model`` block (``models.placed.GatherLeaf``), its gradient
+summed onto the rank's blocks when its backward ends
 (``placed.sum_block``), on 2x4, 1x8 and 2x2 gloo CPU ranks.
 
 One world of 8 ranks (``dist.train_cases.placed_step_battery``; the 2x2
@@ -23,7 +24,8 @@ mesh leaves ranks 4-7 idle) runs:
   see) must fail it;
 * with remat on at depth 4, the most gathered bytes alive at once
   (``placed.GATHERED``) at most two layers' worth plus the unstacked
-  leaves', whole; the planted fault that gathers a block's weights before
+  leaves', as the rank gathers them (``placed.held_bytes``: its
+  ``model`` blocks, whole over the batch axes); the planted fault that gathers a block's weights before
   its checkpoint, so the checkpoint keeps them to the backward, must
   exceed it.
 """
